@@ -3,19 +3,20 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 The JAX package ``astarpa_tpu`` is the reference this port is held
 against.  The port reuses, by import, the parts of it that have no
-framework dependency (``types``, ``generate``, ``oracle``, ``native``
-and ``ops.bitpack``) and never loads JAX.
+framework dependency (``types``, ``generate``, ``oracle``, ``native``,
+``domain`` and ``ops.bitpack``) and never loads JAX.
 
 Public API:
 
 - :class:`BatchAligner` — exact costs (``cost``, ``cost_iter``) and CIGARs
   (``align``, ``align_iter``) for many pairs on one device,
   ``BatchAligner(device="cuda")``.
-- ``generate``, ``oracle``, ``native`` — the shared framework-free modules
-  (pair generation, the edit-distance oracle, the native C++ runtime).
+- ``generate``, ``oracle``, ``native``, ``domain`` — the shared
+  framework-free modules (pair generation, the edit-distance oracle, the
+  native C++ runtime, domain hulls to per-pair schedules).
 """
 
-__all__ = ["BatchAligner", "BatchStats", "generate", "oracle", "native"]
+__all__ = ["BatchAligner", "BatchStats", "generate", "oracle", "native", "domain"]
 
 
 def __getattr__(name):
@@ -24,7 +25,7 @@ def __getattr__(name):
         from .parallel import runner
 
         return getattr(runner, name)
-    if name in ("generate", "oracle", "native"):
+    if name in ("generate", "oracle", "native", "domain"):
         import importlib
 
         return importlib.import_module(f"astarpa_tpu.{name}")

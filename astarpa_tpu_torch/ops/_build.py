@@ -79,7 +79,13 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.astarpa_banded_cost.restype = i32
-        lib.astarpa_banded_cost.argtypes = [ptr] * 10 + [i32] * 3 + [ptr]
+        # Entry -> (pointer arguments, int arguments); the stream comes last.
+        for name, n_ptr, n_int in (("astarpa_banded_cost", 10, 4),
+                                   ("astarpa_banded_ck", 13, 5),
+                                   ("astarpa_banded_cost_pp", 10, 5),
+                                   ("astarpa_banded_ck_pp", 13, 6)):
+            fn = getattr(lib, name)
+            fn.restype = i32
+            fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
         _lib = lib
     return _lib

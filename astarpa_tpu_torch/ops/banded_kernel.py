@@ -1,9 +1,17 @@
-"""Wrapper of the banded cost kernel (``csrc/banded_cost.cu``).
+"""Wrappers of the banded kernels (``csrc/banded.cu``).
 
-Counterpart of ``astarpa_tpu/ops/pallas_banded.py::banded_cost_tpu`` (with
-``schedule=None``) and ``_banded_call`` in ``EMIT_COST`` mode: the same
-contract as :func:`.banded.banded_cost_ref`.  A tensor on the CPU goes to
-that plain version; a CUDA tensor launches the kernel or raises.
+Counterparts of ``astarpa_tpu/ops/pallas_banded.py::banded_cost_tpu`` and
+``banded_ck_tpu`` (``_banded_call``), one wrapper per kernel:
+
+- :func:`banded_cost` — K1, shared schedule, costs;
+- :func:`banded_ck` — K2, shared schedule, costs and checkpoints;
+- :func:`banded_cost_pp` — K4, per-pair schedules, costs;
+- :func:`banded_ck_pp` — K4, per-pair schedules, costs and checkpoints.
+
+Each has the contract of its plain version in :mod:`.banded`.  A tensor on
+the CPU goes to that plain version; a CUDA tensor launches the kernel or
+raises.  Per-pair schedules are host numpy (n_max, B) 0/1 arrays, checked
+to shift only at multiples of their quantum on both routes.
 """
 
 from __future__ import annotations
@@ -11,17 +19,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .banded import banded_cost_ref, shift_at_array
+from . import banded
 from .words import to_tensor
 
-#: Launches of the CUDA kernel in this process (reset by callers that need
-#: to show a run went through the kernel).
-LAUNCHES = 0
+#: Launches of each CUDA kernel in this process, by wrapper name (callers
+#: that need to show a run went through a kernel reset them first).
+LAUNCHES = {"banded_cost": 0, "banded_ck": 0, "banded_cost_pp": 0,
+            "banded_ck_pp": 0}
 
 
-def route(device: torch.device) -> str:
-    """Label of what :func:`banded_cost` runs for tensors on ``device``."""
-    return "cuda-banded" if device.type == "cuda" else "torch-ref"
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_LABELS = {"banded_cost": "cuda-banded", "banded_ck": "cuda-banded-ck",
+           "banded_cost_pp": "cuda-banded-pp", "banded_ck_pp": "cuda-banded-ck-pp"}
+
+
+def route(device: torch.device, kernel: str = "banded_cost") -> str:
+    """Label of what ``kernel``'s wrapper runs for tensors on ``device``."""
+    return _LABELS[kernel] if device.type == "cuda" else "torch-ref"
 
 
 def banded_cost(a0, a1, pb0, pb1, n, m, band_words: int,
@@ -32,15 +50,55 @@ def banded_cost(a0, a1, pb0, pb1, n, m, band_words: int,
     numpy or tensors); ``band_words`` is clamped to S; ``diag`` as in
     :func:`.banded.shift_at_array`.
     """
+    if _plain(a0):
+        return banded.banded_cost_ref(a0, a1, pb0, pb1, n, m, band_words, diag)
+    return _launch("banded_cost", a0, a1, pb0, pb1, n, m, band_words, diag=diag)
+
+
+def banded_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
+              diag: tuple | None = None):
+    """Costs plus checkpoints every ``min(col_block, n_max)`` columns on the
+    shared schedule: ``(costs, ck_vp, ck_vm, ck_tv)`` as
+    :func:`.banded.banded_ck_ref`."""
+    if _plain(a0):
+        return banded.banded_ck_ref(a0, a1, pb0, pb1, n, m, band_words,
+                                    col_block, diag)
+    return _launch("banded_ck", a0, a1, pb0, pb1, n, m, band_words, diag=diag,
+                   col_block=col_block)
+
+
+def banded_cost_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
+                   quantum: int = banded.SCHEDULE_Q) -> torch.Tensor:
+    """Upper bounds with per-pair schedules, as
+    :func:`.banded.banded_cost_pp_ref`."""
+    if _plain(a0):
+        return banded.banded_cost_pp_ref(a0, a1, pb0, pb1, n, m, schedule,
+                                         band_words, quantum)
+    return _launch("banded_cost_pp", a0, a1, pb0, pb1, n, m, band_words,
+                   schedule=schedule, quantum=quantum)
+
+
+def banded_ck_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
+                 col_block: int, quantum: int = banded.SCHEDULE_Q):
+    """Per-pair costs plus checkpoints, as :func:`.banded.banded_ck_pp_ref`
+    (the interval rounded to whole quantum groups)."""
+    if _plain(a0):
+        return banded.banded_ck_pp_ref(a0, a1, pb0, pb1, n, m, schedule,
+                                       band_words, col_block, quantum)
+    return _launch("banded_ck_pp", a0, a1, pb0, pb1, n, m, band_words,
+                   schedule=schedule, quantum=quantum, col_block=col_block)
+
+
+def _plain(a0) -> bool:
     if a0.device.type == "cpu":
-        return banded_cost_ref(a0, a1, pb0, pb1, n, m, band_words, diag)
+        return True
     if a0.device.type != "cuda":
-        raise ValueError(f"banded_cost: unsupported device {a0.device}")
-    return _launch(a0, a1, pb0, pb1, n, m, band_words, diag)
+        raise ValueError(f"banded kernels: unsupported device {a0.device}")
+    return False
 
 
-def _launch(a0, a1, pb0, pb1, n, m, band_words, diag):
-    global LAUNCHES
+def _launch(kernel, a0, a1, pb0, pb1, n, m, band_words, *, diag=None,
+            schedule=None, quantum=1, col_block=None):
     from ._build import load
 
     dev = a0.device
@@ -52,32 +110,43 @@ def _launch(a0, a1, pb0, pb1, n, m, band_words, diag):
         if x.device != dev or x.dtype != torch.int32 or tuple(x.shape) != shape \
                 or not x.is_contiguous():
             raise ValueError(
-                f"banded_cost: {name} must be a contiguous int32 {shape} tensor "
+                f"{kernel}: {name} must be a contiguous int32 {shape} tensor "
                 f"on {dev}, got {x.dtype} {tuple(x.shape)} on {x.device}"
             )
     if SW < 1:
-        raise ValueError(f"banded_cost: band_words must be >= 1, got {band_words}")
+        raise ValueError(f"{kernel}: band_words must be >= 1, got {band_words}")
     n_t = _lengths(n, B, dev)
     m_t = _lengths(m, B, dev)
-    shift = shift_at_array(n_max, S, SW, diag)
-    if int(shift.sum()) > S - SW:
-        raise ValueError("banded_cost: schedule slides past the last word")
-    shift_t = to_tensor(shift, dev)
+    per_pair = schedule is not None
+    if per_pair:
+        sched = to_tensor(banded.check_schedule(schedule, n_max, B, quantum), dev)
+    else:
+        shift = banded.shift_at_array(n_max, S, SW, diag)
+        if int(shift.sum()) > S - SW:
+            raise ValueError(f"{kernel}: schedule slides past the last word")
+        sched = to_tensor(shift, dev)
     ring_vp = torch.empty((SW, B), dtype=torch.int32, device=dev)
     ring_vm = torch.empty((SW, B), dtype=torch.int32, device=dev)
     out = torch.empty(B, dtype=torch.int32, device=dev)
+    head = [a0, a1, pb0, pb1, n_t, m_t, sched, ring_vp, ring_vm, out]
+    ck = ()
+    if col_block is not None:
+        CB = banded.ck_col_block(col_block, n_max, quantum if per_pair else None)
+        n_ck = -(-n_max // CB)
+        ck = (torch.empty((n_ck, SW, B), dtype=torch.int32, device=dev),
+              torch.empty((n_ck, SW, B), dtype=torch.int32, device=dev),
+              torch.empty((n_ck, B), dtype=torch.int32, device=dev))
+    ints = [n_max, B, S, SW] + ([quantum] if per_pair else []) \
+        + ([CB] if ck else [])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = load().astarpa_banded_cost(
-            a0.data_ptr(), a1.data_ptr(), pb0.data_ptr(), pb1.data_ptr(),
-            n_t.data_ptr(), m_t.data_ptr(), shift_t.data_ptr(),
-            ring_vp.data_ptr(), ring_vm.data_ptr(), out.data_ptr(),
-            n_max, B, SW, stream,
+        rc = getattr(load(), f"astarpa_{kernel}")(
+            *(t.data_ptr() for t in head + list(ck)), *ints, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"banded_cost kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
-    return out
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
+    LAUNCHES[kernel] += 1
+    return (out,) + ck if ck else out
 
 
 def _lengths(x, B: int, dev) -> torch.Tensor:
@@ -87,5 +156,5 @@ def _lengths(x, B: int, dev) -> torch.Tensor:
     else:
         t = x.to(device=dev, dtype=torch.int32).contiguous()
     if tuple(t.shape) != (B,):
-        raise ValueError(f"banded_cost: lengths must have shape ({B},)")
+        raise ValueError(f"banded kernels: lengths must have shape ({B},)")
     return t

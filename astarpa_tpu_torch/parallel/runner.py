@@ -1,21 +1,33 @@
 """Batch/streaming alignment runtime of the port: the performance product.
 
-Counterpart of ``astarpa_tpu/parallel/runner.py`` for the main path.  Pairs
-are bucketed by shape, packed into pair-minor planes on the device, run
-through the banded cost kernel (:mod:`..ops.banded_kernel`) and certified
-per pair; uncertified pairs retry at the band their banded upper bound
-predicts.  CIGARs come from direct whole-pair DT traces on the host
-(native ``trace_direct_batch``), computed from the certified costs.
+Counterpart of ``astarpa_tpu/parallel/runner.py``.  Pairs are bucketed by
+shape, packed into pair-minor planes on the device, run through the banded
+kernels (:mod:`..ops.banded_kernel`) and certified per pair; uncertified
+pairs retry at the band their banded upper bound predicts.
+
+- Shared band ladder (buckets below ``domain_min_bp``): K1 for costs; on
+  the align path K1 when every cost a rung can certify fits the native
+  direct-trace budget (CIGARs by direct whole-pair DT traces), else K2,
+  whose window checkpoints feed the native ``trace_banded_ck``.
+- Per-pair domain ladder (``domain_mode`` resolving to "gap"/"gcsh"): an f
+  ladder over per-pair schedules that follow each pair's domain hull, on
+  K4 (cost mode, or ck mode for checkpoint traces).
 
 The ladder arithmetic (rounding, repack rule, cell counts, warm band
-hints, sticky diagonal, full-height clamp) is the reference's, verbatim,
-so ``BatchStats`` match it field for field.
+hints, sticky diagonal, full-height clamp, f feedback) is the reference's,
+verbatim, so ``BatchStats`` match it field for field.
 
-Not ported yet, each raising ``NotImplementedError``: per-pair domain
-ladders (``domain_mode`` resolving to "gap"/"gcsh"), ``mesh``,
-``direct_dt=False`` and align rungs whose certified costs may exceed the
-direct-trace budget (both need the checkpoint kernel), and the host trace
-fallbacks without the native library.
+Port decision: the reference gates the ck and per-pair kernels on TPU
+VMEM models (``_select_pp``, ``_striped_ck_ok``, the ``PINNED_*``/
+``STRIPED_MIN_SW`` routing, the domain ladder's ``pp < 128`` break and its
+``except ValueError``).  The CUDA kernels keep their state in device
+memory and have no such ceiling, so none of those gates is copied: every
+ck rung runs K2, every domain round runs K4, and the domain ladder breaks
+only when its band reaches full height or its rounds run out.
+
+Not ported yet: ``mesh`` (raises ``NotImplementedError``), and the
+host-only trace fallbacks ``_trace_bucket`` and ``_align_host_fallback``
+(CIGARs without the native library raise).
 """
 
 from __future__ import annotations
@@ -28,19 +40,21 @@ import numpy as np
 import torch
 
 from astarpa_tpu import native
+from astarpa_tpu.domain import domain_schedule, gap_domain
 from astarpa_tpu.ops.bitpack import W
 from astarpa_tpu.types import Cigar, CigarOp
 
 from ..device import resolve_device
 from ..ops import banded
-from ..ops.banded_kernel import banded_cost, route
+from ..ops.banded_kernel import (banded_ck, banded_ck_pp, banded_cost,
+                                 banded_cost_pp, route)
 from ..ops.pack import pack_batch_staggered
+from ..ops.words import to_tensor
 
 INF = 1 << 30
 
-_TODO_DOMAIN = "ROADMAP.md queue 1 item 11 (per-pair schedules and domains)"
 _TODO_MESH = "ROADMAP.md queue 1 item 12 (multi-GPU and multi-host)"
-_TODO_CK = "ROADMAP.md queue 1 item 9 (checkpoint path, kernel K2)"
+_TODO_HOST = "ROADMAP.md runner pieces item 4 (off-device trace fallbacks)"
 
 
 @dataclass
@@ -52,8 +66,8 @@ class BatchStats:
     aligned_bp: int = 0
     # Pairs whose CIGAR came from the direct whole-pair DT trace.
     direct_traces: int = 0
-    # What ran the cost rungs ("cuda-banded" or "torch-ref"), set when a
-    # rung is dispatched.
+    # What ran the last rung or round ("cuda-banded", "cuda-banded-ck",
+    # "cuda-banded-pp", "cuda-banded-ck-pp" or "torch-ref"), set at dispatch.
     kernel: str | None = None
 
 
@@ -66,9 +80,15 @@ class BatchAligner:
       lane_multiple: batch padding granularity (a warp of pairs).
       mesh: not supported yet (must be None).
       max_band_doublings: rungs before the ladder clamps to full height.
-      domain_mode / domain_min_bp: the reference's per-pair domain policy;
-        buckets it would send to a domain ladder raise for now.
-      direct_dt: CIGARs by direct DT traces (the only CIGAR path ported).
+      domain_mode: per-pair domain ladder for buckets of pairs >=
+        ``domain_min_bp``: "gap" (the cost-f parallelogram), "gcsh" (the
+        native fwd+rev GCSH hull), "auto" (gcsh with the native library on
+        a host of >= 8 cores, else gap where the bucket is skewed) or "off".
+      domain_k / domain_r: GCSH seed length and match cost of the hulls.
+      max_f_rounds: domain-ladder rounds before the stragglers finish on
+        the shared ladder.
+      direct_dt: CIGARs by direct DT traces where the certified costs fit
+        the native burst budget; False pins the checkpoint path.
       shape_quantum: padded-geometry quantum ("auto" as the reference).
       device: "cuda", "cpu" or None (the GPU when there is one).
     """
@@ -79,6 +99,9 @@ class BatchAligner:
     max_band_doublings: int = 8
     domain_mode: str = "auto"
     domain_min_bp: int = 32768
+    domain_k: int = 12
+    domain_r: int = 2
+    max_f_rounds: int = 10
     direct_dt: bool = True
     shape_quantum: object = "auto"
     device: object = None
@@ -87,6 +110,11 @@ class BatchAligner:
     _band_hints: dict = field(default_factory=dict, repr=False)
     # Sticky diagonal aims per packed geometry (see _diag).
     _diag_hints: dict = field(default_factory=dict, repr=False)
+    # Prefetched gcsh domain builds: (id(pairs), bucket) -> Future of the
+    # handle list, submitted by the streaming runners at dispatch so the
+    # builds (GIL-released native calls) overlap the previous batch.
+    _domain_prefetch: dict = field(default_factory=dict, repr=False)
+    _prefetch_ex: object = field(default=None, repr=False)
 
     def __post_init__(self):
         if self.mesh is not None:
@@ -151,9 +179,24 @@ class BatchAligner:
         self._diag_hints[key] = cand
         return (n_max, cand)
 
-    def _resolve_domain_mode(self, pairs, idxs) -> str | None:
-        """"gap"/"gcsh" where the reference would run the per-pair domain
-        ladder on this bucket, else None (the plain shared ladder)."""
+    @staticmethod
+    def _cb(sw: int, n_max: int) -> int:
+        """Checkpoint interval of a ck rung or round.  n_max/32 keeps the
+        checkpoint count ~32 whatever the pair length: the readback
+        shrinks as 1/CB while the native DT bursts stay flat in CB, and a
+        certified distance d <= ~16*sw keeps each segment's distance
+        d*CB/n <= sw/2 inside the burst budget.  Rounded to 512 unless
+        n_max clamps it (the reference's rounding, kept so CB matches)."""
+        cb = max(4096, n_max // 32, sw + 8)
+        cb = -(-cb // 512) * 512
+        return min(cb, max(n_max, 1))
+
+    def _resolve_domain_mode(self, pairs, idxs, want_cigars: bool) -> str | None:
+        """"gap"/"gcsh" when the bucket runs the per-pair domain ladder, else
+        None (the shared ladder).  "auto": gcsh on a host with the native
+        library and >= 8 cores; gap otherwise, and only where the bucket's
+        skew terms (what per-pair gap bands save) rival a ~6% divergence
+        prior.  CIGARs need the native traces."""
         if self.domain_mode == "off":
             return None
         big = max(len(pairs[i][0]) for i in idxs) >= self.domain_min_bp
@@ -178,14 +221,42 @@ class BatchAligner:
                     return None
         if mode == "gcsh" and not native.available():
             mode = "gap"
+        # The reference also asks for a TPU (or interpret mode) here; the
+        # port's per-pair kernels run on the card and on the CPU route.
+        if want_cigars and not native.available():
+            return None
         return mode
 
-    def _require_shared_ladder(self, pairs, idxs) -> None:
-        mode = self._resolve_domain_mode(pairs, idxs)
-        if mode:
-            raise NotImplementedError(
-                f"domain_mode {mode!r} for a bucket of pairs >= "
-                f"{self.domain_min_bp} bp: see {_TODO_DOMAIN}"
+    def _build_gcsh_handles(self, bucket_pairs):
+        """Native fwd+rev GCSH domain builds for one bucket (GIL-released
+        ctypes calls, parallel across pairs)."""
+        workers = min(len(bucket_pairs), os.cpu_count() or 1)
+
+        def build(ab):
+            return native.DomainHandle(ab[0], ab[1], k=self.domain_k,
+                                       r=self.domain_r)
+
+        if workers > 1:
+            with ThreadPoolExecutor(workers) as ex:
+                return list(ex.map(build, bucket_pairs))
+        return [build(ab) for ab in bucket_pairs]
+
+    def _prefetch_domains(self, pairs, want_cigars: bool) -> None:
+        """Submit the gcsh domain builds of ``pairs``' buckets to a
+        background thread; :meth:`_domain_ladder` pops the matching future.
+        The streaming runners call this at dispatch, so a batch's builds run
+        while the previous batch's ladder and traces do."""
+        todo = [i for i, (a, b) in enumerate(pairs) if len(a) and len(b)]
+        for bucket in _buckets(pairs, todo):
+            if self._resolve_domain_mode(pairs, bucket, want_cigars) != "gcsh":
+                continue
+            key = (id(pairs), tuple(bucket))
+            if key in self._domain_prefetch:
+                continue
+            if self._prefetch_ex is None:
+                self._prefetch_ex = ThreadPoolExecutor(1)
+            self._domain_prefetch[key] = self._prefetch_ex.submit(
+                self._build_gcsh_handles, [pairs[i] for i in bucket]
             )
 
     # -- cost path -------------------------------------------------------------
@@ -200,15 +271,18 @@ class BatchAligner:
         left (:meth:`cost_iter` dispatches a batch's buckets together)."""
         stats, out, buckets = self._cost_batch(pairs)
         for bucket in buckets:
-            rung = self._rung_start(pairs, self._new_ladder(pairs, bucket), stats)
-            while rung is not None:
-                rung = self._rung_finish(pairs, out, stats, rung)
+            mode = self._resolve_domain_mode(pairs, bucket, want_cigars=False)
+            if mode:
+                self._domain_ladder(pairs, bucket, out, stats, mode)
+            else:
+                self._run_bucket(pairs, bucket, out, stats)
         return self._cost_finish(pairs, stats, out, [])
 
     def cost_iter(self, batches):
         """Pipelined streaming costs: yields one ``(costs, stats)`` per input
-        batch, in order.  Batch k+1 packs and launches its first rung while
-        batch k's kernel runs; the sync happens at certification."""
+        batch, in order.  Batch k+1 packs and launches its first rung (and
+        starts its gcsh builds) while batch k's kernel runs; the sync happens
+        at certification.  Domain ladders run at finish time."""
         pending = None
         for pairs in batches:
             cur = self._cost_dispatch(pairs)
@@ -230,24 +304,49 @@ class BatchAligner:
             else:
                 todo.append(idx)
         buckets = _buckets(pairs, todo)
-        for bucket in buckets:
-            self._require_shared_ladder(pairs, bucket)
         stats.buckets = len(buckets)
         return stats, out, buckets
 
+    def _dispatch_jobs(self, pairs, buckets, stats, trace_jobs=None) -> list:
+        """Per bucket, ``(mode, bucket, rung)``: the first rung of a shared
+        ladder dispatched now, or a domain ladder deferred to finish time
+        with its gcsh builds started."""
+        want_cigars = trace_jobs is not None
+        jobs = []
+        for bucket in buckets:
+            mode = self._resolve_domain_mode(pairs, bucket, want_cigars)
+            if mode:
+                if mode == "gcsh":
+                    self._prefetch_domains(pairs, want_cigars)
+                jobs.append((mode, bucket, None))
+            else:
+                jobs.append((None, bucket, self._rung_start(
+                    pairs, self._new_ladder(pairs, bucket), stats, trace_jobs
+                )))
+        return jobs
+
     def _cost_dispatch(self, pairs):
         stats, out, buckets = self._cost_batch(pairs)
-        rungs = [self._rung_start(pairs, self._new_ladder(pairs, bucket), stats)
-                 for bucket in buckets]
-        return pairs, stats, out, rungs
+        return pairs, stats, out, self._dispatch_jobs(pairs, buckets, stats)
 
-    def _cost_finish(self, pairs, stats, out, rungs):
-        for rung in rungs:
+    def _cost_finish(self, pairs, stats, out, jobs, trace_jobs=None):
+        for mode, bucket, rung in jobs:
+            if mode:
+                self._domain_ladder(pairs, bucket, out, stats, mode, trace_jobs)
             while rung is not None:
                 rung = self._rung_finish(pairs, out, stats, rung)
         stats.aligned_bp = sum(len(a) for a, _ in pairs)
         assert (out >= 0).all()
         return out, stats
+
+    def _run_bucket(self, pairs, idxs, out, stats, trace_jobs=None) -> None:
+        """The whole shared ladder of one bucket, synchronously; with
+        ``trace_jobs`` its align form (the reference's ``_align_bucket_ck``):
+        the certified pairs' traces are staged there."""
+        rung = self._rung_start(pairs, self._new_ladder(pairs, idxs), stats,
+                                trace_jobs)
+        while rung is not None:
+            rung = self._rung_finish(pairs, out, stats, rung)
 
     def _new_ladder(self, pairs, idxs: list[int]) -> dict:
         """Fresh band-ladder state for one bucket; the warm-start hint
@@ -286,9 +385,11 @@ class BatchAligner:
                     trace_jobs: list | None = None) -> dict:
         """Dispatch one band rung without synchronising: the kernel and the
         copy of its result to the host are queued; :meth:`_rung_finish`
-        waits and certifies.  With ``trace_jobs`` (the align path) the
-        pairs the rung certifies are staged for direct traces, so every
-        cost it can certify must fit the native direct-trace budget."""
+        waits and certifies.  With ``trace_jobs`` (the align path) the rung
+        runs K1 when every cost it can certify fits the native direct-trace
+        budget, else K2, whose checkpoints of every lane start streaming to
+        the host now when they are small (the common case certifies them
+        all)."""
         args, B0, members, n_max, S, diag = self._pack_rung(pairs, lad)
         n, m = np.asarray(args[4])[:B0], np.asarray(args[5])[:B0]
         sw = min(lad["band"], S)
@@ -304,24 +405,28 @@ class BatchAligner:
         if trace_jobs is not None:
             sw = run_sw
         thr = None if sw >= S else banded.band_threshold(sw, n, m, *diag)
+        ck = CB = opt_chunks = None
         if trace_jobs is not None:
             # A full-height rung is exact, so n+m bounds what it certifies.
             direct_cap = int(thr.max()) if thr is not None else int(n.max() + m.max())
-            if direct_cap > native.DIRECT_DT_MAX:
-                raise NotImplementedError(
-                    f"align rung with certified costs up to {direct_cap} > "
-                    f"{native.DIRECT_DT_MAX} needs checkpoint traces: see {_TODO_CK}"
-                )
-        costs = _Readback(banded_cost(*args, run_sw, diag))
+            if not (self.direct_dt and direct_cap <= native.DIRECT_DT_MAX):
+                CB = self._cb(sw, n_max)
+                got, *ck = banded_ck(*args, sw, CB, diag)
+                costs = _Readback(got)
+                if _ck_bytes(ck) * len(members) <= _OPT_READBACK_BYTES:
+                    opt_chunks = _stage_ck_chunks(*ck, len(members))
+                stats.kernel = route(self.device, "banded_ck")
+        if ck is None:
+            costs = _Readback(banded_cost(*args, run_sw, diag))
+            stats.kernel = route(self.device)
         stats.cells_computed += n_max * sw * W * len(members)
-        stats.kernel = route(self.device)
         return dict(lad=lad, costs=costs, sw=sw, S=S, thr=thr, diag=diag,
-                    trace_jobs=trace_jobs)
+                    trace_jobs=trace_jobs, ck=ck, CB=CB, opt_chunks=opt_chunks)
 
     def _rung_finish(self, pairs, out, stats: BatchStats, rung: dict):
-        """Wait for and certify one rung (staging its direct traces on the
-        align path); returns the next in-flight rung (retry at a wider
-        band) or None when the bucket is done."""
+        """Wait for and certify one rung, staging its certified pairs'
+        traces on the align path; returns the next in-flight rung (retry at
+        a wider band) or None when the bucket is done."""
         lad = rung["lad"]
         args, B0, members = lad["packed"]
         n, m = args[4], args[5]
@@ -345,12 +450,27 @@ class BatchAligner:
         trace_jobs = rung["trace_jobs"]
         if trace_jobs is not None and ok_slots:
             shift = banded.shift_at_array(args[0].shape[0], S, sw, diag)
-            stats.direct_traces += len(ok_slots)
-            trace_jobs.extend(
-                _TraceJob(pair=members[slot], shift=shift, s_words=S, sw=sw,
-                          want=int(costs[slot]))
-                for slot in ok_slots
-            )
+            if rung["ck"] is None:
+                stats.direct_traces += len(ok_slots)
+                trace_jobs.extend(
+                    _TraceJob(pair=members[slot], slices=None, pos=0,
+                              shift=shift, s_words=S, sw=sw, cb=0,
+                              want=int(costs[slot]))
+                    for slot in ok_slots
+                )
+            else:
+                # Without the optimistic copies, gather only the certified
+                # lanes on the device before they cross to the host.
+                chunks = rung["opt_chunks"] or _stage_ck_chunks(
+                    *_gather_lanes(rung["ck"], ok_slots), len(ok_slots)
+                )
+                for pos, slot in enumerate(ok_slots):
+                    p = slot if rung["opt_chunks"] else pos
+                    c0, sl = _chunk_of(chunks, p)
+                    trace_jobs.append(_TraceJob(
+                        pair=members[slot], slices=sl, pos=p - c0, shift=shift,
+                        s_words=S, sw=sw, cb=rung["CB"], want=int(costs[slot]),
+                    ))
         lad["need_max"] = self._note_need(
             lad["need_max"], costs, ok_slots, n, m, B0, diag
         )
@@ -382,15 +502,155 @@ class BatchAligner:
         )
         return max(floor, int(need.max()) + 1)
 
+    # -- per-pair domain ladder ------------------------------------------------
+
+    def _domain_ladder(self, pairs, idxs, out, stats, mode: str = "gcsh",
+                       trace_jobs: list | None = None) -> None:
+        """f ladder over domain-restricted per-pair bands: sample each
+        pair's domain hull at its own f, run one K4 pass for the bucket
+        with per-pair window schedules, accept pairs whose banded result is
+        <= their f (the doubling certificate), and feed the rejected pairs'
+        banded upper bounds back as their next f.  With ``trace_jobs`` (the
+        align path) a round whose f all fit the direct-trace budget runs K4
+        in cost mode and stages direct traces, else K4 in ck mode and stages
+        checkpoint traces.  Stragglers finish on the shared ladder."""
+        bucket_pairs = [pairs[i] for i in idxs]
+        args, B0 = pack_batch_staggered(
+            bucket_pairs, self.lane_multiple,
+            shape_quantum=self._shape_quantum(bucket_pairs), device=self.device,
+        )
+        n_max, S = args[0].shape[0], args[2].shape[0]
+        B = args[0].shape[1]
+        step = 64 if n_max <= 200_000 else 128
+        if mode == "gcsh":
+            fut = self._domain_prefetch.pop((id(pairs), tuple(idxs)), None)
+            handles = fut.result() if fut is not None else (
+                self._build_gcsh_handles(bucket_pairs))
+        else:
+            handles = [_GapDomainProvider(a, b) for a, b in bucket_pairs]
+        ck_mode = trace_jobs is not None
+        try:
+            # First-round f: h0 plus ~25% for gcsh (unpruned GCSH
+            # underestimates d by ~10-20% at high divergence, and the hull
+            # at 1.25*h0 is about as wide as the exact-f hull); gap domains
+            # carry their own divergence allowance in h0.
+            pad = (lambda h0: h0 + h0 // 4) if mode == "gcsh" else (lambda h0: h0)
+            f = np.array([max(pad(h.h0), 2 * W) for h in handles], np.int64)
+            pending = list(range(B0))
+            for _ in range(self.max_f_rounds):
+                scheds = {}
+                sw_need = 1
+                quantum = 32
+                for slot in pending:
+                    ps = None
+                    while ps is None:
+                        ps = domain_schedule(handles[slot].sample(int(f[slot]), step))
+                        if ps is None:
+                            # Empty domain: certainly dist > f.
+                            f[slot] += max(f[slot] // 4, 64)
+                    scheds[slot] = ps
+                    sw_need = max(sw_need, ps.band_words)
+                    quantum = min(quantum, ps.quantum)
+                # Quantize the band (pow2 up to 64, then multiples of 64).
+                sw = sw_need
+                if sw <= 64:
+                    p = 4
+                    while p < sw:
+                        p *= 2
+                    sw = p
+                else:
+                    sw = -(-sw // 64) * 64
+                sw = min(sw, S)
+                # Direct round: every pair it certifies costs <= f <= the
+                # burst budget, so K4 runs in cost mode.
+                direct_rnd = (
+                    ck_mode and self.direct_dt
+                    and int(max(f[slot] for slot in pending)) <= native.DIRECT_DT_MAX
+                )
+                if sw >= S:
+                    break  # band no longer thin; the shared ladder is better
+                sched_arr = np.zeros((n_max, B), np.uint8)
+                for slot in pending:
+                    sc = scheds[slot].sched
+                    sched_arr[: len(sc), slot] = sc
+                # Idle lanes (padding and certified pairs) take a live
+                # pair's schedule, as the reference does; their results are
+                # ignored.
+                fill = scheds[pending[0]].sched
+                idle = np.ones(B, bool)
+                idle[np.asarray(pending)] = False
+                if idle.any():
+                    sched_arr[: len(fill), idle] = fill[:, None]
+                want_ck = ck_mode and not direct_rnd
+                got = self._domain_kernel(args, sw, sched_arr, quantum, want_ck)
+                stats.kernel = route(self.device,
+                                     "banded_ck_pp" if want_ck else "banded_cost_pp")
+                costs_t, ck = (got[0], got[1:]) if want_ck else (got, None)
+                costs = _Readback(costs_t).numpy()[:B0]
+                stats.cells_computed += n_max * sw * W * len(pending)
+                done = [
+                    slot for slot in pending
+                    if costs[slot] <= f[slot] and costs[slot] < INF // 2
+                ]
+                if done and direct_rnd:
+                    stats.direct_traces += len(done)
+                    for slot in done:
+                        sc = np.ascontiguousarray(scheds[slot].sched, np.int32)
+                        trace_jobs.append(_TraceJob(
+                            pair=idxs[slot], slices=None, pos=0, shift=sc,
+                            s_words=S, sw=sw, cb=0, want=int(costs[slot]),
+                        ))
+                elif done and want_ck:
+                    chunks = _stage_ck_chunks(*_gather_lanes(ck, done), len(done))
+                    CB = banded.ck_col_block(self._cb(sw, n_max), n_max, quantum)
+                    for pos, slot in enumerate(done):
+                        sc = np.ascontiguousarray(scheds[slot].sched, np.int32)
+                        c0, sl = _chunk_of(chunks, pos)
+                        trace_jobs.append(_TraceJob(
+                            pair=idxs[slot], slices=sl, pos=pos - c0, shift=sc,
+                            s_words=S, sw=sw, cb=CB, want=int(costs[slot]),
+                        ))
+                for slot in done:
+                    out[idxs[slot]] = int(costs[slot])
+                done_set = set(done)
+                pending = [s for s in pending if s not in done_set]
+                if not pending:
+                    return
+                stats.band_retries += 1
+                for slot in pending:
+                    ub = int(costs[slot])
+                    nxt = max(int(f[slot] * 5 // 4) + 1, f[slot] + 64)
+                    if ub < INF // 2:
+                        nxt = max(nxt, ub)
+                    f[slot] = nxt
+            # Rounds exhausted or the band reached full height: finish the
+            # stragglers on the always-converging shared ladder.
+            self._run_bucket(pairs, [idxs[s] for s in pending], out, stats,
+                             trace_jobs)
+        finally:
+            for h in handles:
+                h.close()
+
+    def _domain_kernel(self, args, sw: int, sched_arr, quantum: int,
+                       want_ck: bool):
+        """K4 on one domain round: costs, or ``(costs, ck_vp, ck_vm,
+        ck_tv)`` with checkpoints every :meth:`_cb` columns (rounded to whole
+        quantum groups).  The reference's pinned-pp arms (K9/K10) need a TPU
+        and a VMEM fit; here K4 serves every band."""
+        if want_ck:
+            return banded_ck_pp(*args, sched_arr, sw,
+                                self._cb(sw, args[0].shape[0]), quantum)
+        return banded_cost_pp(*args, sched_arr, sw, quantum)
+
     # -- CIGAR path ------------------------------------------------------------
 
     def align(self, pairs) -> list[tuple[int, Cigar]]:
         return self.align_with_stats(pairs)[0]
 
     def align_with_stats(self, pairs) -> tuple[list[tuple[int, Cigar]], BatchStats]:
-        """Costs and CIGARs: the cost ladder runs on the device and each
-        rung's certified pairs are traced on the host from their certified
-        costs (direct whole-pair DT traces)."""
+        """Costs and CIGARs: each rung or domain round certifies costs on
+        the device, and its certified pairs are traced on the host (direct
+        DT traces from the certified costs, or checkpoint traces)."""
         results, stats, trace_jobs = self._align_dispatch_finish(
             self._align_dispatch_start(pairs)
         )
@@ -436,13 +696,12 @@ class BatchAligner:
                 yield results, stats
 
     def _align_dispatch_start(self, pairs):
-        """Pack and dispatch the first rung of every bucket, nothing
-        synchronised; :meth:`_align_dispatch_finish` certifies."""
-        if not self.direct_dt:
-            raise NotImplementedError(f"direct_dt=False: see {_TODO_CK}")
+        """Pack and dispatch the first rung of every shared-ladder bucket,
+        nothing synchronised, and start the gcsh builds of the domain
+        buckets; :meth:`_align_dispatch_finish` certifies."""
         if not native.available():
             raise NotImplementedError(
-                f"CIGARs without the native library: see {_TODO_CK}"
+                f"CIGARs without the native library: see {_TODO_HOST}"
             )
         stats, out, buckets = self._cost_batch(pairs)
         results: list = [None] * len(pairs)
@@ -450,66 +709,165 @@ class BatchAligner:
             a, b = pairs[idx]
             results[idx] = (int(out[idx]), _trivial_cigar(a, b))
         trace_jobs: list = []
-        rungs = [self._rung_start(pairs, self._new_ladder(pairs, bucket), stats,
-                                  trace_jobs)
-                 for bucket in buckets]
-        return pairs, out, results, stats, trace_jobs, rungs
+        jobs = self._dispatch_jobs(pairs, buckets, stats, trace_jobs)
+        return pairs, out, results, stats, trace_jobs, jobs
 
     def _align_dispatch_finish(self, state):
-        """Certify every in-flight rung (running retries synchronously) and
-        stage the certified pairs' traces; returns ``(results, stats,
-        trace_jobs)`` and leaves the flush to the caller."""
-        pairs, out, results, stats, trace_jobs, rungs = state
-        self._cost_finish(pairs, stats, out, rungs)
+        """Certify every in-flight rung (running retries and domain ladders
+        synchronously) and stage the certified pairs' traces; returns
+        ``(results, stats, trace_jobs)`` and leaves the flush to the
+        caller."""
+        pairs, out, results, stats, trace_jobs, jobs = state
+        self._cost_finish(pairs, stats, out, jobs, trace_jobs)
         return results, stats, trace_jobs
 
     def _flush_traces(self, trace_jobs: list, pairs, results) -> None:
-        """Run the staged direct traces, one multi-threaded native call per
-        rung (the jobs of a rung share its schedule).  Clears ``trace_jobs``."""
-        groups: dict[int, list] = {}
-        for job in trace_jobs:
-            groups.setdefault(id(job.shift), []).append(job)
-        for jobs in groups.values():
+        """Run the staged traces on a thread pool of the host's cores.
+        Direct jobs run one native batch call per schedule (a shared rung's
+        jobs share theirs; a domain round's jobs each have their own);
+        checkpoint jobs run one native call each once their chunk's copy
+        has arrived (chunks are taken in staging order, and the native
+        calls and the waits release the GIL).  Clears ``trace_jobs``."""
+        if not trace_jobs:
+            return
+
+        def run(job: _TraceJob, vp, vm, tv):
+            a, b = pairs[job.pair]
+            # known_cost: the device ladder certified this pair's distance,
+            # so the trace skips its final-stripe recompute; the segment
+            # landing checks against the checkpoints still verify the path.
+            cost, cigar = native.trace_banded_ck(
+                a, b, job.s_words, vp[:, :, job.pos], vm[:, :, job.pos],
+                tv[:, job.pos], job.shift, job.sw, job.cb,
+                known_cost=job.want,
+            )
+            return [(job.pair, cost, cigar)]
+
+        def run_direct(jobs: list):
             res = native.trace_direct_batch(
                 [pairs[j.pair] for j in jobs], jobs[0].s_words,
                 jobs[0].shift, jobs[0].sw, [j.want for j in jobs],
             )
-            for job, (cost, cigar) in zip(jobs, res):
-                results[job.pair] = (cost, cigar)
+            return [(j.pair, c, cig) for j, (c, cig) in zip(jobs, res)]
+
+        groups: dict[int, list] = {}
+        for job in trace_jobs:
+            key = id(job.shift) if job.slices is None else id(job.slices)
+            groups.setdefault(key, []).append(job)
+        futures = []
+        with ThreadPoolExecutor(max(1, min(len(trace_jobs), os.cpu_count() or 1))) as ex:
+            for jobs in groups.values():
+                if jobs[0].slices is None:
+                    futures.append(ex.submit(run_direct, jobs))
+                    continue
+                vp, vm, tv = jobs[0].slices.numpy()
+                vp, vm = vp.view(np.uint32), vm.view(np.uint32)
+                futures.extend(ex.submit(run, job, vp, vm, tv) for job in jobs)
+            for fut in futures:
+                for i, cost, cigar in fut.result():
+                    results[i] = (cost, cigar)
         trace_jobs.clear()
 
 
 class _Readback:
-    """A (B,) device result on its way to the host: the copy into pinned
-    memory is queued without synchronising, and :meth:`numpy` waits for an
-    event recorded after it.  CPU results are already there."""
+    """Device results on their way to the host: the copies into pinned
+    memory are queued without synchronising, and :meth:`numpy` waits for
+    one event recorded after them.  CPU results are already there."""
 
-    def __init__(self, t: torch.Tensor):
+    def __init__(self, *ts: torch.Tensor):
         self.event = None
-        if t.device.type == "cuda":
-            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.host.copy_(t, non_blocking=True)
+        if ts[0].device.type == "cuda":
+            self.host = []
+            for t in ts:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self.host.append(h)
             self.event = torch.cuda.Event()
-            self.event.record(torch.cuda.current_stream(t.device))
+            self.event.record(torch.cuda.current_stream(ts[0].device))
         else:
-            self.host = t
+            self.host = list(ts)
 
-    def numpy(self) -> np.ndarray:
+    def numpy(self):
+        """The array, or the list of arrays when several were copied."""
         if self.event is not None:
             self.event.synchronize()
-        return self.host.numpy()
+        arrs = [h.numpy() for h in self.host]
+        return arrs[0] if len(arrs) == 1 else arrs
 
 
 @dataclass
 class _TraceJob:
-    """One direct whole-pair DT trace: the pair, its certifying rung's
-    schedule and the certified cost it is traced from."""
+    """One staged trace: the pair, its certifying rung's or round's
+    schedule, and the certified cost it is traced from.  ``slices`` is the
+    checkpoint chunk (a :class:`_Readback` of ``(ck_vp, ck_vm, ck_tv)``)
+    holding the pair's checkpoints at lane ``pos``; ``None`` marks a direct
+    whole-pair DT trace."""
 
     pair: int
+    slices: _Readback | None
+    pos: int
     shift: np.ndarray
     s_words: int
     sw: int
+    cb: int
     want: int
+
+
+# Chunks of ~2 MB let the traces of chunk k overlap the copy of chunk k+1.
+_CHUNK_TARGET_BYTES = 2 * 2**20
+# Ceiling for the optimistic readback of every lane's checkpoints before
+# certification; a failed rung wastes at most this many bytes of copy.
+_OPT_READBACK_BYTES = 8 * 2**20
+
+
+def _ck_bytes(ck) -> int:
+    """Checkpoint bytes per lane of ``(ck_vp, ck_vm, ck_tv)``."""
+    return 4 * sum(x.numel() for x in ck) // max(1, ck[0].shape[2])
+
+
+def _gather_lanes(ck, slots) -> tuple:
+    """The checkpoints of lanes ``slots`` only, gathered on the device."""
+    idx = to_tensor(np.asarray(slots, np.int64), ck[0].device)
+    return ck[0].index_select(2, idx), ck[1].index_select(2, idx), ck[2].index_select(1, idx)
+
+
+def _stage_ck_chunks(ckvp, ckvm, cktv, lanes: int):
+    """Split the first ``lanes`` lanes of the checkpoint planes into lane
+    ranges and queue each range's copy to pinned host memory, one event per
+    chunk; returns ``[(c0, c1, chunk), ...]``.  Queueing every copy up front
+    lets the traces of the first chunks run while the later ones arrive."""
+    per_lane = _ck_bytes((ckvp, ckvm, cktv))
+    n_chunks = int(max(1, min(8, per_lane * lanes // _CHUNK_TARGET_BYTES)))
+    step = -(-lanes // n_chunks)
+    chunks = []
+    for c0 in range(0, lanes, step):
+        c1 = min(lanes, c0 + step)
+        chunks.append((c0, c1, _Readback(ckvp[:, :, c0:c1], ckvm[:, :, c0:c1],
+                                         cktv[:, c0:c1])))
+    return chunks
+
+
+def _chunk_of(chunks, p: int):
+    for c0, c1, sl in chunks:
+        if c0 <= p < c1:
+            return c0, sl
+    raise AssertionError(f"position {p} outside staged chunks")
+
+
+class _GapDomainProvider:
+    """Heuristic-free domain provider: the cost-f parallelogram (closed
+    form, no host build).  Same interface as ``native.DomainHandle``."""
+
+    def __init__(self, a: bytes, b: bytes):
+        self.n, self.m = len(a), len(b)
+        # First-round f: the gap bound plus a ~6% divergence allowance.
+        self.h0 = abs(self.m - self.n) + max(self.n, 1) // 16
+
+    def sample(self, f_max: int, step: int = 64):
+        return gap_domain(self.n, self.m, f_max, step)
+
+    def close(self) -> None:
+        pass
 
 
 def _trivial_cigar(a: bytes, b: bytes) -> Cigar:

@@ -21,9 +21,27 @@ Phases, one output line each (any failure exits non-zero):
    SW, each with the main path's diagonal), bit for bit, and timed (CUDA
    events; turns plain, kernel, kernel, plain on 2 kbp pairs when the
    plain version would take over a minute at 10 kbp);
+6. the checkpoint and per-pair kernels (K2, K4 cost, K4 ck) against their
+   plain versions on a grid (B 33/1024, n <= 600, SW 1..82 and full
+   height, CB 64/512, Q 32/8/1, gap, gcsh and random schedules), bit for
+   bit on costs and every checkpoint plane;
+7. main path, config #4: ``BatchAligner(device="cuda")`` at its default
+   settings on 128 pairs of 100 kbp at e=10% (gcsh domain ladder, K4):
+   cost twice (the second timed), 8 costs against the oracle, align with
+   direct traces and with ``direct_dt=False`` (K4 ck), every CIGAR
+   verified; f-rounds, SW and kernel ms per round, gcsh build seconds,
+   Mbp/s;
+8. main path, checkpoint rungs: ``align_with_stats(direct_dt=False)`` on
+   512 pairs of 10 kbp at e=5% (K2), every CIGAR verified;
+9. the new kernels against their plain versions at the main path's own
+   shapes (K4 and K4 ck on config #4's pack and gcsh schedules cut to the
+   first 2048 columns; K4 on K1's shared schedule against K1 at the full
+   config #4 shape; K2 on phase 8's pack), bit for bit, and timed in turns
+   (plain, kernel, kernel, plain) on 2 kbp packs;
 
 then the kernels' JSON line, and last ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX.  Exits 1 without a usable GPU.
+Launch counts are reset just before each main-path phase (3-4, 7, 8) and
+read just after it.  Imports nothing of JAX.  Exits 1 without a usable GPU.
 """
 
 from __future__ import annotations
@@ -32,6 +50,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -49,6 +68,11 @@ PAIRS, LENGTH, ERR, SEED = 4096, 10_000, 0.05, 42
 STREAM_BATCHES, STREAM_PAIRS = 6, 512
 TIMED_SW = 32
 PLAIN_LIMIT_S = 60.0
+C4_PAIRS, C4_LENGTH, C4_ERR, C4_SEED = 128, 100_000, 0.10, 100
+C4_ORACLE = 8
+CK_PAIRS = 512
+CUT_COLS = 2048
+GRID_PAIRS = 1024
 
 
 def fail(msg: str) -> None:
@@ -104,25 +128,27 @@ def _random_pairs(rng, count, n_hi, m_hi):
 
 def phase2_grid() -> int:
     """Kernel == plain on B in {33, 1024}, n in [0, 600], every SW of the
-    grid with and without a diagonal; returns the max abs difference."""
+    grid with and without a diagonal; returns the max abs difference.  The
+    33-lane pack is the first lanes of the 1024-lane one (same n_max, S and
+    schedule), so one plain sweep of the wide pack serves both."""
     rng = np.random.default_rng(7)
-    pairs = _random_pairs(rng, 1024, 600, 2600)
+    pairs = _random_pairs(rng, GRID_PAIRS, 600, 2600)
     args, _ = pack_batch_staggered(pairs, 1, device="cuda")
     n_max, S = args[0].shape[0], args[2].shape[0]
-    small = tuple(x[:, :33].contiguous() for x in args[:4]) + (args[4][:33], args[5][:33])
+    small = _lanes(args, 33)
     worst, cases = 0, 0
     t0 = time.perf_counter()
     for sw in (1, 5, 32, 33, 64, 72, S):
         for diag in (None, (n_max, S * 32 - 50)):
+            ref = banded.banded_cost_ref(*args, sw, diag)
             for planes in (small, args):
                 got = banded_kernel.banded_cost(*planes, sw, diag)
-                ref = banded.banded_cost_ref(*planes, sw, diag)
                 torch.cuda.synchronize()
-                diff = int((got.long() - ref.long()).abs().max())
+                diff = int((got.long() - ref[: got.shape[0]].long()).abs().max())
                 if diff:
                     fail(f"kernel != plain at B={planes[0].shape[1]} SW={sw} diag={diag}")
                 worst, cases = max(worst, diff), cases + 1
-    say(f"[2 kernel=plain] {cases}/{cases} cases equal (B 33/1024, n_max {n_max}, "
+    say(f"[2 kernel=plain] {cases}/{cases} cases equal (B 33/{GRID_PAIRS}, n_max {n_max}, "
         f"S {S}, SW 1..{S}, diag None/set), max_abs_err {worst}, "
         f"{time.perf_counter() - t0:.1f} s")
     return worst
@@ -239,10 +265,10 @@ def _profiled_call(ba: BatchAligner, pairs) -> str:
     first, last = spans[0][0] / 1e6, max(e for _, e in spans) / 1e6
     k1 = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and "banded_cost" in e.name) / 1e3
+             and "banded_kernel<false, false>" in e.name) / 1e3
     return (f"3rd call under torch.profiler: wall {wall:.4f} s, card busy {busy:.4f} s "
             f"({len(spans)} device events, first to last {last - first:.4f} s), idle share "
-            f"{1 - busy / wall:.3f}; banded_cost kernel {k1:.3f} ms in the trace")
+            f"{1 - busy / wall:.3f}; K1 (banded_kernel<false, false>) {k1:.3f} ms in the trace")
 
 
 def phase4_align(ba: BatchAligner, batches) -> float:
@@ -343,6 +369,390 @@ def phase5_time(spy: LayerSpy) -> dict:
     }
 
 
+def _max_err(got, want) -> int:
+    """Largest absolute difference between matching outputs (a cost vector,
+    or costs and every checkpoint plane), after checking their shapes."""
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    worst = 0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape:
+            fail(f"shape {tuple(g.shape)} != plain {tuple(w.shape)}")
+        if g.numel():
+            worst = max(worst, int((g.long() - w.long()).abs().max()))
+    return worst
+
+
+def _lanes(args, k: int):
+    """The first ``k`` lanes of a pack."""
+    return tuple(x[:, :k].contiguous() for x in args[:4]) + (args[4][:k], args[5][:k])
+
+
+def _random_schedule(rng, n_max: int, B: int, quantum: int) -> np.ndarray:
+    """Shifts at multiples of ``quantum`` with probability 0.3, every fifth
+    lane at all of them (its window slides past the last word, where the
+    entering word clamps at S-1)."""
+    sched = np.zeros((n_max, B), np.uint8)
+    rows = np.arange(0, n_max, quantum)
+    sched[rows] = rng.random((len(rows), B)) < 0.3
+    sched[rows, ::5] = 1
+    return sched
+
+
+def _gcsh_schedules(pairs, B: int, n_max: int, scale: float):
+    """Per-pair schedules from the native gcsh hulls at f = scale * h0 (the
+    domain ladder's sampling), with the round's band and quantum."""
+    sched = np.zeros((n_max, B), np.uint8)
+    sw, quantum = 1, 32
+    for slot, (a, b) in enumerate(pairs):
+        if not a or not b:
+            continue
+        h = att.native.DomainHandle(a, b, k=12, r=2)
+        f = max(int(h.h0 * scale), 64)
+        ps = att.domain.domain_schedule(h.sample(f, 64))
+        while ps is None:
+            f += max(f // 4, 64)
+            ps = att.domain.domain_schedule(h.sample(f, 64))
+        h.close()
+        sched[: len(ps.sched), slot] = ps.sched
+        sw, quantum = max(sw, ps.band_words), min(quantum, ps.quantum)
+    return sched, sw, quantum
+
+
+def phase6_grid() -> int:
+    """K2, K4 cost and K4 ck == plain on a grid; returns the max abs
+    difference.  K4 cost is held against the costs of the plain ck sweep:
+    the plain cost and ck versions are one loop."""
+    t0 = time.perf_counter()
+    rand_pairs = _random_pairs(np.random.default_rng(7), GRID_PAIRS, 600, 2600)  # phase 2's
+    rand, _ = pack_batch_staggered(rand_pairs, 1, device="cuda")
+    rng = np.random.default_rng(11)
+    sim_pairs = [att.generate.uniform_seeded(int(rng.integers(1, 601)),
+                                             float(rng.uniform(0, 0.2)), 3000 + s)
+                 for s in range(GRID_PAIRS)]
+    sim_pairs[1] = (b"", b"ACGTACGT")
+    sim, _ = pack_batch_staggered(sim_pairs, 1, device="cuda")
+    n_max, S = rand[0].shape[0], rand[2].shape[0]
+    diag = (n_max, S * 32 - 50)
+    worst, k2_cases = 0, 0
+    for planes, sw, cb, dg in ((rand, 1, 64, None), (_lanes(rand, 33), 5, 512, diag),
+                               (rand, 32, 64, None), (_lanes(rand, 33), 72, 64, diag),
+                               (rand, S, 512, None)):
+        got = banded_kernel.banded_ck(*planes, sw, cb, dg)
+        err = _max_err(got, banded.banded_ck_ref(*planes, sw, cb, dg))
+        if err:
+            fail(f"K2 != plain at B={planes[0].shape[1]} SW={sw} CB={cb} diag={dg}")
+        worst, k2_cases = max(worst, err), k2_cases + 1
+
+    def gap(planes, sw):
+        return banded.pair_gap_schedule(planes[4], planes[5], sw, planes[0].shape[0],
+                                        planes[2].shape[0])[0]
+
+    r33, s33 = _lanes(rand, 33), _lanes(sim, 33)
+    g125, sw125, q125 = _gcsh_schedules(sim_pairs, GRID_PAIRS, sim[0].shape[0], 1.25)
+    g2, sw2, q2 = _gcsh_schedules(sim_pairs[:33], 33, sim[0].shape[0], 2.0)
+    k4 = [
+        ("gap", rand, gap(rand, 4), 4, 32, 64),
+        ("gap", r33, gap(r33, 32), 32, 32, 512),
+        ("random", rand, _random_schedule(rng, n_max, GRID_PAIRS, 8), 16, 8, 512),
+        ("random", r33, _random_schedule(rng, n_max, 33, 1), S, 1, 64),
+        ("random", rand, _random_schedule(rng, n_max, GRID_PAIRS, 1), 1, 1, 64),
+        ("gcsh 1.25 h0", sim, g125, min(sw125, sim[2].shape[0]), q125, 64),
+        ("gcsh 2 h0", s33, g2, min(sw2, sim[2].shape[0]), q2, 512),
+    ]
+    labels = []
+    for label, planes, sched, sw, q, cb in k4:
+        want = banded.banded_ck_pp_ref(*planes, sched, sw, cb, q)
+        err = max(_max_err(banded_kernel.banded_ck_pp(*planes, sched, sw, cb, q), want),
+                  _max_err(banded_kernel.banded_cost_pp(*planes, sched, sw, q), want[0]))
+        if err:
+            fail(f"K4 != plain on {label} B={planes[0].shape[1]} SW={sw} Q={q} CB={cb}")
+        worst = max(worst, err)
+        labels.append(f"{label} B={planes[0].shape[1]} SW={sw} Q={q} CB={cb}")
+    torch.cuda.synchronize()
+    say(f"[6 ck/pp=plain] K2 {k2_cases}/{k2_cases} cases (B 33/{GRID_PAIRS}, n_max {n_max}, "
+        f"S {S}, SW 1..{S}, CB 64/512, diag None/set); K4 cost and ck "
+        f"{len(k4)}/{len(k4)} cases ({'; '.join(labels)}); max_abs_err {worst}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+class RoundSpy:
+    """Records, inside the runner's own calls, every launch of the
+    checkpoint and per-pair kernels (kernel, SW, quantum and CUDA-event ms)
+    and the host clock of the domain ladder's host layers (pack, gcsh
+    builds, hull samples, schedules, traces); keeps each kernel's last
+    inputs for phase 9.  The launch counts stay with the wrappers."""
+
+    NAMES = ("banded_ck", "banded_cost_pp", "banded_ck_pp")
+    HOST = (("pack", runner, "pack_batch_staggered"),
+            ("gcsh build", runner.BatchAligner, "_build_gcsh_handles"),
+            ("hull sample", att.native.DomainHandle, "sample"),
+            ("schedule", runner, "domain_schedule"),
+            ("traces", runner.BatchAligner, "_flush_traces"))
+
+    def __init__(self):
+        self._orig = {n: getattr(runner, n) for n in self.NAMES}
+        self._orig_host = [(key, obj, attr, getattr(obj, attr))
+                           for key, obj, attr in self.HOST]
+        self.last: dict[str, tuple] = {}
+        self.reset()
+
+    def reset(self):
+        self.calls = []
+        self.host = {key: 0.0 for key, *_ in self.HOST}
+
+    def install(self):
+        for name, fn in self._orig.items():
+            setattr(runner, name, self._wrap(name, fn))
+        for key, obj, attr, fn in self._orig_host:
+            setattr(obj, attr, self._timed(key, fn))
+
+    def _timed(self, key, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.host[key] += time.perf_counter() - t0
+            return out
+
+        return call
+
+    def _wrap(self, name, fn):
+        def call(*args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args)
+            b.record()
+            self.calls.append((name, args, a, b))
+            self.last[name] = args
+            return out
+
+        return call
+
+    def rounds(self) -> list[str]:
+        """One summary per launch since the last reset."""
+        torch.cuda.synchronize()
+        out = []
+        for name, args, a, b in self.calls:
+            sw = args[7] if name != "banded_ck" else args[6]
+            q = f" Q={args[-1]}" if name != "banded_ck" else ""
+            out.append(f"{name} SW={sw}{q} {a.elapsed_time(b):.1f} ms")
+        return out
+
+    def split(self, wall: float) -> str:
+        """The host layers and the kernel time (CUDA events) of the calls
+        since the last reset, and what is left of ``wall``."""
+        torch.cuda.synchronize()
+        kernel = sum(a.elapsed_time(b) for _, _, a, b in self.calls) / 1e3
+        parts = dict(self.host, kernel=kernel)
+        rest = wall - sum(parts.values())
+        return ", ".join(f"{k} {v:.3f} s" for k, v in parts.items()) + f", other {rest:.3f} s"
+
+    def remove(self):
+        for name, fn in self._orig.items():
+            setattr(runner, name, fn)
+        for _, obj, attr, fn in self._orig_host:
+            setattr(obj, attr, fn)
+
+
+def _verify(pairs, results, costs=None) -> None:
+    for i, ((a, b), (c, cig)) in enumerate(zip(pairs, results)):
+        if cig.verify(a, b) != c or (costs is not None and c != costs[i]):
+            fail(f"pair {i}: CIGAR does not verify at its cost")
+
+
+def phase7_config4(spy: RoundSpy) -> dict:
+    """Config #4 through the default BatchAligner; returns the launch
+    counts of its run."""
+    t0 = time.perf_counter()
+    pairs = [att.generate.uniform_seeded(C4_LENGTH, C4_ERR, C4_SEED + s)
+             for s in range(C4_PAIRS)]
+    bp = sum(len(a) for a, _ in pairs)
+    ba = BatchAligner(device="cuda")
+    mode = ba._resolve_domain_mode(pairs, list(range(len(pairs))), want_cigars=False)
+    if mode != "gcsh":
+        fail(f"config #4 resolved to domain mode {mode!r}, not 'gcsh'")
+    say(f"[7 config4] {C4_PAIRS} x {C4_LENGTH} bp e={C4_ERR} generated in "
+        f"{time.perf_counter() - t0:.1f} s; domain mode {mode}")
+    banded_kernel.reset_launches()
+    spy.reset()
+    costs1, _ = ba.cost_with_stats(pairs)
+    torch.cuda.synchronize()
+    first = (spy.rounds(), spy.host["gcsh build"])
+    spy.reset()
+    t0 = time.perf_counter()
+    costs, st = ba.cost_with_stats(pairs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rounds, split = spy.rounds(), spy.split(dt)
+    if st.kernel != "cuda-banded-pp" or not (costs == costs1).all() or (costs < 0).any():
+        fail(f"config #4 cost: kernel {st.kernel!r}, or runs disagree")
+    picks = np.linspace(0, C4_PAIRS - 1, C4_ORACLE).astype(int)
+    with ThreadPoolExecutor(C4_ORACLE) as ex:
+        want = list(ex.map(lambda i: att.oracle.levenshtein_myers(*pairs[i]), picks))
+    agree = sum(int(costs[i]) == w for i, w in zip(picks, want))
+    if agree != C4_ORACLE:
+        fail(f"config #4: {agree}/{C4_ORACLE} costs equal levenshtein_myers")
+    say(f"[7 cost] 1st call rounds [{', '.join(first[0])}], gcsh build {first[1]:.3f} s; "
+        f"2nd call {dt:.4f} s = {bp / dt / 1e6:.3f} Mbp/s: f-rounds {len(rounds)} "
+        f"[{', '.join(rounds)}] (CUDA events), retries {st.band_retries}, cells "
+        f"{st.cells_computed}; levenshtein_myers {agree}/{C4_ORACLE}")
+    say(f"[7 cost split] 2nd call, host clock and CUDA events: {split}")
+    for label, direct in (("direct", True), ("ck", False)):
+        ba.direct_dt = direct
+        spy.reset()
+        t0 = time.perf_counter()
+        res, st = ba.align_with_stats(pairs)
+        dt = time.perf_counter() - t0
+        rounds, split = spy.rounds(), spy.split(dt)
+        _verify(pairs, res, costs)
+        if direct == (st.direct_traces == 0) or (not direct and st.kernel != "cuda-banded-ck-pp"):
+            fail(f"config #4 align ({label}): direct traces {st.direct_traces}, "
+                 f"kernel {st.kernel!r}")
+        say(f"[7 align {label}] {dt:.4f} s = {bp / dt / 1e6:.3f} Mbp/s cost+CIGAR, "
+            f"{C4_PAIRS} CIGARs verified; direct traces {st.direct_traces}; f-rounds "
+            f"{len(rounds)} [{', '.join(rounds)}], kernel {st.kernel}; split: {split}")
+    launches = dict(banded_kernel.LAUNCHES)
+    for name in ("banded_cost_pp", "banded_ck_pp"):
+        if not launches[name]:
+            fail(f"config #4 never launched {name}")
+    return launches
+
+
+def phase8_ck(spy: RoundSpy) -> dict:
+    """K2 on the main path: one 512-pair 10 kbp align with direct_dt=False;
+    returns the launch counts of its run."""
+    pairs = att.generate.generate_batch(CK_PAIRS, LENGTH, ERR, seed=SEED + 200)
+    ba = BatchAligner(device="cuda", direct_dt=False)
+    banded_kernel.reset_launches()
+    spy.reset()
+    t0 = time.perf_counter()
+    res, st = ba.align_with_stats(pairs)
+    dt = time.perf_counter() - t0
+    launches = dict(banded_kernel.LAUNCHES)
+    rounds = spy.rounds()
+    if not launches["banded_ck"] or st.direct_traces or st.kernel != "cuda-banded-ck":
+        fail(f"ck align: K2 launches {launches['banded_ck']}, direct traces "
+             f"{st.direct_traces}, kernel {st.kernel!r}")
+    _verify(pairs, res, BatchAligner(device="cuda").cost(pairs))
+    say(f"[8 ck align] {CK_PAIRS} x {LENGTH} bp e={ERR}, direct_dt=False: {dt:.4f} s "
+        f"({dt / CK_PAIRS * 1e3:.4f} ms/pair), {CK_PAIRS} CIGARs verified at the K1 "
+        f"costs; rungs [{', '.join(rounds)}], retries {st.band_retries}")
+    return launches
+
+
+def _turns(plain, kernels):
+    """Plain, each kernel, each kernel again, plain (CUDA events); returns
+    (plain ms list, {kernel: ms list}, max_abs_err)."""
+    plain_ms, kernel_ms, outs = [], {k: [] for k in kernels}, {}
+    for turn in ("plain", "kernels", "kernels", "plain"):
+        if turn == "plain":
+            ms, ref = _event_ms(plain)
+            plain_ms.append(ms)
+            continue
+        for name, (fn, pick) in kernels.items():
+            ms, outs[name] = _event_ms(fn)
+            kernel_ms[name].append(ms)
+    err = max(_max_err(outs[name], pick(ref)) for name, (_, pick) in kernels.items())
+    return plain_ms, kernel_ms, err
+
+
+def phase9_time(spy: RoundSpy) -> dict:
+    """K2/K4 == plain at the main path's shapes, and timed; returns each
+    kernel's JSON record (without the launch count)."""
+    for name in RoundSpy.NAMES:
+        if name not in spy.last:
+            fail(f"the main path never launched {name}")
+    # K4 cost and ck on config #4's last ck round, cut to the first columns.
+    *planes, sched, sw, cb, q = spy.last["banded_ck_pp"]
+    n_max = planes[0].shape[0]
+    cut = min(CUT_COLS, n_max)
+    n_c = np.minimum(planes[4], cut).astype(np.int32)
+    m_c = (planes[5].astype(np.int64) * n_c // np.maximum(planes[4], 1)).astype(np.int32)
+    cplanes = tuple(x[:cut].contiguous() for x in planes[:2]) + (planes[2], planes[3], n_c, m_c)
+    csched = np.ascontiguousarray(sched[:cut])
+    cb = min(cb, cut // 4)  # a few checkpoints inside the cut
+    plain_ms, ref = _event_ms(lambda: banded.banded_ck_pp_ref(*cplanes, csched, sw, cb, q))
+    ck_ms, cost_ms, err_pp = [], [], 0
+    for _ in range(2):
+        ms, got = _event_ms(lambda: banded_kernel.banded_ck_pp(*cplanes, csched, sw, cb, q))
+        ck_ms.append(ms)
+        err_pp = max(err_pp, _max_err(got, ref))
+        ms, got = _event_ms(lambda: banded_kernel.banded_cost_pp(*cplanes, csched, sw, q))
+        cost_ms.append(ms)
+        err_pp = max(err_pp, _max_err(got, ref[0]))
+    if err_pp:
+        fail("K4 != plain on config #4's cut pack")
+    cshape = {"B": planes[0].shape[1], "n_max": cut, "S": planes[2].shape[0], "SW": sw,
+              "Q": q, "CB": banded.ck_col_block(cb, cut, q)}
+    say(f"[9 config4 cut] K4 == plain on config #4's pack and gcsh schedules, first "
+        f"{cut} of {n_max} columns ({cshape}): K4 ck {ck_ms[0]:.3f}/{ck_ms[1]:.3f} ms, "
+        f"K4 cost {cost_ms[0]:.3f}/{cost_ms[1]:.3f} ms, plain {plain_ms:.1f} ms; "
+        f"max_abs_err {err_pp} (CUDA events)")
+    # K4 on K1's shared schedule, every pair, against K1 at the full shape.
+    *planes, _, sw_c, _ = spy.last["banded_cost_pp"]
+    n_max, S, B = planes[0].shape[0], planes[2].shape[0], planes[0].shape[1]
+    shared = np.broadcast_to(banded.shift_at_array(n_max, S, sw_c)[:, None], (n_max, B))
+    k1_ms, k1 = _event_ms(lambda: banded_kernel.banded_cost(*planes, sw_c))
+    k4_ms, k4 = _event_ms(lambda: banded_kernel.banded_cost_pp(*planes, shared, sw_c, 1))
+    err_full = _max_err(k4, k1)
+    if err_full:
+        fail("K4 on the shared schedule != K1 at config #4's full shape")
+    full_shape = {"B": B, "n_max": n_max, "S": S, "SW": sw_c}
+    say(f"[9 config4 full] K4 with K1's schedule == K1 at {full_shape}: K4 "
+        f"{k4_ms:.3f} ms, K1 {k1_ms:.3f} ms, max_abs_err {err_full} (CUDA events)")
+    # K2 on phase 8's pack.
+    *planes, sw_k2, cb_k2, diag_k2 = spy.last["banded_ck"]
+    k2_plain_ms, k2_ref = _event_ms(lambda: banded.banded_ck_ref(*planes, sw_k2, cb_k2, diag_k2))
+    k2_ms, err_k2 = [], 0
+    for _ in range(2):
+        ms, got = _event_ms(lambda: banded_kernel.banded_ck(*planes, sw_k2, cb_k2, diag_k2))
+        k2_ms.append(ms)
+        err_k2 = max(err_k2, _max_err(got, k2_ref))
+    if err_k2:
+        fail("K2 != plain on the ck align pack")
+    k2_shape = {"B": planes[0].shape[1], "n_max": planes[0].shape[0],
+                "S": planes[2].shape[0], "SW": sw_k2, "CB": cb_k2}
+    say(f"[9 ck pack] K2 == plain on phase 8's pack {k2_shape} diag={diag_k2}: K2 "
+        f"{k2_ms[0]:.3f}/{k2_ms[1]:.3f} ms, plain {k2_plain_ms:.1f} ms, max_abs_err "
+        f"{err_k2} (CUDA events)")
+    # Turns on 2 kbp packs: K2 against plain ck; K4 cost and ck against the
+    # plain per-pair ck sweep (whose costs are the plain cost version's).
+    pairs2k = att.generate.generate_batch(PAIRS, 2000, ERR, seed=SEED + 1)
+    args2k, _ = pack_batch_staggered(pairs2k, 32, device="cuda")
+    n2, S2 = args2k[0].shape[0], args2k[2].shape[0]
+    gap2k = banded.pair_gap_schedule(args2k[4], args2k[5], TIMED_SW, n2, S2)[0]
+    turns_shape = {"B": PAIRS, "n_max": n2, "S": S2, "SW": TIMED_SW, "CB": 512}
+    p2, k2t, e2 = _turns(lambda: banded.banded_ck_ref(*args2k, TIMED_SW, 512), {
+        "banded_ck": (lambda: banded_kernel.banded_ck(*args2k, TIMED_SW, 512), lambda r: r)})
+    p4, k4t, e4 = _turns(lambda: banded.banded_ck_pp_ref(*args2k, gap2k, TIMED_SW, 512), {
+        "banded_cost_pp": (lambda: banded_kernel.banded_cost_pp(*args2k, gap2k, TIMED_SW),
+                           lambda r: r[0]),
+        "banded_ck_pp": (lambda: banded_kernel.banded_ck_pp(*args2k, gap2k, TIMED_SW, 512),
+                         lambda r: r)})
+    if e2 or e4:
+        fail("timed kernel != plain on the 2 kbp pack")
+    turns = {"banded_ck": (k2t["banded_ck"], p2), "banded_cost_pp": (k4t["banded_cost_pp"], p4),
+             "banded_ck_pp": (k4t["banded_ck_pp"], p4)}
+    say(f"[9 turns] 2 kbp pack {turns_shape} (gap schedules, Q=32, for K4): " + "; ".join(
+        f"{k} {ms[0]:.3f}/{ms[1]:.3f} ms vs plain {pl[0]:.1f}/{pl[1]:.1f} ms "
+        f"({np.mean(pl) / np.mean(ms):.0f}x)" for k, (ms, pl) in turns.items())
+        + f"; max_abs_err {max(e2, e4)} (CUDA events)")
+
+    def record(name, ms, plain, shape, err, **extra):
+        k_ms, p_ms = turns[name]
+        return {"max_abs_err": err, "ms": float(np.mean(ms)), "plain_ms": plain,
+                "shape": shape, **extra, "turns_ms": float(np.mean(k_ms)),
+                "turns_plain_ms": float(np.mean(p_ms)), "turns_shape": turns_shape}
+
+    return {
+        "banded_ck": record("banded_ck", k2_ms, k2_plain_ms, k2_shape, max(err_k2, e2)),
+        "banded_cost_pp": record("banded_cost_pp", cost_ms, plain_ms, cshape, max(err_pp, e4),
+                                 full_ms=k4_ms, full_shape=full_shape, full_k1_ms=k1_ms),
+        "banded_ck_pp": record("banded_ck_pp", ck_ms, plain_ms, cshape, max(err_pp, e4)),
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -356,10 +766,10 @@ def main() -> None:
     ba = BatchAligner(device="cuda")
     spy = LayerSpy()
     spy.install()
-    banded_kernel.LAUNCHES = 0
+    banded_kernel.reset_launches()
     phase3_cost(ba, pairs, spy)
     phase4_align(ba, batches)
-    launches = banded_kernel.LAUNCHES
+    launches = banded_kernel.LAUNCHES["banded_cost"]
     spy.remove()
     if launches == 0:
         fail("the main path never launched the banded cost kernel")
@@ -367,14 +777,34 @@ def main() -> None:
 
     record = phase5_time(spy)
     record["max_abs_err"] = max(record["max_abs_err"], grid_err)
+    new_grid_err = phase6_grid()
+
+    rounds = RoundSpy()
+    rounds.install()
+    c4 = phase7_config4(rounds)
+    ck = phase8_ck(rounds)
+    rounds.remove()
+    counts = {k: c4[k] + ck[k] for k in RoundSpy.NAMES}
+    if not ck["banded_ck"]:
+        fail("the main path never launched banded_ck")
+    say(f"[main path] launches: config #4 {c4}; ck align {ck}")
+    records = phase9_time(rounds)
     if "jax" in sys.modules:
         fail("jax was imported")
-    say(json.dumps({"kernels": [{
-        "name": "banded_cost", "route": "cuda",
-        "source": "astarpa_tpu_torch/csrc/banded_cost.cu",
-        "replaces": "astarpa_tpu/ops/pallas_banded.py:533",
-        "launches": launches, **record,
-    }]}))
+    source = "astarpa_tpu_torch/csrc/banded.cu"
+    replaces = {
+        "banded_cost": "astarpa_tpu/ops/pallas_banded.py:533",
+        "banded_ck": "astarpa_tpu/ops/pallas_banded.py:828",
+        "banded_cost_pp": "astarpa_tpu/ops/pallas_banded.py:447",
+        "banded_ck_pp": "astarpa_tpu/ops/pallas_banded.py:447",
+    }
+    kernels = [{"name": "banded_cost", "route": "cuda", "source": source,
+                "replaces": replaces["banded_cost"], "launches": launches, **record}]
+    for name, rec in records.items():
+        rec["max_abs_err"] = max(rec["max_abs_err"], new_grid_err)
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces[name], "launches": counts[name], **rec})
+    say(json.dumps({"kernels": kernels}))
     say(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

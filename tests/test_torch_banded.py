@@ -102,11 +102,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     f = torch.zeros((4, 8), dtype=torch.float32)
     i = torch.zeros((4, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="contiguous int32"):
-        banded_kernel._launch(f, i, i, i, np.ones(8, np.int32), np.ones(8, np.int32), 2, None)
+        banded_kernel._launch("banded_cost", f, i, i, i, np.ones(8, np.int32), np.ones(8, np.int32), 2)
     strided = torch.zeros((8, 4), dtype=torch.int32).T  # right shape, not contiguous
     with pytest.raises(ValueError, match="contiguous int32"):
-        banded_kernel._launch(i, i, strided, i, np.ones(8, np.int32), np.ones(8, np.int32), 2,
-                              None)
+        banded_kernel._launch("banded_cost", i, i, strided, i, np.ones(8, np.int32),
+                              np.ones(8, np.int32), 2)
 
 
 def test_library_path_is_keyed_on_the_sources(tmp_path, monkeypatch):

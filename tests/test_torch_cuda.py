@@ -43,13 +43,71 @@ def test_kernel_matches_plain(gpu, count):
     pairs = _random_pairs(count, count, 300, 1300)
     args, _ = pack_batch_staggered(pairs, 1, device=gpu)
     S = args[2].shape[0]
-    before = banded_kernel.LAUNCHES
+    before = banded_kernel.LAUNCHES["banded_cost"]
     for sw in (1, 5, 32, 33, S):
         for diag in (None, (args[0].shape[0], S * 32 - 40)):
             got = banded_kernel.banded_cost(*args, sw, diag)
             want = banded.banded_cost_ref(*args, sw, diag)
             assert torch.equal(got, want), (sw, diag)
-    assert banded_kernel.LAUNCHES == before + 10
+    assert banded_kernel.LAUNCHES["banded_cost"] == before + 10
+
+
+def _assert_same(got, want, label):
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), label
+
+
+@pytest.mark.parametrize("count", [32, 77])
+def test_ck_kernel_matches_plain(gpu, count):
+    pairs = _random_pairs(100 + count, count, 300, 1300)
+    args, _ = pack_batch_staggered(pairs, 1, device=gpu)
+    n_max, S = args[0].shape[0], args[2].shape[0]
+    before = banded_kernel.LAUNCHES["banded_ck"]
+    for sw, cb, diag in ((1, 64, None), (5, 64, None), (33, 512, None),
+                         (8, 100, (n_max, S * 32 - 40)), (S, 64, None)):
+        got = banded_kernel.banded_ck(*args, sw, cb, diag)
+        want = banded.banded_ck_ref(*args, sw, cb, diag)
+        assert got[1].shape == (-(-n_max // min(cb, n_max)), min(sw, S), args[0].shape[1])
+        _assert_same(got, want, (sw, cb, diag))
+    assert banded_kernel.LAUNCHES["banded_ck"] == before + 5
+
+
+@pytest.mark.parametrize("quantum", [32, 8, 1])
+def test_perpair_kernels_match_plain(gpu, quantum):
+    pairs = [generate.uniform_seeded(150 + 23 * s, [0.02, 0.1, 0.25][s % 3], 500 + s)
+             for s in range(40)] + [(b"ACGT" * 20, b"ACGT" * 90), (b"", b"ACG")]
+    args, _ = pack_batch_staggered(pairs, 1, device=gpu)
+    a0, a1, pb0, pb1, n, m = args
+    n_max, S, B = a0.shape[0], pb0.shape[0], a0.shape[1]
+    rng = np.random.default_rng(quantum)
+    rows = np.arange(0, n_max, quantum)
+    for sw in (2, 4, 9):
+        scheds = [banded.pair_gap_schedule(n, m, sw, n_max, S)[0]] if quantum == 32 else []
+        rand = np.zeros((n_max, B), np.uint8)
+        rand[rows] = rng.random((len(rows), B)) < 0.3
+        rand[rows, ::5] = 1  # these lanes slide past the last word (clamped)
+        for sched in scheds + [rand]:
+            got = banded_kernel.banded_cost_pp(*args, sched, sw, quantum)
+            want = banded.banded_cost_pp_ref(*args, sched, sw, quantum)
+            assert torch.equal(got, want), (sw, quantum)
+            for cb in (64, 512):
+                got = banded_kernel.banded_ck_pp(*args, sched, sw, cb, quantum)
+                want = banded.banded_ck_pp_ref(*args, sched, sw, cb, quantum)
+                _assert_same(got, want, (sw, cb, quantum))
+    bad = np.zeros((n_max, B), np.uint8)
+    bad[1, 0] = 1
+    with pytest.raises(ValueError, match="quantum"):
+        banded_kernel.banded_cost_pp(*args, bad, 4, 2)
+
+
+def test_perpair_shared_schedule_matches_k1(gpu):
+    pairs = _random_pairs(5, 64, 400, 500)
+    args, _ = pack_batch_staggered(pairs, 1, device=gpu)
+    n_max, S, B = args[0].shape[0], args[2].shape[0], args[0].shape[1]
+    for sw in (4, 16):
+        sched = np.broadcast_to(banded.shift_at_array(n_max, S, sw)[:, None], (n_max, B))
+        got = banded_kernel.banded_cost_pp(*args, sched, sw, 1)
+        assert torch.equal(got, banded_kernel.banded_cost(*args, sw))
 
 
 def _mixed():
