@@ -2,25 +2,28 @@
 PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 The JAX package ``astarpa_tpu`` is the reference this port is held
-against.  The port reuses, by import, the parts of it that have no
-framework dependency (``types``, ``generate``, ``oracle``, ``native``,
-``domain`` and ``ops.bitpack``) and never loads JAX.
+against, by the tests only: the port imports torch, never jax, and nothing
+of ``astarpa_tpu``.  It keeps its own copies of the framework-free modules
+it needs (``types``, ``generate``/``chacha``, ``oracle``, ``domain``,
+``ops.bitpack`` and the ``native`` loader, which builds the C++ sources in
+the repository's ``native/``).
 
 Public API:
 
 - :class:`BatchAligner` — exact costs (``cost``, ``cost_iter``) and CIGARs
-  (``align``, ``align_iter``) for many pairs on one device,
-  ``BatchAligner(device="cuda")``.
-- ``generate``, ``oracle``, ``native``, ``domain`` — the shared
-  framework-free modules (pair generation, the edit-distance oracle, the
-  native C++ runtime, domain hulls to per-pair schedules).
+  (``align``, ``align_iter``) for many pairs on one device.  It runs on the
+  card and raises without one; ``BatchAligner(device="cpu")`` runs the
+  kernels' plain torch versions instead.
+- ``generate``, ``oracle``, ``native``, ``domain`` — pair generation, the
+  edit-distance oracle, the native C++ runtime, domain hulls to per-pair
+  schedules.
 """
 
 __all__ = ["BatchAligner", "BatchStats", "generate", "oracle", "native", "domain"]
 
 
 def __getattr__(name):
-    # Lazy, as in astarpa_tpu: importing the package loads no torch code.
+    # Lazy: importing the package loads no torch code.
     if name in ("BatchAligner", "BatchStats"):
         from .parallel import runner
 
@@ -28,5 +31,5 @@ def __getattr__(name):
     if name in ("generate", "oracle", "native", "domain"):
         import importlib
 
-        return importlib.import_module(f"astarpa_tpu.{name}")
+        return importlib.import_module(f"{__name__}.{name}")
     raise AttributeError(name)

@@ -7,12 +7,11 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` picks the first CUDA device when one exists, else the CPU.
-    An explicit CUDA device without a usable GPU raises: the port never
-    drops to the CPU on its own."""
-    if device is None:
-        return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
-    dev = torch.device(device)
+    """``None`` and ``"cuda"`` mean the card: the current CUDA device, and
+    a ``RuntimeError`` without a usable one.  Only ``"cpu"`` runs on the
+    CPU (the kernels' plain versions): the port never drops to the CPU on
+    its own."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} requested but CUDA is not available")

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ctypes.  The output
-goes to ``build/kernels/`` at the repository root, named by a hash of the
-sources and flags, so a fresh checkout builds at first use and an edited
-source never loads a stale library.  Nothing here runs at import time.
+Each ``csrc/*.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``
+(all started together), and the objects are linked into one shared library
+with a plain C interface, loaded with ctypes.  The output goes to
+``build/kernels/`` at the repository root, named by a hash of the sources
+and flags, so a fresh checkout builds at first use and an edited source
+never loads a stale library.  ``ptxas -v`` (registers, shared memory and
+spills of every kernel) is kept beside the library in a ``.log`` file.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -58,13 +61,34 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sources():
+        obj = out.with_name(f"{tag}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    log = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}"
+            )
+        log.append(err)
+    tmp = out.with_name(f"{tag}.so.tmp")
+    cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o",
+           str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+            f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
         )
+    for obj in objs:
+        obj.unlink()
+    out.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
@@ -83,7 +107,9 @@ def load() -> ctypes.CDLL:
         for name, n_ptr, n_int in (("astarpa_banded_cost", 10, 4),
                                    ("astarpa_banded_ck", 13, 5),
                                    ("astarpa_banded_cost_pp", 10, 5),
-                                   ("astarpa_banded_ck_pp", 13, 6)):
+                                   ("astarpa_banded_ck_pp", 13, 6),
+                                   ("astarpa_striped_cost", 10, 8),
+                                   ("astarpa_striped_ck", 14, 10)):
             fn = getattr(lib, name)
             fn.restype = i32
             fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]

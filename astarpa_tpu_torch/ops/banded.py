@@ -5,7 +5,7 @@ Counterpart of ``astarpa_tpu/ops/banded.py``.  A bucket of similarly sized
 pairs is aligned with one window of ``band_words`` uint32 words per pair
 that slides down one word whenever the bucket diagonal crosses a word
 boundary (the shared schedule :func:`shift_at_array`), or on each pair's
-own schedule (:func:`pair_gap_schedule`, ``astarpa_tpu.domain``).  The
+own schedule (:func:`pair_gap_schedule`, :mod:`..domain`).  The
 result is an upper bound that equals the edit distance whenever the
 optimal path stays inside the band; :func:`band_threshold` certifies that.
 
@@ -24,8 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from astarpa_tpu.ops.bitpack import W, n_words
-
+from .bitpack import W, n_words
 from .words import ONES, myers_word, popcount, value_to_window
 
 #: Result of a pair whose final row lies below the window (never certified).

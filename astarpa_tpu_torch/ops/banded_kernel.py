@@ -1,17 +1,23 @@
-"""Wrappers of the banded kernels (``csrc/banded.cu``).
+"""Wrappers of the banded kernels (``csrc/banded.cu``) and the striped
+big-band kernels (``csrc/striped.cu``).
 
 Counterparts of ``astarpa_tpu/ops/pallas_banded.py::banded_cost_tpu`` and
-``banded_ck_tpu`` (``_banded_call``), one wrapper per kernel:
+``banded_ck_tpu`` (``_banded_call``) and of
+``astarpa_tpu/ops/striped.py::striped_cost_tpu`` and ``striped_ck_tpu``,
+one wrapper per kernel:
 
 - :func:`banded_cost` — K1, shared schedule, costs;
 - :func:`banded_ck` — K2, shared schedule, costs and checkpoints;
 - :func:`banded_cost_pp` — K4, per-pair schedules, costs;
-- :func:`banded_ck_pp` — K4, per-pair schedules, costs and checkpoints.
+- :func:`banded_ck_pp` — K4, per-pair schedules, costs and checkpoints;
+- :func:`striped_cost` — K5, shared schedule, any band height, costs;
+- :func:`striped_ck` — K6, K5 plus 8-aligned-top checkpoints.
 
-Each has the contract of its plain version in :mod:`.banded`.  A tensor on
-the CPU goes to that plain version; a CUDA tensor launches the kernel or
-raises.  Per-pair schedules are host numpy (n_max, B) 0/1 arrays, checked
-to shift only at multiples of their quantum on both routes.
+Each has the contract of its plain version in :mod:`.banded` or
+:mod:`.striped`.  A tensor on the CPU goes to that plain version; a CUDA
+tensor launches the kernel or raises.  Per-pair schedules are host numpy
+(n_max, B) 0/1 arrays, checked to shift only at multiples of their
+quantum on both routes.
 """
 
 from __future__ import annotations
@@ -19,13 +25,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import banded
+from . import banded, striped
 from .words import to_tensor
 
 #: Launches of each CUDA kernel in this process, by wrapper name (callers
 #: that need to show a run went through a kernel reset them first).
 LAUNCHES = {"banded_cost": 0, "banded_ck": 0, "banded_cost_pp": 0,
-            "banded_ck_pp": 0}
+            "banded_ck_pp": 0, "striped_cost": 0, "striped_ck": 0}
 
 
 def reset_launches() -> None:
@@ -34,7 +40,8 @@ def reset_launches() -> None:
 
 
 _LABELS = {"banded_cost": "cuda-banded", "banded_ck": "cuda-banded-ck",
-           "banded_cost_pp": "cuda-banded-pp", "banded_ck_pp": "cuda-banded-ck-pp"}
+           "banded_cost_pp": "cuda-banded-pp", "banded_ck_pp": "cuda-banded-ck-pp",
+           "striped_cost": "cuda-striped", "striped_ck": "cuda-striped-ck"}
 
 
 def route(device: torch.device, kernel: str = "banded_cost") -> str:
@@ -89,6 +96,32 @@ def banded_ck_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
                    schedule=schedule, quantum=quantum, col_block=col_block)
 
 
+def striped_cost(a0, a1, pb0, pb1, n, m, band_words: int,
+                 diag: tuple | None = None,
+                 stripe_words: int | None = None) -> torch.Tensor:
+    """Banded costs at any band height (exact at ``band_words >= S``), as
+    :func:`.striped.striped_cost_ref`: equal to :func:`banded_cost` where
+    the window covers row m at the last column, ``INF`` elsewhere.
+    ``stripe_words`` sets the kernel's stripe height (see
+    :func:`striped_threads`; the results do not depend on it)."""
+    if _plain(a0):
+        return striped.striped_cost_ref(a0, a1, pb0, pb1, n, m, band_words, diag)
+    return _launch_striped("striped_cost", a0, a1, pb0, pb1, n, m, band_words,
+                           diag, stripe_words=stripe_words)
+
+
+def striped_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
+               diag: tuple | None = None, stripe_words: int | None = None):
+    """K5 plus checkpoints: ``(costs, ck_vp, ck_vm, ck_tv)`` with (n_ck,
+    SW+8, B) planes as :func:`.striped.striped_ck_ref`.  Raises unless
+    ``SW % 8 == 0`` and ``col_block >= SW + 8`` on both routes."""
+    if _plain(a0):
+        return striped.striped_ck_ref(a0, a1, pb0, pb1, n, m, band_words,
+                                      col_block, diag)
+    return _launch_striped("striped_ck", a0, a1, pb0, pb1, n, m, band_words,
+                           diag, col_block, stripe_words)
+
+
 def _plain(a0) -> bool:
     if a0.device.type == "cpu":
         return True
@@ -104,17 +137,7 @@ def _launch(kernel, a0, a1, pb0, pb1, n, m, band_words, *, diag=None,
     dev = a0.device
     n_max, B = a0.shape
     S = pb0.shape[0]
-    SW = min(band_words, S)
-    for name, x, shape in (("a0", a0, (n_max, B)), ("a1", a1, (n_max, B)),
-                           ("pb0", pb0, (S, B)), ("pb1", pb1, (S, B))):
-        if x.device != dev or x.dtype != torch.int32 or tuple(x.shape) != shape \
-                or not x.is_contiguous():
-            raise ValueError(
-                f"{kernel}: {name} must be a contiguous int32 {shape} tensor "
-                f"on {dev}, got {x.dtype} {tuple(x.shape)} on {x.device}"
-            )
-    if SW < 1:
-        raise ValueError(f"{kernel}: band_words must be >= 1, got {band_words}")
+    SW = _check(kernel, a0, a1, pb0, pb1, band_words)
     n_t = _lengths(n, B, dev)
     m_t = _lengths(m, B, dev)
     per_pair = schedule is not None
@@ -147,6 +170,118 @@ def _launch(kernel, a0, a1, pb0, pb1, n, m, band_words, *, diag=None,
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
     LAUNCHES[kernel] += 1
     return (out,) + ck if ck else out
+
+
+#: Words a thread of the striped kernel holds (``kK`` in ``csrc/striped.cu``).
+STRIPED_WORDS_PER_THREAD = 8
+
+
+def striped_threads(SW: int, stripe_words: int | None = None) -> int:
+    """Block size of the striped kernels.  By default ``ceil(SW / 8)``
+    threads rounded up to a warp, 32 to 512: a stripe is ``threads * 8``
+    words, so bands up to 4096 words run in stripes at least as tall as
+    the band.  ``stripe_words`` (a multiple of 256, at most 4096) sets it."""
+    per = STRIPED_WORDS_PER_THREAD
+    if stripe_words is None:
+        return min(512, max(32, -(-SW // (32 * per)) * 32))
+    if stripe_words % (32 * per) or not 0 < stripe_words <= 512 * per:
+        raise ValueError(f"stripe_words must be a multiple of {32 * per} up to "
+                         f"{512 * per}, got {stripe_words}")
+    return stripe_words // per
+
+
+def striped_events(plan: dict, n_lim: int, threads: int):
+    """Device-side event table of a striped launch: ``(ev (4, nw_pad),
+    stripe_t (n_stripes, 2))`` int32 host arrays.  ``ev`` rows are the
+    plan's ``ent_t``, ``top_t`` and ``abs_t`` and ``end_t``, the step after
+    each word's last useful one (its absorb, or its column ``n_lim - 1``),
+    padded to whole stripes (pad words never enter; their ``end_t`` repeats
+    the last word's, so a warp's end is its last lane's)."""
+    ws = threads * STRIPED_WORDS_PER_THREAD
+    nwl = plan["n_words_live"]
+    n_stripes = -(-nwl // ws)
+    nw_pad = n_stripes * ws
+    w = np.arange(nwl, dtype=np.int64)
+    abs_t = plan["abs_t"].astype(np.int64)
+    end_t = np.minimum(np.where(abs_t < striped.NEVER, abs_t + 1, striped.NEVER),
+                       n_lim + w)
+    ev = np.full((4, nw_pad), striped.NEVER, np.int32)
+    ev[0, :nwl] = plan["ent_t"]
+    ev[1, :nwl] = plan["top_t"]
+    ev[2, :nwl] = plan["abs_t"]
+    ev[3, :nwl] = end_t
+    ev[3, nwl:] = end_t[-1]
+    first = np.arange(n_stripes) * ws
+    last = np.minimum(first + ws, nwl) - 1
+    stripe_t = np.stack([ev[0, first], ev[3, last]], 1).astype(np.int32)
+    return ev, stripe_t
+
+
+def _launch_striped(kernel, a0, a1, pb0, pb1, n, m, band_words, diag,
+                    col_block=None, stripe_words=None):
+    from ._build import load
+
+    dev = a0.device
+    n_max, B = a0.shape
+    S = pb0.shape[0]
+    SW = _check(kernel, a0, a1, pb0, pb1, band_words)
+    plan = striped.plan_striped(n_max, S, SW, diag)
+    n_t, m_t = _lengths(n, B, dev), _lengths(m, B, dev)
+    host_n = isinstance(n, np.ndarray)
+    if host_n:
+        loend = to_tensor(striped.loend_of(plan["lo"], n), dev)
+    else:
+        lo = torch.as_tensor(plan["lo"], device=dev)
+        loend = lo[(n_t.long() - 1).clamp(0, n_max - 1)].to(torch.int32)
+    ck = col_block is not None
+    # Cost mode stops each word after the longest pair's last column;
+    # checkpoints are defined (and compared) up to n_max.
+    n_lim = int(np.max(n, initial=1)) if host_n and not ck else n_max
+    threads = striped_threads(SW, stripe_words)
+    ev, stripe_t = striped_events(plan, n_lim, threads)
+    T = plan["T"]
+    code = ((a0 & 1) | (a1 & 2)).to(torch.uint8).T.contiguous()
+    carry = torch.empty((2, B, T + 1), dtype=torch.uint8, device=dev)
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    head = [code, pb0, pb1, n_t, m_t, loend, to_tensor(ev, dev),
+            to_tensor(stripe_t, dev), carry, out]
+    ints = [n_max, B, S, SW, ev.shape[1], stripe_t.shape[0], T, threads]
+    outs = ()
+    if ck:
+        CB, n_ck, ckw0 = striped.ck_layout(n_max, SW, col_block, plan["lo"])
+        outs = (torch.empty((n_ck, SW + 8, B), dtype=torch.int32, device=dev),
+                torch.empty((n_ck, SW + 8, B), dtype=torch.int32, device=dev),
+                torch.empty((n_ck, B), dtype=torch.int32, device=dev))
+        head += list(outs) + [to_tensor(ckw0, dev)]
+        ints += [CB, n_ck]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(load(), f"astarpa_{kernel}")(
+            *(t.data_ptr() for t in head), *ints, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
+    LAUNCHES[kernel] += 1
+    return (out,) + outs if ck else out
+
+
+def _check(kernel, a0, a1, pb0, pb1, band_words) -> int:
+    """Validate the planes; returns ``SW = min(band_words, S)``."""
+    dev = a0.device
+    n_max, B = a0.shape
+    S = pb0.shape[0]
+    for name, x, shape in (("a0", a0, (n_max, B)), ("a1", a1, (n_max, B)),
+                           ("pb0", pb0, (S, B)), ("pb1", pb1, (S, B))):
+        if x.device != dev or x.dtype != torch.int32 or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            raise ValueError(
+                f"{kernel}: {name} must be a contiguous int32 {shape} tensor "
+                f"on {dev}, got {x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+    SW = min(band_words, S)
+    if SW < 1:
+        raise ValueError(f"{kernel}: band_words must be >= 1, got {band_words}")
+    return SW
 
 
 def _lengths(x, B: int, dev) -> torch.Tensor:

@@ -13,9 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from astarpa_tpu import native
-from astarpa_tpu.ops import bitpack
-
+from .. import native
+from . import bitpack
 from .words import to_tensor
 
 

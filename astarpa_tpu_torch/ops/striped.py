@@ -1,0 +1,220 @@
+"""Striped pinned-word big-band DP: the host plan and the plain torch
+versions of kernels K5 (costs) and K6 (costs and checkpoints).
+
+Counterpart of ``astarpa_tpu/ops/striped.py`` (``striped_cost_tpu``,
+``striped_ck_tpu``).  Words are pinned to absolute indices and staggered:
+at step ``t`` word ``w`` runs column ``t - w``, taking the h carry that
+word ``w-1`` produced at step ``t-1`` (the same column).  So every word of
+the band is independent within a step, and the band has no height limit:
+``band_words >= S`` is the exact full-height DP.  The band follows the
+shared bucket schedule of :func:`.banded.shift_at_array`: before column
+``c`` it covers words ``[lo(c), lo(c) + SW)``, and its boundaries become
+per-word events computed on the host (:func:`plan_striped`):
+
+- enter: word ``w`` joins at the band bottom at step ``ent_t[w]`` and
+  restarts from the all-ones column;
+- absorb: word ``w`` leaves at the band top at step ``abs_t[w]``; its value
+  joins the pair's running top sum when its column is ``<= n-1``;
+- top: word ``w`` is the band top at steps ``[top_t[w], abs_t[w])`` and
+  takes the +1 carry there (no word is the top at an absorb step);
+- capture: at each pair's last column the banded words' values, masked to
+  row ``m``, are added (word ``t + 1 - n`` at step ``t``).
+
+The results equal the sliding kernel's (K1) wherever the window covers row
+``m`` at column ``n-1``, and are ``INF`` elsewhere (the reference's
+``covered`` rule).  K6 adds checkpoints under the 8-aligned-top row
+contract of ``striped_ck_tpu``: checkpoint ``k >= 1`` is the state after
+column ``k*CB - 1``, with plane rows covering words ``[w0 & ~7, (w0 & ~7)
++ SW + 8)`` for the true window top ``w0 = lo(k*CB - 1)``; checkpoint 0 is
+the initial all-ones state.  Rows outside the true window ``[w0, w0+SW)``
+are never read by a trace; both the plain version and the kernel write
+zeros there (the reference leaves them undefined).
+
+The plain versions step ``t`` in a Python loop, vectorised over the live
+words ``[next to absorb, next to enter)`` and the pairs; the CPU runs them,
+the card compares its kernels (``csrc/striped.cu``) against them.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .banded import INF, shift_at_array
+from .bitpack import W
+from .words import ONES, myers_word, popcount, prefix_mask
+
+#: Event time of an event that never happens.
+NEVER = 1 << 30
+
+
+@functools.lru_cache(maxsize=32)
+def plan_striped(n_max: int, S: int, SW: int, diag: tuple | None = None) -> dict:
+    """The host plan of one geometry (the reference's ``_plan_striped``,
+    without the TPU's block-activity flags and stripe ownership windows):
+
+    - ``lo`` (n_max,): band top word before column c (shifts included);
+    - ``n_words_live``: words that ever enter the band (``lo[-1] + SW``);
+    - ``ent_t``, ``top_t``, ``abs_t`` (n_words_live,) int32: the per-word
+      event steps above (``NEVER`` for a word never absorbed);
+    - ``T``: steps ``0..T-1`` cover every word's every column.
+
+    The arrays are shared between calls and read-only."""
+    SW = min(SW, S)
+    shift = shift_at_array(n_max, S, SW, diag)
+    lo = np.cumsum(shift).astype(np.int64)
+    nwl = int(lo[-1]) + SW
+    w = np.arange(nwl, dtype=np.int64)
+    enterc = np.searchsorted(lo, np.maximum(w - SW + 1, 0), side="left")
+    exitc = np.searchsorted(lo, w + 1, side="left")
+    ent_t = (enterc + w).astype(np.int32)
+    abs_t = np.where(exitc < n_max, exitc + w, NEVER).astype(np.int32)
+    # Word w is the top from the step after word w-1's absorb.
+    top_t = np.concatenate([[0], np.minimum(abs_t[:-1].astype(np.int64) + 1,
+                                            NEVER)]).astype(np.int32)
+    for x in (lo, ent_t, top_t, abs_t):
+        x.setflags(write=False)
+    return dict(lo=lo, n_words_live=nwl, ent_t=ent_t, top_t=top_t,
+                abs_t=abs_t, T=n_max + nwl - 1)
+
+
+def loend_of(lo: np.ndarray, n) -> np.ndarray:
+    """Band top at each pair's last column, ``lo[clip(n-1, 0, n_max-1)]``."""
+    n = np.asarray(n, np.int64)
+    return lo[np.clip(n - 1, 0, len(lo) - 1)].astype(np.int32)
+
+
+def ck_layout(n_max: int, SW: int, col_block: int, lo: np.ndarray):
+    """Checkpoint geometry of K6: ``(CB, n_ck, ckw0)`` with ``CB =
+    min(col_block, n_max)``, ``n_ck = n_max // CB + 1`` and ``ckw0[k]`` the
+    true window top of checkpoint k (``ckw0[0] = 0``).
+
+    Raises unless ``SW % 8 == 0`` and ``col_block >= SW + 8``: the
+    reference clamps a smaller CB up without a word (``striped_ck_tpu``),
+    the port refuses it."""
+    if SW % 8:
+        raise ValueError(f"striped ck: band_words must be a multiple of 8, got {SW}")
+    if col_block < SW + 8:
+        raise ValueError(f"striped ck: col_block {col_block} < band_words + 8 = {SW + 8}")
+    CB = min(col_block, max(n_max, 1))
+    n_ck = n_max // CB + 1
+    ckw0 = np.zeros(n_ck, np.int32)
+    ckw0[1:] = lo[np.arange(1, n_ck) * CB - 1]
+    return CB, n_ck, ckw0
+
+
+def _sweep(a0, a1, pb0, pb1, n, m, band_words: int, diag, col_block=None):
+    """The staggered loop both plain versions share; returns ``(costs,
+    ck)`` with ``ck = (ck_vp, ck_vm, ck_tv)`` when ``col_block`` is set."""
+    n_max, B = a0.shape
+    S = pb0.shape[0]
+    SW = min(band_words, S)
+    plan = plan_striped(n_max, S, SW, diag)
+    nwl, T = plan["n_words_live"], plan["T"]
+    ent_t, abs_t = plan["ent_t"], plan["abs_t"]
+    dev = a0.device
+    n_host = np.asarray(torch.as_tensor(n).cpu(), np.int64)
+    m_host = np.asarray(torch.as_tensor(m).cpu(), np.int64)
+    loend_host = loend_of(plan["lo"], n_host)
+    n_t = torch.as_tensor(n_host, dtype=torch.int32, device=dev)
+    m_t = torch.as_tensor(m_host, dtype=torch.int32, device=dev)
+    loend = torch.as_tensor(loend_host, dtype=torch.int32, device=dev)
+
+    vp = torch.full((nwl, B), ONES, dtype=torch.int32, device=dev)
+    vm = torch.zeros((nwl, B), dtype=torch.int32, device=dev)
+    # Each word's h carries out of its last step (word w+1 reads them).
+    hp_out = torch.zeros((nwl, B), dtype=torch.int32, device=dev)
+    hm_out = torch.zeros((nwl, B), dtype=torch.int32, device=dev)
+    acc = torch.zeros(B, dtype=torch.int32, device=dev)
+    cap = torch.zeros(B, dtype=torch.int32, device=dev)
+    one = torch.ones(1, B, dtype=torch.int32, device=dev)
+    zero = torch.zeros(1, B, dtype=torch.int32, device=dev)
+    w_all = torch.arange(nwl, device=dev)
+
+    # Cost capture: word t+1-n at step t, inside [loend, loend+SW).
+    valid = n_host > 0
+    cap_lo = int((n_host - 1 + loend_host)[valid].min()) if valid.any() else T
+    cap_hi = int((n_host - 1 + loend_host + SW)[valid].max()) if valid.any() else 0
+
+    ck = ck_at = None
+    if col_block is not None:
+        CB, n_ck, ckw0 = ck_layout(n_max, SW, col_block, plan["lo"])
+        SWP = SW + 8
+        ck = (torch.zeros((n_ck, SWP, B), dtype=torch.int32, device=dev),
+              torch.zeros((n_ck, SWP, B), dtype=torch.int32, device=dev),
+              torch.zeros((n_ck, B), dtype=torch.int32, device=dev))
+        ck[0][0] = ONES
+        # Step -> checkpoint: word w of window k is taken at k*CB - 1 + w.
+        # CB >= SW keeps the windows' steps apart.
+        ck_at = {}
+        for k in range(1, n_ck):
+            for w in range(int(ckw0[k]), int(ckw0[k]) + SW):
+                ck_at[k * CB - 1 + w] = k
+
+    A = E = 0  # next word to absorb, next word to enter
+    for t in range(T):
+        if E < nwl and ent_t[E] == t:
+            vp[E], vm[E] = ONES, 0
+            E += 1
+        was_abs = A < nwl and abs_t[A] == t
+        if was_abs:
+            alive = t - A <= n_t - 1
+            acc += torch.where(alive, popcount(vp[A]) - popcount(vm[A]), 0)
+            A += 1
+        if A >= E:
+            continue
+        ws = w_all[A:E]
+        cols = (t - ws).clamp(max=n_max - 1)
+        eq = (a0[cols] ^ pb0[ws]) & (a1[cols] ^ pb1[ws])
+        if was_abs:  # the new first word takes the absorbed word's carry
+            hp_in, hm_in = hp_out[A - 1:E - 1], hm_out[A - 1:E - 1]
+        else:  # the first live word is the top: +1 carry
+            hp_in = torch.cat([one, hp_out[A:E - 1]])
+            hm_in = torch.cat([zero, hm_out[A:E - 1]])
+        vp[A:E], vm[A:E], hp_out[A:E], hm_out[A:E] = myers_word(
+            eq, vp[A:E], vm[A:E], hp_in, hm_in)
+        if cap_lo <= t < cap_hi:
+            wc = t + 1 - n_t
+            sel = (n_t > 0) & (wc >= loend) & (wc < loend + SW)
+            idx = wc.clamp(0, nwl - 1).long()[None, :]
+            mask = prefix_mask((m_t - wc * W).clamp(0, W))
+            got = popcount(vp.gather(0, idx)[0] & mask) - popcount(vm.gather(0, idx)[0] & mask)
+            cap += torch.where(sel, got, 0)
+        if ck_at is not None and t in ck_at:
+            k = ck_at[t]
+            w = t + 1 - k * CB
+            row = w - (int(ckw0[k]) & ~7)
+            ck[0][k, row], ck[1][k, row] = vp[w], vm[w]
+            if w == ckw0[k]:
+                ck[2][k] = acc + k * CB
+    covered = (m_t - loend * W) <= SW * W
+    costs = torch.where(covered, acc + cap + n_t, INF)
+    return costs, ck
+
+
+def striped_cost_ref(a0, a1, pb0, pb1, n, m, band_words: int,
+                     diag: tuple | None = None) -> torch.Tensor:
+    """Banded (or, at ``band_words >= S``, exact full-height) edit
+    distances of one bucket on the shared schedule: the plain version of
+    kernel K5, bit-identical to the reference's ``striped_cost_tpu``.
+
+    Args as :func:`.banded.banded_cost_ref`.  Returns (B,) int32 on the
+    planes' device: ``INF`` where the window does not cover row ``m`` at
+    column ``n-1``; a pair with ``n == 0`` gives 0 (the reference's rule,
+    where K1 gives ``m``)."""
+    return _sweep(a0, a1, pb0, pb1, n, m, band_words, diag)[0]
+
+
+def striped_ck_ref(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
+                   diag: tuple | None = None):
+    """K5 plus checkpoints: the plain version of kernel K6, the reference's
+    ``striped_ck_tpu`` on every readable row.
+
+    Returns ``(costs (B,), ck_vp (n_ck, SW+8, B), ck_vm, ck_tv (n_ck, B))``
+    under the 8-aligned-top contract above, ``CB = min(col_block, n_max)``
+    and ``n_ck = n_max // CB + 1``.  Raises unless ``SW % 8 == 0`` and
+    ``col_block >= SW + 8`` (``SW = min(band_words, S)``)."""
+    costs, ck = _sweep(a0, a1, pb0, pb1, n, m, band_words, diag, col_block)
+    return (costs,) + ck

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from astarpa_tpu.ops.bitpack import W
+from .bitpack import W
 
 #: uint32 0xFFFFFFFF as an int32.
 ONES = -1

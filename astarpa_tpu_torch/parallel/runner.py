@@ -5,10 +5,14 @@ shape, packed into pair-minor planes on the device, run through the banded
 kernels (:mod:`..ops.banded_kernel`) and certified per pair; uncertified
 pairs retry at the band their banded upper bound predicts.
 
-- Shared band ladder (buckets below ``domain_min_bp``): K1 for costs; on
-  the align path K1 when every cost a rung can certify fits the native
-  direct-trace budget (CIGARs by direct whole-pair DT traces), else K2,
-  whose window checkpoints feed the native ``trace_banded_ck``.
+- Shared band ladder (buckets below ``domain_min_bp``, or every bucket
+  with ``domain_mode="off"``): K1 for costs; on the align path K1 when
+  every cost a rung can certify fits the native direct-trace budget
+  (CIGARs by direct whole-pair DT traces), else K2, whose window
+  checkpoints feed the native ``trace_banded_ck``.  Bands of at least
+  :data:`STRIPED_MIN_SW` words run the striped kernels instead: K5 for
+  costs, K6 for checkpoints (when ``SW % 8 == 0`` and ``CB >= SW + 8``;
+  their planes have SW+8 rows, which the native trace reads as they are).
 - Per-pair domain ladder (``domain_mode`` resolving to "gap"/"gcsh"): an f
   ladder over per-pair schedules that follow each pair's domain hull, on
   K4 (cost mode, or ck mode for checkpoint traces).
@@ -18,12 +22,13 @@ hints, sticky diagonal, full-height clamp, f feedback) is the reference's,
 verbatim, so ``BatchStats`` match it field for field.
 
 Port decision: the reference gates the ck and per-pair kernels on TPU
-VMEM models (``_select_pp``, ``_striped_ck_ok``, the ``PINNED_*``/
-``STRIPED_MIN_SW`` routing, the domain ladder's ``pp < 128`` break and its
-``except ValueError``).  The CUDA kernels keep their state in device
-memory and have no such ceiling, so none of those gates is copied: every
-ck rung runs K2, every domain round runs K4, and the domain ladder breaks
-only when its band reaches full height or its rounds run out.
+VMEM models (``_select_pp``, ``_striped_ck_ok``'s backend and lane
+checks, the ``PINNED_*`` routing, the domain ladder's ``pp < 128`` break
+and its ``except ValueError``).  The CUDA kernels keep their state in
+device memory and have no such ceiling, so none of those gates is copied:
+the one routing rule is :data:`STRIPED_MIN_SW`, measured on the card;
+every domain round runs K4, and the domain ladder breaks only when its
+band reaches full height or its rounds run out.
 
 Not ported yet: ``mesh`` (raises ``NotImplementedError``), and the
 host-only trace fallbacks ``_trace_bucket`` and ``_align_host_fallback``
@@ -39,19 +44,26 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from astarpa_tpu import native
-from astarpa_tpu.domain import domain_schedule, gap_domain
-from astarpa_tpu.ops.bitpack import W
-from astarpa_tpu.types import Cigar, CigarOp
-
+from .. import native
 from ..device import resolve_device
+from ..domain import domain_schedule, gap_domain
 from ..ops import banded
 from ..ops.banded_kernel import (banded_ck, banded_ck_pp, banded_cost,
-                                 banded_cost_pp, route)
+                                 banded_cost_pp, route, striped_ck,
+                                 striped_cost)
+from ..ops.bitpack import W
 from ..ops.pack import pack_batch_staggered
 from ..ops.words import to_tensor
+from ..types import Cigar, CigarOp
 
 INF = 1 << 30
+
+#: Shared-ladder rungs of at least this many words run the striped
+#: kernels (K5 costs, K6 checkpoints) instead of the sliding ones (K1, K2).
+#: Set from the K1/K5 crossover that ``chip_smoke.py`` phase 12 measures on
+#: the card (``PERF.md``); the reference's 640 is fitted to TPU VMEM.
+#: Tests patch it to drive the striped arms at small sizes.
+STRIPED_MIN_SW = 64
 
 _TODO_MESH = "ROADMAP.md queue 1 item 12 (multi-GPU and multi-host)"
 _TODO_HOST = "ROADMAP.md runner pieces item 4 (off-device trace fallbacks)"
@@ -87,10 +99,13 @@ class BatchAligner:
       domain_k / domain_r: GCSH seed length and match cost of the hulls.
       max_f_rounds: domain-ladder rounds before the stragglers finish on
         the shared ladder.
+      ck_col_block: checkpoint interval (columns) of the ck rungs and
+        rounds; None = ``max(4096, band, n_max // 32)`` (see :meth:`_cb`).
       direct_dt: CIGARs by direct DT traces where the certified costs fit
         the native burst budget; False pins the checkpoint path.
       shape_quantum: padded-geometry quantum ("auto" as the reference).
-      device: "cuda", "cpu" or None (the GPU when there is one).
+      device: None or "cuda" (the card; raises without one) or "cpu" (the
+        kernels' plain torch versions).
     """
 
     band_words: int = 8
@@ -102,6 +117,7 @@ class BatchAligner:
     domain_k: int = 12
     domain_r: int = 2
     max_f_rounds: int = 10
+    ck_col_block: int | None = None
     direct_dt: bool = True
     shape_quantum: object = "auto"
     device: object = None
@@ -179,15 +195,17 @@ class BatchAligner:
         self._diag_hints[key] = cand
         return (n_max, cand)
 
-    @staticmethod
-    def _cb(sw: int, n_max: int) -> int:
-        """Checkpoint interval of a ck rung or round.  n_max/32 keeps the
+    def _cb(self, sw: int, n_max: int) -> int:
+        """Checkpoint interval of a ck rung or round: ``ck_col_block``, or
+        by default ``max(4096, sw, n_max // 32)``.  n_max/32 keeps the
         checkpoint count ~32 whatever the pair length: the readback
         shrinks as 1/CB while the native DT bursts stay flat in CB, and a
         certified distance d <= ~16*sw keeps each segment's distance
-        d*CB/n <= sw/2 inside the burst budget.  Rounded to 512 unless
-        n_max clamps it (the reference's rounding, kept so CB matches)."""
-        cb = max(4096, n_max // 32, sw + 8)
+        d*CB/n <= sw/2 inside the burst budget.  At least sw+8 (K6's
+        capture windows), rounded to 512 unless n_max clamps it (the
+        reference's rounding, kept so CB matches)."""
+        base = self.ck_col_block or max(4096, sw, n_max // 32)
+        cb = max(base, sw + 8)
         cb = -(-cb // 512) * 512
         return min(cb, max(n_max, 1))
 
@@ -386,10 +404,13 @@ class BatchAligner:
         """Dispatch one band rung without synchronising: the kernel and the
         copy of its result to the host are queued; :meth:`_rung_finish`
         waits and certifies.  With ``trace_jobs`` (the align path) the rung
-        runs K1 when every cost it can certify fits the native direct-trace
-        budget, else K2, whose checkpoints of every lane start streaming to
-        the host now when they are small (the common case certifies them
-        all)."""
+        runs the cost kernel when every cost it can certify fits the native
+        direct-trace budget, else a ck kernel, whose checkpoints of every
+        lane start streaming to the host now when they are small (the
+        common case certifies them all).  Bands of at least
+        :data:`STRIPED_MIN_SW` words run K5/K6, smaller ones K1/K2; a ck
+        rung whose band K6 cannot take (``sw % 8``, as at a full height S
+        that is not a multiple of 8, or ``CB < sw + 8``) runs K2."""
         args, B0, members, n_max, S, diag = self._pack_rung(pairs, lad)
         n, m = np.asarray(args[4])[:B0], np.asarray(args[5])[:B0]
         sw = min(lad["band"], S)
@@ -411,14 +432,22 @@ class BatchAligner:
             direct_cap = int(thr.max()) if thr is not None else int(n.max() + m.max())
             if not (self.direct_dt and direct_cap <= native.DIRECT_DT_MAX):
                 CB = self._cb(sw, n_max)
-                got, *ck = banded_ck(*args, sw, CB, diag)
+                if sw >= STRIPED_MIN_SW and sw % 8 == 0 and CB >= sw + 8:
+                    got, *ck = striped_ck(*args, sw, CB, diag)
+                    stats.kernel = route(self.device, "striped_ck")
+                else:
+                    got, *ck = banded_ck(*args, sw, CB, diag)
+                    stats.kernel = route(self.device, "banded_ck")
                 costs = _Readback(got)
                 if _ck_bytes(ck) * len(members) <= _OPT_READBACK_BYTES:
                     opt_chunks = _stage_ck_chunks(*ck, len(members))
-                stats.kernel = route(self.device, "banded_ck")
         if ck is None:
-            costs = _Readback(banded_cost(*args, run_sw, diag))
-            stats.kernel = route(self.device)
+            if run_sw >= STRIPED_MIN_SW:
+                costs = _Readback(striped_cost(*args, run_sw, diag))
+                stats.kernel = route(self.device, "striped_cost")
+            else:
+                costs = _Readback(banded_cost(*args, run_sw, diag))
+                stats.kernel = route(self.device)
         stats.cells_computed += n_max * sw * W * len(members)
         return dict(lad=lad, costs=costs, sw=sw, S=S, thr=thr, diag=diag,
                     trace_jobs=trace_jobs, ck=ck, CB=CB, opt_chunks=opt_chunks)
@@ -820,30 +849,37 @@ _CHUNK_TARGET_BYTES = 2 * 2**20
 _OPT_READBACK_BYTES = 8 * 2**20
 
 
+# Checkpoint sets ``(ck_vp, ck_vm, ck_tv)`` share one shape rule, whatever
+# kernel wrote them: the lane (pair) axis is the last axis of each array;
+# planes are (n_ck, rows, B) with rows = SW (K2, K4) or SW + 8 (K6's
+# 8-aligned-top rows), top values (n_ck, B).  The helpers below only ever
+# cut that axis, and the native trace infers the row layout from the rows.
+
+
 def _ck_bytes(ck) -> int:
-    """Checkpoint bytes per lane of ``(ck_vp, ck_vm, ck_tv)``."""
-    return 4 * sum(x.numel() for x in ck) // max(1, ck[0].shape[2])
+    """Checkpoint bytes per lane of a checkpoint set."""
+    return 4 * sum(x.numel() for x in ck) // max(1, ck[0].shape[-1])
 
 
 def _gather_lanes(ck, slots) -> tuple:
     """The checkpoints of lanes ``slots`` only, gathered on the device."""
     idx = to_tensor(np.asarray(slots, np.int64), ck[0].device)
-    return ck[0].index_select(2, idx), ck[1].index_select(2, idx), ck[2].index_select(1, idx)
+    return tuple(x.index_select(x.dim() - 1, idx) for x in ck)
 
 
 def _stage_ck_chunks(ckvp, ckvm, cktv, lanes: int):
-    """Split the first ``lanes`` lanes of the checkpoint planes into lane
-    ranges and queue each range's copy to pinned host memory, one event per
+    """Split the first ``lanes`` lanes of a checkpoint set into lane ranges
+    and queue each range's copy to pinned host memory, one event per
     chunk; returns ``[(c0, c1, chunk), ...]``.  Queueing every copy up front
     lets the traces of the first chunks run while the later ones arrive."""
-    per_lane = _ck_bytes((ckvp, ckvm, cktv))
+    ck = (ckvp, ckvm, cktv)
+    per_lane = _ck_bytes(ck)
     n_chunks = int(max(1, min(8, per_lane * lanes // _CHUNK_TARGET_BYTES)))
     step = -(-lanes // n_chunks)
     chunks = []
     for c0 in range(0, lanes, step):
         c1 = min(lanes, c0 + step)
-        chunks.append((c0, c1, _Readback(ckvp[:, :, c0:c1], ckvm[:, :, c0:c1],
-                                         cktv[:, c0:c1])))
+        chunks.append((c0, c1, _Readback(*(x[..., c0:c1] for x in ck))))
     return chunks
 
 

@@ -18,9 +18,9 @@ Phases, one output line each (any failure exits non-zero):
    every CIGAR verified, steady ms/pair from the mid-stream periods;
 5. the kernel against the plain version on the main path's own packs (the
    4096-pair cost pack at SW=32, a 512-pair align pack at its ladder's
-   SW, each with the main path's diagonal), bit for bit, and timed (CUDA
-   events; turns plain, kernel, kernel, plain on 2 kbp pairs when the
-   plain version would take over a minute at 10 kbp);
+   SW, each with the main path's diagonal, cut to their first 2048
+   columns), bit for bit, and timed (CUDA events; the kernel also on the
+   whole cost pack; turns plain, kernel, kernel, plain on 1 kbp pairs);
 6. the checkpoint and per-pair kernels (K2, K4 cost, K4 ck) against their
    plain versions on a grid (B 33/1024, n <= 600, SW 1..82 and full
    height, CB 64/512, Q 32/8/1, gap, gcsh and random schedules), bit for
@@ -35,22 +35,44 @@ Phases, one output line each (any failure exits non-zero):
    512 pairs of 10 kbp at e=5% (K2), every CIGAR verified;
 9. the new kernels against their plain versions at the main path's own
    shapes (K4 and K4 ck on config #4's pack and gcsh schedules cut to the
-   first 2048 columns; K4 on K1's shared schedule against K1 at the full
-   config #4 shape; K2 on phase 8's pack), bit for bit, and timed in turns
-   (plain, kernel, kernel, plain) on 2 kbp packs;
+   first 512 columns; K4 on K1's shared schedule against K1 at the full
+   config #4 shape; K2 on phase 8's pack cut to 2048 columns), bit for
+   bit, and timed in turns (plain, kernel, kernel, plain) on 1 kbp packs;
 
-then the kernels' JSON line, and last ``{"ok": true, "device": {...}}``.
-Launch counts are reset just before each main-path phase (3-4, 7, 8) and
-read just after it.  Imports nothing of JAX.  Exits 1 without a usable GPU.
+10. the striped kernels K5 and K6 against their plain versions on a grid
+    (B 33/160, n <= 1500, SW 8 to full height, bands taller than one
+    block's stripe of words, CB 64/512), bit for bit on costs, every
+    checkpoint row and top value;
+11. main path, config #5: ``BatchAligner(device="cuda", band_words=2048,
+    domain_mode="off")`` on 128 pairs of 500 kbp at e=15% (seeds 7 and 8,
+    as ``bench.py:239-253``): cost twice (the second timed and split by
+    layer), ``cost_iter`` over 4 batches, ``align_iter`` with
+    ``ck_col_block=16384`` over 5 batches; 8 costs against
+    ``oracle.levenshtein_myers``, all 640 CIGARs verified; rung SWs, K5/K6
+    ms per rung, peak device memory, Mbp/s;
+12. K5 and K6 against their plain versions at config #5's own shapes (its
+    pack cut to the first 4096 columns, at the ladder's SW), timed in turns
+    (plain, kernel, kernel, plain); K5 against K1 on that cut at SW 64 to
+    2048 (the crossover behind ``runner.STRIPED_MIN_SW``);
+
+then the kernels' JSON line (each kernel's time, its plain version's,
+its bound from this run's inputs, its launches on the main path), the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+The plain sweeps of phases 5 and 9 run on their packs' first columns, and
+the pairs are generated on a pool of the host's cores, to keep the run
+short.  Launch counts are reset just before each main-path phase (3-4, 7,
+8, 11) and read just after it.  Imports nothing of JAX and nothing of the
+JAX package.  Exits 1 without a usable GPU.
 """
 
 from __future__ import annotations
 
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -59,20 +81,74 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import astarpa_tpu_torch as att  # noqa: E402
-from astarpa_tpu_torch.ops import _build, banded, banded_kernel  # noqa: E402
+from astarpa_tpu_torch.ops import _build, banded, banded_kernel, striped  # noqa: E402
 from astarpa_tpu_torch.ops.pack import pack_batch_staggered  # noqa: E402
 from astarpa_tpu_torch.parallel import runner  # noqa: E402
 from astarpa_tpu_torch.parallel.runner import BatchAligner  # noqa: E402
+from astarpa_tpu_torch.types import Cigar  # noqa: E402
 
 PAIRS, LENGTH, ERR, SEED = 4096, 10_000, 0.05, 42
 STREAM_BATCHES, STREAM_PAIRS = 6, 512
 TIMED_SW = 32
-PLAIN_LIMIT_S = 60.0
+TURN_LENGTH = 1000
 C4_PAIRS, C4_LENGTH, C4_ERR, C4_SEED = 128, 100_000, 0.10, 100
 C4_ORACLE = 8
 CK_PAIRS = 512
 CUT_COLS = 2048
 GRID_PAIRS = 1024
+C5_PAIRS, C5_LENGTH, C5_ERR, C5_SEEDS = 128, 500_000, 0.15, (7, 8)
+C5_BAND, C5_CB = 2048, 16384
+C5_CUT = 4096
+CROSSOVER_SW = (64, 128, 256, 512, 1024, 2048)
+WORKERS = 8
+
+# The card's limits for each kernel's bound (the least time the card could
+# take for the same work): the int32 rate of 132 SMs x 64 lanes at the SM
+# clock nvidia-smi reads (set in phase 0), and 3.35 TB/s of device memory
+# (H100 SXM data sheet).  One Myers word step costs at least 17 int32
+# operations: the match word (3), the step itself (12) and the two carries
+# out (2).
+SMS, INT32_LANES, HBM_BYTES_S = 132, 64, 3.35e12
+OPS_PER_WORD_STEP = 17
+SM_CLOCK_HZ = None
+
+
+def bound(word_steps: int, in_bytes: int, out_bytes: int) -> dict:
+    """``bound_ms`` and ``bound_by`` of one call: the larger of the
+    operations over the card's int32 rate and the bytes (each input read
+    once, each output written once) over its memory rate."""
+    ops_ms = word_steps * OPS_PER_WORD_STEP / (SMS * INT32_LANES * SM_CLOCK_HZ) * 1e3
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def plane_bound(planes, sw: int, outs, extra_in: int = 0) -> dict:
+    """Bound of a banded or striped call on ``planes``: SW word steps for
+    every column of every pair (the band has SW words at each of a pair's
+    n columns; columns past n are not needed), the planes and lengths in,
+    ``outs`` (tensors) out."""
+    n = np.asarray(planes[4], np.int64)
+    sw = min(sw, planes[2].shape[0])
+    in_bytes = sum(x.numel() * x.element_size() for x in planes[:4]) + 8 * len(n)
+    out_bytes = sum(x.numel() * x.element_size() for x in outs)
+    return bound(int(n.sum()) * sw, in_bytes + extra_in, out_bytes)
+
+
+def _uniform(args):
+    return att.generate.uniform_seeded(*args)
+
+
+def _pool(fn, jobs):
+    """``[fn(job) for job in jobs]`` on spawned worker processes."""
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(WORKERS, mp_context=ctx) as ex:
+        return list(ex.map(fn, jobs, chunksize=max(1, len(jobs) // (4 * WORKERS))))
+
+
+def _verify_job(job) -> bool:
+    a, b, cigar, cost = job
+    return Cigar.from_string_lazy(cigar).verify(a, b) == cost
 
 
 def fail(msg: str) -> None:
@@ -85,11 +161,19 @@ def say(msg: str) -> None:
 
 
 def phase0_card() -> str:
+    global SM_CLOCK_HZ
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     say(smi)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    SM_CLOCK_HZ = float(clock) * 1e6
+    say(f"[0 clock] max SM clock {clock} MHz: int32 rate "
+        f"{SMS * INT32_LANES * SM_CLOCK_HZ:.4g}/s over {SMS} SMs x {INT32_LANES} lanes")
     nvcc = _build.find_nvcc()
     nvcc_ver = subprocess.run([nvcc, "--version"], capture_output=True,
                               text=True, check=True).stdout.strip().splitlines()[-1]
@@ -111,8 +195,16 @@ def phase1_build() -> None:
     if not att.native.available():
         fail("native C++ runtime did not build")
     t2 = time.perf_counter()
-    say(f"[1 build] cuda kernels {lib.name} {t1 - t0:.3f} s; "
-        f"native runtime {t2 - t1:.3f} s")
+    say(f"[1 build] cuda kernels {lib.name} {t1 - t0:.3f} s (one nvcc per source, "
+        f"in parallel); native runtime {t2 - t1:.3f} s")
+    # ptxas -v: registers, shared memory and spills of each kernel.
+    log = lib.with_suffix(".log").read_text().splitlines()
+    for i, line in enumerate(log):
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            props = " ".join(x.split(":", 1)[-1].strip() for x in log[i + 1:i + 4]
+                             if "Used" in x or "spill" in x)
+            say(f"[1 ptxas] {name}: {props}")
 
 
 def _random_pairs(rng, count, n_hi, m_hi):
@@ -304,6 +396,22 @@ def _event_ms(fn):
     return start.elapsed_time(end), out
 
 
+def _cut(planes, cols: int):
+    """A pack cut to its first ``cols`` columns: each pair keeps its first
+    min(n, cols) characters of a and the matching share of b's rows (its
+    length scaled by the same ratio), as the main path's ladder aims its
+    band along the diagonal."""
+    n = np.asarray(planes[4])
+    cut = min(cols, planes[0].shape[0])
+    n_c = np.minimum(n, cut).astype(np.int32)
+    m_c = (np.asarray(planes[5]).astype(np.int64) * n_c // np.maximum(n, 1)).astype(np.int32)
+    return tuple(x[:cut].contiguous() for x in planes[:2]) + (planes[2], planes[3], n_c, m_c)
+
+
+def _cut_diag(planes):
+    return (planes[0].shape[0], int(np.asarray(planes[5]).max()))
+
+
 def _check_equal(planes, sw, diag, label: str) -> tuple[int, float, list[float]]:
     """Kernel == plain on one pack; returns (max_abs_err, plain ms, kernel
     ms of two runs), all CUDA events."""
@@ -316,56 +424,66 @@ def _check_equal(planes, sw, diag, label: str) -> tuple[int, float, list[float]]
 
 
 def phase5_time(spy: LayerSpy) -> dict:
-    """The kernel against plain on the main path's own packs, and timed.
-    Returns the kernel's JSON record (without the launch count)."""
+    """The kernel against plain on the main path's own packs (cut to their
+    first columns), and timed.  Returns the kernel's JSON record (without
+    the launch count)."""
     if PAIRS not in spy.last or STREAM_PAIRS not in spy.last:
         fail(f"main path launched no {PAIRS}- or {STREAM_PAIRS}-pair batch")
     cost_l, align_l = spy.last[PAIRS], spy.last[STREAM_PAIRS]
     spy.last.clear()
     args10k = cost_l["args"]
     n_max10, S10 = args10k[0].shape[0], args10k[2].shape[0]
-    err_c, plain10, k10 = _check_equal(args10k, TIMED_SW, cost_l["diag"], "the cost pack")
-    a512 = align_l["args"]
-    err_a, plain512, k512 = _check_equal(a512, align_l["sw"], align_l["diag"],
+    full_ms = [_event_ms(lambda: banded_kernel.banded_cost(*args10k, TIMED_SW, cost_l["diag"]))[0]
+               for _ in range(2)]
+    cut10k = _cut(args10k, CUT_COLS)
+    err_c, plain10, k10 = _check_equal(cut10k, TIMED_SW, _cut_diag(cut10k), "the cost pack")
+    a512 = _cut(align_l["args"], CUT_COLS)
+    err_a, plain512, k512 = _check_equal(a512, align_l["sw"], _cut_diag(a512),
                                          "the align pack")
-    say(f"[5 main shapes] kernel == plain: B={PAIRS} n_max={n_max10} S={S10} "
-        f"SW={TIMED_SW} diag={cost_l['diag']} (ladder ran SW {cost_l['sw']}): kernel "
-        f"{k10[0]:.3f}/{k10[1]:.3f} ms, plain {plain10:.1f} ms; "
-        f"B={a512[0].shape[1]} n_max={a512[0].shape[0]} S={a512[2].shape[0]} "
-        f"SW={align_l['sw']} diag={align_l['diag']}: kernel {k512[0]:.3f}/{k512[1]:.3f} ms, "
+    say(f"[5 main shapes] kernel on the whole cost pack B={PAIRS} n_max={n_max10} S={S10} "
+        f"SW={TIMED_SW} diag={cost_l['diag']} (ladder ran SW {cost_l['sw']}): "
+        f"{full_ms[0]:.3f}/{full_ms[1]:.3f} ms; kernel == plain on its first {CUT_COLS} "
+        f"columns: kernel {k10[0]:.3f}/{k10[1]:.3f} ms, plain {plain10:.1f} ms; on the "
+        f"align pack B={a512[0].shape[1]} cut to {a512[0].shape[0]} columns, S="
+        f"{a512[2].shape[0]}, SW={align_l['sw']}: kernel {k512[0]:.3f}/{k512[1]:.3f} ms, "
         f"plain {plain512:.1f} ms; max_abs_err {max(err_c, err_a)} (CUDA events)")
 
-    pairs2k = att.generate.generate_batch(PAIRS, 2000, ERR, seed=SEED + 1)
-    args2k, _ = pack_batch_staggered(pairs2k, 32, device="cuda")
+    pairs1k = att.generate.generate_batch(PAIRS, TURN_LENGTH, ERR, seed=SEED + 1,
+                                          workers=WORKERS)
+    args1k, _ = pack_batch_staggered(pairs1k, 32, device="cuda")
 
-    def run(args, plain):
+    def run(plain):
         f = banded.banded_cost_ref if plain else banded_kernel.banded_cost
-        return lambda: f(*args, TIMED_SW)
+        return lambda: f(*args1k, TIMED_SW)
 
-    turns = args10k if plain10 / 1e3 <= PLAIN_LIMIT_S else args2k
-    label = "10 kbp" if turns is args10k else "2 kbp"
     times, outs = {True: [], False: []}, {}
     for plain in (True, False, False, True):
-        ms, outs[plain] = _event_ms(run(turns, plain))
+        ms, outs[plain] = _event_ms(run(plain))
         times[plain].append(ms)
     err_t = int((outs[True].long() - outs[False].long()).abs().max())
     if err_t:
         fail("timed kernel != plain")
     ms, plain_ms = float(np.mean(times[False])), float(np.mean(times[True]))
-    say(f"[5 time] turns on {label} pairs (plain at 10 kbp took {plain10 / 1e3:.1f} s, "
-        f"limit {PLAIN_LIMIT_S:.0f} s): B={PAIRS} n_max={turns[0].shape[0]} SW={TIMED_SW}: "
-        f"kernel {times[False][0]:.3f}/{times[False][1]:.3f} ms, plain "
+    say(f"[5 time] turns on {TURN_LENGTH} bp pairs: B={PAIRS} n_max={args1k[0].shape[0]} "
+        f"SW={TIMED_SW}: kernel {times[False][0]:.3f}/{times[False][1]:.3f} ms, plain "
         f"{times[True][0]:.1f}/{times[True][1]:.1f} ms (CUDA events), "
         f"speed-up {plain_ms / ms:.1f}x, max_abs_err {err_t}")
     return {
         "max_abs_err": max(err_c, err_a, err_t),
-        # The main path's shape: the kernel's mean of two runs, plain's one run.
+        # The main path's cost pack cut to CUT_COLS columns: the kernel's
+        # mean of two runs, plain's one run, the bound of the same inputs.
         "ms": float(np.mean(k10)), "plain_ms": plain10,
-        "shape": {"B": PAIRS, "n_max": n_max10, "S": S10, "SW": TIMED_SW},
+        **plane_bound(cut10k, TIMED_SW, [torch.empty(PAIRS, dtype=torch.int32)]),
+        "library_ms": None,
+        "shape": {"B": PAIRS, "n_max": cut10k[0].shape[0], "S": S10, "SW": TIMED_SW},
+        # The whole pack: the kernel's two runs and the bound.
+        "full_ms": float(np.mean(full_ms)),
+        "full_bound_ms": plane_bound(args10k, TIMED_SW, [])["bound_ms"],
+        "full_shape": {"B": PAIRS, "n_max": n_max10, "S": S10, "SW": TIMED_SW},
         # The turns (plain, kernel, kernel, plain): means of two runs each.
         "turns_ms": ms, "turns_plain_ms": plain_ms,
-        "turns_shape": {"B": PAIRS, "n_max": turns[0].shape[0],
-                        "S": turns[2].shape[0], "SW": TIMED_SW},
+        "turns_shape": {"B": PAIRS, "n_max": args1k[0].shape[0],
+                        "S": args1k[2].shape[0], "SW": TIMED_SW},
     }
 
 
@@ -489,16 +607,19 @@ class RoundSpy:
             ("gcsh build", runner.BatchAligner, "_build_gcsh_handles"),
             ("hull sample", att.native.DomainHandle, "sample"),
             ("schedule", runner, "domain_schedule"),
+            ("readback wait", runner._Readback, "numpy"),
             ("traces", runner.BatchAligner, "_flush_traces"))
 
-    def __init__(self):
-        self._orig = {n: getattr(runner, n) for n in self.NAMES}
+    def __init__(self, names=NAMES):
+        self._orig = {n: getattr(runner, n) for n in names}
         self._orig_host = [(key, obj, attr, getattr(obj, attr))
                            for key, obj, attr in self.HOST]
         self.last: dict[str, tuple] = {}
         self.reset()
 
     def reset(self):
+        # Earlier calls stay in ``history`` (their events are kept).
+        self.history = getattr(self, "history", []) + getattr(self, "calls", [])
         self.calls = []
         self.host = {key: 0.0 for key, *_ in self.HOST}
 
@@ -534,19 +655,23 @@ class RoundSpy:
         torch.cuda.synchronize()
         out = []
         for name, args, a, b in self.calls:
-            sw = args[7] if name != "banded_ck" else args[6]
-            q = f" Q={args[-1]}" if name != "banded_ck" else ""
+            pp = name.endswith("_pp")
+            sw = args[7] if pp else args[6]
+            q = f" Q={args[-1]}" if pp else ""
             out.append(f"{name} SW={sw}{q} {a.elapsed_time(b):.1f} ms")
         return out
 
     def split(self, wall: float) -> str:
-        """The host layers and the kernel time (CUDA events) of the calls
-        since the last reset, and what is left of ``wall``."""
+        """The host layers of the calls since the last reset (host clock,
+        summed over threads), what is left of ``wall``, and the kernels'
+        time on the card (CUDA events), which overlaps the host layers
+        (the readback wait is the host waiting for it)."""
         torch.cuda.synchronize()
         kernel = sum(a.elapsed_time(b) for _, _, a, b in self.calls) / 1e3
-        parts = dict(self.host, kernel=kernel)
-        rest = wall - sum(parts.values())
-        return ", ".join(f"{k} {v:.3f} s" for k, v in parts.items()) + f", other {rest:.3f} s"
+        rest = wall - sum(self.host.values())
+        return (", ".join(f"{k} {v:.3f} s" for k, v in self.host.items())
+                + f", other {rest:.3f} s; kernels on the card {kernel:.3f} s "
+                f"({kernel / wall:.3f} of the wall)")
 
     def remove(self):
         for name, fn in self._orig.items():
@@ -565,8 +690,7 @@ def phase7_config4(spy: RoundSpy) -> dict:
     """Config #4 through the default BatchAligner; returns the launch
     counts of its run."""
     t0 = time.perf_counter()
-    pairs = [att.generate.uniform_seeded(C4_LENGTH, C4_ERR, C4_SEED + s)
-             for s in range(C4_PAIRS)]
+    pairs = _pool(_uniform, [(C4_LENGTH, C4_ERR, C4_SEED + s) for s in range(C4_PAIRS)])
     bp = sum(len(a) for a, _ in pairs)
     ba = BatchAligner(device="cuda")
     mode = ba._resolve_domain_mode(pairs, list(range(len(pairs))), want_cigars=False)
@@ -622,7 +746,8 @@ def phase7_config4(spy: RoundSpy) -> dict:
 def phase8_ck(spy: RoundSpy) -> dict:
     """K2 on the main path: one 512-pair 10 kbp align with direct_dt=False;
     returns the launch counts of its run."""
-    pairs = att.generate.generate_batch(CK_PAIRS, LENGTH, ERR, seed=SEED + 200)
+    pairs = att.generate.generate_batch(CK_PAIRS, LENGTH, ERR, seed=SEED + 200,
+                                        workers=WORKERS)
     ba = BatchAligner(device="cuda", direct_dt=False)
     banded_kernel.reset_launches()
     spy.reset()
@@ -666,7 +791,7 @@ def phase9_time(spy: RoundSpy) -> dict:
     # K4 cost and ck on config #4's last ck round, cut to the first columns.
     *planes, sched, sw, cb, q = spy.last["banded_ck_pp"]
     n_max = planes[0].shape[0]
-    cut = min(CUT_COLS, n_max)
+    cut = min(CUT_COLS // 4, n_max)
     n_c = np.minimum(planes[4], cut).astype(np.int32)
     m_c = (planes[5].astype(np.int64) * n_c // np.maximum(planes[4], 1)).astype(np.int32)
     cplanes = tuple(x[:cut].contiguous() for x in planes[:2]) + (planes[2], planes[3], n_c, m_c)
@@ -699,10 +824,14 @@ def phase9_time(spy: RoundSpy) -> dict:
     if err_full:
         fail("K4 on the shared schedule != K1 at config #4's full shape")
     full_shape = {"B": B, "n_max": n_max, "S": S, "SW": sw_c}
+    full_bound = plane_bound(planes, sw_c, [k4], n_max * B)["bound_ms"]
     say(f"[9 config4 full] K4 with K1's schedule == K1 at {full_shape}: K4 "
         f"{k4_ms:.3f} ms, K1 {k1_ms:.3f} ms, max_abs_err {err_full} (CUDA events)")
-    # K2 on phase 8's pack.
-    *planes, sw_k2, cb_k2, diag_k2 = spy.last["banded_ck"]
+    # K2 on phase 8's pack, cut to its first columns.
+    *planes, sw_k2, cb_k2, _ = spy.last["banded_ck"]
+    planes = _cut(planes, CUT_COLS)
+    diag_k2 = _cut_diag(planes)
+    cb_k2 = min(cb_k2, CUT_COLS // 4)  # a few checkpoints inside the cut
     k2_plain_ms, k2_ref = _event_ms(lambda: banded.banded_ck_ref(*planes, sw_k2, cb_k2, diag_k2))
     k2_ms, err_k2 = [], 0
     for _ in range(2):
@@ -713,55 +842,277 @@ def phase9_time(spy: RoundSpy) -> dict:
         fail("K2 != plain on the ck align pack")
     k2_shape = {"B": planes[0].shape[1], "n_max": planes[0].shape[0],
                 "S": planes[2].shape[0], "SW": sw_k2, "CB": cb_k2}
-    say(f"[9 ck pack] K2 == plain on phase 8's pack {k2_shape} diag={diag_k2}: K2 "
+    say(f"[9 ck pack] K2 == plain on phase 8's pack cut to {CUT_COLS} columns {k2_shape} "
+        f"diag={diag_k2}: K2 "
         f"{k2_ms[0]:.3f}/{k2_ms[1]:.3f} ms, plain {k2_plain_ms:.1f} ms, max_abs_err "
         f"{err_k2} (CUDA events)")
-    # Turns on 2 kbp packs: K2 against plain ck; K4 cost and ck against the
+    # Turns on 1 kbp packs: K2 against plain ck; K4 cost and ck against the
     # plain per-pair ck sweep (whose costs are the plain cost version's).
-    pairs2k = att.generate.generate_batch(PAIRS, 2000, ERR, seed=SEED + 1)
+    pairs2k = att.generate.generate_batch(PAIRS, TURN_LENGTH, ERR, seed=SEED + 1,
+                                          workers=WORKERS)
     args2k, _ = pack_batch_staggered(pairs2k, 32, device="cuda")
     n2, S2 = args2k[0].shape[0], args2k[2].shape[0]
     gap2k = banded.pair_gap_schedule(args2k[4], args2k[5], TIMED_SW, n2, S2)[0]
-    turns_shape = {"B": PAIRS, "n_max": n2, "S": S2, "SW": TIMED_SW, "CB": 512}
-    p2, k2t, e2 = _turns(lambda: banded.banded_ck_ref(*args2k, TIMED_SW, 512), {
-        "banded_ck": (lambda: banded_kernel.banded_ck(*args2k, TIMED_SW, 512), lambda r: r)})
-    p4, k4t, e4 = _turns(lambda: banded.banded_ck_pp_ref(*args2k, gap2k, TIMED_SW, 512), {
+    turns_shape = {"B": PAIRS, "n_max": n2, "S": S2, "SW": TIMED_SW, "CB": 256}
+    p2, k2t, e2 = _turns(lambda: banded.banded_ck_ref(*args2k, TIMED_SW, 256), {
+        "banded_ck": (lambda: banded_kernel.banded_ck(*args2k, TIMED_SW, 256), lambda r: r)})
+    p4, k4t, e4 = _turns(lambda: banded.banded_ck_pp_ref(*args2k, gap2k, TIMED_SW, 256), {
         "banded_cost_pp": (lambda: banded_kernel.banded_cost_pp(*args2k, gap2k, TIMED_SW),
                            lambda r: r[0]),
-        "banded_ck_pp": (lambda: banded_kernel.banded_ck_pp(*args2k, gap2k, TIMED_SW, 512),
+        "banded_ck_pp": (lambda: banded_kernel.banded_ck_pp(*args2k, gap2k, TIMED_SW, 256),
                          lambda r: r)})
     if e2 or e4:
         fail("timed kernel != plain on the 2 kbp pack")
     turns = {"banded_ck": (k2t["banded_ck"], p2), "banded_cost_pp": (k4t["banded_cost_pp"], p4),
              "banded_ck_pp": (k4t["banded_ck_pp"], p4)}
-    say(f"[9 turns] 2 kbp pack {turns_shape} (gap schedules, Q=32, for K4): " + "; ".join(
+    say(f"[9 turns] {TURN_LENGTH} bp pack {turns_shape} (gap schedules, Q=32, for K4): " + "; ".join(
         f"{k} {ms[0]:.3f}/{ms[1]:.3f} ms vs plain {pl[0]:.1f}/{pl[1]:.1f} ms "
         f"({np.mean(pl) / np.mean(ms):.0f}x)" for k, (ms, pl) in turns.items())
         + f"; max_abs_err {max(e2, e4)} (CUDA events)")
 
-    def record(name, ms, plain, shape, err, **extra):
+    def record(name, ms, plain, shape, err, bnd, **extra):
         k_ms, p_ms = turns[name]
         return {"max_abs_err": err, "ms": float(np.mean(ms)), "plain_ms": plain,
-                "shape": shape, **extra, "turns_ms": float(np.mean(k_ms)),
-                "turns_plain_ms": float(np.mean(p_ms)), "turns_shape": turns_shape}
+                **bnd, "library_ms": None, "shape": shape, **extra,
+                "turns_ms": float(np.mean(k_ms)), "turns_plain_ms": float(np.mean(p_ms)),
+                "turns_shape": turns_shape}
 
+    sched_bytes = csched.size
     return {
-        "banded_ck": record("banded_ck", k2_ms, k2_plain_ms, k2_shape, max(err_k2, e2)),
+        "banded_ck": record("banded_ck", k2_ms, k2_plain_ms, k2_shape, max(err_k2, e2),
+                            plane_bound(planes, sw_k2, k2_ref)),
         "banded_cost_pp": record("banded_cost_pp", cost_ms, plain_ms, cshape, max(err_pp, e4),
-                                 full_ms=k4_ms, full_shape=full_shape, full_k1_ms=k1_ms),
-        "banded_ck_pp": record("banded_ck_pp", ck_ms, plain_ms, cshape, max(err_pp, e4)),
+                                 plane_bound(cplanes, sw, ref[:1], sched_bytes),
+                                 full_ms=k4_ms, full_shape=full_shape, full_k1_ms=k1_ms,
+                                 full_bound_ms=full_bound),
+        "banded_ck_pp": record("banded_ck_pp", ck_ms, plain_ms, cshape, max(err_pp, e4),
+                               plane_bound(cplanes, sw, ref, sched_bytes)),
+    }
+
+
+def phase10_grid() -> int:
+    """K5 and K6 == plain on a grid; returns the max abs difference over
+    costs, every checkpoint row (the zero rows outside the true windows
+    included) and every top value.  K5 is held against the costs of the
+    plain ck sweep where K6 applies: the plain versions are one loop."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(13)
+    pairs = [att.generate.uniform_seeded(int(rng.integers(1, 1501)),
+                                         float(rng.uniform(0, 0.25)), 5000 + s)
+             for s in range(160)]
+    pairs[1] = (b"", b"ACGTACGTAC")  # an n == 0 lane
+    m_top = max(len(b) for _, b in pairs)
+    # A skewed pair makes S ~ 280 words: bands taller than a 256-word stripe.
+    pairs[2] = (pairs[2][0][:300] or b"A", att.generate.uniform_seeded(9000, 0.1, 4999)[0])
+    wide, _ = pack_batch_staggered(pairs, 1, device="cuda")
+    n_max, S = wide[0].shape[0], wide[2].shape[0]
+    diag = (n_max, m_top)
+    narrow = _lanes(wide, 33)
+    s8 = S // 8 * 8
+    cases = [(narrow, 8, diag, 64, None), (wide, 16, diag, 64, None),
+             (wide, 24, None, 512, None), (narrow, 64, diag, 512, None),
+             (wide, 200, diag, 512, None), (wide, s8, None, 512, 256),
+             (narrow, s8, diag, 512, 256), (wide, S, None, None, None),
+             (narrow, S, None, None, 256)]
+    worst, labels = 0, []
+    for planes, sw, dg, cb, ws in cases:
+        sw_eff = min(sw, S)
+        if cb is not None:
+            want = striped.striped_ck_ref(*planes, sw, cb, dg)
+            err = _max_err(banded_kernel.striped_ck(*planes, sw, cb, dg, ws), want)
+            want = want[0]
+        else:
+            want = striped.striped_cost_ref(*planes, sw, dg)
+            err = 0
+        err = max(err, _max_err(banded_kernel.striped_cost(*planes, sw, dg, ws), want))
+        label = (f"B={planes[0].shape[1]} SW={sw_eff}{' (full)' if sw_eff == S else ''} "
+                 f"CB={cb} stripe={ws or 8 * banded_kernel.striped_threads(sw_eff)} "
+                 f"diag={'set' if dg else 'None'}")
+        if err:
+            fail(f"K5/K6 != plain at {label}")
+        worst = max(worst, err)
+        labels.append(label)
+    torch.cuda.synchronize()
+    say(f"[10 striped=plain] {len(cases)}/{len(cases)} cases (n_max {n_max}, S {S}: "
+        f"{'; '.join(labels)}); max_abs_err {worst}, {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def phase11_config5() -> tuple[dict, RoundSpy]:
+    """Config #5 through the big shared band (K5, K6): costs, a cost
+    stream and an align stream; returns the launch counts of its run and
+    the spy holding each kernel's last inputs."""
+    t0 = time.perf_counter()
+    sets = {s: att.generate.generate_batch(C5_PAIRS, C5_LENGTH, C5_ERR, seed=s,
+                                           workers=WORKERS) for s in C5_SEEDS}
+    p7, p8 = (sets[s] for s in C5_SEEDS)
+    bp = sum(len(a) for a, _ in p7)
+    say(f"[11 config5] {C5_PAIRS} x {C5_LENGTH} bp e={C5_ERR}, seeds {C5_SEEDS}, "
+        f"generated in {time.perf_counter() - t0:.1f} s on {WORKERS} processes")
+    spy = RoundSpy(("striped_cost", "striped_ck", "banded_cost", "banded_ck"))
+    spy.install()
+    banded_kernel.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ba = BatchAligner(device="cuda", band_words=C5_BAND, domain_mode="off")
+    costs1, st1 = ba.cost_with_stats(p7)
+    torch.cuda.synchronize()
+    first = spy.rounds()
+    spy.reset()
+    t0 = time.perf_counter()
+    costs, st = ba.cost_with_stats(p7)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rungs, split = spy.rounds(), spy.split(dt)
+    if st.kernel != "cuda-striped" or not (costs == costs1).all() or (costs < 0).any():
+        fail(f"config #5 cost: kernel {st.kernel!r}, or runs disagree")
+    say(f"[11 cost] 1st call rungs [{', '.join(first)}], retries {st1.band_retries}; "
+        f"2nd call {dt:.4f} s = {bp / dt / 1e6:.3f} Mbp/s: rungs [{', '.join(rungs)}] "
+        f"(CUDA events), retries {st.band_retries}, cells {st.cells_computed}, "
+        f"kernel {st.kernel}")
+    say(f"[11 cost split] 2nd call, host clock and CUDA events: {split}")
+
+    spy.reset()
+    marks, outs = [time.perf_counter()], []
+    for c, _ in ba.cost_iter(iter([p7, p8, p7, p8])):
+        outs.append(c)
+        marks.append(time.perf_counter())
+    diffs = np.diff(marks)
+    # bench.py's min over [1:] takes the drain period (the last batch's
+    # kernel alone, its pack already done); [1:-1] are the mid-stream ones.
+    period, drain_min = float(diffs[1:-1].min()), float(diffs[1:].min())
+    median = float(np.median(diffs[1:-1]))
+    if not ((outs[0] == costs).all() and (outs[2] == costs).all()
+            and (outs[1] == outs[3]).all()):
+        fail("config #5 cost_iter disagrees with cost_with_stats")
+    say(f"[11 cost_iter] 4 batches (seeds 7, 8, 7, 8): periods "
+        f"{', '.join(f'{x:.4f}' for x in diffs)} s; mid-stream min {period:.4f} s = "
+        f"{bp / period / 1e6:.3f} Mbp/s, median {median:.4f} s = {bp / median / 1e6:.3f} "
+        f"Mbp/s (min over [1:], drain included, {drain_min:.4f} s "
+        f"= {bp / drain_min / 1e6:.3f} Mbp/s); rungs [{', '.join(spy.rounds())}]")
+
+    picks = [(p7, i) for i in range(4)] + [(p8, i) for i in range(4)]
+    with ThreadPoolExecutor(len(picks)) as ex:
+        want = list(ex.map(lambda pi: att.oracle.levenshtein_myers(*pi[0][pi[1]]), picks))
+    got = [int(costs[i]) for i in range(4)] + [int(outs[1][i]) for i in range(4)]
+    if got != want:
+        fail(f"config #5 costs {got} != levenshtein_myers {want}")
+
+    bac = BatchAligner(device="cuda", band_words=C5_BAND, domain_mode="off",
+                       ck_col_block=C5_CB)
+    stream = [p7, p8, p7, p8, p7]
+    spy.reset()
+    marks, results = [time.perf_counter()], []
+    for res, st_a in bac.align_iter(iter(stream)):
+        results.append((res, st_a))
+        marks.append(time.perf_counter())
+    wall = marks[-1] - marks[0]
+    periods = np.diff(marks)[1:-2]  # [0] is the fill, [-2:] the drain
+    rungs_a, split_a = spy.rounds(), spy.split(wall)
+    if len(results) != len(stream):
+        fail("config #5 align_iter lost a batch")
+    jobs = []
+    for pairs, (res, st_a), want_c in zip(stream, results, [costs, outs[1]] * 2 + [costs]):
+        if [c for c, _ in res] != [int(x) for x in want_c] or st_a.direct_traces:
+            fail("config #5 align_iter costs differ from the cost path, or traced directly")
+        jobs.extend((a, b, cig.to_string(), c) for (a, b), (c, cig) in zip(pairs, res))
+    t0 = time.perf_counter()
+    ok = _pool(_verify_job, jobs)
+    if not all(ok):
+        fail(f"config #5: {len(ok) - sum(ok)} CIGARs do not verify at their cost")
+    say(f"[11 align] align_iter ck_col_block={C5_CB}, 5 batches: {len(jobs)} CIGARs "
+        f"verified at the cost path's costs ({time.perf_counter() - t0:.1f} s on "
+        f"{WORKERS} processes); periods {', '.join(f'{x:.4f}' for x in np.diff(marks))} s; "
+        f"mid-stream [1:-2] min {periods.min():.4f} s = {bp / periods.min() / 1e6:.3f} Mbp/s, "
+        f"median {np.median(periods):.4f} s = {bp / np.median(periods) / 1e6:.3f} Mbp/s "
+        f"cost+CIGAR; kernel {results[-1][1].kernel}; rungs [{', '.join(rungs_a)}]")
+    say(f"[11 align split] whole stream {wall:.3f} s, host clock and CUDA events: {split_a}")
+    say(f"[11 oracle] levenshtein_myers 8/8 (pairs 0-3 of seeds 7 and 8); peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    spy.remove()
+    launches = dict(banded_kernel.LAUNCHES)
+    for name in ("striped_cost", "striped_ck"):
+        if not launches[name]:
+            fail(f"config #5 never launched {name}")
+    return launches, spy
+
+
+def phase12_time(spy: RoundSpy) -> dict:
+    """K5/K6 == plain at config #5's shapes, timed in turns, and K5
+    against K1 across bands on the cut; returns K5's and K6's JSON records
+    (without the launch counts)."""
+    torch.cuda.synchronize()
+    rung_ms = {name: [a.elapsed_time(b) for n_, _, a, b in spy.history + spy.calls
+                      if n_ == name]
+               for name in ("striped_cost", "striped_ck")}
+    *planes, sw, diag = spy.last["striped_cost"]
+    cut = _cut(planes, C5_CUT)
+    dg = _cut_diag(cut)
+    shape = {"B": cut[0].shape[1], "n_max": cut[0].shape[0], "S": cut[2].shape[0], "SW": sw}
+    p5, k5, e5 = _turns(lambda: striped.striped_cost_ref(*cut, sw, dg), {
+        "striped_cost": (lambda: banded_kernel.striped_cost(*cut, sw, dg), lambda r: r)})
+    *ck_planes, sw_ck, cb_path, _ = spy.last["striped_ck"]
+    cut_ck = _cut(ck_planes, C5_CUT)
+    dg_ck = _cut_diag(cut_ck)
+    cb = sw_ck + 8  # the smallest interval K6 takes: a checkpoint inside the cut
+    p6, k6, e6 = _turns(lambda: striped.striped_ck_ref(*cut_ck, sw_ck, cb, dg_ck), {
+        "striped_ck": (lambda: banded_kernel.striped_ck(*cut_ck, sw_ck, cb, dg_ck), lambda r: r)})
+    if e5 or e6:
+        fail("K5/K6 != plain on config #5's cut pack")
+    ck_shape = {"B": cut_ck[0].shape[1], "n_max": cut_ck[0].shape[0],
+                "S": cut_ck[2].shape[0], "SW": sw_ck, "CB": cb}
+    say(f"[12 config5 cut] first {C5_CUT} columns, turns plain, kernel, kernel, plain: "
+        f"K5 {shape} {k5['striped_cost'][0]:.3f}/{k5['striped_cost'][1]:.3f} ms vs plain "
+        f"{p5[0]:.1f}/{p5[1]:.1f} ms; K6 {ck_shape} {k6['striped_ck'][0]:.3f}/"
+        f"{k6['striped_ck'][1]:.3f} ms vs plain {p6[0]:.1f}/{p6[1]:.1f} ms; max_abs_err "
+        f"{max(e5, e6)} (CUDA events)")
+    rows, wins = [], []
+    for s_ in CROSSOVER_SW:
+        t5 = [_event_ms(lambda: banded_kernel.striped_cost(*cut, s_, dg))[0] for _ in range(2)]
+        t1 = [_event_ms(lambda: banded_kernel.banded_cost(*cut, s_, dg))[0] for _ in range(2)]
+        a = banded_kernel.striped_cost(*cut, s_, dg)
+        b = banded_kernel.banded_cost(*cut, s_, dg)
+        cov = a < banded.INF
+        if not (torch.equal(a[cov], b[cov]) and (b[~cov] == banded.INF).all()):
+            fail(f"K5 != K1 on the covered lanes at SW={s_}")
+        rows.append(f"SW={s_} K5 {t5[0]:.3f}/{t5[1]:.3f} ms K1 {t1[0]:.3f}/{t1[1]:.3f} ms")
+        if min(t5) < min(t1):
+            wins.append(s_)
+    say(f"[12 crossover] K5 vs K1 on the cut (CUDA events, two runs each; K5 == K1 on "
+        f"covered lanes): {'; '.join(rows)}; K5 faster at SW {wins}; "
+        f"runner.STRIPED_MIN_SW = {runner.STRIPED_MIN_SW}")
+
+    def record(turns_ms, plain_ms, planes_, sw_, outs, shp, rungs, full_planes, full_sw):
+        return {"max_abs_err": max(e5, e6), "ms": float(np.mean(turns_ms)),
+                "plain_ms": float(np.mean(plain_ms)),
+                **plane_bound(planes_, sw_, outs), "library_ms": None, "shape": shp,
+                # Every launch on the main path at its full shape (the last
+                # launch's shape and bound).
+                "rung_ms": rungs, "rung_bound_ms": plane_bound(full_planes, full_sw, [])["bound_ms"],
+                "rung_shape": {"B": full_planes[0].shape[1], "n_max": full_planes[0].shape[0],
+                               "S": full_planes[2].shape[0], "SW": full_sw}}
+
+    cost_out = [torch.empty(cut[0].shape[1], dtype=torch.int32)]
+    ck_out = banded_kernel.striped_ck(*cut_ck, sw_ck, cb, dg_ck)
+    return {
+        "striped_cost": record(k5["striped_cost"], p5, cut, sw, cost_out, shape,
+                               rung_ms["striped_cost"], planes, sw),
+        "striped_ck": record(k6["striped_ck"], p6, cut_ck, sw_ck, ck_out, ck_shape,
+                             rung_ms["striped_ck"], ck_planes, sw_ck),
     }
 
 
 def main() -> None:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     smi = phase0_card()
     phase1_build()
     grid_err = phase2_grid()
 
-    pairs = att.generate.generate_batch(PAIRS, LENGTH, ERR, seed=SEED)
-    batches = [att.generate.generate_batch(STREAM_PAIRS, LENGTH, ERR, seed=SEED + 100 + k)
+    pairs = att.generate.generate_batch(PAIRS, LENGTH, ERR, seed=SEED, workers=WORKERS)
+    batches = [att.generate.generate_batch(STREAM_PAIRS, LENGTH, ERR, seed=SEED + 100 + k,
+                                           workers=WORKERS)
                for k in range(STREAM_BATCHES)]
     ba = BatchAligner(device="cuda")
     spy = LayerSpy()
@@ -789,21 +1140,34 @@ def main() -> None:
         fail("the main path never launched banded_ck")
     say(f"[main path] launches: config #4 {c4}; ck align {ck}")
     records = phase9_time(rounds)
-    if "jax" in sys.modules:
-        fail("jax was imported")
-    source = "astarpa_tpu_torch/csrc/banded.cu"
+
+    striped_err = phase10_grid()
+    c5, c5_spy = phase11_config5()
+    say(f"[main path] launches: config #5 {c5}")
+    c5_records = phase12_time(c5_spy)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "astarpa_tpu"))
+    if loaded:
+        fail(f"JAX or the JAX package was imported: {loaded[:5]}")
     replaces = {
         "banded_cost": "astarpa_tpu/ops/pallas_banded.py:533",
         "banded_ck": "astarpa_tpu/ops/pallas_banded.py:828",
         "banded_cost_pp": "astarpa_tpu/ops/pallas_banded.py:447",
         "banded_ck_pp": "astarpa_tpu/ops/pallas_banded.py:447",
+        "striped_cost": "astarpa_tpu/ops/striped.py:522",
+        "striped_ck": "astarpa_tpu/ops/striped.py:576",
     }
-    kernels = [{"name": "banded_cost", "route": "cuda", "source": source,
+    banded_src, striped_src = "astarpa_tpu_torch/csrc/banded.cu", "astarpa_tpu_torch/csrc/striped.cu"
+    kernels = [{"name": "banded_cost", "route": "cuda", "source": banded_src,
                 "replaces": replaces["banded_cost"], "launches": launches, **record}]
     for name, rec in records.items():
         rec["max_abs_err"] = max(rec["max_abs_err"], new_grid_err)
-        kernels.append({"name": name, "route": "cuda", "source": source,
+        kernels.append({"name": name, "route": "cuda", "source": banded_src,
                         "replaces": replaces[name], "launches": counts[name], **rec})
+    for name, rec in c5_records.items():
+        rec["max_abs_err"] = max(rec["max_abs_err"], striped_err)
+        kernels.append({"name": name, "route": "cuda", "source": striped_src,
+                        "replaces": replaces[name], "launches": c5[name], **rec})
+    say(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""Card tests of the port: the CUDA kernel against its plain torch version,
-and the runner on the GPU against the runner on the CPU.  They skip without
-a CUDA device.  This file imports no JAX, so a GPU host without it runs
-them with the suite's conftest (which configures JAX) left out:
+"""Card tests of the port: the CUDA kernels against their plain torch
+versions, and the runner on the GPU against the runner on the CPU.  They
+skip without a CUDA device.  This file imports no JAX and nothing of the
+JAX package, so a GPU host without it runs them with the suite's conftest
+(which configures JAX) left out:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -10,9 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from astarpa_tpu import generate, oracle
-from astarpa_tpu_torch import BatchAligner
-from astarpa_tpu_torch.ops import banded, banded_kernel
+from astarpa_tpu_torch import BatchAligner, generate, oracle
+from astarpa_tpu_torch.ops import banded, banded_kernel, striped
 from astarpa_tpu_torch.ops.pack import pack_batch_staggered
 
 torch.set_num_threads(1)
@@ -140,3 +140,44 @@ def test_streams_on_gpu(gpu):
     for pairs, (res, _) in zip(batches, ba.align_iter(iter(batches))):
         for (a, b), (c, cig) in zip(pairs, res):
             assert cig.verify(a, b) == c == oracle.levenshtein(a, b)
+
+
+@pytest.mark.parametrize("count", [33, 160])
+def test_striped_kernels_match_plain(gpu, count):
+    """K5 and K6 against their plain versions, bit for bit on costs, every
+    checkpoint row and top value: bands from 8 words to full height, and
+    bands taller than a 256-word stripe (a skewed pair makes S ~ 280)."""
+    pairs = [generate.uniform_seeded(100 + (s * 61) % 900, [0.03, 0.15][s % 2], 700 + s)
+             for s in range(count)]
+    pairs[1] = (b"", b"ACGTAC")
+    pairs[2] = (pairs[2][0][:200], generate.uniform_seeded(9000, 0.1, 699)[0])
+    args, _ = pack_batch_staggered(pairs, 1, device=gpu)
+    n_max, S = args[0].shape[0], args[2].shape[0]
+    diag = (n_max, max(len(b) for _, b in pairs[3:]))
+    before = dict(banded_kernel.LAUNCHES)
+    cases = ((8, 64, diag, None), (24, 512, None, None), (64, 512, diag, 256),
+             (S // 8 * 8, 512, None, 256), (S, None, None, None))
+    for sw, cb, dg, ws in cases:
+        want = striped.striped_cost_ref(*args, sw, dg)
+        assert torch.equal(banded_kernel.striped_cost(*args, sw, dg, ws), want), sw
+        if cb is not None:
+            got = banded_kernel.striped_ck(*args, sw, cb, dg, ws)
+            _assert_same(got, striped.striped_ck_ref(*args, sw, cb, dg), (sw, cb))
+            assert got[1].shape == (n_max // min(cb, n_max) + 1, sw + 8, len(pairs))
+    assert banded_kernel.LAUNCHES["striped_cost"] == before["striped_cost"] + len(cases)
+    assert banded_kernel.LAUNCHES["striped_ck"] == before["striped_ck"] + len(cases) - 1
+
+
+def test_runner_striped_rungs_on_gpu(gpu):
+    """A 64-word band on 3 kbp pairs: cost rungs run K5 and ck rungs K6 on
+    the card, with the costs, ladder and CIGARs of the CPU route."""
+    pairs = [generate.uniform_seeded(2500 + 97 * s, 0.1, 40 + s) for s in range(6)]
+    kw = dict(band_words=64, domain_mode="off")
+    costs, stats = BatchAligner(device=gpu, **kw).cost_with_stats(pairs)
+    ref, ref_stats = BatchAligner(device="cpu", **kw).cost_with_stats(pairs)
+    assert list(costs) == list(ref) == [oracle.levenshtein(a, b) for a, b in pairs]
+    assert (stats.kernel, stats.cells_computed) == ("cuda-striped", ref_stats.cells_computed)
+    res, astats = BatchAligner(device=gpu, direct_dt=False, **kw).align_with_stats(pairs)
+    assert astats.kernel == "cuda-striped-ck"
+    for (a, b), (c, cig), want in zip(pairs, res, ref):
+        assert cig.verify(a, b) == c == want

@@ -20,19 +20,39 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_port_main_path_never_imports_jax():
+    """Cost, align, the gap domain ladder and a striped rung (K5 and K6's
+    plain versions) on the CPU load no ``jax`` and no ``astarpa_tpu``."""
     code = textwrap.dedent("""
         import sys
         import torch
         torch.set_num_threads(1)
         import astarpa_tpu_torch as att
+        from astarpa_tpu_torch.parallel import runner
         pairs = [att.generate.uniform_seeded(120 + 45 * s, 0.08, s)
                  for s in range(4)] + [(b"", b"ACG")]
         ba = att.BatchAligner(device="cpu")
         costs = ba.cost(pairs)
         for (a, b), c, (c2, cig) in zip(pairs, costs, ba.align(pairs)):
             assert c == c2 == cig.verify(a, b) == att.oracle.levenshtein(a, b)
-        jax_mods = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
-        assert not jax_mods, jax_mods
+        gap = att.BatchAligner(device="cpu", domain_mode="gap", domain_min_bp=0)
+        assert (gap.cost(pairs) == costs).all()
+        runner.STRIPED_MIN_SW = 8
+        calls = []
+        for name in ("striped_cost", "striped_ck"):
+            def spy(*args, _fn=getattr(runner, name), _name=name):
+                calls.append(_name)
+                return _fn(*args)
+            setattr(runner, name, spy)
+        big = att.BatchAligner(device="cpu", band_words=8, domain_mode="off",
+                               direct_dt=False)
+        res, st = big.align_with_stats(pairs[:4])
+        assert st.kernel == "torch-ref"
+        assert [c for c, _ in res] == list(costs[:4])
+        assert (big.cost(pairs) == costs).all()
+        assert {"striped_cost", "striped_ck"} <= set(calls), calls
+        mods = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "astarpa_tpu"))
+        assert not mods, mods
         print("ok")
     """)
     proc = subprocess.run(
@@ -56,8 +76,17 @@ def test_cuda_request_raises_without_a_gpu():
 
 
 def test_resolve_device():
+    """None means the card, as "cuda" does: it raises without one; only
+    "cpu" runs on the CPU."""
     assert resolve_device("cpu") == torch.device("cpu")
-    auto = resolve_device(None)
-    assert auto.type == ("cuda" if torch.cuda.is_available() else "cpu")
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device(None)
+        from astarpa_tpu_torch import BatchAligner
+
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            BatchAligner()
     with pytest.raises(ValueError):
         resolve_device("meta")
