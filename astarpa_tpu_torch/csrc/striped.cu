@@ -1,11 +1,17 @@
-// Striped pinned-word big-band Myers edit distance: kernels K5 (costs) and
-// K6 (costs + 8-aligned-top checkpoints), one template striped_kernel<kCk>.
+// Striped pinned-word big-band Myers edit distance, one template
+// striped_kernel<kCk, kPP>: on the shared schedule kernels K5 (costs) and K6
+// (costs + 8-aligned-top checkpoints), on per-pair schedules kernels K9
+// (costs) and K10 (costs + checkpoints under the per-pair sliding kernel's
+// contract).
 //
 // They replace the TPU kernels astarpa_tpu/ops/striped.py::_striped_call (K5,
 // entry striped_cost_tpu) and _striped_ck_call (K6, entry striped_ck_tpu),
-// both running _striped_body.  Their plain torch twins, and the host plan
-// whose per-word event steps this kernel reads, are in
-// astarpa_tpu_torch/ops/striped.py; the results must match them bit for bit.
+// both running _striped_body, and astarpa_tpu/ops/pinned.py::_pinned_pp_call
+// (K9, entry pinned_cost_pp_tpu) and _pinned_pp_ck_call (K10, entry
+// pinned_ck_pp_tpu), both running _pinned_pp_body.  Their plain torch twins,
+// and the plans whose per-word event steps this kernel reads, are in
+// astarpa_tpu_torch/ops/striped.py and astarpa_tpu_torch/ops/pinned.py; the
+// results must match them bit for bit.
 //
 // The DP: word w (absolute, 32 rows) runs column t - w at step t, taking the
 // h carry and the column's char code that word w-1 produced at step t-1.
@@ -33,18 +39,27 @@
 //
 // Checkpoints (kCk): word w of checkpoint k's true window [w0, w0+SW) is
 // written at step k*CB - 1 + w into row w - (w0 & ~7) of (n_ck, SW+8, B)
-// planes; the thread holding w0 writes top_val = the pair's absorbed sum so
-// far + k*CB.  No word is absorbed at that step (absorb steps strictly rise
-// by word), so the shared running sum is stable there.  Rows outside the
-// true window are zero, checkpoint 0 is the all-ones state.
+// planes (K6), or row w - w0 of (n_ck, SW, B) planes with w0 the pair's own
+// window top (K10); the thread holding w0 writes top_val = the pair's
+// absorbed sum so far + k*CB.  No word is absorbed at that step (absorb
+// steps strictly rise by word), so the shared running sum is stable there.
+// Rows outside the true window are zero, checkpoint 0 is the all-ones state.
+//
+// Per-pair schedules (kPP): the event table and the stripe step ranges are
+// per pair ((B, 4, nw_pad) and (B, n_stripes, 2), built on the card from the
+// schedule), and each block runs its own pair's stripe count.  One block per
+// pair keeps the state in registers and the carry in device memory, so the
+// TPU kernel's cross-pair residency window and its VMEM ceiling have no
+// counterpart here.
 //
 // What bounds it on an H100: integer throughput.  About 20 int32 operations
 // per word step (eq, the Myers step and the carry moves), 64 lanes per SM
 // per clock; memory traffic is the profile once per stripe and a few bytes
 // per step.  The stripe ramps (words entering and leaving) keep part of a
 // block's warps idle, and one block per pair fills at most B SMs.  At
-// config #5 (128 pairs of 500 kbp, SW=2048) a rung runs at ~3.5x the
-// operation bound on an H100 (PERF.md).
+// config #5 (128 pairs of 500 kbp, SW=2048) a K5 rung runs at ~3.5x the
+// operation bound on an H100 (PERF.md).  In cost mode K9 stops each pair's
+// words at its own last column.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -63,13 +78,14 @@ __device__ __forceinline__ uint32_t pack_aux(uint32_t a0, uint32_t a1,
   return (a0 & 1u) | (a1 & 2u) | (hp << 2) | (hm << 3);
 }
 
-template <bool kCk>
+template <bool kCk, bool kPP>
 __global__ void __launch_bounds__(kMaxThreads) striped_kernel(
     const uint8_t* __restrict__ code, const uint32_t* __restrict__ pb0,
     const uint32_t* __restrict__ pb1, const int32_t* __restrict__ n,
     const int32_t* __restrict__ m, const int32_t* __restrict__ loend,
     const int32_t* __restrict__ ev, const int32_t* __restrict__ stripe_t,
-    uint8_t* carry, int32_t* __restrict__ out, uint32_t* __restrict__ ck_vp,
+    const int32_t* __restrict__ nsp, uint8_t* carry,
+    int32_t* __restrict__ out, uint32_t* __restrict__ ck_vp,
     uint32_t* __restrict__ ck_vm, int32_t* __restrict__ ck_tv,
     const int32_t* __restrict__ ckw0, int n_max, int B, int S, int SW,
     int nw_pad, int n_stripes, int T, int CB, int n_ck) {
@@ -82,6 +98,11 @@ __global__ void __launch_bounds__(kMaxThreads) striped_kernel(
   const int np = n[p];
   const int mp = m[p];
   const int le = loend[p];
+  if (kPP) {
+    ev += (size_t)p * 4 * nw_pad;
+    stripe_t += (size_t)p * 2 * n_stripes;
+  }
+  const int my_stripes = kPP ? nsp[p] : n_stripes;
   const int32_t* ent_t = ev;
   const int32_t* top_t = ev + nw_pad;
   const int32_t* abs_t = ev + 2 * nw_pad;
@@ -96,7 +117,7 @@ __global__ void __launch_bounds__(kMaxThreads) striped_kernel(
     s_acc = 0;
     s_cap = 0;
   }
-  const int SWP = SW + 8;
+  const int SWP = kPP ? SW : SW + 8;  // plane rows
   if (kCk) {
     for (int i = tid; i < n_ck * SWP; i += NT) {
       const int k = i / SWP;
@@ -106,8 +127,10 @@ __global__ void __launch_bounds__(kMaxThreads) striped_kernel(
         ck_vp[o] = ~0u;
         ck_vm[o] = 0u;
       } else {
-        const int off = ckw0[k] & 7;
-        if (row < off || row >= off + SW) {
+        // K6's rows outside the true window stay zero; the DP writes the
+        // others after the barrier below (all of K10's rows).
+        const int off = kPP ? 0 : ckw0[k] & 7;
+        if (kPP || row < off || row >= off + SW) {
           ck_vp[o] = 0u;
           ck_vm[o] = 0u;
         }
@@ -118,7 +141,7 @@ __global__ void __launch_bounds__(kMaxThreads) striped_kernel(
   __syncthreads();
 
   int cap = 0;  // this thread's captured values
-  for (int s = 0; s < n_stripes; ++s) {
+  for (int s = 0; s < my_stripes; ++s) {
     const int w0 = s * WS + tid * kK;  // this thread's first word
     const uint8_t* cin = carry + ((size_t)((s + 1) & 1) * B + p) * (T + 1);
     uint8_t* cout = carry + ((size_t)(s & 1) * B + p) * (T + 1);
@@ -242,7 +265,7 @@ __global__ void __launch_bounds__(kMaxThreads) striped_kernel(
         }
         last_aux = pack_aux(xa0[kK - 1], xa1[kK - 1], xhp[kK - 1], xhm[kK - 1]);
         if (lane == 31) s_aux[t & 1][warp] = last_aux;
-        if (tid == NT - 1 && s + 1 < n_stripes) cout[t + 1] = (uint8_t)last_aux;
+        if (tid == NT - 1 && s + 1 < my_stripes) cout[t + 1] = (uint8_t)last_aux;
         // Cost capture: word t+1-n finishes column n-1 now.
         const int wc = t + 1 - np;
         if (np > 0 && (unsigned)(wc - w0) < (unsigned)kK && wc >= le &&
@@ -255,21 +278,24 @@ __global__ void __launch_bounds__(kMaxThreads) striped_kernel(
             if (j == wc - w0) cap += __popc(vp[j] & mask) - __popc(vm[j] & mask);
           }
         }
-        if (kCk && ckr < kK) {
-          const int w = w0 + ckr;
+        // Words ckr, ckr + CB, ... of this thread end a checkpoint column
+        // (one at most once CB >= kK).
+        for (int r = kCk ? ckr : kK; r < kK; r += CB) {
+          const int w = w0 + r;
           const int k = (t + 1 - w) / CB;
           if (t + 1 - w > 0 && k < n_ck) {
-            const int w0k = ckw0[k];
+            const int w0k = kPP ? ckw0[(size_t)k * B + p] : ckw0[k];
             if (w >= w0k && w < w0k + SW) {
               uint32_t xv = 0u, xm = 0u;
 #pragma unroll
               for (int j = 0; j < kK; ++j) {
-                if (j == ckr) {
+                if (j == r) {
                   xv = vp[j];
                   xm = vm[j];
                 }
               }
-              const size_t o = ((size_t)k * SWP + (w - (w0k & ~7))) * B + p;
+              const int row = kPP ? w - w0k : w - (w0k & ~7);
+              const size_t o = ((size_t)k * SWP + row) * B + p;
               ck_vp[o] = xv;
               ck_vm[o] = xm;
               if (w == w0k) ck_tv[(size_t)k * B + p] = s_acc + k * CB;
@@ -289,24 +315,25 @@ __global__ void __launch_bounds__(kMaxThreads) striped_kernel(
   }
 }
 
-template <bool kCk>
+template <bool kCk, bool kPP>
 int launch(const void* code, const void* pb0, const void* pb1, const void* n,
            const void* m, const void* loend, const void* ev,
-           const void* stripe_t, void* carry, void* out, void* ck_vp,
-           void* ck_vm, void* ck_tv, const void* ckw0, int n_max, int B,
-           int S, int SW, int nw_pad, int n_stripes, int T, int threads,
-           int CB, int n_ck, void* stream) {
+           const void* stripe_t, const void* nsp, void* carry, void* out,
+           void* ck_vp, void* ck_vm, void* ck_tv, const void* ckw0, int n_max,
+           int B, int S, int SW, int nw_pad, int n_stripes, int T,
+           int threads, int CB, int n_ck, void* stream) {
   if (threads < 32 || threads > kMaxThreads || threads % 32 ||
-      nw_pad != n_stripes * threads * kK) {
+      nw_pad != n_stripes * threads * kK || (kCk && CB < 1)) {
     return (int)cudaErrorInvalidValue;
   }
   if (B > 0) {
-    striped_kernel<kCk><<<B, threads, 0, (cudaStream_t)stream>>>(
+    striped_kernel<kCk, kPP><<<B, threads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)code, (const uint32_t*)pb0, (const uint32_t*)pb1,
         (const int32_t*)n, (const int32_t*)m, (const int32_t*)loend,
-        (const int32_t*)ev, (const int32_t*)stripe_t, (uint8_t*)carry,
-        (int32_t*)out, (uint32_t*)ck_vp, (uint32_t*)ck_vm, (int32_t*)ck_tv,
-        (const int32_t*)ckw0, n_max, B, S, SW, nw_pad, n_stripes, T, CB, n_ck);
+        (const int32_t*)ev, (const int32_t*)stripe_t, (const int32_t*)nsp,
+        (uint8_t*)carry, (int32_t*)out, (uint32_t*)ck_vp, (uint32_t*)ck_vm,
+        (int32_t*)ck_tv, (const int32_t*)ckw0, n_max, B, S, SW, nw_pad,
+        n_stripes, T, CB, n_ck);
   }
   return (int)cudaGetLastError();
 }
@@ -319,9 +346,12 @@ int launch(const void* code, const void* pb0, const void* pb1, const void* n,
 // the word's last useful step); stripe_t (n_stripes, 2) int32 step ranges;
 // carry (2, B, T+1) uint8 scratch; out (B,) int32.  The ck entry also
 // writes ck_vp/ck_vm (n_ck, SW+8, B) and ck_tv (n_ck, B) from ckw0 (n_ck,)
-// window tops.  `threads` is the block size (a multiple of 32, <= 512);
-// nw_pad = n_stripes * threads * 8.  Each launches on `stream` without
-// synchronising and returns cudaGetLastError() (0 on success).
+// window tops.  The per-pair entries take ev (B, 4, nw_pad), stripe_t (B,
+// n_stripes, 2) and nsp (B,) int32 stripe counts, and the ck one writes
+// (n_ck, SW, B) planes from ckw0 (n_ck, B).  `threads` is the block size (a
+// multiple of 32, <= 512); nw_pad = n_stripes * threads * 8.  Each launches
+// on `stream` without synchronising and returns cudaGetLastError() (0 on
+// success).
 extern "C" {
 
 int astarpa_striped_cost(const void* code, const void* pb0, const void* pb1,
@@ -330,9 +360,10 @@ int astarpa_striped_cost(const void* code, const void* pb0, const void* pb1,
                          void* out, int n_max, int B, int S, int SW,
                          int nw_pad, int n_stripes, int T, int threads,
                          void* stream) {
-  return launch<false>(code, pb0, pb1, n, m, loend, ev, stripe_t, carry, out,
-                       nullptr, nullptr, nullptr, nullptr, n_max, B, S, SW,
-                       nw_pad, n_stripes, T, threads, 1, 0, stream);
+  return launch<false, false>(code, pb0, pb1, n, m, loend, ev, stripe_t,
+                              nullptr, carry, out, nullptr, nullptr, nullptr,
+                              nullptr, n_max, B, S, SW, nw_pad, n_stripes, T,
+                              threads, 1, 0, stream);
 }
 
 int astarpa_striped_ck(const void* code, const void* pb0, const void* pb1,
@@ -342,9 +373,36 @@ int astarpa_striped_ck(const void* code, const void* pb0, const void* pb1,
                        const void* ckw0, int n_max, int B, int S, int SW,
                        int nw_pad, int n_stripes, int T, int threads, int CB,
                        int n_ck, void* stream) {
-  return launch<true>(code, pb0, pb1, n, m, loend, ev, stripe_t, carry, out,
-                      ck_vp, ck_vm, ck_tv, ckw0, n_max, B, S, SW, nw_pad,
-                      n_stripes, T, threads, CB, n_ck, stream);
+  return launch<true, false>(code, pb0, pb1, n, m, loend, ev, stripe_t,
+                             nullptr, carry, out, ck_vp, ck_vm, ck_tv, ckw0,
+                             n_max, B, S, SW, nw_pad, n_stripes, T, threads,
+                             CB, n_ck, stream);
+}
+
+int astarpa_pinned_cost_pp(const void* code, const void* pb0, const void* pb1,
+                           const void* n, const void* m, const void* loend,
+                           const void* ev, const void* stripe_t,
+                           const void* nsp, void* carry, void* out, int n_max,
+                           int B, int S, int SW, int nw_pad, int n_stripes,
+                           int T, int threads, void* stream) {
+  return launch<false, true>(code, pb0, pb1, n, m, loend, ev, stripe_t, nsp,
+                             carry, out, nullptr, nullptr, nullptr, nullptr,
+                             n_max, B, S, SW, nw_pad, n_stripes, T, threads,
+                             1, 0, stream);
+}
+
+int astarpa_pinned_ck_pp(const void* code, const void* pb0, const void* pb1,
+                         const void* n, const void* m, const void* loend,
+                         const void* ev, const void* stripe_t,
+                         const void* nsp, void* carry, void* out, void* ck_vp,
+                         void* ck_vm, void* ck_tv, const void* ckw0,
+                         int n_max, int B, int S, int SW, int nw_pad,
+                         int n_stripes, int T, int threads, int CB, int n_ck,
+                         void* stream) {
+  return launch<true, true>(code, pb0, pb1, n, m, loend, ev, stripe_t, nsp,
+                            carry, out, ck_vp, ck_vm, ck_tv, ckw0, n_max, B,
+                            S, SW, nw_pad, n_stripes, T, threads, CB, n_ck,
+                            stream);
 }
 
 }  // extern "C"

@@ -2,22 +2,25 @@
 big-band kernels (``csrc/striped.cu``).
 
 Counterparts of ``astarpa_tpu/ops/pallas_banded.py::banded_cost_tpu`` and
-``banded_ck_tpu`` (``_banded_call``) and of
-``astarpa_tpu/ops/striped.py::striped_cost_tpu`` and ``striped_ck_tpu``,
-one wrapper per kernel:
+``banded_ck_tpu`` (``_banded_call``), of
+``astarpa_tpu/ops/striped.py::striped_cost_tpu`` and ``striped_ck_tpu``
+and of ``astarpa_tpu/ops/pinned.py::pinned_cost_pp_tpu`` and
+``pinned_ck_pp_tpu``, one wrapper per kernel:
 
 - :func:`banded_cost` — K1, shared schedule, costs;
 - :func:`banded_ck` — K2, shared schedule, costs and checkpoints;
 - :func:`banded_cost_pp` — K4, per-pair schedules, costs;
 - :func:`banded_ck_pp` — K4, per-pair schedules, costs and checkpoints;
 - :func:`striped_cost` — K5, shared schedule, any band height, costs;
-- :func:`striped_ck` — K6, K5 plus 8-aligned-top checkpoints.
+- :func:`striped_ck` — K6, K5 plus 8-aligned-top checkpoints;
+- :func:`pinned_cost_pp` — K9, K5's DP on per-pair schedules, costs;
+- :func:`pinned_ck_pp` — K10, K9 plus checkpoints under K4's contract.
 
-Each has the contract of its plain version in :mod:`.banded` or
-:mod:`.striped`.  A tensor on the CPU goes to that plain version; a CUDA
-tensor launches the kernel or raises.  Per-pair schedules are host numpy
-(n_max, B) 0/1 arrays, checked to shift only at multiples of their
-quantum on both routes.
+Each has the contract of its plain version in :mod:`.banded`,
+:mod:`.striped` or :mod:`.pinned`.  A tensor on the CPU goes to that plain
+version; a CUDA tensor launches the kernel or raises.  Per-pair schedules
+are host numpy (n_max, B) 0/1 arrays, checked to shift only at multiples
+of their quantum on both routes.
 """
 
 from __future__ import annotations
@@ -25,13 +28,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import banded, striped
+from . import banded, pinned, striped
 from .words import to_tensor
 
 #: Launches of each CUDA kernel in this process, by wrapper name (callers
 #: that need to show a run went through a kernel reset them first).
 LAUNCHES = {"banded_cost": 0, "banded_ck": 0, "banded_cost_pp": 0,
-            "banded_ck_pp": 0, "striped_cost": 0, "striped_ck": 0}
+            "banded_ck_pp": 0, "striped_cost": 0, "striped_ck": 0,
+            "pinned_cost_pp": 0, "pinned_ck_pp": 0}
 
 
 def reset_launches() -> None:
@@ -41,7 +45,8 @@ def reset_launches() -> None:
 
 _LABELS = {"banded_cost": "cuda-banded", "banded_ck": "cuda-banded-ck",
            "banded_cost_pp": "cuda-banded-pp", "banded_ck_pp": "cuda-banded-ck-pp",
-           "striped_cost": "cuda-striped", "striped_ck": "cuda-striped-ck"}
+           "striped_cost": "cuda-striped", "striped_ck": "cuda-striped-ck",
+           "pinned_cost_pp": "cuda-pinned-pp", "pinned_ck_pp": "cuda-pinned-pp-ck"}
 
 
 def route(device: torch.device, kernel: str = "banded_cost") -> str:
@@ -120,6 +125,32 @@ def striped_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
                                       col_block, diag)
     return _launch_striped("striped_ck", a0, a1, pb0, pb1, n, m, band_words,
                            diag, col_block, stripe_words)
+
+
+def pinned_cost_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
+                   quantum: int = 1, stripe_words: int | None = None) -> torch.Tensor:
+    """Banded costs on per-pair schedules at any band height, as
+    :func:`.pinned.pinned_cost_pp_ref`: ``<=`` :func:`banded_cost_pp`'s on
+    the same schedule, ``INF`` where the band misses row m at the last
+    column.  The schedule is checked on both routes (quantum, column 0
+    unshifted); ``stripe_words`` as in :func:`striped_cost`."""
+    if _plain(a0):
+        return pinned.pinned_cost_pp_ref(a0, a1, pb0, pb1, n, m, schedule,
+                                         band_words, quantum)
+    return _launch_pinned_pp("pinned_cost_pp", a0, a1, pb0, pb1, n, m, schedule,
+                             band_words, quantum, stripe_words=stripe_words)
+
+
+def pinned_ck_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
+                 col_block: int, quantum: int = 1, stripe_words: int | None = None):
+    """K9 plus checkpoints: ``(costs, ck_vp, ck_vm, ck_tv)`` under K4's
+    contract, as :func:`.pinned.pinned_ck_pp_ref`.  Raises on both routes
+    when the Q-rounded interval is below ``min(band_words, S)``."""
+    if _plain(a0):
+        return pinned.pinned_ck_pp_ref(a0, a1, pb0, pb1, n, m, schedule,
+                                       band_words, col_block, quantum)
+    return _launch_pinned_pp("pinned_ck_pp", a0, a1, pb0, pb1, n, m, schedule,
+                             band_words, quantum, col_block, stripe_words)
 
 
 def _plain(a0) -> bool:
@@ -253,6 +284,74 @@ def _launch_striped(kernel, a0, a1, pb0, pb1, n, m, band_words, diag,
                 torch.empty((n_ck, SW + 8, B), dtype=torch.int32, device=dev),
                 torch.empty((n_ck, B), dtype=torch.int32, device=dev))
         head += list(outs) + [to_tensor(ckw0, dev)]
+        ints += [CB, n_ck]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(load(), f"astarpa_{kernel}")(
+            *(t.data_ptr() for t in head), *ints, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
+    LAUNCHES[kernel] += 1
+    return (out,) + outs if ck else out
+
+
+def pinned_pp_events(sched: np.ndarray, n, SW: int, threads: int, n_lim, dev):
+    """Device-side event tables of a per-pair striped launch, built on the
+    card from the uploaded schedule (cumsum and a batched searchsorted,
+    :func:`.pinned.plan_pp`): ``(plan, ev (B, 4, nw_pad), stripe_t (B,
+    n_stripes, 2), nsp (B,))`` int32 tensors, each pair's rows as
+    :func:`striped_events` builds the shared ones (``end_t`` stops each
+    word after column ``n_lim[p] - 1``); ``nsp`` is each pair's stripe
+    count."""
+    ws = threads * STRIPED_WORDS_PER_THREAD
+    plan = pinned.plan_pp(sched, n, SW, dev, pad_to=ws)
+    ent, top, ab = plan["ent_t"], plan["top_t"], plan["abs_t"]
+    B, nw_pad = ent.shape
+    nwl = to_tensor(plan["nwl"], dev)
+    w = torch.arange(nw_pad, dtype=torch.int32, device=dev)[None, :]
+    end = torch.minimum(torch.where(ab < striped.NEVER, ab + 1, striped.NEVER),
+                        n_lim[:, None] + w)
+    # Pad words never enter; their end_t repeats the last word's.
+    end = torch.where(w < nwl[:, None], end, end.gather(1, (nwl - 1)[:, None]))
+    ev = torch.stack([ent, top, ab, end], 1).contiguous()
+    first = torch.arange(0, nw_pad, ws, device=dev)
+    stripe_t = torch.stack([ent[:, first], end[:, first + ws - 1]], 2).contiguous()
+    nsp = to_tensor(-(-plan["nwl"] // ws), dev).to(torch.int32)
+    return plan, ev, stripe_t, nsp
+
+
+def _launch_pinned_pp(kernel, a0, a1, pb0, pb1, n, m, schedule, band_words,
+                      quantum, col_block=None, stripe_words=None):
+    from ._build import load
+
+    dev = a0.device
+    n_max, B = a0.shape
+    S = pb0.shape[0]
+    SW = _check(kernel, a0, a1, pb0, pb1, band_words)
+    sched = pinned.check_pp_schedule(schedule, n_max, B, quantum)
+    ck = col_block is not None
+    if ck:
+        CB, n_ck = pinned.ck_layout_pp(col_block, n_max, quantum, SW)
+    n_host = np.asarray(torch.as_tensor(n).cpu(), np.int64)
+    n_t, m_t = _lengths(n, B, dev), _lengths(m, B, dev)
+    # Cost mode stops each pair's words after its own last column;
+    # checkpoints are defined (and compared) up to n_max.
+    n_lim = torch.full_like(n_t, n_max) if ck else n_t.clamp(min=1)
+    threads = striped_threads(SW, stripe_words)
+    code = ((a0 & 1) | (a1 & 2)).to(torch.uint8).T.contiguous()
+    plan, ev, stripe_t, nsp = pinned_pp_events(sched, n_host, SW, threads, n_lim, dev)
+    T = plan["T"]
+    carry = torch.empty((2, B, T + 1), dtype=torch.uint8, device=dev)
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    head = [code, pb0, pb1, n_t, m_t, plan["loend"], ev, stripe_t, nsp, carry, out]
+    ints = [n_max, B, S, SW, ev.shape[2], stripe_t.shape[1], T, threads]
+    outs = ()
+    if ck:
+        outs = (torch.empty((n_ck, SW, B), dtype=torch.int32, device=dev),
+                torch.empty((n_ck, SW, B), dtype=torch.int32, device=dev),
+                torch.empty((n_ck, B), dtype=torch.int32, device=dev))
+        head += list(outs) + [pinned.ck_tops(plan["lo"], CB, n_ck)]
         ints += [CB, n_ck]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -1,0 +1,246 @@
+"""Pinned-word big-band DP on per-pair schedules: the plan and the plain
+torch versions of kernels K9 (costs) and K10 (costs and checkpoints).
+
+Counterpart of the per-pair half of ``astarpa_tpu/ops/pinned.py``
+(``pinned_cost_pp_tpu``, ``pinned_ck_pp_tpu``).  It is the striped DP of
+:mod:`.striped` with each pair's band on its own schedule: before column
+``c`` pair p's band covers words ``[lo_p(c), lo_p(c) + SW)`` with ``lo_p``
+the running sum of its (n_max,) 0/1 schedule column, and the per-word
+enter, top and absorb steps of :func:`.striped.plan_striped` become
+per-pair tables (:func:`plan_pp`).  Word w runs column ``t - w`` at step
+t, as there; the profile row of a word past the last one is clamped to
+``S - 1``, as the per-pair sliding kernel (K4) clamps its entering word.
+
+Results are ``<=`` K4's on the same schedule (the reference's contract) and
+``INF`` where the band misses row m at the pair's last column.  K10 writes
+**K4's checkpoint contract** (:func:`.banded.banded_ck_pp_ref`), so the
+runner's staging and the native ``trace_banded_ck`` read the planes as
+they read K4's: ``CB`` from :func:`.banded.ck_col_block` (rounded to whole
+quantum groups), ``n_ck = ceil(n_max / CB)``, checkpoint ``k >= 1`` the
+state after column ``k*CB - 1`` in rows ``w - lo_p(k*CB - 1)`` of (n_ck, SW,
+B) planes, top value the pair's absorbed sum plus ``k*CB``; checkpoint 0
+the all-ones state.  Every row of every checkpoint is the DP's (the band
+runs to n_max in ck mode), past a pair's end too, so the card comparison
+covers every byte.  ``CB >= SW`` is required (the reference's
+precondition), on both routes.
+
+The plain versions step ``t`` in a Python loop vectorised over the union
+of the pairs' live word ranges and the pairs, with per-pair masks; the CPU
+runs them, the card compares its kernels (``csrc/striped.cu``) against
+them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .banded import INF, check_schedule, ck_col_block
+from .bitpack import W
+from .striped import NEVER
+from .words import ONES, myers_word, popcount, prefix_mask, to_tensor
+
+
+def check_pp_schedule(schedule, n_max: int, B: int, quantum: int) -> np.ndarray:
+    """:func:`.banded.check_schedule` (0/1, shape, shifts only at multiples
+    of ``quantum``, so at most one shift per column) plus the pinned
+    kernels' own condition: column 0 unshifted (every band starts at word
+    0).  Returns the schedule as contiguous uint8."""
+    sched = check_schedule(schedule, n_max, B, quantum)
+    if sched[:1].any():
+        raise ValueError("pinned per-pair schedule: column 0 must be unshifted")
+    return sched
+
+
+def plan_pp(sched: np.ndarray, n, SW: int, device, pad_to: int = 1) -> dict:
+    """The per-pair plan of one round, as torch tensors on ``device``
+    (``sched`` a checked host (n_max, B) schedule, ``n`` the (B,) lengths):
+
+    - ``lo`` (B, n_max) int32: pair p's band top during column c;
+    - ``loend`` (B,) int32: ``lo_p(clip(n_p - 1, 0, n_max - 1))``;
+    - ``nwl`` (B,) int64 host: words that ever enter pair p's band,
+      ``lo_p(n_max - 1) + SW``;
+    - ``ent_t``, ``top_t``, ``abs_t`` (B, nw) int32: pair p's per-word
+      event steps (those of :func:`.striped.plan_striped` on ``lo_p``),
+      ``NEVER`` for words ``>= nwl_p``; ``nw`` is ``max(nwl)`` rounded up
+      to a multiple of ``pad_to``;
+    - ``T``: steps ``0..T-1`` cover every pair's every word and column.
+    """
+    n_max, B = sched.shape
+    nwl = sched.sum(axis=0, dtype=np.int64) + SW
+    nw = -(-int(nwl.max(initial=SW)) // pad_to) * pad_to
+    s = to_tensor(sched, device)
+    lo = torch.cumsum(s.T, dim=1, dtype=torch.int32).contiguous()
+    w = torch.arange(nw, dtype=torch.int32, device=device).expand(B, nw).contiguous()
+    enterc = torch.searchsorted(lo, (w - SW + 1).clamp(min=0), out_int32=True)
+    exitc = torch.searchsorted(lo, w + 1, out_int32=True)
+    live = w < to_tensor(nwl, device)[:, None]
+    ent_t = torch.where(live, enterc + w, NEVER)
+    abs_t = torch.where(live & (exitc < n_max), exitc + w, NEVER)
+    # Word w is the top from the step after word w-1's absorb.
+    top_t = torch.cat([torch.zeros_like(abs_t[:, :1]),
+                       (abs_t[:, :-1] + 1).clamp(max=NEVER)], 1)
+    last = torch.as_tensor(np.clip(np.asarray(n, np.int64) - 1, 0, n_max - 1), device=device)
+    loend = lo.gather(1, last[:, None])[:, 0]
+    return dict(lo=lo, loend=loend, nwl=nwl, ent_t=ent_t, top_t=top_t,
+                abs_t=abs_t, T=n_max + int(nwl.max(initial=SW)) - 1)
+
+
+def ck_layout_pp(col_block: int, n_max: int, quantum: int, SW: int) -> tuple[int, int]:
+    """``(CB, n_ck)`` of K10: K4's Q-rounded interval and checkpoint count.
+    Raises when ``CB < SW``: the reference refuses it too, and clamping CB
+    here would desync the trace, which reads the caller's CB."""
+    CB = ck_col_block(col_block, n_max, quantum)
+    if CB < SW:
+        raise ValueError(f"pinned ck: col_block {CB} < band_words {SW}")
+    return CB, -(-n_max // CB)
+
+
+def ck_tops(lo: torch.Tensor, CB: int, n_ck: int) -> torch.Tensor:
+    """(n_ck, B) int32 window tops of the checkpoints: ``lo_p(k*CB - 1)``,
+    0 for checkpoint 0."""
+    cols = torch.arange(1, n_ck, device=lo.device) * CB - 1
+    return torch.cat([torch.zeros_like(lo[:, :1]), lo[:, cols]], 1).T.contiguous()
+
+
+def _sweep_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int, quantum: int,
+              col_block=None):
+    """The staggered loop both plain versions share; returns ``(costs,
+    ck)`` with ``ck = (ck_vp, ck_vm, ck_tv)`` when ``col_block`` is set."""
+    n_max, B = a0.shape
+    S = pb0.shape[0]
+    SW = min(band_words, S)
+    dev = a0.device
+    sched = check_pp_schedule(schedule, n_max, B, quantum)
+    n_host = np.asarray(torch.as_tensor(n).cpu(), np.int64)
+    m_host = np.asarray(torch.as_tensor(m).cpu(), np.int64)
+    if col_block is not None:
+        CB, n_ck = ck_layout_pp(col_block, n_max, quantum, SW)
+    plan = plan_pp(sched, n_host, SW, dev)
+    T, nw = plan["T"], plan["ent_t"].shape[1]
+    n_t = torch.as_tensor(n_host, dtype=torch.int32, device=dev)
+    m_t = torch.as_tensor(m_host, dtype=torch.int32, device=dev)
+    loend = plan["loend"]
+    # Word-major event tables with a NEVER row past the last word, so a
+    # pair's cursor at nw still reads a step that never comes.
+    never = torch.full((1, B), NEVER, dtype=torch.int32, device=dev)
+    ent_T = torch.cat([plan["ent_t"].T, never])
+    abs_T = torch.cat([plan["abs_t"].T, never])
+    pair = torch.arange(B, device=dev)
+
+    vp = torch.full((nw, B), ONES, dtype=torch.int32, device=dev)
+    vm = torch.zeros((nw, B), dtype=torch.int32, device=dev)
+    # Each word's h carries out of its last step (word w+1 reads them).
+    hp_out = torch.zeros((nw, B), dtype=torch.int32, device=dev)
+    hm_out = torch.zeros((nw, B), dtype=torch.int32, device=dev)
+    acc = torch.zeros(B, dtype=torch.int32, device=dev)
+    cap = torch.zeros(B, dtype=torch.int32, device=dev)
+    A = torch.zeros(B, dtype=torch.long, device=dev)  # next word to absorb
+    E = torch.zeros(B, dtype=torch.long, device=dev)  # next word to enter
+    one = torch.ones(1, B, dtype=torch.int32, device=dev)
+    zero = torch.zeros(1, B, dtype=torch.int32, device=dev)
+    w_all = torch.arange(nw, device=dev)
+
+    # Cost capture: word t+1-n at step t, inside [loend, loend+SW).
+    valid = n_host > 0
+    loend_host = plan["loend"].cpu().numpy().astype(np.int64)
+    cap_lo = int((n_host - 1 + loend_host)[valid].min()) if valid.any() else T
+    cap_hi = int((n_host - 1 + loend_host + SW)[valid].max()) if valid.any() else 0
+
+    ck = ck_at = None
+    if col_block is not None:
+        ckw0 = ck_tops(plan["lo"], CB, n_ck)
+        ck = (torch.zeros((n_ck, SW, B), dtype=torch.int32, device=dev),
+              torch.zeros((n_ck, SW, B), dtype=torch.int32, device=dev),
+              torch.zeros((n_ck, B), dtype=torch.int32, device=dev))
+        ck[0][0] = ONES
+        # Step -> checkpoints: word w of window k is taken at k*CB - 1 + w.
+        ck_at = {}
+        lo_min = ckw0.min(1).values.cpu().numpy()
+        lo_max = ckw0.max(1).values.cpu().numpy()
+        for k in range(1, n_ck):
+            for w in range(int(lo_min[k]), int(lo_max[k]) + SW):
+                ck_at.setdefault(k * CB - 1 + w, []).append(k)
+
+    for t in range(T):
+        e_sel = ent_T[E, pair] == t
+        if bool(e_sel.any()):
+            rows = E.clamp(max=nw - 1)
+            vp[rows, pair] = torch.where(e_sel, ONES, vp[rows, pair])
+            vm[rows, pair] = torch.where(e_sel, 0, vm[rows, pair])
+            E += e_sel
+        a_sel = abs_T[A, pair] == t
+        if bool(a_sel.any()):
+            rows = A.clamp(max=nw - 1)
+            alive = t - A <= n_t - 1
+            val = popcount(vp[rows, pair]) - popcount(vm[rows, pair])
+            acc += torch.where(a_sel & alive, val, 0)
+            A += a_sel
+        lo_w, hi_w = int(A.min()), int(E.max())
+        if lo_w >= hi_w:
+            continue
+        ws = w_all[lo_w:hi_w]
+        live = (ws[:, None] >= A[None, :]) & (ws[:, None] < E[None, :])
+        cols = (t - ws).clamp(0, n_max - 1)
+        prow = ws.clamp(max=S - 1)
+        eq = (a0[cols] ^ pb0[prow]) & (a1[cols] ^ pb1[prow])
+        # Word w takes word w-1's carry of step t-1; the top word (first
+        # live one, where no absorb happened this step) takes the +1 carry.
+        # A newly first word after an absorb takes the absorbed word's.
+        if lo_w == 0:
+            hp_in = torch.cat([one, hp_out[:hi_w - 1]])
+            hm_in = torch.cat([zero, hm_out[:hi_w - 1]])
+        else:
+            hp_in, hm_in = hp_out[lo_w - 1:hi_w - 1], hm_out[lo_w - 1:hi_w - 1]
+        top = (ws[:, None] == A[None, :]) & ~a_sel[None, :]
+        hp_in = torch.where(top, 1, hp_in)
+        hm_in = torch.where(top, 0, hm_in)
+        got = myers_word(eq, vp[lo_w:hi_w], vm[lo_w:hi_w], hp_in, hm_in)
+        for x, g in zip((vp, vm, hp_out, hm_out), got):
+            x[lo_w:hi_w] = torch.where(live, g, x[lo_w:hi_w])
+        if cap_lo <= t < cap_hi:
+            wc = t + 1 - n_t
+            sel = (n_t > 0) & (wc >= loend) & (wc < loend + SW)
+            idx = wc.clamp(0, nw - 1).long()[None, :]
+            mask = prefix_mask((m_t - wc * W).clamp(0, W))
+            val = popcount(vp.gather(0, idx)[0] & mask) - popcount(vm.gather(0, idx)[0] & mask)
+            cap += torch.where(sel, val, 0)
+        if ck_at is not None and t in ck_at:
+            for k in ck_at[t]:
+                w = t + 1 - k * CB
+                row = w - ckw0[k]
+                ok = (row >= 0) & (row < SW)
+                r, p = row[ok].long(), pair[ok]
+                ck[0][k, r, p] = vp[w, p]
+                ck[1][k, r, p] = vm[w, p]
+                ck[2][k] = torch.where(row == 0, acc + k * CB, ck[2][k])
+    covered = (m_t - loend * W) <= SW * W
+    costs = torch.where(covered, acc + cap + n_t, INF)
+    return costs, ck
+
+
+def pinned_cost_pp_ref(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
+                       quantum: int = 1) -> torch.Tensor:
+    """Banded edit distances on per-pair schedules at any band height: the
+    plain version of kernel K9, bit-identical to the reference's
+    ``pinned_cost_pp_tpu``.
+
+    Args as :func:`.banded.banded_cost_pp_ref` (``schedule`` a host (n_max,
+    B) 0/1 array shifting only at multiples of ``quantum``, column 0
+    unshifted).  Returns (B,) int32 on the planes' device: ``<=`` K4's
+    result, ``INF`` where the band misses row ``m`` at column ``n-1``; a
+    pair with ``n == 0`` gives 0."""
+    return _sweep_pp(a0, a1, pb0, pb1, n, m, schedule, band_words, quantum)[0]
+
+
+def pinned_ck_pp_ref(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
+                     col_block: int, quantum: int = 1):
+    """K9 plus checkpoints: the plain version of kernel K10, the
+    reference's ``pinned_ck_pp_tpu`` on every checkpoint a trace reads.
+
+    Returns ``(costs (B,), ck_vp (n_ck, SW, B), ck_vm, ck_tv (n_ck, B))``
+    under K4's checkpoint contract (module docstring).  Raises when the
+    Q-rounded interval is below ``SW = min(band_words, S)``."""
+    costs, ck = _sweep_pp(a0, a1, pb0, pb1, n, m, schedule, band_words, quantum,
+                          col_block)
+    return (costs,) + ck

@@ -14,8 +14,10 @@ pairs retry at the band their banded upper bound predicts.
   costs, K6 for checkpoints (when ``SW % 8 == 0`` and ``CB >= SW + 8``;
   their planes have SW+8 rows, which the native trace reads as they are).
 - Per-pair domain ladder (``domain_mode`` resolving to "gap"/"gcsh"): an f
-  ladder over per-pair schedules that follow each pair's domain hull, on
-  K4 (cost mode, or ck mode for checkpoint traces).
+  ladder over per-pair schedules that follow each pair's domain hull.  A
+  round of at least :data:`PINNED_PP_MIN_SW` words runs the pinned
+  per-pair kernels (K9 for costs, K10 for checkpoint traces), a smaller
+  one K4 (cost mode, or ck mode).
 
 The ladder arithmetic (rounding, repack rule, cell counts, warm band
 hints, sticky diagonal, full-height clamp, f feedback) is the reference's,
@@ -23,12 +25,13 @@ verbatim, so ``BatchStats`` match it field for field.
 
 Port decision: the reference gates the ck and per-pair kernels on TPU
 VMEM models (``_select_pp``, ``_striped_ck_ok``'s backend and lane
-checks, the ``PINNED_*`` routing, the domain ladder's ``pp < 128`` break
-and its ``except ValueError``).  The CUDA kernels keep their state in
-device memory and have no such ceiling, so none of those gates is copied:
-the one routing rule is :data:`STRIPED_MIN_SW`, measured on the card;
-every domain round runs K4, and the domain ladder breaks only when its
-band reaches full height or its rounds run out.
+checks, the ``PINNED_*`` VMEM and ``B % 128`` conditions, the domain
+ladder's ``pp < 128`` break and its ``except ValueError`` fallbacks).  The
+CUDA kernels keep their state in device memory and have no such ceiling,
+so none of those gates is copied: the routing rules are
+:data:`STRIPED_MIN_SW` and :data:`PINNED_PP_MIN_SW`, both measured on the
+card; a kernel that fails raises, and the domain ladder breaks only when
+its band reaches full height or its rounds run out.
 
 Not ported yet: ``mesh`` (raises ``NotImplementedError``), and the
 host-only trace fallbacks ``_trace_bucket`` and ``_align_host_fallback``
@@ -49,8 +52,8 @@ from ..device import resolve_device
 from ..domain import domain_schedule, gap_domain
 from ..ops import banded
 from ..ops.banded_kernel import (banded_ck, banded_ck_pp, banded_cost,
-                                 banded_cost_pp, route, striped_ck,
-                                 striped_cost)
+                                 banded_cost_pp, pinned_ck_pp, pinned_cost_pp,
+                                 route, striped_ck, striped_cost)
 from ..ops.bitpack import W
 from ..ops.pack import pack_batch_staggered
 from ..ops.words import to_tensor
@@ -65,6 +68,13 @@ INF = 1 << 30
 #: Tests patch it to drive the striped arms at small sizes.
 STRIPED_MIN_SW = 64
 
+#: Domain-ladder rounds of at least this many words run the pinned
+#: per-pair kernels (K9 costs, K10 checkpoints) instead of K4.  Set from
+#: the K4/K9 crossover that ``chip_smoke.py`` measures on the card
+#: (``PERF.md``); the reference's 512 is fitted to TPU VMEM.  Tests patch
+#: it to drive either arm at small sizes.
+PINNED_PP_MIN_SW = 64
+
 _TODO_MESH = "ROADMAP.md queue 1 item 12 (multi-GPU and multi-host)"
 _TODO_HOST = "ROADMAP.md runner pieces item 4 (off-device trace fallbacks)"
 
@@ -78,8 +88,10 @@ class BatchStats:
     aligned_bp: int = 0
     # Pairs whose CIGAR came from the direct whole-pair DT trace.
     direct_traces: int = 0
-    # What ran the last rung or round ("cuda-banded", "cuda-banded-ck",
-    # "cuda-banded-pp", "cuda-banded-ck-pp" or "torch-ref"), set at dispatch.
+    # What ran the last rung or round (a label of ``banded_kernel.route``:
+    # "cuda-banded", "cuda-banded-ck", "cuda-banded-pp", "cuda-banded-ck-pp",
+    # "cuda-striped", "cuda-striped-ck", "cuda-pinned-pp", "cuda-pinned-pp-ck",
+    # or "torch-ref" on the CPU), set at dispatch.
     kernel: str | None = None
 
 
@@ -536,13 +548,14 @@ class BatchAligner:
     def _domain_ladder(self, pairs, idxs, out, stats, mode: str = "gcsh",
                        trace_jobs: list | None = None) -> None:
         """f ladder over domain-restricted per-pair bands: sample each
-        pair's domain hull at its own f, run one K4 pass for the bucket
-        with per-pair window schedules, accept pairs whose banded result is
-        <= their f (the doubling certificate), and feed the rejected pairs'
-        banded upper bounds back as their next f.  With ``trace_jobs`` (the
-        align path) a round whose f all fit the direct-trace budget runs K4
-        in cost mode and stages direct traces, else K4 in ck mode and stages
-        checkpoint traces.  Stragglers finish on the shared ladder."""
+        pair's domain hull at its own f, run one per-pair kernel pass for
+        the bucket (:meth:`_domain_kernel`), accept pairs whose banded
+        result is <= their f (the doubling certificate), and feed the
+        rejected pairs' banded upper bounds back as their next f.  With
+        ``trace_jobs`` (the align path) a round whose f all fit the
+        direct-trace budget runs the cost kernel and stages direct traces,
+        else the ck kernel and stages checkpoint traces.  Stragglers finish
+        on the shared ladder."""
         bucket_pairs = [pairs[i] for i in idxs]
         args, B0 = pack_batch_staggered(
             bucket_pairs, self.lane_multiple,
@@ -611,9 +624,9 @@ class BatchAligner:
                 if idle.any():
                     sched_arr[: len(fill), idle] = fill[:, None]
                 want_ck = ck_mode and not direct_rnd
-                got = self._domain_kernel(args, sw, sched_arr, quantum, want_ck)
-                stats.kernel = route(self.device,
-                                     "banded_ck_pp" if want_ck else "banded_cost_pp")
+                got, name = self._domain_kernel(args, sw, sched_arr, quantum,
+                                                want_ck)
+                stats.kernel = route(self.device, name)
                 costs_t, ck = (got[0], got[1:]) if want_ck else (got, None)
                 costs = _Readback(costs_t).numpy()[:B0]
                 stats.cells_computed += n_max * sw * W * len(pending)
@@ -662,14 +675,20 @@ class BatchAligner:
 
     def _domain_kernel(self, args, sw: int, sched_arr, quantum: int,
                        want_ck: bool):
-        """K4 on one domain round: costs, or ``(costs, ck_vp, ck_vm,
-        ck_tv)`` with checkpoints every :meth:`_cb` columns (rounded to whole
-        quantum groups).  The reference's pinned-pp arms (K9/K10) need a TPU
-        and a VMEM fit; here K4 serves every band."""
+        """One domain round: ``(costs, name)``, or with ``want_ck`` ``((costs,
+        ck_vp, ck_vm, ck_tv), name)`` with checkpoints every :meth:`_cb`
+        columns rounded to whole quantum groups (K4's contract, which K10
+        keeps); ``name`` is the wrapper that ran.  Rounds of at least
+        :data:`PINNED_PP_MIN_SW` words run K9/K10, smaller ones K4."""
+        pinned = sw >= PINNED_PP_MIN_SW
         if want_ck:
-            return banded_ck_pp(*args, sched_arr, sw,
-                                self._cb(sw, args[0].shape[0]), quantum)
-        return banded_cost_pp(*args, sched_arr, sw, quantum)
+            CB = self._cb(sw, args[0].shape[0])
+            if pinned:
+                return pinned_ck_pp(*args, sched_arr, sw, CB, quantum), "pinned_ck_pp"
+            return banded_ck_pp(*args, sched_arr, sw, CB, quantum), "banded_ck_pp"
+        if pinned:
+            return pinned_cost_pp(*args, sched_arr, sw, quantum), "pinned_cost_pp"
+        return banded_cost_pp(*args, sched_arr, sw, quantum), "banded_cost_pp"
 
     # -- CIGAR path ------------------------------------------------------------
 

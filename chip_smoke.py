@@ -18,26 +18,30 @@ Phases, one output line each (any failure exits non-zero):
    every CIGAR verified, steady ms/pair from the mid-stream periods;
 5. the kernel against the plain version on the main path's own packs (the
    4096-pair cost pack at SW=32, a 512-pair align pack at its ladder's
-   SW, each with the main path's diagonal, cut to their first 2048
+   SW, each with the main path's diagonal, cut to their first 1024
    columns), bit for bit, and timed (CUDA events; the kernel also on the
-   whole cost pack; turns plain, kernel, kernel, plain on 1 kbp pairs);
+   whole cost pack; turns plain, kernel, kernel, plain on 500 bp pairs);
 6. the checkpoint and per-pair kernels (K2, K4 cost, K4 ck) against their
-   plain versions on a grid (B 33/1024, n <= 600, SW 1..82 and full
+   plain versions on a grid (B 33/1024, n <= 300, SW 1 to full
    height, CB 64/512, Q 32/8/1, gap, gcsh and random schedules), bit for
    bit on costs and every checkpoint plane;
 7. main path, config #4: ``BatchAligner(device="cuda")`` at its default
-   settings on 128 pairs of 100 kbp at e=10% (gcsh domain ladder, K4):
-   cost twice (the second timed), 8 costs against the oracle, align with
-   direct traces and with ``direct_dt=False`` (K4 ck), every CIGAR
-   verified; f-rounds, SW and kernel ms per round, gcsh build seconds,
-   Mbp/s;
+   settings on 128 pairs of 100 kbp at e=10% (gcsh domain ladder; rounds
+   of at least ``runner.PINNED_PP_MIN_SW`` words run K9/K10, smaller ones
+   K4): cost twice (the second timed), 8 costs against the oracle, align
+   with direct traces and with ``direct_dt=False`` (ck rounds), every
+   CIGAR verified; f-rounds, SW and kernel ms per round, gcsh build
+   seconds, Mbp/s; then 128 pairs of 40 kbp at e=5%, whose gcsh rounds
+   stay below that band (K4 cost and ck): cost, 4 costs against the
+   oracle, align with ``direct_dt=False``, every CIGAR verified;
 8. main path, checkpoint rungs: ``align_with_stats(direct_dt=False)`` on
    512 pairs of 10 kbp at e=5% (K2), every CIGAR verified;
-9. the new kernels against their plain versions at the main path's own
-   shapes (K4 and K4 ck on config #4's pack and gcsh schedules cut to the
-   first 512 columns; K4 on K1's shared schedule against K1 at the full
-   config #4 shape; K2 on phase 8's pack cut to 2048 columns), bit for
-   bit, and timed in turns (plain, kernel, kernel, plain) on 1 kbp packs;
+9. K2 and K4 against their plain versions at the main path's own shapes
+   (K4 and K4 ck on the pack and gcsh schedules of K4's last main-path
+   round cut to the first 256 columns; K4 on K1's shared schedule against
+   K1 at that round's full shape; K2 on phase 8's pack cut to 1024
+   columns), bit for bit, and timed in turns (plain, kernel, kernel,
+   plain) on 500 bp packs;
 
 10. the striped kernels K5 and K6 against their plain versions on a grid
     (B 33/160, n <= 1500, SW 8 to full height, bands taller than one
@@ -54,14 +58,31 @@ Phases, one output line each (any failure exits non-zero):
     pack cut to the first 4096 columns, at the ladder's SW), timed in turns
     (plain, kernel, kernel, plain); K5 against K1 on that cut at SW 64 to
     2048 (the crossover behind ``runner.STRIPED_MIN_SW``);
+13. the pinned per-pair kernels K9 and K10 against their plain versions on
+    a grid (B 33/160, n <= 1500, SW 8 to full height, bands taller than one
+    block's stripe, gap, gcsh, random and broadcast-shared schedules, Q
+    32/8/1, CB 64/512), bit for bit on costs, every checkpoint row and top
+    value;
+14. main path, config #5 at its default settings: ``BatchAligner(device=
+    "cuda")`` (gcsh domain ladder: K9 costs, K10 checkpoints) on phase
+    11's seed-7 batch: cost twice (the second timed and split by layer:
+    gcsh builds, hull samples and schedules, event tables, K9, readback),
+    8 costs against ``oracle.levenshtein_myers`` and all 128 equal to
+    phase 11's, align once with all 128 CIGARs verified; f-rounds, SW,
+    K9/K10 ms per round, peak device memory, Mbp/s; K4 must not run;
+15. K9 and K10 against their plain versions at that path's own shapes (its
+    last round cut to the first 4096 columns), timed in turns; K9 against
+    K4 on config #4's and config #5's cuts at SW 64 to 1088 (the crossover
+    behind ``runner.PINNED_PP_MIN_SW``);
 
 then the kernels' JSON line (each kernel's time, its plain version's,
 its bound from this run's inputs, its launches on the main path), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
-The plain sweeps of phases 5 and 9 run on their packs' first columns, and
-the pairs are generated on a pool of the host's cores, to keep the run
-short.  Launch counts are reset just before each main-path phase (3-4, 7,
-8, 11) and read just after it.  Imports nothing of JAX and nothing of the
+The plain sweeps of phases 5, 9, 12 and 15 run on their packs' first
+columns, the grids of phases 2 and 6 hold a few cases each, and the pairs
+are generated on a pool of the host's cores, to keep the run short.
+Launch counts are reset just before each main-path phase (3-4, 7, 8, 11,
+14) and read just after it.  Imports nothing of JAX and nothing of the
 JAX package.  Exits 1 without a usable GPU.
 """
 
@@ -81,7 +102,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import astarpa_tpu_torch as att  # noqa: E402
-from astarpa_tpu_torch.ops import _build, banded, banded_kernel, striped  # noqa: E402
+from astarpa_tpu_torch.ops import _build, banded, banded_kernel, pinned, striped  # noqa: E402
 from astarpa_tpu_torch.ops.pack import pack_batch_staggered  # noqa: E402
 from astarpa_tpu_torch.parallel import runner  # noqa: E402
 from astarpa_tpu_torch.parallel.runner import BatchAligner  # noqa: E402
@@ -90,16 +111,19 @@ from astarpa_tpu_torch.types import Cigar  # noqa: E402
 PAIRS, LENGTH, ERR, SEED = 4096, 10_000, 0.05, 42
 STREAM_BATCHES, STREAM_PAIRS = 6, 512
 TIMED_SW = 32
-TURN_LENGTH = 1000
+TURN_LENGTH = 500
 C4_PAIRS, C4_LENGTH, C4_ERR, C4_SEED = 128, 100_000, 0.10, 100
 C4_ORACLE = 8
+C40_PAIRS, C40_LENGTH, C40_ERR, C40_SEED = 128, 40_000, 0.05, 400
 CK_PAIRS = 512
-CUT_COLS = 2048
+CUT_COLS = 1024
 GRID_PAIRS = 1024
+GRID_N, GRID_M = 300, 1300  # the K1/K2/K4 grids' longest a and b
 C5_PAIRS, C5_LENGTH, C5_ERR, C5_SEEDS = 128, 500_000, 0.15, (7, 8)
 C5_BAND, C5_CB = 2048, 16384
 C5_CUT = 4096
 CROSSOVER_SW = (64, 128, 256, 512, 1024, 2048)
+PP_CROSSOVER_SW = (64, 128, 192, 256, 512, 1088)
 WORKERS = 8
 
 # The card's limits for each kernel's bound (the least time the card could
@@ -219,27 +243,27 @@ def _random_pairs(rng, count, n_hi, m_hi):
 
 
 def phase2_grid() -> int:
-    """Kernel == plain on B in {33, 1024}, n in [0, 600], every SW of the
-    grid with and without a diagonal; returns the max abs difference.  The
-    33-lane pack is the first lanes of the 1024-lane one (same n_max, S and
-    schedule), so one plain sweep of the wide pack serves both."""
+    """Kernel == plain on B in {33, 1024}, n in [0, GRID_N], SW from 1 to full
+    height, with and without a diagonal; returns the max abs difference.
+    The 33-lane pack is the first lanes of the 1024-lane one (same n_max, S
+    and schedule), so one plain sweep of the wide pack serves both."""
     rng = np.random.default_rng(7)
-    pairs = _random_pairs(rng, GRID_PAIRS, 600, 2600)
+    pairs = _random_pairs(rng, GRID_PAIRS, GRID_N, GRID_M)
     args, _ = pack_batch_staggered(pairs, 1, device="cuda")
     n_max, S = args[0].shape[0], args[2].shape[0]
     small = _lanes(args, 33)
     worst, cases = 0, 0
     t0 = time.perf_counter()
-    for sw in (1, 5, 32, 33, 64, 72, S):
-        for diag in (None, (n_max, S * 32 - 50)):
-            ref = banded.banded_cost_ref(*args, sw, diag)
-            for planes in (small, args):
-                got = banded_kernel.banded_cost(*planes, sw, diag)
-                torch.cuda.synchronize()
-                diff = int((got.long() - ref[: got.shape[0]].long()).abs().max())
-                if diff:
-                    fail(f"kernel != plain at B={planes[0].shape[1]} SW={sw} diag={diag}")
-                worst, cases = max(worst, diff), cases + 1
+    dg = (n_max, S * 32 - 50)
+    for sw, diag in ((1, None), (5, dg), (32, None), (33, dg), (72, None), (S, dg)):
+        ref = banded.banded_cost_ref(*args, sw, diag)
+        for planes in (small, args):
+            got = banded_kernel.banded_cost(*planes, sw, diag)
+            torch.cuda.synchronize()
+            diff = int((got.long() - ref[: got.shape[0]].long()).abs().max())
+            if diff:
+                fail(f"kernel != plain at B={planes[0].shape[1]} SW={sw} diag={diag}")
+            worst, cases = max(worst, diff), cases + 1
     say(f"[2 kernel=plain] {cases}/{cases} cases equal (B 33/{GRID_PAIRS}, n_max {n_max}, "
         f"S {S}, SW 1..{S}, diag None/set), max_abs_err {worst}, "
         f"{time.perf_counter() - t0:.1f} s")
@@ -483,7 +507,7 @@ def phase5_time(spy: LayerSpy) -> dict:
         # The turns (plain, kernel, kernel, plain): means of two runs each.
         "turns_ms": ms, "turns_plain_ms": plain_ms,
         "turns_shape": {"B": PAIRS, "n_max": args1k[0].shape[0],
-                        "S": args1k[2].shape[0], "SW": TIMED_SW},
+                        "S": args1k[2].shape[0], "SW": min(TIMED_SW, args1k[2].shape[0])},
     }
 
 
@@ -542,10 +566,10 @@ def phase6_grid() -> int:
     difference.  K4 cost is held against the costs of the plain ck sweep:
     the plain cost and ck versions are one loop."""
     t0 = time.perf_counter()
-    rand_pairs = _random_pairs(np.random.default_rng(7), GRID_PAIRS, 600, 2600)  # phase 2's
+    rand_pairs = _random_pairs(np.random.default_rng(7), GRID_PAIRS, GRID_N, GRID_M)  # phase 2's
     rand, _ = pack_batch_staggered(rand_pairs, 1, device="cuda")
     rng = np.random.default_rng(11)
-    sim_pairs = [att.generate.uniform_seeded(int(rng.integers(1, 601)),
+    sim_pairs = [att.generate.uniform_seeded(int(rng.integers(1, GRID_N + 1)),
                                              float(rng.uniform(0, 0.2)), 3000 + s)
                  for s in range(GRID_PAIRS)]
     sim_pairs[1] = (b"", b"ACGTACGT")
@@ -553,9 +577,8 @@ def phase6_grid() -> int:
     n_max, S = rand[0].shape[0], rand[2].shape[0]
     diag = (n_max, S * 32 - 50)
     worst, k2_cases = 0, 0
-    for planes, sw, cb, dg in ((rand, 1, 64, None), (_lanes(rand, 33), 5, 512, diag),
-                               (rand, 32, 64, None), (_lanes(rand, 33), 72, 64, diag),
-                               (rand, S, 512, None)):
+    for planes, sw, cb, dg in ((rand, 1, 64, None), (_lanes(rand, 33), 72, 512, diag),
+                               (rand, S, 64, None)):
         got = banded_kernel.banded_ck(*planes, sw, cb, dg)
         err = _max_err(got, banded.banded_ck_ref(*planes, sw, cb, dg))
         if err:
@@ -570,11 +593,9 @@ def phase6_grid() -> int:
     g125, sw125, q125 = _gcsh_schedules(sim_pairs, GRID_PAIRS, sim[0].shape[0], 1.25)
     g2, sw2, q2 = _gcsh_schedules(sim_pairs[:33], 33, sim[0].shape[0], 2.0)
     k4 = [
-        ("gap", rand, gap(rand, 4), 4, 32, 64),
         ("gap", r33, gap(r33, 32), 32, 32, 512),
         ("random", rand, _random_schedule(rng, n_max, GRID_PAIRS, 8), 16, 8, 512),
         ("random", r33, _random_schedule(rng, n_max, 33, 1), S, 1, 64),
-        ("random", rand, _random_schedule(rng, n_max, GRID_PAIRS, 1), 1, 1, 64),
         ("gcsh 1.25 h0", sim, g125, min(sw125, sim[2].shape[0]), q125, 64),
         ("gcsh 2 h0", s33, g2, min(sw2, sim[2].shape[0]), q2, 512),
     ]
@@ -599,14 +620,19 @@ class RoundSpy:
     """Records, inside the runner's own calls, every launch of the
     checkpoint and per-pair kernels (kernel, SW, quantum and CUDA-event ms)
     and the host clock of the domain ladder's host layers (pack, gcsh
-    builds, hull samples, schedules, traces); keeps each kernel's last
-    inputs for phase 9.  The launch counts stay with the wrappers."""
+    builds, hull samples, schedules, the per-pair event tables, traces);
+    keeps each kernel's last inputs for the timing phases.  The event
+    tables of K9/K10 are also timed on the card (CUDA events), and a K9/K10
+    launch's kernel time is taken from the end of its tables to the end of
+    the call.  The launch counts stay with the wrappers."""
 
-    NAMES = ("banded_ck", "banded_cost_pp", "banded_ck_pp")
+    NAMES = ("banded_ck", "banded_cost_pp", "banded_ck_pp", "pinned_cost_pp",
+             "pinned_ck_pp")
     HOST = (("pack", runner, "pack_batch_staggered"),
             ("gcsh build", runner.BatchAligner, "_build_gcsh_handles"),
             ("hull sample", att.native.DomainHandle, "sample"),
             ("schedule", runner, "domain_schedule"),
+            ("event tables", banded_kernel, "pinned_pp_events"),
             ("readback wait", runner._Readback, "numpy"),
             ("traces", runner.BatchAligner, "_flush_traces"))
 
@@ -615,12 +641,14 @@ class RoundSpy:
         self._orig_host = [(key, obj, attr, getattr(obj, attr))
                            for key, obj, attr in self.HOST]
         self.last: dict[str, tuple] = {}
+        self._tables = None
         self.reset()
 
     def reset(self):
         # Earlier calls stay in ``history`` (their events are kept).
         self.history = getattr(self, "history", []) + getattr(self, "calls", [])
         self.calls = []
+        self.table_events = []
         self.host = {key: 0.0 for key, *_ in self.HOST}
 
     def install(self):
@@ -631,9 +659,16 @@ class RoundSpy:
 
     def _timed(self, key, fn):
         def call(*args, **kw):
+            if key == "event tables":
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             self.host[key] += time.perf_counter() - t0
+            if key == "event tables":
+                b.record()
+                self._tables = (a, b)
+                self.table_events.append((a, b))
             return out
 
         return call
@@ -641,24 +676,35 @@ class RoundSpy:
     def _wrap(self, name, fn):
         def call(*args):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            self._tables = None
             a.record()
             out = fn(*args)
             b.record()
-            self.calls.append((name, args, a, b))
+            self.calls.append((name, args, a, b, self._tables))
             self.last[name] = args
             return out
 
         return call
 
+    @staticmethod
+    def kernel_ms(call) -> float:
+        """CUDA-event ms of one recorded launch: the whole wrapper, or for
+        K9/K10 from the end of the event tables to the end of the call."""
+        _, _, a, b, tables = call
+        return (tables[1] if tables else a).elapsed_time(b)
+
     def rounds(self) -> list[str]:
         """One summary per launch since the last reset."""
         torch.cuda.synchronize()
         out = []
-        for name, args, a, b in self.calls:
+        for call in self.calls:
+            name, args = call[:2]
             pp = name.endswith("_pp")
             sw = args[7] if pp else args[6]
             q = f" Q={args[-1]}" if pp else ""
-            out.append(f"{name} SW={sw}{q} {a.elapsed_time(b):.1f} ms")
+            tab = (f" (+ event tables {call[4][0].elapsed_time(call[4][1]):.1f} ms)"
+                   if call[4] else "")
+            out.append(f"{name} SW={sw}{q} {self.kernel_ms(call):.1f} ms{tab}")
         return out
 
     def split(self, wall: float) -> str:
@@ -667,11 +713,12 @@ class RoundSpy:
         time on the card (CUDA events), which overlaps the host layers
         (the readback wait is the host waiting for it)."""
         torch.cuda.synchronize()
-        kernel = sum(a.elapsed_time(b) for _, _, a, b in self.calls) / 1e3
+        kernel = sum(self.kernel_ms(c) for c in self.calls) / 1e3
+        tables = sum(a.elapsed_time(b) for a, b in self.table_events)
         rest = wall - sum(self.host.values())
         return (", ".join(f"{k} {v:.3f} s" for k, v in self.host.items())
-                + f", other {rest:.3f} s; kernels on the card {kernel:.3f} s "
-                f"({kernel / wall:.3f} of the wall)")
+                + f", other {rest:.3f} s; event tables on the card {tables:.3f} ms; "
+                f"kernels on the card {kernel:.3f} s ({kernel / wall:.3f} of the wall)")
 
     def remove(self):
         for name, fn in self._orig.items():
@@ -686,9 +733,37 @@ def _verify(pairs, results, costs=None) -> None:
             fail(f"pair {i}: CIGAR does not verify at its cost")
 
 
-def phase7_config4(spy: RoundSpy) -> dict:
-    """Config #4 through the default BatchAligner; returns the launch
-    counts of its run."""
+def _pp_route(sw: int, ck: bool) -> str:
+    """The wrapper the runner sends a domain round of ``sw`` words to."""
+    kind = "pinned" if sw >= runner.PINNED_PP_MIN_SW else "banded"
+    return f"{kind}_{'ck' if ck else 'cost'}_pp"
+
+
+def _last_round(spy: RoundSpy, ck: bool) -> tuple[str, tuple]:
+    """(wrapper, arguments) of the last domain round since the spy's reset."""
+    names = ("pinned_ck_pp", "banded_ck_pp") if ck else ("pinned_cost_pp", "banded_cost_pp")
+    calls = [c for c in spy.calls if c[0] in names]
+    if not calls:
+        fail(f"no domain round ({' or '.join(names)}) was launched")
+    return calls[-1][0], calls[-1][1]
+
+
+def _check_round(spy: RoundSpy, st, ck: bool, label: str) -> tuple:
+    """The last domain round ran the wrapper its band routes to, and the
+    stats name it; returns its arguments."""
+    name, args = _last_round(spy, ck)
+    want = _pp_route(args[7], ck)
+    if name != want or st.kernel != banded_kernel.route(torch.device("cuda"), name):
+        fail(f"{label}: round of SW={args[7]} ran {name} (stats {st.kernel!r}), "
+             f"routing says {want} (PINNED_PP_MIN_SW={runner.PINNED_PP_MIN_SW})")
+    return args
+
+
+def phase7_config4(spy: RoundSpy) -> tuple[dict, tuple]:
+    """Config #4 through the default BatchAligner, then 128 x 40 kbp e=5%
+    pairs whose gcsh rounds fall below ``PINNED_PP_MIN_SW`` (K4's place on
+    the main path); returns the launch counts of both runs and config #4's
+    last cost round's arguments."""
     t0 = time.perf_counter()
     pairs = _pool(_uniform, [(C4_LENGTH, C4_ERR, C4_SEED + s) for s in range(C4_PAIRS)])
     bp = sum(len(a) for a, _ in pairs)
@@ -709,8 +784,9 @@ def phase7_config4(spy: RoundSpy) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     rounds, split = spy.rounds(), spy.split(dt)
-    if st.kernel != "cuda-banded-pp" or not (costs == costs1).all() or (costs < 0).any():
-        fail(f"config #4 cost: kernel {st.kernel!r}, or runs disagree")
+    c4_round = _check_round(spy, st, False, "config #4 cost")
+    if not (costs == costs1).all() or (costs < 0).any():
+        fail("config #4 cost: runs disagree")
     picks = np.linspace(0, C4_PAIRS - 1, C4_ORACLE).astype(int)
     with ThreadPoolExecutor(C4_ORACLE) as ex:
         want = list(ex.map(lambda i: att.oracle.levenshtein_myers(*pairs[i]), picks))
@@ -720,8 +796,9 @@ def phase7_config4(spy: RoundSpy) -> dict:
     say(f"[7 cost] 1st call rounds [{', '.join(first[0])}], gcsh build {first[1]:.3f} s; "
         f"2nd call {dt:.4f} s = {bp / dt / 1e6:.3f} Mbp/s: f-rounds {len(rounds)} "
         f"[{', '.join(rounds)}] (CUDA events), retries {st.band_retries}, cells "
-        f"{st.cells_computed}; levenshtein_myers {agree}/{C4_ORACLE}")
+        f"{st.cells_computed}, kernel {st.kernel}; levenshtein_myers {agree}/{C4_ORACLE}")
     say(f"[7 cost split] 2nd call, host clock and CUDA events: {split}")
+    routes = {_pp_route(c4_round[7], False)}
     for label, direct in (("direct", True), ("ck", False)):
         ba.direct_dt = direct
         spy.reset()
@@ -730,17 +807,55 @@ def phase7_config4(spy: RoundSpy) -> dict:
         dt = time.perf_counter() - t0
         rounds, split = spy.rounds(), spy.split(dt)
         _verify(pairs, res, costs)
-        if direct == (st.direct_traces == 0) or (not direct and st.kernel != "cuda-banded-ck-pp"):
-            fail(f"config #4 align ({label}): direct traces {st.direct_traces}, "
-                 f"kernel {st.kernel!r}")
+        if direct == (st.direct_traces == 0):
+            fail(f"config #4 align ({label}): direct traces {st.direct_traces}")
+        if not direct:
+            routes.add(_pp_route(_check_round(spy, st, True, "config #4 align ck")[7], True))
         say(f"[7 align {label}] {dt:.4f} s = {bp / dt / 1e6:.3f} Mbp/s cost+CIGAR, "
             f"{C4_PAIRS} CIGARs verified; direct traces {st.direct_traces}; f-rounds "
             f"{len(rounds)} [{', '.join(rounds)}], kernel {st.kernel}; split: {split}")
+
+    t0 = time.perf_counter()
+    small = _pool(_uniform, [(C40_LENGTH, C40_ERR, C40_SEED + s) for s in range(C40_PAIRS)])
+    bp40 = sum(len(a) for a, _ in small)
+    ba = BatchAligner(device="cuda")
+    mode = ba._resolve_domain_mode(small, list(range(len(small))), want_cigars=False)
+    if mode != "gcsh":
+        fail(f"the 40 kbp pairs resolved to domain mode {mode!r}, not 'gcsh'")
+    gen_s = time.perf_counter() - t0
+    spy.reset()
+    t0 = time.perf_counter()
+    costs, st = ba.cost_with_stats(small)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rounds = spy.rounds()
+    sw40 = _check_round(spy, st, False, "40 kbp cost")[7]
+    if (costs < 0).any():
+        fail("40 kbp cost left a pair uncertified")
+    picks = np.linspace(0, C40_PAIRS - 1, 4).astype(int)
+    with ThreadPoolExecutor(len(picks)) as ex:
+        want = list(ex.map(lambda i: att.oracle.levenshtein_myers(*small[i]), picks))
+    if [int(costs[i]) for i in picks] != want:
+        fail("40 kbp costs differ from levenshtein_myers")
+    ba.direct_dt = False
+    spy.reset()
+    t1 = time.perf_counter()
+    res, sta = ba.align_with_stats(small)
+    dta = time.perf_counter() - t1
+    rounds_a = spy.rounds()
+    sw40_ck = _check_round(spy, sta, True, "40 kbp align ck")[7]
+    _verify(small, res, costs)
+    routes |= {_pp_route(sw40, False), _pp_route(sw40_ck, True)}
+    say(f"[7 40kbp] {C40_PAIRS} x {C40_LENGTH} bp e={C40_ERR} (generated in {gen_s:.1f} s), "
+        f"domain mode {mode}: cost {dt:.4f} s = {bp40 / dt / 1e6:.3f} Mbp/s, f-rounds "
+        f"[{', '.join(rounds)}], kernel {st.kernel}, levenshtein_myers 4/4; align "
+        f"direct_dt=False {dta:.4f} s, {C40_PAIRS} CIGARs verified, f-rounds "
+        f"[{', '.join(rounds_a)}], kernel {sta.kernel}")
     launches = dict(banded_kernel.LAUNCHES)
-    for name in ("banded_cost_pp", "banded_ck_pp"):
+    for name in routes | {"banded_cost_pp", "banded_ck_pp"}:
         if not launches[name]:
-            fail(f"config #4 never launched {name}")
-    return launches
+            fail(f"phase 7 never launched {name}")
+    return launches, c4_round
 
 
 def phase8_ck(spy: RoundSpy) -> dict:
@@ -783,12 +898,14 @@ def _turns(plain, kernels):
 
 
 def phase9_time(spy: RoundSpy) -> dict:
-    """K2/K4 == plain at the main path's shapes, and timed; returns each
-    kernel's JSON record (without the launch count)."""
-    for name in RoundSpy.NAMES:
+    """K2/K4 == plain at the main path's shapes (K4's last main-path round,
+    the 40 kbp run of phase 7 when config #4 runs K9), and timed; returns
+    each kernel's JSON record (without the launch count)."""
+    for name in ("banded_ck", "banded_cost_pp", "banded_ck_pp"):
         if name not in spy.last:
             fail(f"the main path never launched {name}")
-    # K4 cost and ck on config #4's last ck round, cut to the first columns.
+    # K4 cost and ck on the main path's last K4 ck round, cut to its first
+    # columns.
     *planes, sched, sw, cb, q = spy.last["banded_ck_pp"]
     n_max = planes[0].shape[0]
     cut = min(CUT_COLS // 4, n_max)
@@ -807,10 +924,10 @@ def phase9_time(spy: RoundSpy) -> dict:
         cost_ms.append(ms)
         err_pp = max(err_pp, _max_err(got, ref[0]))
     if err_pp:
-        fail("K4 != plain on config #4's cut pack")
+        fail("K4 != plain on its main-path round's cut pack")
     cshape = {"B": planes[0].shape[1], "n_max": cut, "S": planes[2].shape[0], "SW": sw,
               "Q": q, "CB": banded.ck_col_block(cb, cut, q)}
-    say(f"[9 config4 cut] K4 == plain on config #4's pack and gcsh schedules, first "
+    say(f"[9 K4 cut] K4 == plain on its last main-path round's pack and gcsh schedules, first "
         f"{cut} of {n_max} columns ({cshape}): K4 ck {ck_ms[0]:.3f}/{ck_ms[1]:.3f} ms, "
         f"K4 cost {cost_ms[0]:.3f}/{cost_ms[1]:.3f} ms, plain {plain_ms:.1f} ms; "
         f"max_abs_err {err_pp} (CUDA events)")
@@ -822,10 +939,10 @@ def phase9_time(spy: RoundSpy) -> dict:
     k4_ms, k4 = _event_ms(lambda: banded_kernel.banded_cost_pp(*planes, shared, sw_c, 1))
     err_full = _max_err(k4, k1)
     if err_full:
-        fail("K4 on the shared schedule != K1 at config #4's full shape")
+        fail("K4 on the shared schedule != K1 at its round's full shape")
     full_shape = {"B": B, "n_max": n_max, "S": S, "SW": sw_c}
     full_bound = plane_bound(planes, sw_c, [k4], n_max * B)["bound_ms"]
-    say(f"[9 config4 full] K4 with K1's schedule == K1 at {full_shape}: K4 "
+    say(f"[9 K4 full] K4 with K1's schedule == K1 at {full_shape}: K4 "
         f"{k4_ms:.3f} ms, K1 {k1_ms:.3f} ms, max_abs_err {err_full} (CUDA events)")
     # K2 on phase 8's pack, cut to its first columns.
     *planes, sw_k2, cb_k2, _ = spy.last["banded_ck"]
@@ -846,14 +963,14 @@ def phase9_time(spy: RoundSpy) -> dict:
         f"diag={diag_k2}: K2 "
         f"{k2_ms[0]:.3f}/{k2_ms[1]:.3f} ms, plain {k2_plain_ms:.1f} ms, max_abs_err "
         f"{err_k2} (CUDA events)")
-    # Turns on 1 kbp packs: K2 against plain ck; K4 cost and ck against the
+    # Turns on short-pair packs: K2 against plain ck; K4 cost and ck against the
     # plain per-pair ck sweep (whose costs are the plain cost version's).
     pairs2k = att.generate.generate_batch(PAIRS, TURN_LENGTH, ERR, seed=SEED + 1,
                                           workers=WORKERS)
     args2k, _ = pack_batch_staggered(pairs2k, 32, device="cuda")
     n2, S2 = args2k[0].shape[0], args2k[2].shape[0]
     gap2k = banded.pair_gap_schedule(args2k[4], args2k[5], TIMED_SW, n2, S2)[0]
-    turns_shape = {"B": PAIRS, "n_max": n2, "S": S2, "SW": TIMED_SW, "CB": 256}
+    turns_shape = {"B": PAIRS, "n_max": n2, "S": S2, "SW": min(TIMED_SW, S2), "CB": 256}
     p2, k2t, e2 = _turns(lambda: banded.banded_ck_ref(*args2k, TIMED_SW, 256), {
         "banded_ck": (lambda: banded_kernel.banded_ck(*args2k, TIMED_SW, 256), lambda r: r)})
     p4, k4t, e4 = _turns(lambda: banded.banded_ck_pp_ref(*args2k, gap2k, TIMED_SW, 256), {
@@ -938,10 +1055,11 @@ def phase10_grid() -> int:
     return worst
 
 
-def phase11_config5() -> tuple[dict, RoundSpy]:
+def phase11_config5() -> tuple[dict, RoundSpy, tuple]:
     """Config #5 through the big shared band (K5, K6): costs, a cost
-    stream and an align stream; returns the launch counts of its run and
-    the spy holding each kernel's last inputs."""
+    stream and an align stream; returns the launch counts of its run, the
+    spy holding each kernel's last inputs, and ``(pairs of seed 7, their
+    costs, {pair: levenshtein_myers})`` for phase 14."""
     t0 = time.perf_counter()
     sets = {s: att.generate.generate_batch(C5_PAIRS, C5_LENGTH, C5_ERR, seed=s,
                                            workers=WORKERS) for s in C5_SEEDS}
@@ -1034,7 +1152,7 @@ def phase11_config5() -> tuple[dict, RoundSpy]:
     for name in ("striped_cost", "striped_ck"):
         if not launches[name]:
             fail(f"config #5 never launched {name}")
-    return launches, spy
+    return launches, spy, (p7, costs, dict(zip(range(4), want[:4])))
 
 
 def phase12_time(spy: RoundSpy) -> dict:
@@ -1042,8 +1160,8 @@ def phase12_time(spy: RoundSpy) -> dict:
     against K1 across bands on the cut; returns K5's and K6's JSON records
     (without the launch counts)."""
     torch.cuda.synchronize()
-    rung_ms = {name: [a.elapsed_time(b) for n_, _, a, b in spy.history + spy.calls
-                      if n_ == name]
+    rung_ms = {name: [RoundSpy.kernel_ms(c) for c in spy.history + spy.calls
+                      if c[0] == name]
                for name in ("striped_cost", "striped_ck")}
     *planes, sw, diag = spy.last["striped_cost"]
     cut = _cut(planes, C5_CUT)
@@ -1102,6 +1220,215 @@ def phase12_time(spy: RoundSpy) -> dict:
     }
 
 
+def _pp_random(rng, n_max: int, B: int, quantum: int) -> np.ndarray:
+    """:func:`_random_schedule` with column 0 unshifted (the pinned
+    kernels' condition)."""
+    sched = _random_schedule(rng, n_max, B, quantum)
+    sched[0] = 0
+    return sched
+
+
+def phase13_grid() -> int:
+    """K9 and K10 == plain on a grid; returns the max abs difference over
+    costs, every checkpoint row and every top value.  K9 is held against
+    the costs of the plain ck sweep where a case has an interval: the
+    plain versions are one loop."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    pairs = [att.generate.uniform_seeded(int(rng.integers(1, 1501)),
+                                         float(rng.uniform(0, 0.25)), 6000 + s)
+             for s in range(160)]
+    pairs[1] = (b"", b"ACGTACGTAC")  # an n == 0 lane
+    # A skewed pair makes S ~ 280 words: bands taller than a 256-word stripe.
+    pairs[2] = (pairs[2][0][:300] or b"A", att.generate.uniform_seeded(9000, 0.1, 5999)[0])
+    wide, _ = pack_batch_staggered(pairs, 1, device="cuda")
+    n_max, S = wide[0].shape[0], wide[2].shape[0]
+    narrow = _lanes(wide, 33)
+
+    def gap(planes, sw):
+        return banded.pair_gap_schedule(planes[4], planes[5], sw, n_max, S)[0]
+
+    def shared(sw, B):
+        return np.broadcast_to(banded.shift_at_array(n_max, S, sw)[:, None], (n_max, B))
+
+    g, sw_g, q_g = _gcsh_schedules(pairs, len(pairs), n_max, 1.25)
+    s8 = S // 8 * 8
+    cases = [
+        (narrow, "gap", gap(narrow, 8), 8, 32, 64, None),
+        (wide, "gap", gap(wide, 24), 24, 32, 512, None),
+        (wide, "random", _pp_random(rng, n_max, len(pairs), 8), 16, 8, 64, None),
+        (narrow, "random", _pp_random(rng, n_max, 33, 1), 64, 1, 512, 256),
+        (wide, "gcsh 1.25 h0", g, min(sw_g, S), q_g, 512, None),
+        (wide, "shared", shared(s8, len(pairs)), s8, 1, 512, 256),
+        (wide, "random", _pp_random(rng, n_max, len(pairs), 1), S, 1, 512, 256),
+        (narrow, "shared", shared(S, 33), S, 1, None, None),
+    ]
+    worst, labels = 0, []
+    for planes, kind, sched, sw, q, cb, ws in cases:
+        if cb is not None:
+            want = pinned.pinned_ck_pp_ref(*planes, sched, sw, cb, q)
+            err = _max_err(banded_kernel.pinned_ck_pp(*planes, sched, sw, cb, q, ws), want)
+            want = want[0]
+        else:
+            want, err = pinned.pinned_cost_pp_ref(*planes, sched, sw, q), 0
+        err = max(err, _max_err(banded_kernel.pinned_cost_pp(*planes, sched, sw, q, ws), want))
+        label = (f"{kind} B={planes[0].shape[1]} SW={sw}{' (full)' if sw == S else ''} Q={q} "
+                 f"CB={cb} stripe={ws or 8 * banded_kernel.striped_threads(sw)}")
+        if err:
+            fail(f"K9/K10 != plain at {label}")
+        worst = max(worst, err)
+        labels.append(label)
+    torch.cuda.synchronize()
+    say(f"[13 pinned=plain] {len(cases)}/{len(cases)} cases (n_max {n_max}, S {S}: "
+        f"{'; '.join(labels)}); max_abs_err {worst}, {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def phase14_config5_default(p7, costs_off, oracle: dict) -> tuple[dict, RoundSpy]:
+    """Config #5 at its default settings (gcsh domain ladder: K9 costs, K10
+    checkpoints) on phase 11's first batch; returns the launch counts of
+    its run and the spy holding each kernel's last inputs."""
+    bp = sum(len(a) for a, _ in p7)
+    ba = BatchAligner(device="cuda")
+    mode = ba._resolve_domain_mode(p7, list(range(len(p7))), want_cigars=False)
+    if mode != "gcsh":
+        fail(f"config #5 at default settings resolved to domain mode {mode!r}, not 'gcsh'")
+    spy = RoundSpy()
+    spy.install()
+    banded_kernel.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    costs1, _ = ba.cost_with_stats(p7)
+    torch.cuda.synchronize()
+    dt1 = time.perf_counter() - t0
+    first = spy.rounds()
+    spy.reset()
+    t0 = time.perf_counter()
+    costs, st = ba.cost_with_stats(p7)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rounds, split = spy.rounds(), spy.split(dt)
+    _check_round(spy, st, False, "config #5 default cost")
+    if not ((costs == costs1).all() and (costs == costs_off).all()):
+        fail("config #5 default costs differ between calls or from phase 11's")
+    picks = [32, 64, 96, C5_PAIRS - 1]
+    with ThreadPoolExecutor(len(picks)) as ex:
+        oracle = {**oracle, **dict(zip(picks, ex.map(
+            lambda i: att.oracle.levenshtein_myers(*p7[i]), picks)))}
+    agree = sum(int(costs[i]) == w for i, w in oracle.items())
+    if agree != len(oracle):
+        fail(f"config #5 default: {agree}/{len(oracle)} costs equal levenshtein_myers")
+    say(f"[14 config5 default] BatchAligner(device='cuda'), domain mode {mode}, seed 7's "
+        f"{C5_PAIRS} pairs: 1st call {dt1:.4f} s, rounds [{', '.join(first)}]; 2nd call "
+        f"{dt:.4f} s = {bp / dt / 1e6:.3f} Mbp/s cost: f-rounds {len(rounds)} "
+        f"[{', '.join(rounds)}] (CUDA events), retries {st.band_retries}, cells "
+        f"{st.cells_computed}, kernel {st.kernel}; costs == phase 11's; levenshtein_myers "
+        f"{agree}/{len(oracle)} (pairs {sorted(oracle)})")
+    say(f"[14 cost split] 2nd call, host clock and CUDA events: {split}")
+    spy.reset()
+    t0 = time.perf_counter()
+    res, sta = ba.align_with_stats(p7)
+    dta = time.perf_counter() - t0
+    rounds_a, split_a = spy.rounds(), spy.split(dta)
+    _check_round(spy, sta, True, "config #5 default align")
+    if [c for c, _ in res] != [int(x) for x in costs] or sta.direct_traces:
+        fail("config #5 default align: costs differ from the cost path, or traced directly")
+    t1 = time.perf_counter()
+    ok = _pool(_verify_job, [(a, b, cig.to_string(), c) for (a, b), (c, cig) in zip(p7, res)])
+    if not all(ok):
+        fail(f"config #5 default: {len(ok) - sum(ok)} CIGARs do not verify at their cost")
+    say(f"[14 align] align_with_stats {dta:.4f} s = {bp / dta / 1e6:.3f} Mbp/s cost+CIGAR, "
+        f"{len(ok)} CIGARs verified at the cost path's costs ({time.perf_counter() - t1:.1f} s "
+        f"on {WORKERS} processes); f-rounds {len(rounds_a)} [{', '.join(rounds_a)}], kernel "
+        f"{sta.kernel}; split: {split_a}")
+    say(f"[14 memory] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated over the three calls)")
+    spy.remove()
+    launches = dict(banded_kernel.LAUNCHES)
+    if launches["banded_cost_pp"] or launches["banded_ck_pp"]:
+        fail(f"config #5 default launched K4: {launches}")
+    for name in ("pinned_cost_pp", "pinned_ck_pp"):
+        if not launches[name]:
+            fail(f"config #5 default never launched {name}")
+    return launches, spy
+
+
+def _cut_round(round_args, cols: int):
+    """A domain round's planes and schedule cut to their first ``cols``
+    columns: ``(planes, schedule, SW, Q)``."""
+    *planes, sched, sw, q = round_args
+    return _cut(planes, cols), np.ascontiguousarray(sched[:cols]), sw, q
+
+
+def phase15_time(spy: RoundSpy, c4_round) -> dict:
+    """K9/K10 == plain at config #5's default shapes, timed in turns, and
+    K9 against K4 across bands on config #4's and config #5's cuts (the
+    crossover behind ``runner.PINNED_PP_MIN_SW``); returns K9's and K10's
+    JSON records (without the launch counts)."""
+    torch.cuda.synchronize()
+    round_ms = {name: [RoundSpy.kernel_ms(c) for c in spy.history + spy.calls
+                       if c[0] == name]
+                for name in ("pinned_cost_pp", "pinned_ck_pp")}
+    full = {name: spy.last[name] for name in round_ms}
+    cut, sched, sw, q = _cut_round(full["pinned_cost_pp"], C5_CUT)
+    cb = sw  # the smallest interval K10 takes: checkpoints inside the cut
+    p, k, err = _turns(lambda: pinned.pinned_ck_pp_ref(*cut, sched, sw, cb, q), {
+        "pinned_cost_pp": (lambda: banded_kernel.pinned_cost_pp(*cut, sched, sw, q),
+                           lambda r: r[0]),
+        "pinned_ck_pp": (lambda: banded_kernel.pinned_ck_pp(*cut, sched, sw, cb, q),
+                         lambda r: r)})
+    if err:
+        fail("K9/K10 != plain on config #5's cut pack")
+    shape = {"B": cut[0].shape[1], "n_max": cut[0].shape[0], "S": cut[2].shape[0],
+             "SW": sw, "Q": q, "CB": banded.ck_col_block(cb, cut[0].shape[0], q)}
+    say(f"[15 config5 cut] first {C5_CUT} columns of the default path's last K9 round "
+        f"{shape}, turns plain, kernels, kernels, plain: K9 "
+        f"{k['pinned_cost_pp'][0]:.3f}/{k['pinned_cost_pp'][1]:.3f} ms, K10 "
+        f"{k['pinned_ck_pp'][0]:.3f}/{k['pinned_ck_pp'][1]:.3f} ms (event tables "
+        f"included) vs plain {p[0]:.1f}/{p[1]:.1f} ms; max_abs_err {err} (CUDA events)")
+
+    rows, wins = [], {}
+    for label, round_args in (("config #4", c4_round), ("config #5", full["pinned_cost_pp"])):
+        planes, sch, _, qx = _cut_round(round_args, C5_CUT)
+        wins[label] = []
+        for s_ in PP_CROSSOVER_SW:
+            t9 = [_event_ms(lambda: banded_kernel.pinned_cost_pp(*planes, sch, s_, qx))
+                  for _ in range(2)]
+            t4 = [_event_ms(lambda: banded_kernel.banded_cost_pp(*planes, sch, s_, qx))
+                  for _ in range(2)]
+            if not torch.equal(t9[1][1], t4[1][1]):
+                fail(f"K9 != K4 on {label}'s cut at SW={s_}")
+            t9, t4 = [x[0] for x in t9], [x[0] for x in t4]
+            rows.append(f"{label} SW={s_} K9 {t9[0]:.3f}/{t9[1]:.3f} ms K4 "
+                        f"{t4[0]:.3f}/{t4[1]:.3f} ms")
+            if min(t9) < min(t4):
+                wins[label].append(s_)
+    both = [s_ for s_ in PP_CROSSOVER_SW if all(s_ in w for w in wins.values())]
+    lowest = next((s_ for s_ in PP_CROSSOVER_SW
+                   if all(x in both for x in PP_CROSSOVER_SW if x >= s_)), None)
+    say(f"[15 crossover] K9 vs K4 on the cuts to {C5_CUT} columns (CUDA events, two runs "
+        f"each, event tables included; K9 == K4 on every lane): {'; '.join(rows)}; K9 faster "
+        f"at SW {wins}; K9 faster from SW {lowest} up on both; runner.PINNED_PP_MIN_SW = "
+        f"{runner.PINNED_PP_MIN_SW}")
+
+    def record(name, outs):
+        full_planes, full_sched, full_sw = full[name][:6], full[name][6], full[name][7]
+        return {"max_abs_err": err, "ms": float(np.mean(k[name])),
+                "plain_ms": float(np.mean(p)),
+                **plane_bound(cut, sw, outs, sched.size), "library_ms": None, "shape": shape,
+                # Every launch on the main path at its full shape (kernel
+                # only: from the end of its event tables), and the last
+                # launch's shape and bound.
+                "round_ms": round_ms[name],
+                "round_bound_ms": plane_bound(full_planes, full_sw, [], full_sched.size)["bound_ms"],
+                "round_shape": {"B": full_planes[0].shape[1], "n_max": full_planes[0].shape[0],
+                                "S": full_planes[2].shape[0], "SW": full_sw}}
+
+    ck_out = banded_kernel.pinned_ck_pp(*cut, sched, sw, cb, q)
+    return {"pinned_cost_pp": record("pinned_cost_pp", ck_out[:1]),
+            "pinned_ck_pp": record("pinned_ck_pp", ck_out)}
+
+
 def main() -> None:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1132,7 +1459,7 @@ def main() -> None:
 
     rounds = RoundSpy()
     rounds.install()
-    c4 = phase7_config4(rounds)
+    c4, c4_round = phase7_config4(rounds)
     ck = phase8_ck(rounds)
     rounds.remove()
     counts = {k: c4[k] + ck[k] for k in RoundSpy.NAMES}
@@ -1142,9 +1469,13 @@ def main() -> None:
     records = phase9_time(rounds)
 
     striped_err = phase10_grid()
-    c5, c5_spy = phase11_config5()
+    c5, c5_spy, c5_batch = phase11_config5()
     say(f"[main path] launches: config #5 {c5}")
     c5_records = phase12_time(c5_spy)
+    pp_err = phase13_grid()
+    c5d, c5d_spy = phase14_config5_default(*c5_batch)
+    say(f"[main path] launches: config #5 default {c5d}")
+    pp_records = phase15_time(c5d_spy, c4_round)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "astarpa_tpu"))
     if loaded:
         fail(f"JAX or the JAX package was imported: {loaded[:5]}")
@@ -1155,11 +1486,14 @@ def main() -> None:
         "banded_ck_pp": "astarpa_tpu/ops/pallas_banded.py:447",
         "striped_cost": "astarpa_tpu/ops/striped.py:522",
         "striped_ck": "astarpa_tpu/ops/striped.py:576",
+        "pinned_cost_pp": "astarpa_tpu/ops/pinned.py:944",
+        "pinned_ck_pp": "astarpa_tpu/ops/pinned.py:1316",
     }
     banded_src, striped_src = "astarpa_tpu_torch/csrc/banded.cu", "astarpa_tpu_torch/csrc/striped.cu"
     kernels = [{"name": "banded_cost", "route": "cuda", "source": banded_src,
                 "replaces": replaces["banded_cost"], "launches": launches, **record}]
-    for name, rec in records.items():
+    for name in ("banded_ck", "banded_cost_pp", "banded_ck_pp"):
+        rec = records[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], new_grid_err)
         kernels.append({"name": name, "route": "cuda", "source": banded_src,
                         "replaces": replaces[name], "launches": counts[name], **rec})
@@ -1167,6 +1501,13 @@ def main() -> None:
         rec["max_abs_err"] = max(rec["max_abs_err"], striped_err)
         kernels.append({"name": name, "route": "cuda", "source": striped_src,
                         "replaces": replaces[name], "launches": c5[name], **rec})
+    for name, rec in pp_records.items():
+        rec["max_abs_err"] = max(rec["max_abs_err"], pp_err)
+        # Launches of both main-path runs: config #4 (phase 7, when its
+        # rounds reach PINNED_PP_MIN_SW) and config #5 at default settings.
+        kernels.append({"name": name, "route": "cuda", "source": striped_src,
+                        "replaces": replaces[name], "launches": counts[name] + c5d[name],
+                        **rec})
     say(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)

@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from astarpa_tpu_torch import BatchAligner, generate, oracle
-from astarpa_tpu_torch.ops import banded, banded_kernel, striped
+from astarpa_tpu_torch.ops import banded, banded_kernel, pinned, striped
 from astarpa_tpu_torch.ops.pack import pack_batch_staggered
+from astarpa_tpu_torch.parallel import runner
 
 torch.set_num_threads(1)
 
@@ -181,3 +182,74 @@ def test_runner_striped_rungs_on_gpu(gpu):
     assert astats.kernel == "cuda-striped-ck"
     for (a, b), (c, cig), want in zip(pairs, res, ref):
         assert cig.verify(a, b) == c == want
+
+
+@pytest.mark.parametrize("quantum", [32, 1])
+def test_pinned_pp_kernels_match_plain(gpu, quantum):
+    """K9 and K10 against their plain versions, bit for bit on costs, every
+    checkpoint row and top value: gap, random and broadcast schedules,
+    bands from 8 words to full height, bands taller than a 256-word stripe
+    (a skewed pair makes S ~ 280), CB 64 and 512."""
+    pairs = [generate.uniform_seeded(100 + (s * 61) % 900, [0.03, 0.15][s % 2], 800 + s)
+             for s in range(40)]
+    pairs[1] = (b"", b"ACGTAC")
+    pairs[2] = (pairs[2][0][:200], generate.uniform_seeded(9000, 0.1, 799)[0])
+    args, _ = pack_batch_staggered(pairs, 1, device=gpu)
+    n_max, S, B = args[0].shape[0], args[2].shape[0], args[0].shape[1]
+    rng = np.random.default_rng(quantum)
+    rand = np.zeros((n_max, B), np.uint8)
+    rows = np.arange(quantum, n_max, quantum)
+    rand[rows] = rng.random((len(rows), B)) < 0.3
+    before = dict(banded_kernel.LAUNCHES)
+    cases = 0
+    for sw, ws in ((8, None), (24, None), (64, 256), (S, 256), (S, None)):
+        shared = np.broadcast_to(banded.shift_at_array(n_max, S, sw)[:, None], (n_max, B))
+        scheds = [(rand, quantum), (shared, 1)]
+        if quantum == 32:
+            scheds.append((banded.pair_gap_schedule(args[4], args[5], sw, n_max, S)[0], 32))
+        for sched, q in scheds:
+            want = pinned.pinned_cost_pp_ref(*args, sched, sw, q)
+            got = banded_kernel.pinned_cost_pp(*args, sched, sw, q, ws)
+            assert torch.equal(got, want), (sw, q)
+            for cb in (64, 512):
+                if banded.ck_col_block(cb, n_max, q) < min(sw, S):
+                    continue
+                got = banded_kernel.pinned_ck_pp(*args, sched, sw, cb, q, ws)
+                _assert_same(got, pinned.pinned_ck_pp_ref(*args, sched, sw, cb, q),
+                             (sw, cb, q))
+                cases += 1
+    assert banded_kernel.LAUNCHES["pinned_cost_pp"] == before["pinned_cost_pp"] + 5 * len(scheds)
+    assert banded_kernel.LAUNCHES["pinned_ck_pp"] == before["pinned_ck_pp"] + cases
+
+
+def test_pinned_ck_refuses_short_intervals(gpu):
+    pairs = [generate.uniform_seeded(300, 0.1, s) for s in range(4)]
+    args, _ = pack_batch_staggered(pairs, 1, device=gpu)
+    sched = np.zeros(args[0].shape, np.uint8)
+    before = banded_kernel.LAUNCHES["pinned_ck_pp"]
+    with pytest.raises(ValueError, match="col_block"):
+        banded_kernel.pinned_ck_pp(*args, sched, 8, 7, 1)
+    with pytest.raises(ValueError, match="column 0"):
+        bad = sched.copy()
+        bad[0] = 1
+        banded_kernel.pinned_cost_pp(*args, bad, 8, 1)
+    assert banded_kernel.LAUNCHES["pinned_ck_pp"] == before
+
+
+def test_runner_routes_domain_rounds_on_gpu(gpu, monkeypatch):
+    """Domain rounds below PINNED_PP_MIN_SW words run K4, at or above it
+    K9 (costs) and K10 (checkpoints), with the costs and CIGARs of the CPU
+    route."""
+    pairs = [generate.uniform_seeded(2000 + 97 * s, 0.1, 60 + s) for s in range(6)]
+    kw = dict(band_words=4, domain_mode="gap", domain_min_bp=0)
+    ref, _ = BatchAligner(device="cpu", **kw).cost_with_stats(pairs)
+    for limit, labels in ((10**6, ("cuda-banded-pp", "cuda-banded-ck-pp")),
+                          (1, ("cuda-pinned-pp", "cuda-pinned-pp-ck"))):
+        monkeypatch.setattr(runner, "PINNED_PP_MIN_SW", limit)
+        costs, stats = BatchAligner(device=gpu, **kw).cost_with_stats(pairs)
+        assert list(costs) == list(ref) == [oracle.levenshtein(a, b) for a, b in pairs]
+        assert stats.kernel == labels[0]
+        res, astats = BatchAligner(device=gpu, direct_dt=False, **kw).align_with_stats(pairs)
+        assert astats.kernel == labels[1]
+        for (a, b), (c, cig), want in zip(pairs, res, ref):
+            assert cig.verify(a, b) == c == want
