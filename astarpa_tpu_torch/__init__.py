@@ -14,6 +14,9 @@ Public API:
   (``align``, ``align_iter``) for many pairs on one device.  It runs on the
   card and raises without one; ``BatchAligner(device="cpu")`` runs the
   kernels' plain torch versions instead.
+- ``ops.nw_kernel.nw_cost_pairs`` and ``aligners.nw.nw_cost_batch`` —
+  full-rectangle NW edit distances (cost only, kernel K11), with the same
+  device rule.
 - ``generate``, ``oracle``, ``native``, ``domain`` — pair generation, the
   edit-distance oracle, the native C++ runtime, domain hulls to per-pair
   schedules.

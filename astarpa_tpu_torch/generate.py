@@ -171,7 +171,7 @@ def generate_batch(
 
         ctx = multiprocessing.get_context("spawn")
         with ProcessPoolExecutor(min(workers, count), mp_context=ctx) as ex:
-            return list(ex.map(_model_job, jobs))
+            return list(ex.map(_model_job, jobs, chunksize=max(1, count // (4 * workers))))
     return [_model_job(job) for job in jobs]
 
 

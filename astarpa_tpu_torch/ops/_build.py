@@ -111,7 +111,8 @@ def load() -> ctypes.CDLL:
                                    ("astarpa_striped_cost", 10, 8),
                                    ("astarpa_striped_ck", 14, 10),
                                    ("astarpa_pinned_cost_pp", 11, 8),
-                                   ("astarpa_pinned_ck_pp", 15, 10)):
+                                   ("astarpa_pinned_ck_pp", 15, 10),
+                                   ("astarpa_nw_right_edge", 8, 2)):
             fn = getattr(lib, name)
             fn.restype = i32
             fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]

@@ -29,13 +29,14 @@ import numpy as np
 import torch
 
 from . import banded, pinned, striped
-from .words import to_tensor
+from .words import lengths, to_tensor
 
 #: Launches of each CUDA kernel in this process, by wrapper name (callers
 #: that need to show a run went through a kernel reset them first).
+#: ``nw_right_edge`` is K11's, whose wrapper is in :mod:`.nw_kernel`.
 LAUNCHES = {"banded_cost": 0, "banded_ck": 0, "banded_cost_pp": 0,
             "banded_ck_pp": 0, "striped_cost": 0, "striped_ck": 0,
-            "pinned_cost_pp": 0, "pinned_ck_pp": 0}
+            "pinned_cost_pp": 0, "pinned_ck_pp": 0, "nw_right_edge": 0}
 
 
 def reset_launches() -> None:
@@ -46,7 +47,8 @@ def reset_launches() -> None:
 _LABELS = {"banded_cost": "cuda-banded", "banded_ck": "cuda-banded-ck",
            "banded_cost_pp": "cuda-banded-pp", "banded_ck_pp": "cuda-banded-ck-pp",
            "striped_cost": "cuda-striped", "striped_ck": "cuda-striped-ck",
-           "pinned_cost_pp": "cuda-pinned-pp", "pinned_ck_pp": "cuda-pinned-pp-ck"}
+           "pinned_cost_pp": "cuda-pinned-pp", "pinned_ck_pp": "cuda-pinned-pp-ck",
+           "nw_right_edge": "cuda-nw"}
 
 
 def route(device: torch.device, kernel: str = "banded_cost") -> str:
@@ -169,8 +171,8 @@ def _launch(kernel, a0, a1, pb0, pb1, n, m, band_words, *, diag=None,
     n_max, B = a0.shape
     S = pb0.shape[0]
     SW = _check(kernel, a0, a1, pb0, pb1, band_words)
-    n_t = _lengths(n, B, dev)
-    m_t = _lengths(m, B, dev)
+    n_t = lengths(n, B, dev)
+    m_t = lengths(m, B, dev)
     per_pair = schedule is not None
     if per_pair:
         sched = to_tensor(banded.check_schedule(schedule, n_max, B, quantum), dev)
@@ -257,7 +259,7 @@ def _launch_striped(kernel, a0, a1, pb0, pb1, n, m, band_words, diag,
     S = pb0.shape[0]
     SW = _check(kernel, a0, a1, pb0, pb1, band_words)
     plan = striped.plan_striped(n_max, S, SW, diag)
-    n_t, m_t = _lengths(n, B, dev), _lengths(m, B, dev)
+    n_t, m_t = lengths(n, B, dev), lengths(m, B, dev)
     host_n = isinstance(n, np.ndarray)
     if host_n:
         loend = to_tensor(striped.loend_of(plan["lo"], n), dev)
@@ -334,7 +336,7 @@ def _launch_pinned_pp(kernel, a0, a1, pb0, pb1, n, m, schedule, band_words,
     if ck:
         CB, n_ck = pinned.ck_layout_pp(col_block, n_max, quantum, SW)
     n_host = np.asarray(torch.as_tensor(n).cpu(), np.int64)
-    n_t, m_t = _lengths(n, B, dev), _lengths(m, B, dev)
+    n_t, m_t = lengths(n, B, dev), lengths(m, B, dev)
     # Cost mode stops each pair's words after its own last column;
     # checkpoints are defined (and compared) up to n_max.
     n_lim = torch.full_like(n_t, n_max) if ck else n_t.clamp(min=1)
@@ -381,14 +383,3 @@ def _check(kernel, a0, a1, pb0, pb1, band_words) -> int:
     if SW < 1:
         raise ValueError(f"{kernel}: band_words must be >= 1, got {band_words}")
     return SW
-
-
-def _lengths(x, B: int, dev) -> torch.Tensor:
-    """Host numpy lengths upload without blocking; tensors are converted."""
-    if isinstance(x, np.ndarray):
-        t = to_tensor(x.astype(np.int32), dev)
-    else:
-        t = x.to(device=dev, dtype=torch.int32).contiguous()
-    if tuple(t.shape) != (B,):
-        raise ValueError(f"banded kernels: lengths must have shape ({B},)")
-    return t

@@ -89,6 +89,18 @@ def to_tensor(x: np.ndarray, device) -> torch.Tensor:
     return t
 
 
+def lengths(x, B: int, device) -> torch.Tensor:
+    """(B,) int32 lengths on ``device``: host numpy uploads without
+    blocking (:func:`to_tensor`), a tensor is converted."""
+    if isinstance(x, np.ndarray):
+        t = to_tensor(x.astype(np.int32), device)
+    else:
+        t = torch.as_tensor(x).to(device=device, dtype=torch.int32).contiguous()
+    if tuple(t.shape) != (B,):
+        raise ValueError(f"lengths must have shape ({B},), got {tuple(t.shape)}")
+    return t
+
+
 def to_numpy_u32(x: torch.Tensor) -> np.ndarray:
     """int32 tensor -> numpy uint32 array with the same bits."""
     return x.detach().cpu().contiguous().numpy().view(np.uint32)

@@ -74,6 +74,22 @@ Phases, one output line each (any failure exits non-zero):
     last round cut to the first 4096 columns), timed in turns; K9 against
     K4 on config #4's and config #5's cuts at SW 64 to 1088 (the crossover
     behind ``runner.PINNED_PP_MIN_SW``);
+16. the full-rectangle NW kernel K11 against its plain version on a grid
+    (B 33/1024, n <= 1500 with n == 0 and m == 0 lanes, S 1 to 47 words
+    and 313, ten stripes), bit for bit on both planes and the costs;
+17. main path, config #1 (``BASELINE.json``: cost-only edit distance of
+    1 kbp pairs at e=1%): ``nw_cost_pairs`` on the card on 65 536 pairs
+    (``generate_batch`` seed 1), twice, the second timed and split by
+    layer (native pack, upload and unpack, K11, readback), 1024 costs
+    against ``oracle.levenshtein_myers``, aligned Gbp/s and peak device
+    memory; then the reference's shape (its 8 seed-1 pairs tiled to 1024,
+    ``scripts/bench_configs.py:41-67``), K11 alone over chained launches;
+    then the same pairs through ``BatchAligner(device="cuda").cost`` (K1
+    ladder), its costs equal to K11's;
+18. K11 against its plain version on phase 17's pack cut to its first 512
+    pairs, timed in turns (plain, kernel, kernel, plain); K11 alone over
+    chained launches on the whole pack and on it with one word more (S =
+    33, a partial second stripe);
 
 then the kernels' JSON line (each kernel's time, its plain version's,
 its bound from this run's inputs, its launches on the main path), the
@@ -82,7 +98,7 @@ The plain sweeps of phases 5, 9, 12 and 15 run on their packs' first
 columns, the grids of phases 2 and 6 hold a few cases each, and the pairs
 are generated on a pool of the host's cores, to keep the run short.
 Launch counts are reset just before each main-path phase (3-4, 7, 8, 11,
-14) and read just after it.  Imports nothing of JAX and nothing of the
+14, 17) and read just after it.  Imports nothing of JAX and nothing of the
 JAX package.  Exits 1 without a usable GPU.
 """
 
@@ -102,8 +118,10 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import astarpa_tpu_torch as att  # noqa: E402
-from astarpa_tpu_torch.ops import _build, banded, banded_kernel, pinned, striped  # noqa: E402
+from astarpa_tpu_torch.ops import (  # noqa: E402
+    _build, banded, banded_kernel, myers, nw_kernel, pinned, striped)
 from astarpa_tpu_torch.ops.pack import pack_batch_staggered  # noqa: E402
+from astarpa_tpu_torch.ops.words import value_to_window  # noqa: E402
 from astarpa_tpu_torch.parallel import runner  # noqa: E402
 from astarpa_tpu_torch.parallel.runner import BatchAligner  # noqa: E402
 from astarpa_tpu_torch.types import Cigar  # noqa: E402
@@ -124,16 +142,25 @@ C5_BAND, C5_CB = 2048, 16384
 C5_CUT = 4096
 CROSSOVER_SW = (64, 128, 256, 512, 1024, 2048)
 PP_CROSSOVER_SW = (64, 128, 192, 256, 512, 1088)
+C1_PAIRS, C1_LENGTH, C1_ERR, C1_SEED = 65_536, 1000, 0.01, 1
+C1_ORACLE, C1_REF_PAIRS, C1_REF_LAUNCHES = 1024, 1024, 8
+NW_GRID_N = 1500  # the K11 grid's longest a and b
+NW_CUT_PAIRS = 512
 WORKERS = 8
 
 # The card's limits for each kernel's bound (the least time the card could
 # take for the same work): the int32 rate of 132 SMs x 64 lanes at the SM
 # clock nvidia-smi reads (set in phase 0), and 3.35 TB/s of device memory
-# (H100 SXM data sheet).  One Myers word step costs at least 17 int32
-# operations: the match word (3), the step itself (12) and the two carries
-# out (2).
+# (H100 SXM data sheet).  One Myers word step, as every kernel here runs
+# it, takes at least 14 int32 instructions on sm_90: the match word from
+# the sign masks (an XOR and a three-input LOP3), the h-carry-in bit
+# (a shift), eq | hm_in, its AND with vp, the add, the step's four
+# three-input logicals (hx, hp_out, hm_out, vx) and the two new vertical
+# words, and each shifted h word with the bit of the word above in one
+# funnel shift (two).  ``python -m astarpa_tpu_torch.ops.sass_count``
+# counts what K11's compiled column loop runs a word step.
 SMS, INT32_LANES, HBM_BYTES_S = 132, 64, 3.35e12
-OPS_PER_WORD_STEP = 17
+OPS_PER_WORD_STEP = 14
 SM_CLOCK_HZ = None
 
 
@@ -418,6 +445,14 @@ def _event_ms(fn):
     end.record()
     end.synchronize()
     return start.elapsed_time(end), out
+
+
+def _chained_ms(fn, launches: int) -> float:
+    """Device ms a call of ``fn`` over ``launches`` chained calls, behind
+    one untimed call, so that the card never waits between the events for
+    the host to enqueue the next launch."""
+    fn()
+    return _event_ms(lambda: [fn() for _ in range(launches)])[0] / launches
 
 
 def _cut(planes, cols: int):
@@ -1429,6 +1464,225 @@ def phase15_time(spy: RoundSpy, c4_round) -> dict:
             "pinned_ck_pp": record("pinned_ck_pp", ck_out)}
 
 
+def phase16_grid() -> int:
+    """K11 == plain on B in {33, 1024}, n in [0, NW_GRID_N] (ragged, n == 0
+    and m == 0 lanes), S from 1 word to full height and to ten stripes,
+    bit for bit on both planes and the costs.  The 33-lane pack is the
+    first lanes of the 1024-lane one, so one plain sweep serves both."""
+    rng = np.random.default_rng(16)
+    pairs = _random_pairs(rng, GRID_PAIRS, NW_GRID_N, NW_GRID_N)
+    pairs[3] = (pairs[3][0], b"")  # an m == 0 lane: cost n
+    tall = pairs[2][1] + bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), 8500).tolist())
+    worst, labels = 0, []
+    t0 = time.perf_counter()
+    for words_ in (1, 8, 32, 33, None, 313):  # None: full height (47 words)
+        if words_ == 313:
+            sub = pairs[:2] + [(pairs[2][0], tall)] + pairs[3:]
+        else:
+            sub = [(a, b[: 32 * words_] if words_ else b) for a, b in pairs]
+        args, _ = pack_batch_staggered(sub, 1, device="cuda")
+        vp, vm = myers.nw_right_edge_ref(*args[:5])
+        cost = torch.from_numpy(args[4]).cuda() + value_to_window(
+            vp, vm, torch.from_numpy(args[5]).cuda())
+        for planes in (_lanes(args, 33), args):
+            B = planes[0].shape[1]
+            got = nw_kernel.nw_right_edge(*planes[:5])
+            got_cost = nw_kernel.nw_cost(*planes)
+            torch.cuda.synchronize()
+            err = _max_err(got + (got_cost,), (vp[:, :B], vm[:, :B], cost[:B]))
+            if err:
+                fail(f"K11 != plain at B={B} S={args[2].shape[0]}")
+            worst = max(worst, err)
+        labels.append(f"S={args[2].shape[0]}")
+    say(f"[16 nw=plain] {2 * len(labels)}/{2 * len(labels)} cases equal (B 33/{GRID_PAIRS}, "
+        f"n_max {args[0].shape[0]}, {', '.join(labels)}; n == 0 and m == 0 lanes) on both "
+        f"planes and the costs, max_abs_err {worst}, {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+class NwSpy:
+    """Splits ``nw_cost_pairs`` by layer inside its own calls: the host
+    clock around the native pack and around the whole pack (native pack,
+    pinned upload, unpack), CUDA events from the end of the native pack to
+    K11's launch (upload and unpack on the card) and around K11; keeps
+    K11's last inputs.  The launch count stays with the wrapper."""
+
+    def __init__(self):
+        self._orig = (att.native.pack_batch_planes, nw_kernel.pack_batch_staggered,
+                      nw_kernel.nw_right_edge)
+        self.last = None
+        self.reset()
+
+    def reset(self):
+        self.native_s = self.pack_s = 0.0
+        self.events = {}
+
+    def _event(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events[name] = ev
+
+    def install(self):
+        native_pack, pack, k11 = self._orig
+
+        def timed_native(*args):
+            t0 = time.perf_counter()
+            out = native_pack(*args)
+            self.native_s += time.perf_counter() - t0
+            self._event("packed")
+            return out
+
+        def timed_pack(*args, **kw):
+            t0 = time.perf_counter()
+            out = pack(*args, **kw)
+            self.pack_s += time.perf_counter() - t0
+            return out
+
+        def timed_k11(*args):
+            self._event("k11_start")
+            out = k11(*args)
+            self._event("k11_end")
+            self.last = args
+            return out
+
+        att.native.pack_batch_planes = timed_native
+        nw_kernel.pack_batch_staggered = timed_pack
+        nw_kernel.nw_right_edge = timed_k11
+
+    def remove(self):
+        (att.native.pack_batch_planes, nw_kernel.pack_batch_staggered,
+         nw_kernel.nw_right_edge) = self._orig
+
+    def split(self, wall: float) -> tuple[str, float]:
+        """One call's split (after it returned); returns (text, K11 ms)."""
+        self._event("end")
+        self.events["end"].synchronize()
+        ev = self.events
+        k11 = ev["k11_start"].elapsed_time(ev["k11_end"])
+        return (f"host clock: native pack {self.native_s:.4f} s, pinned upload + unpack "
+                f"enqueue {self.pack_s - self.native_s:.4f} s, K11 launch, reduction and "
+                f"readback wait {wall - self.pack_s:.4f} s; CUDA events: end of the native "
+                f"pack to K11's start (uploads and unpack, paced by the host's enqueue) "
+                f"{ev['packed'].elapsed_time(ev['k11_start']):.3f} ms, K11 {k11:.3f} ms (with "
+                f"any wait for the host's enqueue of its launch), "
+                f"cost reduction + readback {ev['k11_end'].elapsed_time(ev['end']):.3f} ms",
+                k11)
+
+
+def phase17_config1(pairs) -> tuple[int, dict, tuple]:
+    """Config #1 through ``nw_cost_pairs`` on the card (twice, the second
+    timed and split by layer), 1024 costs against the oracle; the
+    reference's 1024-pair shape (K11 alone, CUDA events); the same pairs
+    through ``BatchAligner(device="cuda").cost`` (K1 ladder).  Returns
+    K11's launches on the main path, its main-path times and its last
+    inputs."""
+    bp = sum(len(a) for a, _ in pairs)
+    spy = NwSpy()
+    spy.install()
+    banded_kernel.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30  # earlier phases' tensors
+    t0 = time.perf_counter()
+    costs1 = nw_kernel.nw_cost_pairs(pairs)
+    dt1 = time.perf_counter() - t0
+    _, k1_ms = spy.split(dt1)
+    spy.reset()
+    t0 = time.perf_counter()
+    costs = nw_kernel.nw_cost_pairs(pairs)
+    dt = time.perf_counter() - t0
+    split, k2_ms = spy.split(dt)
+    spy.remove()
+    launches = dict(banded_kernel.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if launches["nw_right_edge"] != 2 or sum(launches.values()) != 2:
+        fail(f"config #1: expected two K11 launches and nothing else, got {launches}")
+    if not (costs == costs1).all() or len(costs) != len(pairs):
+        fail("config #1 costs differ between calls")
+    t1 = time.perf_counter()
+    picks = np.linspace(0, len(pairs) - 1, C1_ORACLE).astype(int)
+    agree = sum(int(costs[i]) == att.oracle.levenshtein_myers(*pairs[i]) for i in picks)
+    if agree != C1_ORACLE:
+        fail(f"config #1: {agree}/{C1_ORACLE} costs equal levenshtein_myers")
+    args = spy.last
+    say(f"[17 config1] nw_cost_pairs on {len(pairs)} x {C1_LENGTH} bp e={C1_ERR} (B={args[0].shape[1]} "
+        f"n_max={args[0].shape[0]} S={args[2].shape[0]}): 1st call {dt1:.4f} s (K11 "
+        f"{k1_ms:.3f} ms), 2nd call {dt:.4f} s = {bp / dt / 1e9:.4f} Gbp/s aligned; "
+        f"levenshtein_myers {agree}/{C1_ORACLE} ({time.perf_counter() - t1:.1f} s); peak "
+        f"device memory {peak:.3f} GiB, {peak - held:.3f} GiB above the {held:.3f} GiB "
+        f"that earlier phases still held")
+    say(f"[17 split] 2nd call, {split}")
+
+    ref_pairs = att.generate.generate_batch(8, C1_LENGTH, C1_ERR, seed=C1_SEED) * (C1_REF_PAIRS // 8)
+    ref_args, _ = pack_batch_staggered(ref_pairs, 1, device="cuda")
+    ref_costs = nw_kernel.nw_cost(*ref_args).cpu().numpy()
+    if list(ref_costs[:8]) != [att.oracle.levenshtein_myers(*p) for p in ref_pairs[:8]]:
+        fail("config #1 reference shape: costs differ from levenshtein_myers")
+    ref_ms = _chained_ms(lambda: nw_kernel.nw_right_edge(*ref_args[:5]), C1_REF_LAUNCHES)
+    say(f"[17 reference shape] 8 seed-{C1_SEED} pairs tiled to {C1_REF_PAIRS} (as "
+        f"scripts/bench_configs.py:41-44): K11 alone {ref_ms:.4f} ms a launch over "
+        f"{C1_REF_LAUNCHES} chained launches (CUDA events) = "
+        f"{C1_REF_PAIRS * C1_LENGTH / ref_ms / 1e6:.3f} Gbp/s; costs of the 8 == "
+        f"levenshtein_myers")
+
+    ba = BatchAligner(device="cuda")
+    t0 = time.perf_counter()
+    ba.cost(pairs)
+    torch.cuda.synchronize()
+    ba_dt1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ba_costs, st = ba.cost_with_stats(pairs)
+    torch.cuda.synchronize()
+    ba_dt = time.perf_counter() - t0
+    if not (ba_costs == costs).all():
+        fail("config #1: BatchAligner costs differ from nw_cost_pairs'")
+    say(f"[17 batch aligner] BatchAligner(device='cuda').cost on the same pairs: 1st call "
+        f"{ba_dt1:.4f} s, 2nd {ba_dt:.4f} s = {bp / ba_dt / 1e9:.4f} Gbp/s (kernel "
+        f"{st.kernel}, retries {st.band_retries}); all {len(pairs)} costs == nw_cost_pairs'; "
+        f"nw_cost_pairs is {ba_dt / dt:.2f}x faster")
+    full = {"full_ms": [k1_ms, k2_ms],
+            "full_bound_ms": plane_bound(args, args[2].shape[0], [args[2], args[3]])["bound_ms"],
+            "full_shape": {"B": args[0].shape[1], "n_max": args[0].shape[0],
+                           "S": args[2].shape[0]},
+            "ref_shape_ms": ref_ms}
+    return launches["nw_right_edge"], full, args
+
+
+def phase18_time(args, full: dict) -> dict:
+    """K11 == plain on phase 17's pack cut to its first NW_CUT_PAIRS pairs,
+    timed in turns (plain, kernel, kernel, plain); returns K11's JSON
+    record (without the launch count)."""
+    cut = tuple(x[:, :NW_CUT_PAIRS].contiguous() for x in args[:4]) + (args[4][:NW_CUT_PAIRS],)
+    p, k, err = _turns(lambda: myers.nw_right_edge_ref(*cut),
+                       {"nw_right_edge": (lambda: nw_kernel.nw_right_edge(*cut), lambda r: r)})
+    if err:
+        fail("K11 != plain on config #1's cut pack")
+    shape = {"B": NW_CUT_PAIRS, "n_max": cut[0].shape[0], "S": cut[2].shape[0]}
+    # K11 alone on the whole pack (the main path's events around its launch
+    # also hold any wait for the host's enqueue), and with one word more (a
+    # copy of its last): two stripes of 32 words, 64 word steps a column for
+    # 33.
+    tall = (*args[:2], *(torch.cat([x, x[-1:]]) for x in args[2:4]), args[4])
+    partial = {"alone_ms": _chained_ms(lambda: nw_kernel.nw_right_edge(*args[:5]), 3),
+               "partial_stripe_ms": _chained_ms(lambda: nw_kernel.nw_right_edge(*tall), 3),
+               "partial_stripe_S": tall[2].shape[0],
+               "partial_stripe_bound_ms": plane_bound(tall, tall[2].shape[0],
+                                                      [tall[2], tall[3]])["bound_ms"]}
+    rec = {"max_abs_err": err, "ms": float(np.mean(k["nw_right_edge"])),
+           "plain_ms": float(np.mean(p)),
+           **plane_bound(cut, cut[2].shape[0], [cut[2], cut[3]]),
+           "library_ms": None, "shape": shape, **full, **partial}
+    say(f"[18 nw cut] config #1's pack cut to its first {NW_CUT_PAIRS} pairs {shape}, turns "
+        f"plain, kernel, kernel, plain: K11 {k['nw_right_edge'][0]:.3f}/"
+        f"{k['nw_right_edge'][1]:.3f} ms vs plain {p[0]:.1f}/{p[1]:.1f} ms (CUDA events); "
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); main path's whole pack, K11 "
+        f"alone over 3 chained launches: {partial['alone_ms']:.3f} ms a launch vs bound "
+        f"{full['full_bound_ms']:.4f} ms ({partial['alone_ms'] / full['full_bound_ms']:.2f}x); "
+        f"the whole pack at S={partial['partial_stripe_S']} (two stripes): "
+        f"{partial['partial_stripe_ms']:.3f} ms a launch vs bound "
+        f"{partial['partial_stripe_bound_ms']:.4f} ms; max_abs_err {err}")
+    return rec
+
+
 def main() -> None:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1476,6 +1730,17 @@ def main() -> None:
     c5d, c5d_spy = phase14_config5_default(*c5_batch)
     say(f"[main path] launches: config #5 default {c5d}")
     pp_records = phase15_time(c5d_spy, c4_round)
+
+    nw_grid_err = phase16_grid()
+    t0 = time.perf_counter()
+    c1_pairs = att.generate.generate_batch(C1_PAIRS, C1_LENGTH, C1_ERR, seed=C1_SEED,
+                                           workers=WORKERS)
+    say(f"[17 generate] {C1_PAIRS} x {C1_LENGTH} bp e={C1_ERR} seed {C1_SEED} in "
+        f"{time.perf_counter() - t0:.1f} s on {WORKERS} processes")
+    c1_launches, c1_full, c1_args = phase17_config1(c1_pairs)
+    say(f"[main path] launches: config #1 {{'nw_right_edge': {c1_launches}}}")
+    nw_record = phase18_time(c1_args, c1_full)
+    nw_record["max_abs_err"] = max(nw_record["max_abs_err"], nw_grid_err)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "astarpa_tpu"))
     if loaded:
         fail(f"JAX or the JAX package was imported: {loaded[:5]}")
@@ -1488,6 +1753,7 @@ def main() -> None:
         "striped_ck": "astarpa_tpu/ops/striped.py:576",
         "pinned_cost_pp": "astarpa_tpu/ops/pinned.py:944",
         "pinned_ck_pp": "astarpa_tpu/ops/pinned.py:1316",
+        "nw_right_edge": "astarpa_tpu/ops/pallas_myers.py:98",
     }
     banded_src, striped_src = "astarpa_tpu_torch/csrc/banded.cu", "astarpa_tpu_torch/csrc/striped.cu"
     kernels = [{"name": "banded_cost", "route": "cuda", "source": banded_src,
@@ -1508,6 +1774,9 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": striped_src,
                         "replaces": replaces[name], "launches": counts[name] + c5d[name],
                         **rec})
+    kernels.append({"name": "nw_right_edge", "route": "cuda",
+                    "source": "astarpa_tpu_torch/csrc/nw.cu",
+                    "replaces": replaces["nw_right_edge"], "launches": c1_launches, **nw_record})
     say(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)

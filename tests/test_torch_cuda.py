@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from astarpa_tpu_torch import BatchAligner, generate, oracle
-from astarpa_tpu_torch.ops import banded, banded_kernel, pinned, striped
+from astarpa_tpu_torch.aligners import nw
+from astarpa_tpu_torch.ops import banded, banded_kernel, myers, nw_kernel, pinned, striped
 from astarpa_tpu_torch.ops.pack import pack_batch_staggered
 from astarpa_tpu_torch.parallel import runner
 
@@ -253,3 +254,29 @@ def test_runner_routes_domain_rounds_on_gpu(gpu, monkeypatch):
         assert astats.kernel == labels[1]
         for (a, b), (c, cig), want in zip(pairs, res, ref):
             assert cig.verify(a, b) == c == want
+
+
+@pytest.mark.parametrize("count", [33, 160])
+def test_nw_kernel_matches_plain(gpu, count):
+    """K11 against its plain version, bit for bit on both planes (pad rows
+    included): ragged lanes, n == 0 and m == 0 lanes, S from one word to
+    313 (a 10 kbp b: ten stripes of 32 words, the last partial); costs from
+    both entries equal the oracle."""
+    pairs = [generate.uniform_seeded(50 + (s * 67) % 1400, [0.01, 0.1, 0.3][s % 3], 900 + s)
+             for s in range(count)]
+    pairs[1], pairs[2] = (b"", b"ACGTAC"), (b"ACGTT", b"")
+    pairs[3] = (pairs[3][0][:150], generate.uniform_seeded(10_000, 0.1, 899)[0])
+    before = banded_kernel.LAUNCHES["nw_right_edge"]
+    for cut in (1, 32, 47, None):  # S = 1, 32, 47 and 313 words
+        sub = [(a, b[: 32 * cut] if cut else b) for a, b in pairs]
+        args, _ = pack_batch_staggered(sub, 1, device=gpu)
+        got = nw_kernel.nw_right_edge(*args[:5])
+        want = myers.nw_right_edge_ref(*args[:5])
+        _assert_same(got, want, cut)
+        costs = [oracle.levenshtein(a, b) for a, b in sub]
+        assert list(nw_kernel.nw_cost(*args).cpu().numpy()) == costs
+        assert list(nw_kernel.nw_cost_pairs(sub, device=gpu)) == costs
+    assert banded_kernel.LAUNCHES["nw_right_edge"] == before + 12
+    assert list(nw.nw_cost_batch(pairs[:40], device=gpu)) == [
+        oracle.levenshtein(a, b) for a, b in pairs[:40]]
+    assert nw.nw_cost(b"ACTCGCT", b"AACTCGTT", device=gpu) == 2

@@ -20,8 +20,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_port_main_path_never_imports_jax():
-    """Cost, align, the gap domain ladder and a striped rung (K5 and K6's
-    plain versions) on the CPU load no ``jax`` and no ``astarpa_tpu``."""
+    """Cost, align, the gap domain ladder, a striped rung (K5 and K6's
+    plain versions) and the full-rectangle NW entries (plain K11 and the
+    column loop) on the CPU load no ``jax`` and no ``astarpa_tpu``."""
     code = textwrap.dedent("""
         import sys
         import torch
@@ -50,6 +51,10 @@ def test_port_main_path_never_imports_jax():
         assert [c for c, _ in res] == list(costs[:4])
         assert (big.cost(pairs) == costs).all()
         assert {"striped_cost", "striped_ck"} <= set(calls), calls
+        from astarpa_tpu_torch.aligners import nw
+        from astarpa_tpu_torch.ops import nw_kernel
+        assert list(nw_kernel.nw_cost_pairs(pairs, device="cpu")) == list(costs)
+        assert list(nw.nw_cost_batch(pairs, device="cpu")) == list(costs)
         mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "astarpa_tpu"))
         assert not mods, mods
