@@ -1,15 +1,20 @@
 // Striped pinned-word big-band Myers edit distance, one template
-// striped_kernel<kCk, kPP>: on the shared schedule kernels K5 (costs) and K6
-// (costs + 8-aligned-top checkpoints), on per-pair schedules kernels K9
-// (costs) and K10 (costs + checkpoints under the per-pair sliding kernel's
-// contract).
+// striped_kernel<kCk, kPP, kExact>: on the shared schedule kernels K5
+// (costs), K6 (costs + 8-aligned-top checkpoints) and K8 (costs +
+// checkpoints under the sliding kernel's contract), on per-pair schedules
+// kernels K9 (costs) and K10 (costs + checkpoints under the per-pair sliding
+// kernel's contract).  The instances: K5 <false, false, false>, K6 <true,
+// false, false>, K8 <true, false, true>, K9 <false, true, false>, K10 <true,
+// true, true>.  kExact, the third flag, picks the checkpoint rows: from the
+// true window top (K8, K10) or from the 8-aligned one (K6).
 //
 // They replace the TPU kernels astarpa_tpu/ops/striped.py::_striped_call (K5,
 // entry striped_cost_tpu) and _striped_ck_call (K6, entry striped_ck_tpu),
-// both running _striped_body, and astarpa_tpu/ops/pinned.py::_pinned_pp_call
-// (K9, entry pinned_cost_pp_tpu) and _pinned_pp_ck_call (K10, entry
-// pinned_ck_pp_tpu), both running _pinned_pp_body.  Their plain torch twins,
-// and the plans whose per-word event steps this kernel reads, are in
+// both running _striped_body, and astarpa_tpu/ops/pinned.py::_pinned_ck_call
+// (K8, entry pinned_ck_tpu, running _pinned_body), _pinned_pp_call (K9, entry
+// pinned_cost_pp_tpu) and _pinned_pp_ck_call (K10, entry pinned_ck_pp_tpu),
+// both running _pinned_pp_body.  Their plain torch twins, and the plans whose
+// per-word event steps this kernel reads, are in
 // astarpa_tpu_torch/ops/striped.py and astarpa_tpu_torch/ops/pinned.py; the
 // results must match them bit for bit.
 //
@@ -39,11 +44,15 @@
 //
 // Checkpoints (kCk): word w of checkpoint k's true window [w0, w0+SW) is
 // written at step k*CB - 1 + w into row w - (w0 & ~7) of (n_ck, SW+8, B)
-// planes (K6), or row w - w0 of (n_ck, SW, B) planes with w0 the pair's own
-// window top (K10); the thread holding w0 writes top_val = the pair's
-// absorbed sum so far + k*CB.  No word is absorbed at that step (absorb
-// steps strictly rise by word), so the shared running sum is stable there.
-// Rows outside the true window are zero, checkpoint 0 is the all-ones state.
+// planes (K6), or row w - w0 of (n_ck, SW, B) planes (kExact: K8 with the
+// bucket's window top, K10 with the pair's own); the thread holding w0
+// writes top_val = the pair's absorbed sum so far + k*CB.  No word is
+// absorbed at that step (absorb steps strictly rise by word), so the shared
+// running sum is stable there.  Rows outside the true window are zero,
+// checkpoint 0 is the all-ones state.  CB >= SW keeps the windows' steps
+// apart; K8 also takes one window with CB < SW.  The TPU kernels stage the
+// rows through 8-row VMEM tiles (so SW % 8 == 0 and B % 128 == 0 there);
+// here each thread stores its own word's row, at any SW and B.
 //
 // Per-pair schedules (kPP): the event table and the stripe step ranges are
 // per pair ((B, 4, nw_pad) and (B, n_stripes, 2), built on the card from the
@@ -52,14 +61,15 @@
 // TPU kernel's cross-pair residency window and its VMEM ceiling have no
 // counterpart here.
 //
-// What bounds it on an H100: integer throughput.  About 20 int32 operations
-// per word step (eq, the Myers step and the carry moves), 64 lanes per SM
-// per clock; memory traffic is the profile once per stripe and a few bytes
-// per step.  The stripe ramps (words entering and leaving) keep part of a
-// block's warps idle, and one block per pair fills at most B SMs.  At
-// config #5 (128 pairs of 500 kbp, SW=2048) a K5 rung runs at ~3.5x the
-// operation bound on an H100 (PERF.md).  In cost mode K9 stops each pair's
-// words at its own last column.
+// What bounds it on an H100: integer throughput.  A word step takes at
+// least 14 int32 instructions on sm_90 (the match word, the Myers step and
+// the funnel-shifted carries), 64 lanes per SM per clock; memory traffic is
+// the profile once per stripe and a few bytes per step.  The stripe ramps
+// (words entering and leaving) keep part of a block's warps idle, the block
+// waits at a barrier every step, and one block per pair fills at most B
+// SMs.  At config #5 (128 pairs of 500 kbp, SW=2048) a K5 rung runs at
+// 4.3-4.4x that operation bound on an H100 80GB HBM3 at 700 W (PERF.md).  In
+// cost mode K9 stops each pair's words at its own last column.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -78,7 +88,7 @@ __device__ __forceinline__ uint32_t pack_aux(uint32_t a0, uint32_t a1,
   return (a0 & 1u) | (a1 & 2u) | (hp << 2) | (hm << 3);
 }
 
-template <bool kCk, bool kPP>
+template <bool kCk, bool kPP, bool kExact>
 __global__ void __launch_bounds__(kMaxThreads) striped_kernel(
     const uint8_t* __restrict__ code, const uint32_t* __restrict__ pb0,
     const uint32_t* __restrict__ pb1, const int32_t* __restrict__ n,
@@ -117,7 +127,7 @@ __global__ void __launch_bounds__(kMaxThreads) striped_kernel(
     s_acc = 0;
     s_cap = 0;
   }
-  const int SWP = kPP ? SW : SW + 8;  // plane rows
+  const int SWP = kExact ? SW : SW + 8;  // plane rows
   if (kCk) {
     for (int i = tid; i < n_ck * SWP; i += NT) {
       const int k = i / SWP;
@@ -128,9 +138,9 @@ __global__ void __launch_bounds__(kMaxThreads) striped_kernel(
         ck_vm[o] = 0u;
       } else {
         // K6's rows outside the true window stay zero; the DP writes the
-        // others after the barrier below (all of K10's rows).
-        const int off = kPP ? 0 : ckw0[k] & 7;
-        if (kPP || row < off || row >= off + SW) {
+        // others after the barrier below (all of K8's and K10's rows).
+        const int off = kExact ? 0 : ckw0[k] & 7;
+        if (kExact || row < off || row >= off + SW) {
           ck_vp[o] = 0u;
           ck_vm[o] = 0u;
         }
@@ -294,7 +304,7 @@ __global__ void __launch_bounds__(kMaxThreads) striped_kernel(
                   xm = vm[j];
                 }
               }
-              const int row = kPP ? w - w0k : w - (w0k & ~7);
+              const int row = kExact ? w - w0k : w - (w0k & ~7);
               const size_t o = ((size_t)k * SWP + row) * B + p;
               ck_vp[o] = xv;
               ck_vm[o] = xm;
@@ -315,7 +325,7 @@ __global__ void __launch_bounds__(kMaxThreads) striped_kernel(
   }
 }
 
-template <bool kCk, bool kPP>
+template <bool kCk, bool kPP, bool kExact>
 int launch(const void* code, const void* pb0, const void* pb1, const void* n,
            const void* m, const void* loend, const void* ev,
            const void* stripe_t, const void* nsp, void* carry, void* out,
@@ -327,7 +337,7 @@ int launch(const void* code, const void* pb0, const void* pb1, const void* n,
     return (int)cudaErrorInvalidValue;
   }
   if (B > 0) {
-    striped_kernel<kCk, kPP><<<B, threads, 0, (cudaStream_t)stream>>>(
+    striped_kernel<kCk, kPP, kExact><<<B, threads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)code, (const uint32_t*)pb0, (const uint32_t*)pb1,
         (const int32_t*)n, (const int32_t*)m, (const int32_t*)loend,
         (const int32_t*)ev, (const int32_t*)stripe_t, (const int32_t*)nsp,
@@ -344,11 +354,12 @@ int launch(const void* code, const void* pb0, const void* pb1, const void* n,
 // uint8 char codes (pair-major); pb0/pb1 (S, B); n, m, loend (B,) int32; ev
 // (4, nw_pad) int32 per-word ent_t, top_t, abs_t and end_t (the step after
 // the word's last useful step); stripe_t (n_stripes, 2) int32 step ranges;
-// carry (2, B, T+1) uint8 scratch; out (B,) int32.  The ck entry also
-// writes ck_vp/ck_vm (n_ck, SW+8, B) and ck_tv (n_ck, B) from ckw0 (n_ck,)
-// window tops.  The per-pair entries take ev (B, 4, nw_pad), stripe_t (B,
-// n_stripes, 2) and nsp (B,) int32 stripe counts, and the ck one writes
-// (n_ck, SW, B) planes from ckw0 (n_ck, B).  `threads` is the block size (a
+// carry (2, B, T+1) uint8 scratch; out (B,) int32.  The shared ck entries
+// also write ck_vp/ck_vm, (n_ck, SW+8, B) (striped_ck) or (n_ck, SW, B)
+// (pinned_ck), and ck_tv (n_ck, B) from ckw0 (n_ck,) window tops.  The
+// per-pair entries take ev (B, 4, nw_pad), stripe_t (B, n_stripes, 2) and
+// nsp (B,) int32 stripe counts, and the ck one writes (n_ck, SW, B) planes
+// from ckw0 (n_ck, B).  `threads` is the block size (a
 // multiple of 32, <= 512); nw_pad = n_stripes * threads * 8.  Each launches
 // on `stream` without synchronising and returns cudaGetLastError() (0 on
 // success).
@@ -360,10 +371,11 @@ int astarpa_striped_cost(const void* code, const void* pb0, const void* pb1,
                          void* out, int n_max, int B, int S, int SW,
                          int nw_pad, int n_stripes, int T, int threads,
                          void* stream) {
-  return launch<false, false>(code, pb0, pb1, n, m, loend, ev, stripe_t,
-                              nullptr, carry, out, nullptr, nullptr, nullptr,
-                              nullptr, n_max, B, S, SW, nw_pad, n_stripes, T,
-                              threads, 1, 0, stream);
+  return launch<false, false, false>(code, pb0, pb1, n, m, loend, ev,
+                                     stripe_t, nullptr, carry, out, nullptr,
+                                     nullptr, nullptr, nullptr, n_max, B, S,
+                                     SW, nw_pad, n_stripes, T, threads, 1, 0,
+                                     stream);
 }
 
 int astarpa_striped_ck(const void* code, const void* pb0, const void* pb1,
@@ -373,10 +385,24 @@ int astarpa_striped_ck(const void* code, const void* pb0, const void* pb1,
                        const void* ckw0, int n_max, int B, int S, int SW,
                        int nw_pad, int n_stripes, int T, int threads, int CB,
                        int n_ck, void* stream) {
-  return launch<true, false>(code, pb0, pb1, n, m, loend, ev, stripe_t,
-                             nullptr, carry, out, ck_vp, ck_vm, ck_tv, ckw0,
-                             n_max, B, S, SW, nw_pad, n_stripes, T, threads,
-                             CB, n_ck, stream);
+  return launch<true, false, false>(code, pb0, pb1, n, m, loend, ev,
+                                    stripe_t, nullptr, carry, out, ck_vp,
+                                    ck_vm, ck_tv, ckw0, n_max, B, S, SW,
+                                    nw_pad, n_stripes, T, threads, CB, n_ck,
+                                    stream);
+}
+
+int astarpa_pinned_ck(const void* code, const void* pb0, const void* pb1,
+                      const void* n, const void* m, const void* loend,
+                      const void* ev, const void* stripe_t, void* carry,
+                      void* out, void* ck_vp, void* ck_vm, void* ck_tv,
+                      const void* ckw0, int n_max, int B, int S, int SW,
+                      int nw_pad, int n_stripes, int T, int threads, int CB,
+                      int n_ck, void* stream) {
+  return launch<true, false, true>(code, pb0, pb1, n, m, loend, ev, stripe_t,
+                                   nullptr, carry, out, ck_vp, ck_vm, ck_tv,
+                                   ckw0, n_max, B, S, SW, nw_pad, n_stripes, T,
+                                   threads, CB, n_ck, stream);
 }
 
 int astarpa_pinned_cost_pp(const void* code, const void* pb0, const void* pb1,
@@ -385,10 +411,11 @@ int astarpa_pinned_cost_pp(const void* code, const void* pb0, const void* pb1,
                            const void* nsp, void* carry, void* out, int n_max,
                            int B, int S, int SW, int nw_pad, int n_stripes,
                            int T, int threads, void* stream) {
-  return launch<false, true>(code, pb0, pb1, n, m, loend, ev, stripe_t, nsp,
-                             carry, out, nullptr, nullptr, nullptr, nullptr,
-                             n_max, B, S, SW, nw_pad, n_stripes, T, threads,
-                             1, 0, stream);
+  return launch<false, true, false>(code, pb0, pb1, n, m, loend, ev,
+                                    stripe_t, nsp, carry, out, nullptr,
+                                    nullptr, nullptr, nullptr, n_max, B, S,
+                                    SW, nw_pad, n_stripes, T, threads, 1, 0,
+                                    stream);
 }
 
 int astarpa_pinned_ck_pp(const void* code, const void* pb0, const void* pb1,
@@ -399,10 +426,10 @@ int astarpa_pinned_ck_pp(const void* code, const void* pb0, const void* pb1,
                          int n_max, int B, int S, int SW, int nw_pad,
                          int n_stripes, int T, int threads, int CB, int n_ck,
                          void* stream) {
-  return launch<true, true>(code, pb0, pb1, n, m, loend, ev, stripe_t, nsp,
-                            carry, out, ck_vp, ck_vm, ck_tv, ckw0, n_max, B,
-                            S, SW, nw_pad, n_stripes, T, threads, CB, n_ck,
-                            stream);
+  return launch<true, true, true>(code, pb0, pb1, n, m, loend, ev, stripe_t,
+                                  nsp, carry, out, ck_vp, ck_vm, ck_tv, ckw0,
+                                  n_max, B, S, SW, nw_pad, n_stripes, T,
+                                  threads, CB, n_ck, stream);
 }
 
 }  // extern "C"

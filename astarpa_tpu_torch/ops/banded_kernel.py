@@ -4,8 +4,8 @@ big-band kernels (``csrc/striped.cu``).
 Counterparts of ``astarpa_tpu/ops/pallas_banded.py::banded_cost_tpu`` and
 ``banded_ck_tpu`` (``_banded_call``), of
 ``astarpa_tpu/ops/striped.py::striped_cost_tpu`` and ``striped_ck_tpu``
-and of ``astarpa_tpu/ops/pinned.py::pinned_cost_pp_tpu`` and
-``pinned_ck_pp_tpu``, one wrapper per kernel:
+and of ``astarpa_tpu/ops/pinned.py::pinned_ck_tpu``, ``pinned_cost_pp_tpu``
+and ``pinned_ck_pp_tpu``, one wrapper per kernel:
 
 - :func:`banded_cost` — K1, shared schedule, costs;
 - :func:`banded_ck` — K2, shared schedule, costs and checkpoints;
@@ -13,6 +13,7 @@ and of ``astarpa_tpu/ops/pinned.py::pinned_cost_pp_tpu`` and
 - :func:`banded_ck_pp` — K4, per-pair schedules, costs and checkpoints;
 - :func:`striped_cost` — K5, shared schedule, any band height, costs;
 - :func:`striped_ck` — K6, K5 plus 8-aligned-top checkpoints;
+- :func:`pinned_ck` — K8, K5 plus checkpoints under K2's contract, any SW;
 - :func:`pinned_cost_pp` — K9, K5's DP on per-pair schedules, costs;
 - :func:`pinned_ck_pp` — K10, K9 plus checkpoints under K4's contract.
 
@@ -36,7 +37,8 @@ from .words import lengths, to_tensor
 #: ``nw_right_edge`` is K11's, whose wrapper is in :mod:`.nw_kernel`.
 LAUNCHES = {"banded_cost": 0, "banded_ck": 0, "banded_cost_pp": 0,
             "banded_ck_pp": 0, "striped_cost": 0, "striped_ck": 0,
-            "pinned_cost_pp": 0, "pinned_ck_pp": 0, "nw_right_edge": 0}
+            "pinned_ck": 0, "pinned_cost_pp": 0, "pinned_ck_pp": 0,
+            "nw_right_edge": 0}
 
 
 def reset_launches() -> None:
@@ -47,6 +49,7 @@ def reset_launches() -> None:
 _LABELS = {"banded_cost": "cuda-banded", "banded_ck": "cuda-banded-ck",
            "banded_cost_pp": "cuda-banded-pp", "banded_ck_pp": "cuda-banded-ck-pp",
            "striped_cost": "cuda-striped", "striped_ck": "cuda-striped-ck",
+           "pinned_ck": "cuda-pinned-ck",
            "pinned_cost_pp": "cuda-pinned-pp", "pinned_ck_pp": "cuda-pinned-pp-ck",
            "nw_right_edge": "cuda-nw"}
 
@@ -127,6 +130,19 @@ def striped_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
                                       col_block, diag)
     return _launch_striped("striped_ck", a0, a1, pb0, pb1, n, m, band_words,
                            diag, col_block, stripe_words)
+
+
+def pinned_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
+              diag: tuple | None = None):
+    """K5 plus checkpoints under K2's row contract: ``(costs, ck_vp, ck_vm,
+    ck_tv)`` with (n_ck, SW, B) planes as :func:`.striped.pinned_ck_ref`,
+    any SW.  Raises on both routes when ``min(col_block, n_max) < SW`` with
+    more than one capture window (:func:`.striped.pinned_ck_layout`)."""
+    if _plain(a0):
+        return striped.pinned_ck_ref(a0, a1, pb0, pb1, n, m, band_words,
+                                     col_block, diag)
+    return _launch_striped("pinned_ck", a0, a1, pb0, pb1, n, m, band_words,
+                           diag, col_block)
 
 
 def pinned_cost_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
@@ -281,9 +297,13 @@ def _launch_striped(kernel, a0, a1, pb0, pb1, n, m, band_words, diag,
     ints = [n_max, B, S, SW, ev.shape[1], stripe_t.shape[0], T, threads]
     outs = ()
     if ck:
-        CB, n_ck, ckw0 = striped.ck_layout(n_max, SW, col_block, plan["lo"])
-        outs = (torch.empty((n_ck, SW + 8, B), dtype=torch.int32, device=dev),
-                torch.empty((n_ck, SW + 8, B), dtype=torch.int32, device=dev),
+        # K6's rows start at the 8-aligned window top, K8's at the true one.
+        exact = kernel == "pinned_ck"
+        layout = striped.pinned_ck_layout if exact else striped.ck_layout
+        CB, n_ck, ckw0 = layout(n_max, SW, col_block, plan["lo"])
+        rows = SW if exact else SW + 8
+        outs = (torch.empty((n_ck, rows, B), dtype=torch.int32, device=dev),
+                torch.empty((n_ck, rows, B), dtype=torch.int32, device=dev),
                 torch.empty((n_ck, B), dtype=torch.int32, device=dev))
         head += list(outs) + [to_tensor(ckw0, dev)]
         ints += [CB, n_ck]

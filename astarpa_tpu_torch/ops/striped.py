@@ -1,12 +1,14 @@
 """Striped pinned-word big-band DP: the host plan and the plain torch
-versions of kernels K5 (costs) and K6 (costs and checkpoints).
+versions of kernels K5 (costs), K6 and K8 (costs and checkpoints).
 
 Counterpart of ``astarpa_tpu/ops/striped.py`` (``striped_cost_tpu``,
-``striped_ck_tpu``).  Words are pinned to absolute indices and staggered:
-at step ``t`` word ``w`` runs column ``t - w``, taking the h carry that
-word ``w-1`` produced at step ``t-1`` (the same column).  So every word of
-the band is independent within a step, and the band has no height limit:
-``band_words >= S`` is the exact full-height DP.  The band follows the
+``striped_ck_tpu``) and of the shared-schedule checkpoint half of
+``astarpa_tpu/ops/pinned.py`` (``pinned_ck_tpu``).  Words are pinned to
+absolute indices and staggered: at step ``t`` word ``w`` runs column ``t -
+w``, taking the h carry that word ``w-1`` produced at step ``t-1`` (the
+same column).  So every word of the band is independent within a step, and
+the band has no height limit: ``band_words >= S`` is the exact full-height
+DP.  The band follows the
 shared bucket schedule of :func:`.banded.shift_at_array`: before column
 ``c`` it covers words ``[lo(c), lo(c) + SW)``, and its boundaries become
 per-word events computed on the host (:func:`plan_striped`):
@@ -28,7 +30,10 @@ column ``k*CB - 1``, with plane rows covering words ``[w0 & ~7, (w0 & ~7)
 + SW + 8)`` for the true window top ``w0 = lo(k*CB - 1)``; checkpoint 0 is
 the initial all-ones state.  Rows outside the true window ``[w0, w0+SW)``
 are never read by a trace; both the plain version and the kernel write
-zeros there (the reference leaves them undefined).
+zeros there (the reference leaves them undefined).  K8 takes the same
+checkpoints under K2's row contract (:func:`.banded.banded_ck_ref`): SW
+rows from the true window top, ``w - lo(k*CB - 1)``, so the trace reads
+its planes as it reads K2's; it takes any SW (:func:`pinned_ck_layout`).
 
 The plain versions step ``t`` in a Python loop, vectorised over the live
 words ``[next to absorb, next to enter)`` and the pairs; the CPU runs them,
@@ -86,6 +91,13 @@ def loend_of(lo: np.ndarray, n) -> np.ndarray:
     return lo[np.clip(n - 1, 0, len(lo) - 1)].astype(np.int32)
 
 
+def _ck_tops(lo: np.ndarray, CB: int, n_ck: int) -> np.ndarray:
+    """(n_ck,) int32 true window tops ``lo[k*CB - 1]``, 0 for checkpoint 0."""
+    ckw0 = np.zeros(n_ck, np.int32)
+    ckw0[1:] = lo[np.arange(1, n_ck) * CB - 1]
+    return ckw0
+
+
 def ck_layout(n_max: int, SW: int, col_block: int, lo: np.ndarray):
     """Checkpoint geometry of K6: ``(CB, n_ck, ckw0)`` with ``CB =
     min(col_block, n_max)``, ``n_ck = n_max // CB + 1`` and ``ckw0[k]`` the
@@ -100,14 +112,40 @@ def ck_layout(n_max: int, SW: int, col_block: int, lo: np.ndarray):
         raise ValueError(f"striped ck: col_block {col_block} < band_words + 8 = {SW + 8}")
     CB = min(col_block, max(n_max, 1))
     n_ck = n_max // CB + 1
-    ckw0 = np.zeros(n_ck, np.int32)
-    ckw0[1:] = lo[np.arange(1, n_ck) * CB - 1]
-    return CB, n_ck, ckw0
+    return CB, n_ck, _ck_tops(lo, CB, n_ck)
 
 
-def _sweep(a0, a1, pb0, pb1, n, m, band_words: int, diag, col_block=None):
-    """The staggered loop both plain versions share; returns ``(costs,
-    ck)`` with ``ck = (ck_vp, ck_vm, ck_tv)`` when ``col_block`` is set."""
+def pinned_ck_fits(n_max: int, SW: int, CB: int) -> bool:
+    """K8's interval contract for ``CB <= n_max``: ``CB >= SW``, or a single
+    capture window (``n_max // CB + 1 <= 2``).  Word w of checkpoint k is
+    taken at step ``k*CB - 1 + w``, so windows of SW words overlap below
+    ``CB = SW``.  The reference clamps CB up to SW (``pinned_ck_tpu``); the
+    port refuses it, since the trace reads the caller's CB.  Its other
+    clamp, ``CB = n_max`` in a bucket shorter than the band (a skewed one at
+    full height), gives one window and fits."""
+    return CB >= SW or n_max // CB + 1 <= 2
+
+
+def pinned_ck_layout(n_max: int, SW: int, col_block: int, lo: np.ndarray):
+    """Checkpoint geometry of K8: ``(CB, n_ck, ckw0)`` as :func:`ck_layout`
+    (``CB = min(col_block, n_max)``, ``n_ck = n_max // CB + 1``), for any SW.
+    Raises unless :func:`pinned_ck_fits`."""
+    CB = min(col_block, max(n_max, 1))
+    if CB < 1:
+        raise ValueError(f"pinned ck: col_block must be >= 1, got {col_block}")
+    n_ck = n_max // CB + 1
+    if not pinned_ck_fits(n_max, SW, CB):
+        raise ValueError(f"pinned ck: col_block {CB} < band_words {SW} with "
+                         f"{n_ck - 1} capture windows")
+    return CB, n_ck, _ck_tops(lo, CB, n_ck)
+
+
+def _sweep(a0, a1, pb0, pb1, n, m, band_words: int, diag, col_block=None,
+           exact_top: bool = False):
+    """The staggered loop the plain versions share; returns ``(costs,
+    ck)`` with ``ck = (ck_vp, ck_vm, ck_tv)`` when ``col_block`` is set:
+    K6's 8-aligned-top rows, or K8's rows from the true top when
+    ``exact_top``."""
     n_max, B = a0.shape
     S = pb0.shape[0]
     SW = min(band_words, S)
@@ -140,14 +178,15 @@ def _sweep(a0, a1, pb0, pb1, n, m, band_words: int, diag, col_block=None):
 
     ck = ck_at = None
     if col_block is not None:
-        CB, n_ck, ckw0 = ck_layout(n_max, SW, col_block, plan["lo"])
-        SWP = SW + 8
+        layout = pinned_ck_layout if exact_top else ck_layout
+        CB, n_ck, ckw0 = layout(n_max, SW, col_block, plan["lo"])
+        SWP = SW if exact_top else SW + 8
         ck = (torch.zeros((n_ck, SWP, B), dtype=torch.int32, device=dev),
               torch.zeros((n_ck, SWP, B), dtype=torch.int32, device=dev),
               torch.zeros((n_ck, B), dtype=torch.int32, device=dev))
         ck[0][0] = ONES
         # Step -> checkpoint: word w of window k is taken at k*CB - 1 + w.
-        # CB >= SW keeps the windows' steps apart.
+        # CB >= SW keeps the windows' steps apart (or there is one window).
         ck_at = {}
         for k in range(1, n_ck):
             for w in range(int(ckw0[k]), int(ckw0[k]) + SW):
@@ -185,7 +224,7 @@ def _sweep(a0, a1, pb0, pb1, n, m, band_words: int, diag, col_block=None):
         if ck_at is not None and t in ck_at:
             k = ck_at[t]
             w = t + 1 - k * CB
-            row = w - (int(ckw0[k]) & ~7)
+            row = w - (int(ckw0[k]) if exact_top else int(ckw0[k]) & ~7)
             ck[0][k, row], ck[1][k, row] = vp[w], vm[w]
             if w == ckw0[k]:
                 ck[2][k] = acc + k * CB
@@ -217,4 +256,23 @@ def striped_ck_ref(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
     and ``n_ck = n_max // CB + 1``.  Raises unless ``SW % 8 == 0`` and
     ``col_block >= SW + 8`` (``SW = min(band_words, S)``)."""
     costs, ck = _sweep(a0, a1, pb0, pb1, n, m, band_words, diag, col_block)
+    return (costs,) + ck
+
+
+def pinned_ck_ref(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
+                  diag: tuple | None = None):
+    """K5 plus checkpoints under K2's contract: the plain version of kernel
+    K8, the reference's ``pinned_ck_tpu`` (without its ``B % 128`` and
+    ``SW % 8`` grain).
+
+    Returns ``(costs (B,), ck_vp (n_ck, SW, B), ck_vm, ck_tv (n_ck, B))``:
+    checkpoint ``k >= 1`` is the window state after column ``k*CB - 1`` in
+    rows ``w - lo(k*CB - 1)`` and the top value there, checkpoint 0 the
+    all-ones init; ``CB = min(col_block, n_max)``, ``n_ck = n_max // CB +
+    1``.  Every row is the DP's (the band runs to n_max), past a pair's
+    end too, where K2 freezes the lane: the two agree on the checkpoints a
+    trace reads (``k*CB <= n``).  Costs are K5's.  Raises as
+    :func:`pinned_ck_layout`."""
+    costs, ck = _sweep(a0, a1, pb0, pb1, n, m, band_words, diag, col_block,
+                       exact_top=True)
     return (costs,) + ck

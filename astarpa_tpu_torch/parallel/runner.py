@@ -11,8 +11,10 @@ pairs retry at the band their banded upper bound predicts.
   (CIGARs by direct whole-pair DT traces), else K2, whose window
   checkpoints feed the native ``trace_banded_ck``.  Bands of at least
   :data:`STRIPED_MIN_SW` words run the striped kernels instead: K5 for
-  costs, K6 for checkpoints (when ``SW % 8 == 0`` and ``CB >= SW + 8``;
-  their planes have SW+8 rows, which the native trace reads as they are).
+  costs, K6 for checkpoints when ``SW % 8 == 0`` and ``CB >= SW + 8``
+  (their planes have SW+8 rows, which the native trace reads as they
+  are), else K8, K5's DP writing K2's plane contract at any SW (a full
+  height S off the 8-grain; a skewed bucket's ``CB = n_max < SW``).
 - Per-pair domain ladder (``domain_mode`` resolving to "gap"/"gcsh"): an f
   ladder over per-pair schedules that follow each pair's domain hull.  A
   round of at least :data:`PINNED_PP_MIN_SW` words runs the pinned
@@ -50,10 +52,10 @@ import torch
 from .. import native
 from ..device import resolve_device
 from ..domain import domain_schedule, gap_domain
-from ..ops import banded
+from ..ops import banded, striped
 from ..ops.banded_kernel import (banded_ck, banded_ck_pp, banded_cost,
-                                 banded_cost_pp, pinned_ck_pp, pinned_cost_pp,
-                                 route, striped_ck, striped_cost)
+                                 banded_cost_pp, pinned_ck, pinned_ck_pp,
+                                 pinned_cost_pp, route, striped_ck, striped_cost)
 from ..ops.bitpack import W
 from ..ops.pack import pack_batch_staggered
 from ..ops.words import to_tensor
@@ -62,7 +64,8 @@ from ..types import Cigar, CigarOp
 INF = 1 << 30
 
 #: Shared-ladder rungs of at least this many words run the striped
-#: kernels (K5 costs, K6 checkpoints) instead of the sliding ones (K1, K2).
+#: kernels (K5 costs, K6 or K8 checkpoints) instead of the sliding ones
+#: (K1, K2).
 #: Set from the K1/K5 crossover that ``chip_smoke.py`` phase 12 measures on
 #: the card (``PERF.md``); the reference's 640 is fitted to TPU VMEM.
 #: Tests patch it to drive the striped arms at small sizes.
@@ -76,7 +79,7 @@ STRIPED_MIN_SW = 64
 PINNED_PP_MIN_SW = 64
 
 _TODO_MESH = "ROADMAP.md queue 1 item 12 (multi-GPU and multi-host)"
-_TODO_HOST = "ROADMAP.md runner pieces item 4 (off-device trace fallbacks)"
+_TODO_HOST = "ROADMAP.md queue 1 item 15 (the host-only CIGAR fallback)"
 
 
 @dataclass
@@ -90,8 +93,8 @@ class BatchStats:
     direct_traces: int = 0
     # What ran the last rung or round (a label of ``banded_kernel.route``:
     # "cuda-banded", "cuda-banded-ck", "cuda-banded-pp", "cuda-banded-ck-pp",
-    # "cuda-striped", "cuda-striped-ck", "cuda-pinned-pp", "cuda-pinned-pp-ck",
-    # or "torch-ref" on the CPU), set at dispatch.
+    # "cuda-striped", "cuda-striped-ck", "cuda-pinned-ck", "cuda-pinned-pp",
+    # "cuda-pinned-pp-ck", or "torch-ref" on the CPU), set at dispatch.
     kernel: str | None = None
 
 
@@ -421,8 +424,10 @@ class BatchAligner:
         lane start streaming to the host now when they are small (the
         common case certifies them all).  Bands of at least
         :data:`STRIPED_MIN_SW` words run K5/K6, smaller ones K1/K2; a ck
-        rung whose band K6 cannot take (``sw % 8``, as at a full height S
-        that is not a multiple of 8, or ``CB < sw + 8``) runs K2."""
+        rung of such a band that K6 cannot take (``sw % 8``, as at a full
+        height S that is not a multiple of 8, or ``CB < sw + 8``, as where
+        n_max clamps CB) runs K8, whose interval contract
+        (:func:`..ops.striped.pinned_ck_fits`) ``_cb`` always meets."""
         args, B0, members, n_max, S, diag = self._pack_rung(pairs, lad)
         n, m = np.asarray(args[4])[:B0], np.asarray(args[5])[:B0]
         sw = min(lad["band"], S)
@@ -447,6 +452,9 @@ class BatchAligner:
                 if sw >= STRIPED_MIN_SW and sw % 8 == 0 and CB >= sw + 8:
                     got, *ck = striped_ck(*args, sw, CB, diag)
                     stats.kernel = route(self.device, "striped_ck")
+                elif sw >= STRIPED_MIN_SW and striped.pinned_ck_fits(n_max, sw, CB):
+                    got, *ck = pinned_ck(*args, sw, CB, diag)
+                    stats.kernel = route(self.device, "pinned_ck")
                 else:
                     got, *ck = banded_ck(*args, sw, CB, diag)
                     stats.kernel = route(self.device, "banded_ck")
@@ -870,8 +878,8 @@ _OPT_READBACK_BYTES = 8 * 2**20
 
 # Checkpoint sets ``(ck_vp, ck_vm, ck_tv)`` share one shape rule, whatever
 # kernel wrote them: the lane (pair) axis is the last axis of each array;
-# planes are (n_ck, rows, B) with rows = SW (K2, K4) or SW + 8 (K6's
-# 8-aligned-top rows), top values (n_ck, B).  The helpers below only ever
+# planes are (n_ck, rows, B) with rows = SW (K2, K4, K8, K10) or SW + 8
+# (K6's 8-aligned-top rows), top values (n_ck, B).  The helpers below only ever
 # cut that axis, and the native trace infers the row layout from the rows.
 
 

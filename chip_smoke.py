@@ -90,16 +90,32 @@ Phases, one output line each (any failure exits non-zero):
     pairs, timed in turns (plain, kernel, kernel, plain); K11 alone over
     chained launches on the whole pack and on it with one word more (S =
     33, a partial second stripe);
+19. the shared-schedule checkpoint kernel K8 against its plain version on
+    a grid (B 1/37/128, n <= 1500 with n == 0 and m == 0 lanes, SW 8, 13,
+    64, 67, 1152 and a full height S = 1188 off the 8-grain, CB = SW, SW +
+    3, 4096 and n_max, a skewed bucket's single capture window, and five
+    windows at SW 1152 and 1188 on pairs of up to 5 kbp), bit for bit on costs, every checkpoint row and top value, and against K2 on
+    every checkpoint a trace reads;
+20. main path, the exact full-height checkpoint rung: ``BatchAligner(
+    device="cuda", domain_mode="off", max_band_doublings=0)
+    .align_with_stats`` on config #4's pairs of phase 7 (one ck rung at SW
+    = S = 3149 words, CB = 4096, K8), costs equal to phase 7's and its 8
+    ``levenshtein_myers`` costs, all 128 CIGARs verified on a process pool,
+    the call split by layer, peak device memory;
+21. K8 alone on phase 20's whole rung over chained launches; K8 against its
+    plain version and against K2 on that rung cut to its first 1024
+    columns; K8 against K6 on config #5's cut (4096 columns, SW = 2048, CB
+    = 2056), each beside its bound; the bounds of K3 and K7, not ported;
 
 then the kernels' JSON line (each kernel's time, its plain version's,
 its bound from this run's inputs, its launches on the main path), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
-The plain sweeps of phases 5, 9, 12 and 15 run on their packs' first
+The plain sweeps of phases 5, 9, 12, 15 and 21 run on their packs' first
 columns, the grids of phases 2 and 6 hold a few cases each, and the pairs
 are generated on a pool of the host's cores, to keep the run short.
 Launch counts are reset just before each main-path phase (3-4, 7, 8, 11,
-14, 17) and read just after it.  Imports nothing of JAX and nothing of the
-JAX package.  Exits 1 without a usable GPU.
+14, 17, 20) and read just after it.  Imports nothing of JAX and nothing of
+the JAX package.  Exits 1 without a usable GPU.
 """
 
 from __future__ import annotations
@@ -146,6 +162,10 @@ C1_PAIRS, C1_LENGTH, C1_ERR, C1_SEED = 65_536, 1000, 0.01, 1
 C1_ORACLE, C1_REF_PAIRS, C1_REF_LAUNCHES = 1024, 1024, 8
 NW_GRID_N = 1500  # the K11 grid's longest a and b
 NW_CUT_PAIRS = 512
+K8_CUT_CB = CUT_COLS * 3 // 4  # one capture window in the cut for K8 and K2
+K8_GRID_N, K8_TALL_M, K8_BIG_SW = 1500, 38_000, 1152  # phase 19: S = 1188 words
+K8_LONG_N = 5000  # phase 19: several capture windows at SW 1152 and 1188
+K8_CHAINED = 3
 WORKERS = 8
 
 # The card's limits for each kernel's bound (the least time the card could
@@ -794,11 +814,12 @@ def _check_round(spy: RoundSpy, st, ck: bool, label: str) -> tuple:
     return args
 
 
-def phase7_config4(spy: RoundSpy) -> tuple[dict, tuple]:
+def phase7_config4(spy: RoundSpy) -> tuple[dict, tuple, tuple]:
     """Config #4 through the default BatchAligner, then 128 x 40 kbp e=5%
     pairs whose gcsh rounds fall below ``PINNED_PP_MIN_SW`` (K4's place on
-    the main path); returns the launch counts of both runs and config #4's
-    last cost round's arguments."""
+    the main path); returns the launch counts of both runs, config #4's
+    last cost round's arguments and ``(pairs, costs, {pair:
+    levenshtein_myers})`` of config #4 for phase 20."""
     t0 = time.perf_counter()
     pairs = _pool(_uniform, [(C4_LENGTH, C4_ERR, C4_SEED + s) for s in range(C4_PAIRS)])
     bp = sum(len(a) for a, _ in pairs)
@@ -828,6 +849,7 @@ def phase7_config4(spy: RoundSpy) -> tuple[dict, tuple]:
     agree = sum(int(costs[i]) == w for i, w in zip(picks, want))
     if agree != C4_ORACLE:
         fail(f"config #4: {agree}/{C4_ORACLE} costs equal levenshtein_myers")
+    c4_costs, c4_oracle = costs, dict(zip(picks.tolist(), want))
     say(f"[7 cost] 1st call rounds [{', '.join(first[0])}], gcsh build {first[1]:.3f} s; "
         f"2nd call {dt:.4f} s = {bp / dt / 1e6:.3f} Mbp/s: f-rounds {len(rounds)} "
         f"[{', '.join(rounds)}] (CUDA events), retries {st.band_retries}, cells "
@@ -890,7 +912,7 @@ def phase7_config4(spy: RoundSpy) -> tuple[dict, tuple]:
     for name in routes | {"banded_cost_pp", "banded_ck_pp"}:
         if not launches[name]:
             fail(f"phase 7 never launched {name}")
-    return launches, c4_round
+    return launches, c4_round, (pairs, c4_costs, c4_oracle)
 
 
 def phase8_ck(spy: RoundSpy) -> dict:
@@ -1683,6 +1705,249 @@ def phase18_time(args, full: dict) -> dict:
     return rec
 
 
+def _k8_vs_k2(k8, k2, n, CB: int) -> int:
+    """Largest difference between K8 and K2 on the lanes with n > 0 where
+    K8's window covers row m (costs; K2 gives m at n == 0, K8 0), and on
+    every checkpoint both have that a trace reads (``k*CB <= n``: K2's
+    checkpoint k is the state before column k*CB, K8's the state after
+    column k*CB - 1)."""
+    n_t = torch.as_tensor(np.asarray(n, np.int64), device=k8[0].device)
+    cov = (k8[0] < banded.INF) & (n_t > 0)
+    comps = [(k8[0][cov], k2[0][cov])]
+    for k in range(min(k8[1].shape[0], k2[1].shape[0])):
+        live = n_t >= k * CB
+        comps += [(g[k][..., live], w[k][..., live]) for g, w in zip(k8[1:], k2[1:])]
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in comps)
+
+
+def phase19_grid() -> int:
+    """K8 == plain on a grid: SW 8, 13, 64, 67, 1152 and full height S off
+    the 8-grain, CB = SW, SW + 3, 4096 and n_max, B 1/37/128, ragged n and
+    m with n == 0 and m == 0 lanes, with and without a diagonal, and a
+    skewed bucket's single capture window (m > 32 n, CB = n_max < S), and
+    five capture windows at SW 1152 and at full height on 5 kbp pairs.
+    Every case is also held against K2 on every readable checkpoint: K2's
+    plain version at SW <= 13, its kernel (held to the plain one by phases
+    6 and 9) above.  Returns the max abs difference."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    pairs = [att.generate.uniform_seeded(int(rng.integers(1, K8_GRID_N + 1)),
+                                         float(rng.uniform(0, 0.25)), 7000 + s)
+             for s in range(128)]
+    pairs[1] = (b"", b"ACGTACGTAC")  # an n == 0 lane
+    pairs[3] = (pairs[3][0], b"")  # an m == 0 lane
+    m_top = max(len(b) for _, b in pairs)
+    # A tall pair: a full height off the 8-grain, above the largest band.
+    pairs[2] = (att.generate.uniform_seeded(K8_GRID_N, 0.1, 6999)[0],
+                att.generate.uniform_seeded(K8_TALL_M, 0.1, 6998)[0])
+    wide, _ = pack_batch_staggered(pairs, 1, device="cuda")
+    n_max, S = wide[0].shape[0], wide[2].shape[0]
+    if S % 8 == 0 or S <= K8_BIG_SW:
+        fail(f"phase 19's pack has S = {S}: not a full height off the 8-grain "
+             f"above {K8_BIG_SW}")
+    diag = (n_max, m_top)
+    mid, one = _lanes(wide, 37), _lanes(wide, 1)
+    # A skewed bucket: b of 3000 bp against a of at most 60, S = 94 > n_max.
+    skew = [(att.generate.uniform_seeded(int(rng.integers(1, 61)), 0.1, 7200 + s)[0],
+             att.generate.uniform_seeded(int(rng.integers(1, 3001)), 0.1, 7300 + s)[0])
+            for s in range(37)]
+    skew[0] = (skew[0][0], att.generate.uniform_seeded(3000, 0.1, 7299)[0])
+    skewed, _ = pack_batch_staggered(skew, 1, device="cuda")
+    Ss = skewed[2].shape[0]
+    # Several capture windows at a large band: a's of up to 5 kbp beside
+    # the tall pair, so CB = SW + 3 leaves n_max // CB = 4 windows past 0.
+    lng = [att.generate.uniform_seeded(int(rng.integers(1, K8_LONG_N + 1)),
+                                       float(rng.uniform(0, 0.25)), 7400 + s)
+           for s in range(37)]
+    lng[0] = (att.generate.uniform_seeded(K8_LONG_N, 0.1, 7399)[0], pairs[2][1])
+    long_, _ = pack_batch_staggered(lng, 1, device="cuda")
+    Sl = long_[2].shape[0]
+    if Sl <= K8_BIG_SW or K8_LONG_N // (Sl + 3) < 3:
+        fail(f"phase 19's long pack has S = {Sl}: fewer than 3 windows past 0")
+    diag_l = (K8_LONG_N, max(len(b) for _, b in lng))
+    cases = [(one, "B=1", 8, 64, diag), (wide, "B=128", 8, 4096, None),
+             (mid, "B=37", 13, 13, None), (wide, "B=128", 13, 16, diag),
+             (wide, "B=128", 64, 64, diag), (mid, "B=37", 67, 70, None),
+             (wide, "B=128", 67, 4096, diag), (wide, "B=128", K8_BIG_SW, K8_BIG_SW, None),
+             (mid, "B=37", K8_BIG_SW, K8_BIG_SW + 3, None), (wide, "B=128", S, S + 3, None),
+             (mid, "B=37", S, 4096, None), (one, "B=1", S, S, None),
+             (skewed, "skewed B=37", Ss, 4096, None),
+             (long_, "long B=37", K8_BIG_SW, K8_BIG_SW + 3, None),
+             (long_, "long B=37", Sl, Sl + 3, diag_l)]
+    worst, worst_k2, labels = 0, 0, []
+    for planes, label, sw, cb, dg in cases:
+        got = banded_kernel.pinned_ck(*planes, sw, cb, dg)
+        err = _max_err(got, striped.pinned_ck_ref(*planes, sw, cb, dg))
+        k2_fn = banded.banded_ck_ref if sw <= 13 else banded_kernel.banded_ck
+        CB = min(cb, planes[0].shape[0])
+        e2 = _k8_vs_k2(got, k2_fn(*planes, sw, cb, dg), planes[4], CB)
+        label = (f"{label} SW={min(sw, planes[2].shape[0])}"
+                 f"{' (full)' if sw >= planes[2].shape[0] else ''} CB={CB} "
+                 f"n_ck={got[1].shape[0]} diag={'set' if dg else 'None'}")
+        if err or e2:
+            fail(f"K8 != plain ({err}) or K2 ({e2}) at {label}")
+        worst, worst_k2 = max(worst, err), max(worst_k2, e2)
+        labels.append(label)
+    torch.cuda.synchronize()
+    say(f"[19 pinned ck=plain] {len(cases)}/{len(cases)} cases (n_max {n_max}, S {S}; "
+        f"skewed n_max {skewed[0].shape[0]}, S {Ss}; long n_max {long_[0].shape[0]}, "
+        f"S {Sl}: {'; '.join(labels)}); max_abs_err "
+        f"{worst}; K8 == K2 on every readable checkpoint (K2 plain at SW <= 13, "
+        f"kernel above), max_abs_err {worst_k2}; {time.perf_counter() - t0:.1f} s")
+    return max(worst, worst_k2)
+
+
+def phase20_full_height(c4) -> tuple[int, RoundSpy]:
+    """The exact full-height checkpoint path on config #4's pairs:
+    ``BatchAligner(device="cuda", domain_mode="off", max_band_doublings=0)
+    .align_with_stats``, one ck rung at SW = S off the 8-grain on K8;
+    returns K8's launches in the call and the spy holding its inputs."""
+    pairs, costs7, oracle = c4
+    bp = sum(len(a) for a, _ in pairs)
+    ba = BatchAligner(device="cuda", domain_mode="off", max_band_doublings=0)
+    spy = RoundSpy(("pinned_ck", "striped_ck", "banded_ck"))
+    spy.install()
+    banded_kernel.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    res, st = ba.align_with_stats(pairs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rounds, split = spy.rounds(), spy.split(dt)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    spy.remove()
+    launches = dict(banded_kernel.LAUNCHES)
+    names = [c[0] for c in spy.calls]
+    if names != ["pinned_ck"] or st.kernel != "cuda-pinned-ck" or launches["pinned_ck"] != 1:
+        fail(f"full-height ck path ran {names} (stats {st.kernel!r}, launches {launches})")
+    args = spy.last["pinned_ck"]
+    n_max, S, sw, cb = args[0].shape[0], args[2].shape[0], args[6], args[7]
+    if sw != S or S % 8 == 0:
+        fail(f"the full-height rung ran SW={sw} of S={S}: not full height off the 8-grain")
+    costs = [c for c, _ in res]
+    if costs != [int(x) for x in costs7] or st.direct_traces:
+        fail("full-height ck costs differ from phase 7's, or traced directly")
+    agree = sum(costs[i] == w for i, w in oracle.items())
+    if agree != len(oracle):
+        fail(f"full-height ck: {agree}/{len(oracle)} costs equal levenshtein_myers")
+    t1 = time.perf_counter()
+    ok = _pool(_verify_job, [(a, b, cig.to_string(), c) for (a, b), (c, cig) in zip(pairs, res)])
+    if not all(ok):
+        fail(f"full-height ck: {len(ok) - sum(ok)} CIGARs do not verify at their cost")
+    say(f"[20 full height] BatchAligner(device='cuda', domain_mode='off', "
+        f"max_band_doublings=0).align_with_stats on config #4's {len(pairs)} pairs: "
+        f"{dt:.4f} s = {bp / dt / 1e6:.3f} Mbp/s cost+CIGAR; one ck rung [{', '.join(rounds)}] "
+        f"(CUDA events) at n_max {n_max}, S {S} (S % 8 = {S % 8}), CB {cb}, kernel {st.kernel}, "
+        f"retries {st.band_retries}, cells {st.cells_computed}; costs == phase 7's "
+        f"{len(costs)}/{len(costs)}, levenshtein_myers {agree}/{len(oracle)}; {len(ok)} CIGARs "
+        f"verified ({time.perf_counter() - t1:.1f} s on {WORKERS} processes)")
+    say(f"[20 split] host clock and CUDA events: {split}")
+    say(f"[20 memory] peak device memory {peak:.3f} GiB, {peak - held:.3f} GiB above the "
+        f"{held:.3f} GiB that earlier phases still held (torch.cuda.max_memory_allocated over "
+        f"the call)")
+    return launches["pinned_ck"], spy
+
+
+def phase21_time(spy20: RoundSpy, c5_spy: RoundSpy) -> dict:
+    """K8 alone on phase 20's whole rung over chained launches; K8 against
+    its plain version and against K2 on that rung cut to CUT_COLS columns;
+    K8 against K6 on config #5's cut.  Returns K8's JSON record (without
+    the launch count)."""
+    torch.cuda.synchronize()
+    path_ms = RoundSpy.kernel_ms(spy20.calls[-1])
+    *planes, sw, cb_path, dg = spy20.last["pinned_ck"]
+    full = {"rung_alone_ms": _chained_ms(
+                lambda: banded_kernel.pinned_ck(*planes, sw, cb_path, dg), K8_CHAINED),
+            "rung_path_ms": path_ms,
+            "rung_bound_ms": plane_bound(planes, sw, [])["bound_ms"],
+            "rung_shape": {"B": planes[0].shape[1], "n_max": planes[0].shape[0],
+                           "S": planes[2].shape[0], "SW": sw, "CB": cb_path}}
+    say(f"[21 rung] K8 alone on phase 20's whole rung {full['rung_shape']}, "
+        f"{K8_CHAINED} chained launches behind an untimed one: {full['rung_alone_ms']:.3f} ms "
+        f"a launch vs bound {full['rung_bound_ms']:.4f} ms "
+        f"({full['rung_alone_ms'] / full['rung_bound_ms']:.2f}x); in the path's call "
+        f"{path_ms:.3f} ms (CUDA events around the wrapper)")
+    # The rung cut to its first columns, one capture window inside the cut
+    # for both kernels.
+    cut = _cut(planes, CUT_COLS)
+    dg_c = _cut_diag(cut)
+    cb = K8_CUT_CB
+    plain_ms, ref = _event_ms(lambda: striped.pinned_ck_ref(*cut, sw, cb, dg_c))
+    k8_ms, k2_ms, err, err_k2 = [], [], 0, 0
+    for _ in range(2):
+        ms, got8 = _event_ms(lambda: banded_kernel.pinned_ck(*cut, sw, cb, dg_c))
+        k8_ms.append(ms)
+        ms, got2 = _event_ms(lambda: banded_kernel.banded_ck(*cut, sw, cb, dg_c))
+        k2_ms.append(ms)
+        err = max(err, _max_err(got8, ref))
+        err_k2 = max(err_k2, _k8_vs_k2(got8, got2, cut[4], cb))
+    if err or err_k2:
+        fail(f"K8 != plain ({err}) or K2 ({err_k2}) on the full-height rung's cut")
+    shape = {"B": cut[0].shape[1], "n_max": cut[0].shape[0], "S": cut[2].shape[0],
+             "SW": sw, "CB": cb}
+    bnd = plane_bound(cut, sw, ref)
+    k2_bnd = plane_bound(cut, sw, got2)["bound_ms"]
+    say(f"[21 cut] phase 20's rung cut to its first {CUT_COLS} columns {shape}: K8 "
+        f"{k8_ms[0]:.3f}/{k8_ms[1]:.3f} ms vs bound {bnd['bound_ms']:.4f} ms "
+        f"({np.mean(k8_ms) / bnd['bound_ms']:.2f}x), K2 {k2_ms[0]:.3f}/{k2_ms[1]:.3f} ms vs "
+        f"bound {k2_bnd:.4f} ms ({np.mean(k2_ms) / k2_bnd:.1f}x), K2/K8 "
+        f"{np.mean(k2_ms) / np.mean(k8_ms):.1f}x; plain K8 {plain_ms:.1f} ms; K8 == plain, "
+        f"K8 == K2 on every readable checkpoint, max_abs_err {max(err, err_k2)} (CUDA events)")
+    # K8 against K6 on config #5's cut, where both take the band: the cost
+    # of rows from the true window top.
+    *c5_planes, sw6, _, _ = c5_spy.last["striped_ck"]
+    cut5 = _cut(c5_planes, C5_CUT)
+    dg5 = _cut_diag(cut5)
+    cb6 = sw6 + 8
+    times, outs = {"striped_ck": [], "pinned_ck": []}, {}
+    for name in ("striped_ck", "pinned_ck", "pinned_ck", "striped_ck"):
+        fn = getattr(banded_kernel, name)
+        ms, outs[name] = _event_ms(lambda: fn(*cut5, sw6, cb6, dg5))
+        times[name].append(ms)
+    k6, k8 = outs["striped_ck"], outs["pinned_ck"]
+    lo = striped.plan_striped(cut5[0].shape[0], cut5[2].shape[0], sw6, dg5)["lo"]
+    err6 = _max_err(k8[0], k6[0])
+    for k in range(k8[1].shape[0]):  # K6's true window is rows [lo & 7, +SW)
+        pad = int(lo[k * cb6 - 1]) & 7 if k else 0
+        for g, w in zip(k8[1:3], k6[1:3]):
+            err6 = max(err6, _max_err(g[k], w[k, pad:pad + sw6]))
+    err6 = max(err6, _max_err(k8[3], k6[3]))
+    if err6:
+        fail("K8 != K6's true-window rows on config #5's cut")
+    shape5 = {"B": cut5[0].shape[1], "n_max": cut5[0].shape[0], "S": cut5[2].shape[0],
+              "SW": sw6, "CB": cb6}
+    bnd5 = plane_bound(cut5, sw6, k8)["bound_ms"]
+    k6_ms, k8c_ms = times["striped_ck"], times["pinned_ck"]
+    say(f"[21 vs K6] config #5's cut {shape5}, turns K6, K8, K8, K6: K8 "
+        f"{k8c_ms[0]:.3f}/{k8c_ms[1]:.3f} ms, K6 {k6_ms[0]:.3f}/{k6_ms[1]:.3f} ms "
+        f"(K8/K6 {np.mean(k8c_ms) / np.mean(k6_ms):.3f}) vs bound {bnd5:.4f} ms; K8 == K6 on "
+        f"costs, top values and K6's true-window rows, max_abs_err {err6} (CUDA events)")
+    return {"max_abs_err": max(err, err_k2, err6), "ms": float(np.mean(k8_ms)),
+            "plain_ms": plain_ms, **bnd, "library_ms": None, "shape": shape, **full,
+            "k2_ms": float(np.mean(k2_ms)), "k2_bound_ms": k2_bnd,
+            "c5_cut_ms": float(np.mean(k8c_ms)), "c5_cut_k6_ms": float(np.mean(k6_ms)),
+            "c5_cut_bound_ms": bnd5, "c5_cut_shape": shape5}
+
+
+def unported_bounds(spy: RoundSpy, k5: dict) -> str:
+    """The bounds of the two kernels still to port, from this run's inputs:
+    K3 (every column's window planes, ``banded_fill``) at phase 8's ck pack
+    and ladder band, where writing its (n_max, SW, B) planes twice over
+    outweighs the word steps; K7, which computes K5's function, at config
+    #5's K5 rung."""
+    *planes, sw, _, _ = spy.last["banded_ck"]
+    n_max, B = planes[0].shape
+    sw = min(sw, planes[2].shape[0])
+    in_bytes = sum(x.numel() * x.element_size() for x in planes[:4]) + 8 * B
+    k3 = bound(int(np.asarray(planes[4], np.int64).sum()) * sw, in_bytes, 2 * 4 * n_max * sw * B)
+    shape = {"B": B, "n_max": n_max, "S": planes[2].shape[0], "SW": sw}
+    return (f"[21 unported] K3 at phase 8's pack {shape}: bound {k3['bound_ms']:.4f} ms "
+            f"({k3['bound_by']}); K7 at config #5's rung {k5['rung_shape']}: bound "
+            f"{k5['rung_bound_ms']:.4f} ms (K5's function)")
+
+
 def main() -> None:
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1713,7 +1978,7 @@ def main() -> None:
 
     rounds = RoundSpy()
     rounds.install()
-    c4, c4_round = phase7_config4(rounds)
+    c4, c4_round, c4_batch = phase7_config4(rounds)
     ck = phase8_ck(rounds)
     rounds.remove()
     counts = {k: c4[k] + ck[k] for k in RoundSpy.NAMES}
@@ -1741,6 +2006,13 @@ def main() -> None:
     say(f"[main path] launches: config #1 {{'nw_right_edge': {c1_launches}}}")
     nw_record = phase18_time(c1_args, c1_full)
     nw_record["max_abs_err"] = max(nw_record["max_abs_err"], nw_grid_err)
+
+    k8_grid_err = phase19_grid()
+    k8_launches, k8_spy = phase20_full_height(c4_batch)
+    say(f"[main path] launches: full-height ck path {{'pinned_ck': {k8_launches}}}")
+    k8_record = phase21_time(k8_spy, c5_spy)
+    k8_record["max_abs_err"] = max(k8_record["max_abs_err"], k8_grid_err)
+    say(unported_bounds(rounds, c5_records["striped_cost"]))
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "astarpa_tpu"))
     if loaded:
         fail(f"JAX or the JAX package was imported: {loaded[:5]}")
@@ -1751,6 +2023,7 @@ def main() -> None:
         "banded_ck_pp": "astarpa_tpu/ops/pallas_banded.py:447",
         "striped_cost": "astarpa_tpu/ops/striped.py:522",
         "striped_ck": "astarpa_tpu/ops/striped.py:576",
+        "pinned_ck": "astarpa_tpu/ops/pinned.py:1157",
         "pinned_cost_pp": "astarpa_tpu/ops/pinned.py:944",
         "pinned_ck_pp": "astarpa_tpu/ops/pinned.py:1316",
         "nw_right_edge": "astarpa_tpu/ops/pallas_myers.py:98",
@@ -1777,6 +2050,8 @@ def main() -> None:
     kernels.append({"name": "nw_right_edge", "route": "cuda",
                     "source": "astarpa_tpu_torch/csrc/nw.cu",
                     "replaces": replaces["nw_right_edge"], "launches": c1_launches, **nw_record})
+    kernels.append({"name": "pinned_ck", "route": "cuda", "source": striped_src,
+                    "replaces": replaces["pinned_ck"], "launches": k8_launches, **k8_record})
     say(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)

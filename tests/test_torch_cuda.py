@@ -237,6 +237,54 @@ def test_pinned_ck_refuses_short_intervals(gpu):
     assert banded_kernel.LAUNCHES["pinned_ck_pp"] == before
 
 
+@pytest.mark.parametrize("count", [37, 128])
+def test_pinned_ck_kernel_matches_plain(gpu, count):
+    """K8 against its plain version, bit for bit on costs, every checkpoint
+    row and top value: SW on and off the 8-grain up to full height (a skewed
+    pair makes S ~ 280, taller than a 256-word stripe), CB = SW, SW + 3 and
+    512, with and without a diagonal; then a skewed bucket's single capture
+    window (CB = n_max < S).  A short CB raises without a launch."""
+    pairs = [generate.uniform_seeded(100 + (s * 61) % 900, [0.03, 0.15][s % 2], 1700 + s)
+             for s in range(count)]
+    pairs[1] = (b"", b"ACGTAC")
+    pairs[2] = (pairs[2][0][:200], generate.uniform_seeded(9000, 0.1, 1699)[0])
+    args, _ = pack_batch_staggered(pairs, 1, device=gpu)
+    n_max, S = args[0].shape[0], args[2].shape[0]
+    diag = (n_max, max(len(b) for _, b in pairs[3:]))
+    before = banded_kernel.LAUNCHES["pinned_ck"]
+    cases = [(8, 64, diag), (13, 13, None), (67, 70, diag), (67, 512, None),
+             (S, S, None), (S, 512, None)]
+    for sw, cb, dg in cases:
+        got = banded_kernel.pinned_ck(*args, sw, cb, dg)
+        _assert_same(got, striped.pinned_ck_ref(*args, sw, cb, dg), (sw, cb))
+        assert got[1].shape == (n_max // min(cb, n_max) + 1, min(sw, S), len(pairs))
+    skew = [(b"ACGTTGCA" * 5, generate.uniform_seeded(3000, 0.0, 5)[0])]
+    sargs, _ = pack_batch_staggered(skew, 1, device=gpu)
+    S2 = sargs[2].shape[0]
+    got = banded_kernel.pinned_ck(*sargs, S2, 4096)
+    _assert_same(got, striped.pinned_ck_ref(*sargs, S2, 4096), "skewed")
+    assert int(got[0][0]) == oracle.levenshtein(*skew[0])
+    with pytest.raises(ValueError, match="col_block"):
+        banded_kernel.pinned_ck(*args, 67, 66)
+    assert banded_kernel.LAUNCHES["pinned_ck"] == before + len(cases) + 1
+
+
+def test_runner_full_height_ck_rung_on_k8(gpu, monkeypatch):
+    """A full-height ck rung off the 8-grain (S = 67 words, at least
+    STRIPED_MIN_SW) runs K8 on the card, with the costs and CIGARs of the
+    CPU route."""
+    pairs = [generate.uniform_seeded(2080 + 7 * s, [0.05, 0.2][s % 2], 600 + s)
+             for s in range(6)]
+    kw = dict(band_words=8, max_band_doublings=0, domain_mode="off", direct_dt=False)
+    ref, _ = BatchAligner(device="cpu", **kw).cost_with_stats(pairs)
+    before = banded_kernel.LAUNCHES["pinned_ck"]
+    res, stats = BatchAligner(device=gpu, **kw).align_with_stats(pairs)
+    assert stats.kernel == "cuda-pinned-ck"
+    assert banded_kernel.LAUNCHES["pinned_ck"] == before + 1
+    for (a, b), (c, cig), want in zip(pairs, res, ref):
+        assert cig.verify(a, b) == c == want == oracle.levenshtein(a, b)
+
+
 def test_runner_routes_domain_rounds_on_gpu(gpu, monkeypatch):
     """Domain rounds below PINNED_PP_MIN_SW words run K4, at or above it
     K9 (costs) and K10 (checkpoints), with the costs and CIGARs of the CPU

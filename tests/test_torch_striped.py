@@ -207,17 +207,18 @@ def test_runner_ck_rungs_on_k6_match_reference(monkeypatch):
 
 @needs_native
 def test_full_height_ck_rung_off_the_8_grain_runs_k2(monkeypatch):
-    """A full-height ck rung whose S is not a multiple of 8 goes to K2 (K6
-    needs SW % 8 == 0); costs and CIGARs stay exact."""
+    """A full-height ck rung whose S is not a multiple of 8 goes to K8, not
+    K6 (which needs SW % 8 == 0) and no longer K2, whose route the name
+    recalls; costs and CIGARs stay exact."""
     a, _ = generate.uniform_seeded(600, 0.0, 9)
     pairs = [(a, a[::-1])]
     monkeypatch.setattr(runner, "STRIPED_MIN_SW", 4)
-    calls = _spy(monkeypatch, ["striped_ck", "banded_ck"])
+    calls = _spy(monkeypatch, ["striped_ck", "pinned_ck", "banded_ck"])
     ba = BatchAligner(device="cpu", band_words=8, max_band_doublings=1,
                       domain_mode="off", direct_dt=False)
     res, stats = ba.align_with_stats(pairs)
     S = -(-len(a) // 32)
-    assert S % 8 and calls == [("striped_ck", 8), ("banded_ck", S)]
+    assert S % 8 and calls == [("striped_ck", 8), ("pinned_ck", S)]
     (c, cig), = res
     assert cig.verify(*pairs[0]) == c == oracle.levenshtein(*pairs[0])
 
