@@ -1,0 +1,287 @@
+// Resident-ring pinned-word big-band Myers edit distance on the shared
+// schedule: kernel K7 (costs).
+//
+// It replaces the TPU kernel astarpa_tpu/ops/pinned.py::_pinned_shared_call
+// (K7, entry pinned_cost_tpu, running _pinned_kernel / _pinned_body).  Its
+// function is K5's (csrc/striped.cu, the reference holds pinned_cost_tpu ==
+// striped_cost_tpu), so its plain torch twin is
+// astarpa_tpu_torch/ops/striped.py::pinned_cost_ref, the striped sweep, and
+// the results must match it bit for bit.  The per-word event steps come from
+// the same host plan (ops/striped.py::plan_striped).
+//
+// The DP is K5's: word w (absolute, 32 rows) runs column t - w at step t,
+// taking the h carry and the column's char code that word w-1 produced at
+// step t-1.  Word w enters the band at ent_t[w] (its state restarts
+// all-ones), is the band top at [top_t[w], abs_t[w]) (its input is the +1
+// carry and its own column's code), and is absorbed at abs_t[w], when its
+// value joins the pair's top sum if its column is <= n-1.  At the pair's
+// last column the banded words' values, masked to row m, are captured.
+//
+// Design: one block per pair; each thread holds kK = 8 consecutive slots in
+// registers (vp, vm, the two profile words, and the outputs the next slot
+// reads).  The block's RW = threads * 8 slots form a ring: slot j holds the
+// word w = j (mod RW) that is next to finish.  A word is live from ent_t to
+// end_t (the step after its absorb, or after its column n_lim - 1); both
+// rise strictly with w, so the live words are a contiguous run, and the
+// host sizes the ring to hold the longest run (ops/striped.py::ring_span).
+// When a slot's word is done the slot takes word w + RW at that word's
+// entry: its state restarts and its profile words come from a register the
+// thread prefetched at its previous entry.  The carry from the slot above
+// passes by warp shuffle within a warp and through shared memory
+// (double-buffered by step parity, one barrier a step) between warps; the
+// ring's one new link is the wrap, slot RW-1 feeding slot 0.  Each thread
+// walks its own words in order (lap by lap) with three event pointers:
+// next to enter, next to absorb (and its top range).  A top event of a word
+// past its column n_lim - 1 is dropped: its slot may already hold the word
+// RW below it.  The block sweeps steps 0 .. once and stops after its own
+// pair's last capture; there is no stripe loop and no carry plane in
+// device memory.  Any B, any SW.
+//
+// What bounds it on an H100: integer throughput.  A word step takes at
+// least 14 int32 instructions on sm_90 (the match word, the Myers step and
+// the funnel-shifted carries; ops/sass_count.py), 64 lanes per SM per
+// clock.  K5 cuts the band into stripes of threads * 8 words and runs them
+// one after another, each from its first word's entry to its last word's
+// end: about (stripe + SW) / slope steps for SW / slope useful ones, so at
+// config #5 (SW = 2048, 256 threads) it runs ~2 T block steps for T ~
+// n_max + S and half its warps only skip and wait at the barrier.  The ring
+// keeps every slot on a live word in the steady state (the live run is
+// about SW words), so it runs the T steps once with all warps busy: it
+// removes K5's stripe ramps.  Memory traffic is each word's profile once,
+// the event steps, and one code byte a step for the top word.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kW = 32;
+constexpr int kInf = 1 << 30;
+constexpr int kK = 8;            // slots per thread
+constexpr int kMaxThreads = 512;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ uint32_t pack_aux(uint32_t a0, uint32_t a1,
+                                             uint32_t hp, uint32_t hm) {
+  return (a0 & 1u) | (a1 & 2u) | (hp << 2) | (hm << 3);
+}
+
+// The word a thread's sequence index q names: lap q / 8, slot q % 8.
+__device__ __forceinline__ int next_word(int w, int q, int RW) {
+  return (q & (kK - 1)) ? w + 1 : w + RW - (kK - 1);
+}
+
+__global__ void __launch_bounds__(kMaxThreads) pinned_ring_kernel(
+    const uint8_t* __restrict__ code, const uint32_t* __restrict__ pb0,
+    const uint32_t* __restrict__ pb1, const int32_t* __restrict__ n,
+    const int32_t* __restrict__ m, const int32_t* __restrict__ loend,
+    const int32_t* __restrict__ ev, int32_t* __restrict__ out, int n_max,
+    int B, int S, int SW, int nw_pad, int n_lim) {
+  const int p = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int NT = blockDim.x;
+  const int RW = NT * kK;
+  const int last_warp = (NT >> 5) - 1;
+  const int np = n[p];
+  const int mp = m[p];
+  const int le = loend[p];
+  const int32_t* ent_t = ev;
+  const int32_t* top_t = ev + nw_pad;
+  const int32_t* abs_t = ev + 2 * nw_pad;
+  const uint8_t* cp = code + (size_t)p * n_max;
+
+  __shared__ uint32_t s_aux[2][kMaxThreads / 32];
+  __shared__ int s_acc;  // the pair's alive absorbed values so far
+  __shared__ int s_cap;
+
+  if (tid == 0) {
+    s_acc = 0;
+    s_cap = 0;
+  }
+  if (tid < kMaxThreads / 32) {
+    s_aux[0][tid] = 0u;
+    s_aux[1][tid] = 0u;
+  }
+  __syncthreads();
+
+  // The pair's last useful step is its last capture, np - 1 + le + SW - 1.
+  const int t_end = np > 0 ? np + le + SW - 1 : 0;
+  const int w0 = tid * kK;  // this thread's first slot (and lap-0 word)
+  uint32_t vp[kK], vm[kK], p0[kK], p1[kK];
+  // Outputs of each slot's last step: the code masks of its column and its
+  // h carries (0/1).  Slot j reads slot j-1's.
+  uint32_t xa0[kK], xa1[kK], xhp[kK], xhm[kK];
+#pragma unroll
+  for (int j = 0; j < kK; ++j) {
+    const int r = min(w0 + j, S - 1);
+    p0[j] = pb0[(size_t)r * B + p];
+    p1[j] = pb1[(size_t)r * B + p];
+    vp[j] = ~0u;
+    vm[j] = 0u;
+    xa0[j] = xa1[j] = xhp[j] = xhm[j] = 0u;
+  }
+  // Profile words of the thread's next word of a later lap (word w0 + RW
+  // first), taken at its entry.
+  uint32_t pn0, pn1;
+  {
+    const int r = min(w0 + RW, S - 1);
+    pn0 = pb0[(size_t)r * B + p];
+    pn1 = pb1[(size_t)r * B + p];
+  }
+  int e = 0, a = 0;          // sequence indices: next to enter, next to absorb
+  int ent_w = w0, abs_w = w0;
+  int ent_next = ent_t[ent_w];
+  int abs_next = abs_t[abs_w];
+  int top_next = top_t[abs_w];
+  int wc_slot = ((1 - np) % RW + RW) % RW;  // slot of word t + 1 - np
+  uint32_t last_aux = 0;  // packed outputs of slot kK-1, last step
+  int cap = 0;            // this thread's captured values
+
+  for (int t = 0; t < t_end; ++t) {
+    // Slot 0's input: the outputs of the slot above (the previous thread's
+    // last slot, or across the wrap) from step t-1.
+    uint32_t up = __shfl_up_sync(kFull, last_aux, 1);
+    if (lane == 0) up = s_aux[(t - 1) & 1][warp > 0 ? warp - 1 : last_warp];
+    uint32_t in_a0 = 0u - (up & 1u);
+    uint32_t in_a1 = 0u - ((up >> 1) & 1u);
+    uint32_t in_hp = (up >> 2) & 1u;
+    uint32_t in_hm = (up >> 3) & 1u;
+    if (t == ent_next) {
+      const int j = e & (kK - 1);
+      const bool later_lap = e >= kK;
+#pragma unroll
+      for (int jj = 0; jj < kK; ++jj) {
+        if (jj == j) {
+          vp[jj] = ~0u;
+          vm[jj] = 0u;
+          if (later_lap) {
+            p0[jj] = pn0;
+            p1[jj] = pn1;
+          }
+        }
+      }
+      ++e;
+      ent_w = next_word(ent_w, e, RW);
+      ent_next = ent_t[ent_w];
+      if (later_lap) {
+        // Prefetch the profile of the thread's next word.
+        const int r = min(ent_w, S - 1);
+        pn0 = pb0[(size_t)r * B + p];
+        pn1 = pb1[(size_t)r * B + p];
+      }
+    }
+    if (t == abs_next) {
+      const int j = a & (kK - 1);
+      int val = 0;
+#pragma unroll
+      for (int jj = 0; jj < kK; ++jj) {
+        if (jj == j) val = __popc(vp[jj]) - __popc(vm[jj]);
+      }
+      if (t - abs_w <= np - 1) s_acc += val;
+      ++a;
+      abs_w = next_word(abs_w, a, RW);
+      abs_next = abs_t[abs_w];
+      top_next = top_t[abs_w];
+    }
+    // The thread's next word to absorb is the band top at [top_t, abs_t)
+    // (after an absorb the next top starts a step later).
+    if (t >= top_next && t < abs_next && t - abs_w < n_lim) {
+      const int j = a & (kK - 1);
+      const uint32_t cc = cp[t - abs_w];
+      const uint32_t a0 = 0u - (cc & 1u);
+      const uint32_t a1 = 0u - ((cc >> 1) & 1u);
+      if (j == 0) {
+        in_a0 = a0;
+        in_a1 = a1;
+        in_hp = 1u;
+        in_hm = 0u;
+      }
+#pragma unroll
+      for (int jj = 1; jj < kK; ++jj) {
+        if (jj == j) {
+          xa0[jj - 1] = a0;
+          xa1[jj - 1] = a1;
+          xhp[jj - 1] = 1u;
+          xhm[jj - 1] = 0u;
+        }
+      }
+    }
+    // Slots from the bottom up, so slot j still sees slot j-1's outputs of
+    // step t-1.
+#pragma unroll
+    for (int j = kK - 1; j >= 0; --j) {
+      const uint32_t a0 = j ? xa0[j - 1] : in_a0;
+      const uint32_t a1 = j ? xa1[j - 1] : in_a1;
+      const uint32_t hp = j ? xhp[j - 1] : in_hp;
+      const uint32_t hm = j ? xhm[j - 1] : in_hm;
+      const uint32_t eq = (a0 ^ p0[j]) & (a1 ^ p1[j]);
+      const uint32_t v = vp[j];
+      const uint32_t vx = eq | vm[j];
+      const uint32_t eq2 = eq | hm;
+      const uint32_t hx = (((eq2 & v) + v) ^ v) | eq2;
+      uint32_t hpo = vm[j] | ~(hx | v);
+      uint32_t hmo = v & hx;
+      xhp[j] = hpo >> (kW - 1);
+      xhm[j] = hmo >> (kW - 1);
+      hpo = (hpo << 1) | hp;
+      hmo = (hmo << 1) | hm;
+      vp[j] = hmo | ~(vx | hpo);
+      vm[j] = hpo & vx;
+      xa0[j] = a0;
+      xa1[j] = a1;
+    }
+    last_aux = pack_aux(xa0[kK - 1], xa1[kK - 1], xhp[kK - 1], xhm[kK - 1]);
+    if (lane == 31) s_aux[t & 1][warp] = last_aux;
+    // Cost capture: word t+1-n finishes column n-1 now, in slot wc_slot.
+    const int wc = t + 1 - np;
+    const int jc = wc_slot - w0;
+    if ((unsigned)jc < (unsigned)kK && wc >= le && wc < le + SW) {
+      int full = mp - wc * kW;
+      full = full < 0 ? 0 : (full > kW ? kW : full);
+      const uint32_t mask = full >= kW ? ~0u : (1u << full) - 1u;
+#pragma unroll
+      for (int j = 0; j < kK; ++j) {
+        if (j == jc) cap += __popc(vp[j] & mask) - __popc(vm[j] & mask);
+      }
+    }
+    wc_slot = wc_slot + 1 == RW ? 0 : wc_slot + 1;
+    __syncthreads();
+  }
+  if (cap) atomicAdd(&s_cap, cap);
+  __syncthreads();
+  if (tid == 0) {
+    const bool covered = mp - le * kW <= SW * kW;
+    out[p] = covered ? s_acc + s_cap + np : kInf;
+  }
+}
+
+}  // namespace
+
+// C entry for ctypes.  All arrays are device pointers: code (B, n_max)
+// uint8 char codes (pair-major); pb0/pb1 (S, B); n, m, loend (B,) int32; ev
+// (3, nw_pad) int32 per-word ent_t, top_t and abs_t, NEVER past the live
+// words, nw_pad >= the live words + the ring; out (B,) int32.  `threads` is
+// the block size (a multiple of 32, <= 512): the ring holds threads * 8
+// words, which must cover ops/striped.py::ring_span(plan, n_lim).  Launches
+// on `stream` without synchronising and returns cudaGetLastError() (0 on
+// success).
+extern "C" int astarpa_pinned_cost(const void* code, const void* pb0,
+                                   const void* pb1, const void* n,
+                                   const void* m, const void* loend,
+                                   const void* ev, void* out, int n_max,
+                                   int B, int S, int SW, int nw_pad,
+                                   int n_lim, int threads, void* stream) {
+  if (threads < 32 || threads > kMaxThreads || threads % 32 ||
+      nw_pad % (threads * kK) || n_lim < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B > 0) {
+    pinned_ring_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)code, (const uint32_t*)pb0, (const uint32_t*)pb1,
+        (const int32_t*)n, (const int32_t*)m, (const int32_t*)loend,
+        (const int32_t*)ev, (int32_t*)out, n_max, B, S, SW, nw_pad, n_lim);
+  }
+  return (int)cudaGetLastError();
+}

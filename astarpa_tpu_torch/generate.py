@@ -162,9 +162,7 @@ def generate_batch(
             r = ChaCha8Rng.seed_from_u64(seed, stream=i + 1)
             out.append(_generate_with(n, e, model, r))
         return out
-    ss = np.random.SeedSequence(seed)
-    jobs = [(n, e, model, int(child.generate_state(1)[0]))
-            for child in ss.spawn(count)]
+    jobs = _model_jobs(count, n, e, model, seed)
     if workers > 1 and count > 1:
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
@@ -173,6 +171,13 @@ def generate_batch(
         with ProcessPoolExecutor(min(workers, count), mp_context=ctx) as ex:
             return list(ex.map(_model_job, jobs, chunksize=max(1, count // (4 * workers))))
     return [_model_job(job) for job in jobs]
+
+
+def _model_jobs(count: int, n: int, e: float, model: ErrorModel, seed: int) -> list[tuple]:
+    """The numpy backend's per-pair arguments of :func:`_model_job`: each
+    pair seeded from its own child of ``SeedSequence(seed)``."""
+    ss = np.random.SeedSequence(seed)
+    return [(n, e, model, int(child.generate_state(1)[0])) for child in ss.spawn(count)]
 
 
 def _model_job(job) -> tuple[bytes, bytes]:

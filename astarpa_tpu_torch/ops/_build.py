@@ -110,6 +110,7 @@ def load() -> ctypes.CDLL:
                                    ("astarpa_banded_ck_pp", 13, 6),
                                    ("astarpa_striped_cost", 10, 8),
                                    ("astarpa_striped_ck", 14, 10),
+                                   ("astarpa_pinned_cost", 8, 7),
                                    ("astarpa_pinned_ck", 14, 10),
                                    ("astarpa_pinned_cost_pp", 11, 8),
                                    ("astarpa_pinned_ck_pp", 15, 10),

@@ -1,11 +1,12 @@
-"""Wrappers of the banded kernels (``csrc/banded.cu``) and the striped
-big-band kernels (``csrc/striped.cu``).
+"""Wrappers of the banded kernels (``csrc/banded.cu``), the striped
+big-band kernels (``csrc/striped.cu``) and the resident-ring big-band cost
+kernel (``csrc/pinned.cu``).
 
 Counterparts of ``astarpa_tpu/ops/pallas_banded.py::banded_cost_tpu`` and
 ``banded_ck_tpu`` (``_banded_call``), of
 ``astarpa_tpu/ops/striped.py::striped_cost_tpu`` and ``striped_ck_tpu``
-and of ``astarpa_tpu/ops/pinned.py::pinned_ck_tpu``, ``pinned_cost_pp_tpu``
-and ``pinned_ck_pp_tpu``, one wrapper per kernel:
+and of ``astarpa_tpu/ops/pinned.py::pinned_cost_tpu``, ``pinned_ck_tpu``,
+``pinned_cost_pp_tpu`` and ``pinned_ck_pp_tpu``, one wrapper per kernel:
 
 - :func:`banded_cost` — K1, shared schedule, costs;
 - :func:`banded_ck` — K2, shared schedule, costs and checkpoints;
@@ -13,6 +14,7 @@ and ``pinned_ck_pp_tpu``, one wrapper per kernel:
 - :func:`banded_ck_pp` — K4, per-pair schedules, costs and checkpoints;
 - :func:`striped_cost` — K5, shared schedule, any band height, costs;
 - :func:`striped_ck` — K6, K5 plus 8-aligned-top checkpoints;
+- :func:`pinned_cost` — K7, K5's costs from a ring of resident words;
 - :func:`pinned_ck` — K8, K5 plus checkpoints under K2's contract, any SW;
 - :func:`pinned_cost_pp` — K9, K5's DP on per-pair schedules, costs;
 - :func:`pinned_ck_pp` — K10, K9 plus checkpoints under K4's contract.
@@ -37,8 +39,8 @@ from .words import lengths, to_tensor
 #: ``nw_right_edge`` is K11's, whose wrapper is in :mod:`.nw_kernel`.
 LAUNCHES = {"banded_cost": 0, "banded_ck": 0, "banded_cost_pp": 0,
             "banded_ck_pp": 0, "striped_cost": 0, "striped_ck": 0,
-            "pinned_ck": 0, "pinned_cost_pp": 0, "pinned_ck_pp": 0,
-            "nw_right_edge": 0}
+            "pinned_cost": 0, "pinned_ck": 0, "pinned_cost_pp": 0,
+            "pinned_ck_pp": 0, "nw_right_edge": 0}
 
 
 def reset_launches() -> None:
@@ -49,7 +51,7 @@ def reset_launches() -> None:
 _LABELS = {"banded_cost": "cuda-banded", "banded_ck": "cuda-banded-ck",
            "banded_cost_pp": "cuda-banded-pp", "banded_ck_pp": "cuda-banded-ck-pp",
            "striped_cost": "cuda-striped", "striped_ck": "cuda-striped-ck",
-           "pinned_ck": "cuda-pinned-ck",
+           "pinned_cost": "cuda-pinned", "pinned_ck": "cuda-pinned-ck",
            "pinned_cost_pp": "cuda-pinned-pp", "pinned_ck_pp": "cuda-pinned-pp-ck",
            "nw_right_edge": "cuda-nw"}
 
@@ -130,6 +132,24 @@ def striped_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
                                       col_block, diag)
     return _launch_striped("striped_ck", a0, a1, pb0, pb1, n, m, band_words,
                            diag, col_block, stripe_words)
+
+
+def pinned_cost(a0, a1, pb0, pb1, n, m, band_words: int,
+                diag: tuple | None = None,
+                ring_words: int | None = None) -> torch.Tensor:
+    """K5's costs (:func:`striped_cost`) from one pass over a ring of
+    resident words, as :func:`.striped.pinned_cost_ref`.  The ring holds
+    the most words live at once (:func:`.striped.ring_span`), rounded up
+    to whole warps of 256 words, or ``ring_words`` (a multiple of 256 that
+    holds them; the results do not depend on it).  Raises ``ValueError`` on
+    both routes when the ring would need more than 4096 words."""
+    SW = _check("pinned_cost", a0, a1, pb0, pb1, band_words)
+    n_max, S = a0.shape[0], pb0.shape[0]
+    plan = striped.plan_striped(n_max, S, SW, diag)
+    threads = ring_threads(striped.ring_span(plan, _cost_n_lim(n, n_max)), ring_words)
+    if _plain(a0):
+        return striped.pinned_cost_ref(a0, a1, pb0, pb1, n, m, band_words, diag)
+    return _launch_pinned(a0, a1, pb0, pb1, n, m, SW, plan, threads)
 
 
 def pinned_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
@@ -276,16 +296,11 @@ def _launch_striped(kernel, a0, a1, pb0, pb1, n, m, band_words, diag,
     SW = _check(kernel, a0, a1, pb0, pb1, band_words)
     plan = striped.plan_striped(n_max, S, SW, diag)
     n_t, m_t = lengths(n, B, dev), lengths(m, B, dev)
-    host_n = isinstance(n, np.ndarray)
-    if host_n:
-        loend = to_tensor(striped.loend_of(plan["lo"], n), dev)
-    else:
-        lo = torch.as_tensor(plan["lo"], device=dev)
-        loend = lo[(n_t.long() - 1).clamp(0, n_max - 1)].to(torch.int32)
+    loend = _loend(plan, n, n_t, n_max, dev)
     ck = col_block is not None
     # Cost mode stops each word after the longest pair's last column;
     # checkpoints are defined (and compared) up to n_max.
-    n_lim = int(np.max(n, initial=1)) if host_n and not ck else n_max
+    n_lim = n_max if ck else _cost_n_lim(n, n_max)
     threads = striped_threads(SW, stripe_words)
     ev, stripe_t = striped_events(plan, n_lim, threads)
     T = plan["T"]
@@ -316,6 +331,79 @@ def _launch_striped(kernel, a0, a1, pb0, pb1, n, m, band_words, diag,
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
     LAUNCHES[kernel] += 1
     return (out,) + outs if ck else out
+
+
+def _cost_n_lim(n, n_max: int) -> int:
+    """Columns a cost sweep needs: the longest pair's, from host lengths;
+    n_max from lengths on the card (no sync to read them)."""
+    return int(np.max(n, initial=1)) if isinstance(n, np.ndarray) else n_max
+
+
+def _loend(plan, n, n_t, n_max: int, dev) -> torch.Tensor:
+    """Each pair's band top at its last column, on ``dev``."""
+    if isinstance(n, np.ndarray):
+        return to_tensor(striped.loend_of(plan["lo"], n), dev)
+    lo = torch.as_tensor(plan["lo"], device=dev)
+    return lo[(n_t.long() - 1).clamp(0, n_max - 1)].to(torch.int32)
+
+
+#: Largest ring of K7 (``kMaxThreads * kK`` in ``csrc/pinned.cu``), K5's
+#: largest stripe.
+RING_MAX_WORDS = 512 * STRIPED_WORDS_PER_THREAD
+
+
+def ring_threads(span: int, ring_words: int | None = None) -> int:
+    """Block size of K7 for a ring that must hold ``span`` words: the least
+    warp multiple whose ``threads * 8`` slots hold them, or ``ring_words //
+    8`` (a multiple of 256 words, at least ``span``).  Raises
+    ``ValueError`` past :data:`RING_MAX_WORDS`."""
+    per = STRIPED_WORDS_PER_THREAD
+    if span > RING_MAX_WORDS:
+        raise ValueError(f"pinned cost: {span} live words exceed the ring's "
+                         f"{RING_MAX_WORDS}; use the striped kernel")
+    if ring_words is None:
+        return max(32, -(-span // (32 * per)) * 32)
+    if ring_words % (32 * per) or not span <= ring_words <= RING_MAX_WORDS:
+        raise ValueError(f"ring_words must be a multiple of {32 * per} from the "
+                         f"{span} live words up to {RING_MAX_WORDS}, got {ring_words}")
+    return ring_words // per
+
+
+def pinned_cost_takes(band_words: int) -> bool:
+    """Whether K7 takes a shared cost rung of ``band_words`` words (at most
+    the full height): its ring holds the rung's live words, which never
+    outnumber the band (:func:`.striped.ring_span`).  Bands past the ring
+    run K5, whose stripes take any height."""
+    return band_words <= RING_MAX_WORDS
+
+
+def _launch_pinned(a0, a1, pb0, pb1, n, m, SW, plan, threads):
+    from ._build import load
+
+    dev = a0.device
+    n_max, B = a0.shape
+    S = pb0.shape[0]
+    n_t, m_t = lengths(n, B, dev), lengths(m, B, dev)
+    loend = _loend(plan, n, n_t, n_max, dev)
+    rw = threads * STRIPED_WORDS_PER_THREAD
+    nwl = plan["n_words_live"]
+    # Past the live words a thread's event pointers read NEVER, up to one
+    # ring beyond them.
+    ev = np.full((3, (-(-nwl // rw) + 1) * rw), striped.NEVER, np.int32)
+    ev[0, :nwl] = plan["ent_t"]
+    ev[1, :nwl] = plan["top_t"]
+    ev[2, :nwl] = plan["abs_t"]
+    code = ((a0 & 1) | (a1 & 2)).to(torch.uint8).T.contiguous()
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    head = [code, pb0, pb1, n_t, m_t, loend, to_tensor(ev, dev), out]
+    ints = [n_max, B, S, SW, ev.shape[1], _cost_n_lim(n, n_max), threads]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = load().astarpa_pinned_cost(*(t.data_ptr() for t in head), *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"pinned_cost kernel launch failed: cudaError {rc}")
+    LAUNCHES["pinned_cost"] += 1
+    return out
 
 
 def pinned_pp_events(sched: np.ndarray, n, SW: int, threads: int, n_lim, dev):

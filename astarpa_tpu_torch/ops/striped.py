@@ -1,9 +1,9 @@
 """Striped pinned-word big-band DP: the host plan and the plain torch
-versions of kernels K5 (costs), K6 and K8 (costs and checkpoints).
+versions of kernels K5 and K7 (costs), K6 and K8 (costs and checkpoints).
 
 Counterpart of ``astarpa_tpu/ops/striped.py`` (``striped_cost_tpu``,
-``striped_ck_tpu``) and of the shared-schedule checkpoint half of
-``astarpa_tpu/ops/pinned.py`` (``pinned_ck_tpu``).  Words are pinned to
+``striped_ck_tpu``) and of the shared-schedule half of
+``astarpa_tpu/ops/pinned.py`` (``pinned_cost_tpu``, ``pinned_ck_tpu``).  Words are pinned to
 absolute indices and staggered: at step ``t`` word ``w`` runs column ``t -
 w``, taking the h carry that word ``w-1`` produced at step ``t-1`` (the
 same column).  So every word of the band is independent within a step, and
@@ -34,10 +34,13 @@ zeros there (the reference leaves them undefined).  K8 takes the same
 checkpoints under K2's row contract (:func:`.banded.banded_ck_ref`): SW
 rows from the true window top, ``w - lo(k*CB - 1)``, so the trace reads
 its planes as it reads K2's; it takes any SW (:func:`pinned_ck_layout`).
+K7 computes K5's costs from a ring of resident words, sized by
+:func:`ring_span`.
 
 The plain versions step ``t`` in a Python loop, vectorised over the live
 words ``[next to absorb, next to enter)`` and the pairs; the CPU runs them,
-the card compares its kernels (``csrc/striped.cu``) against them.
+the card compares its kernels (``csrc/striped.cu``, ``csrc/pinned.cu``)
+against them.
 """
 
 from __future__ import annotations
@@ -244,6 +247,41 @@ def striped_cost_ref(a0, a1, pb0, pb1, n, m, band_words: int,
     column ``n-1``; a pair with ``n == 0`` gives 0 (the reference's rule,
     where K1 gives ``m``)."""
     return _sweep(a0, a1, pb0, pb1, n, m, band_words, diag)[0]
+
+
+def pinned_cost_ref(a0, a1, pb0, pb1, n, m, band_words: int,
+                    diag: tuple | None = None) -> torch.Tensor:
+    """The plain version of kernel K7, the reference's ``pinned_cost_tpu``:
+    K5's function (the reference holds the two equal), so the same staggered
+    sweep.  K7 differs from K5 only in where the card keeps the live words
+    (a ring of resident slots instead of stripes), which the results do not
+    show.  Args and results as :func:`striped_cost_ref`."""
+    return _sweep(a0, a1, pb0, pb1, n, m, band_words, diag)[0]
+
+
+def ring_span(plan: dict, n_lim: int) -> int:
+    """Most words live at once in a cost sweep of ``plan`` whose pairs end
+    by column ``n_lim - 1``: the ring capacity K7 needs.
+
+    Word w is live at steps ``[ent_t[w], end_t[w])``, ``end_t`` the step
+    after its last useful one (its absorb, or its column ``n_lim - 1``).
+    Both rise strictly with w, so the live words at step t are the run
+    ``[ended(t), entered(t))``; its length peaks at an entry step, and it
+    never exceeds SW (word w runs column t - w, whose band starts at
+    lo(t - w), and ``w - lo(t - w)`` rises strictly with w).  Only the
+    steps a pair can need count: those before ``n_lim - 1 + lo(n_lim - 1)
+    + SW``, the step after the last capture."""
+    ent = plan["ent_t"].astype(np.int64)
+    nwl = len(ent)
+    w = np.arange(nwl, dtype=np.int64)
+    ab = plan["abs_t"].astype(np.int64)
+    end = np.minimum(np.where(ab < NEVER, ab + 1, NEVER), n_lim + w)
+    lo = plan["lo"]
+    sw = nwl - int(lo[-1])
+    t_stop = n_lim - 1 + int(lo[min(n_lim, len(lo)) - 1]) + sw
+    run = ent < t_stop
+    span = w[run] + 1 - np.searchsorted(end, ent[run], side="right")
+    return int(span.max(initial=0))
 
 
 def striped_ck_ref(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,

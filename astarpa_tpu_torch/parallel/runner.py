@@ -10,11 +10,17 @@ pairs retry at the band their banded upper bound predicts.
   every cost a rung can certify fits the native direct-trace budget
   (CIGARs by direct whole-pair DT traces), else K2, whose window
   checkpoints feed the native ``trace_banded_ck``.  Bands of at least
-  :data:`STRIPED_MIN_SW` words run the striped kernels instead: K5 for
-  costs, K6 for checkpoints when ``SW % 8 == 0`` and ``CB >= SW + 8``
-  (their planes have SW+8 rows, which the native trace reads as they
-  are), else K8, K5's DP writing K2's plane contract at any SW (a full
-  height S off the 8-grain; a skewed bucket's ``CB = n_max < SW``).
+  :data:`STRIPED_MIN_SW` words run the big-band kernels instead.  For
+  costs (and the direct-trace align rungs) that is K7, one pass over a
+  ring of resident words, up to the ring's 4096 words
+  (:func:`..ops.banded_kernel.pinned_cost_takes`), and K5, whose stripes
+  take any height, past it (K7 beat K5 at every band of 64 to 4096 words
+  measured on the card, so the reference's ``PINNED_MIN_SW`` and
+  ``PINNED_MAX_SW`` band range is not copied).  For checkpoints it is K6 when ``SW % 8 ==
+  0`` and ``CB >= SW + 8`` (their planes have SW+8 rows, which the
+  native trace reads as they are), else K8, K5's DP writing K2's plane
+  contract at any SW (a full height S off the 8-grain; a skewed bucket's
+  ``CB = n_max < SW``).
 - Per-pair domain ladder (``domain_mode`` resolving to "gap"/"gcsh"): an f
   ladder over per-pair schedules that follow each pair's domain hull.  A
   round of at least :data:`PINNED_PP_MIN_SW` words runs the pinned
@@ -32,8 +38,9 @@ ladder's ``pp < 128`` break and its ``except ValueError`` fallbacks).  The
 CUDA kernels keep their state in device memory and have no such ceiling,
 so none of those gates is copied: the routing rules are
 :data:`STRIPED_MIN_SW` and :data:`PINNED_PP_MIN_SW`, both measured on the
-card; a kernel that fails raises, and the domain ladder breaks only when
-its band reaches full height or its rounds run out.
+card, and K7's ring capacity; a kernel that fails raises, and the domain
+ladder breaks only when its band reaches full height or its rounds run
+out.
 
 Not ported yet: ``mesh`` (raises ``NotImplementedError``), and the
 host-only trace fallbacks ``_trace_bucket`` and ``_align_host_fallback``
@@ -55,7 +62,8 @@ from ..domain import domain_schedule, gap_domain
 from ..ops import banded, striped
 from ..ops.banded_kernel import (banded_ck, banded_ck_pp, banded_cost,
                                  banded_cost_pp, pinned_ck, pinned_ck_pp,
-                                 pinned_cost_pp, route, striped_ck, striped_cost)
+                                 pinned_cost, pinned_cost_pp, pinned_cost_takes,
+                                 route, striped_ck, striped_cost)
 from ..ops.bitpack import W
 from ..ops.pack import pack_batch_staggered
 from ..ops.words import to_tensor
@@ -93,8 +101,9 @@ class BatchStats:
     direct_traces: int = 0
     # What ran the last rung or round (a label of ``banded_kernel.route``:
     # "cuda-banded", "cuda-banded-ck", "cuda-banded-pp", "cuda-banded-ck-pp",
-    # "cuda-striped", "cuda-striped-ck", "cuda-pinned-ck", "cuda-pinned-pp",
-    # "cuda-pinned-pp-ck", or "torch-ref" on the CPU), set at dispatch.
+    # "cuda-striped", "cuda-striped-ck", "cuda-pinned", "cuda-pinned-ck",
+    # "cuda-pinned-pp", "cuda-pinned-pp-ck", or "torch-ref" on the CPU), set
+    # at dispatch.
     kernel: str | None = None
 
 
@@ -423,11 +432,13 @@ class BatchAligner:
         direct-trace budget, else a ck kernel, whose checkpoints of every
         lane start streaming to the host now when they are small (the
         common case certifies them all).  Bands of at least
-        :data:`STRIPED_MIN_SW` words run K5/K6, smaller ones K1/K2; a ck
-        rung of such a band that K6 cannot take (``sw % 8``, as at a full
-        height S that is not a multiple of 8, or ``CB < sw + 8``, as where
-        n_max clamps CB) runs K8, whose interval contract
-        (:func:`..ops.striped.pinned_ck_fits`) ``_cb`` always meets."""
+        :data:`STRIPED_MIN_SW` words run the big-band kernels, smaller ones
+        K1/K2.  A cost rung of such a band runs K7 up to the ring's 4096
+        words, K5 past it; a ck rung runs K6, or K8 where K6 cannot take
+        it (``sw % 8``, as at a full height S that is not a multiple of 8,
+        or ``CB < sw + 8``, as where n_max clamps CB), whose interval
+        contract (:func:`..ops.striped.pinned_ck_fits`) ``_cb`` always
+        meets."""
         args, B0, members, n_max, S, diag = self._pack_rung(pairs, lad)
         n, m = np.asarray(args[4])[:B0], np.asarray(args[5])[:B0]
         sw = min(lad["band"], S)
@@ -462,7 +473,10 @@ class BatchAligner:
                 if _ck_bytes(ck) * len(members) <= _OPT_READBACK_BYTES:
                     opt_chunks = _stage_ck_chunks(*ck, len(members))
         if ck is None:
-            if run_sw >= STRIPED_MIN_SW:
+            if run_sw >= STRIPED_MIN_SW and pinned_cost_takes(run_sw):
+                costs = _Readback(pinned_cost(*args, run_sw, diag))
+                stats.kernel = route(self.device, "pinned_cost")
+            elif run_sw >= STRIPED_MIN_SW:
                 costs = _Readback(striped_cost(*args, run_sw, diag))
                 stats.kernel = route(self.device, "striped_cost")
             else:

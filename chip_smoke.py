@@ -50,14 +50,17 @@ Phases, one output line each (any failure exits non-zero):
 11. main path, config #5: ``BatchAligner(device="cuda", band_words=2048,
     domain_mode="off")`` on 128 pairs of 500 kbp at e=15% (seeds 7 and 8,
     as ``bench.py:239-253``): cost twice (the second timed and split by
-    layer), ``cost_iter`` over 4 batches, ``align_iter`` with
-    ``ck_col_block=16384`` over 5 batches; 8 costs against
-    ``oracle.levenshtein_myers``, all 640 CIGARs verified; rung SWs, K5/K6
-    ms per rung, peak device memory, Mbp/s;
-12. K5 and K6 against their plain versions at config #5's own shapes (its
-    pack cut to the first 4096 columns, at the ladder's SW), timed in turns
-    (plain, kernel, kernel, plain); K5 against K1 on that cut at SW 64 to
-    2048 (the crossover behind ``runner.STRIPED_MIN_SW``);
+    layer), ``cost_iter`` over 4 batches, then cost once from
+    ``band_words=8192``, a band past K7's ring (K5), its costs equal to
+    the 2048-word ladder's, ``align_iter`` with ``ck_col_block=16384``
+    over 5 batches; every cost rung checked against the runner's K7/K5
+    routing (K7 up to its ring's 4096 words, K5 past it); 8 costs against
+    ``oracle.levenshtein_myers``, all 640 CIGARs verified; rung SWs,
+    K7/K5/K6 ms per rung, peak device memory, Mbp/s;
+12. K5, K7 and K6 against their plain versions at config #5's own shapes
+    (its pack cut to the first 4096 columns, at the ladder's SW), timed in
+    turns (plain, kernels, kernels, plain); K5 against K1 on that cut at SW
+    64 to 2048 (the crossover behind ``runner.STRIPED_MIN_SW``);
 13. the pinned per-pair kernels K9 and K10 against their plain versions on
     a grid (B 33/160, n <= 1500, SW 8 to full height, bands taller than one
     block's stripe, gap, gcsh, random and broadcast-shared schedules, Q
@@ -96,26 +99,41 @@ Phases, one output line each (any failure exits non-zero):
     3, 4096 and n_max, a skewed bucket's single capture window, and five
     windows at SW 1152 and 1188 on pairs of up to 5 kbp), bit for bit on costs, every checkpoint row and top value, and against K2 on
     every checkpoint a trace reads;
-20. main path, the exact full-height checkpoint rung: ``BatchAligner(
-    device="cuda", domain_mode="off", max_band_doublings=0)
-    .align_with_stats`` on config #4's pairs of phase 7 (one ck rung at SW
-    = S = 3149 words, CB = 4096, K8), costs equal to phase 7's and its 8
-    ``levenshtein_myers`` costs, all 128 CIGARs verified on a process pool,
-    the call split by layer, peak device memory;
+20. main path, the exact full-height rungs on config #4's pairs of phase
+    7: ``BatchAligner(device="cuda", domain_mode="off",
+    max_band_doublings=0)`` first ``.cost_with_stats`` (one cost rung at SW
+    = S = 3149 words on K7), costs equal to phase 7's; then
+    ``.align_with_stats`` (one ck rung, CB = 4096, K8), costs equal to
+    phase 7's and its 8 ``levenshtein_myers`` costs, all 128 CIGARs
+    verified on a process pool, the call split by layer, peak device
+    memory;
 21. K8 alone on phase 20's whole rung over chained launches; K8 against its
     plain version and against K2 on that rung cut to its first 1024
     columns; K8 against K6 on config #5's cut (4096 columns, SW = 2048, CB
-    = 2056), each beside its bound; the bounds of K3 and K7, not ported;
+    = 2056), each beside its bound; the bound of K3, not ported;
+22. the resident-ring cost kernel K7 against its plain version on a grid
+    (B 1/33/160, n <= 1500 with n == 0 and m == 0 lanes, SW 8, 13, 64, 67,
+    256 and a full height S ~ 280 off the 8-grain, a skewed bucket, rings
+    forced to 256 words on pairs of up to 5 kbp beside a tall one so that
+    they wrap at least 3 times), bit for bit, and K7 refusing a band whose
+    live words exceed its 4096-word ring (no launch);
+23. K7 and K5 alone over chained launches on config #5's whole SW = 2048
+    rung, each beside its bound, their costs equal; the band sweep, K7
+    against K5 on whole rungs in turns (K5, K7, K7, K5): config #4's pack
+    (phase 20's) at SW 64 to 2048 and its full height 3149, config #5's at
+    SW 3072 and 4096, the bands behind the runner's K7/K5 routing;
 
-then the kernels' JSON line (each kernel's time, its plain version's,
-its bound from this run's inputs, its launches on the main path), the
-card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+then the host seconds of each phase, the kernels' JSON line (each
+kernel's time, its plain version's, its bound from this run's inputs, its
+launches on the main path), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
 The plain sweeps of phases 5, 9, 12, 15 and 21 run on their packs' first
 columns, the grids of phases 2 and 6 hold a few cases each, and the pairs
-are generated on a pool of the host's cores, to keep the run short.
-Launch counts are reset just before each main-path phase (3-4, 7, 8, 11,
-14, 17, 20) and read just after it.  Imports nothing of JAX and nothing of
-the JAX package.  Exits 1 without a usable GPU.
+are generated and the CIGARs verified on one pool of the host's cores,
+started once for the whole run, to keep the run short.  Launch counts are
+reset just before each main-path phase (3-4, 7, 8, 11, 14, 17, both calls
+of 20) and read just after it.  Imports nothing of JAX and nothing of the
+JAX package.  Exits 1 without a usable GPU.
 """
 
 from __future__ import annotations
@@ -155,6 +173,7 @@ GRID_PAIRS = 1024
 GRID_N, GRID_M = 300, 1300  # the K1/K2/K4 grids' longest a and b
 C5_PAIRS, C5_LENGTH, C5_ERR, C5_SEEDS = 128, 500_000, 0.15, (7, 8)
 C5_BAND, C5_CB = 2048, 16384
+C5_K5_BAND = 8192  # phase 11: two doublings above C5_BAND, past K7's ring
 C5_CUT = 4096
 CROSSOVER_SW = (64, 128, 256, 512, 1024, 2048)
 PP_CROSSOVER_SW = (64, 128, 192, 256, 512, 1088)
@@ -166,6 +185,10 @@ K8_CUT_CB = CUT_COLS * 3 // 4  # one capture window in the cut for K8 and K2
 K8_GRID_N, K8_TALL_M, K8_BIG_SW = 1500, 38_000, 1152  # phase 19: S = 1188 words
 K8_LONG_N = 5000  # phase 19: several capture windows at SW 1152 and 1188
 K8_CHAINED = 3
+K7_CHAINED = 2
+K7_SWEEP_SW = (64, 128, 256, 512, 1024, 2048)  # phase 23, config #4's pack
+K7_SWEEP_C5_SW = (3072, 4096)  # phase 23, config #5's pack
+K7_GRID_LONG_N, K7_GRID_TALL_M = 5000, 38_000  # phase 22: ~1188 words, 4.6 rings of 256
 WORKERS = 8
 
 # The card's limits for each kernel's bound (the least time the card could
@@ -210,11 +233,21 @@ def _uniform(args):
     return att.generate.uniform_seeded(*args)
 
 
+# The run's WORKERS spawned processes, started once (each start imports
+# torch and the port) and shut down when main() returns or fails.
+_POOL: ProcessPoolExecutor | None = None
+
+
 def _pool(fn, jobs):
-    """``[fn(job) for job in jobs]`` on spawned worker processes."""
-    ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(WORKERS, mp_context=ctx) as ex:
-        return list(ex.map(fn, jobs, chunksize=max(1, len(jobs) // (4 * WORKERS))))
+    """``[fn(job) for job in jobs]`` on the run's worker processes."""
+    return list(_POOL.map(fn, jobs, chunksize=max(1, len(jobs) // (4 * WORKERS))))
+
+
+def _generate(count: int, n: int, e: float, seed: int):
+    """``generate.generate_batch(count, n, e, seed=seed)`` on the run's
+    worker processes: its per-pair jobs, the same bytes."""
+    jobs = att.generate._model_jobs(count, n, e, att.generate.ErrorModel.UNIFORM, seed)
+    return _pool(att.generate._model_job, jobs)
 
 
 def _verify_job(job) -> bool:
@@ -527,8 +560,7 @@ def phase5_time(spy: LayerSpy) -> dict:
         f"{a512[2].shape[0]}, SW={align_l['sw']}: kernel {k512[0]:.3f}/{k512[1]:.3f} ms, "
         f"plain {plain512:.1f} ms; max_abs_err {max(err_c, err_a)} (CUDA events)")
 
-    pairs1k = att.generate.generate_batch(PAIRS, TURN_LENGTH, ERR, seed=SEED + 1,
-                                          workers=WORKERS)
+    pairs1k = _generate(PAIRS, TURN_LENGTH, ERR, SEED + 1)
     args1k, _ = pack_batch_staggered(pairs1k, 32, device="cuda")
 
     def run(plain):
@@ -918,8 +950,7 @@ def phase7_config4(spy: RoundSpy) -> tuple[dict, tuple, tuple]:
 def phase8_ck(spy: RoundSpy) -> dict:
     """K2 on the main path: one 512-pair 10 kbp align with direct_dt=False;
     returns the launch counts of its run."""
-    pairs = att.generate.generate_batch(CK_PAIRS, LENGTH, ERR, seed=SEED + 200,
-                                        workers=WORKERS)
+    pairs = _generate(CK_PAIRS, LENGTH, ERR, SEED + 200)
     ba = BatchAligner(device="cuda", direct_dt=False)
     banded_kernel.reset_launches()
     spy.reset()
@@ -1022,8 +1053,7 @@ def phase9_time(spy: RoundSpy) -> dict:
         f"{err_k2} (CUDA events)")
     # Turns on short-pair packs: K2 against plain ck; K4 cost and ck against the
     # plain per-pair ck sweep (whose costs are the plain cost version's).
-    pairs2k = att.generate.generate_batch(PAIRS, TURN_LENGTH, ERR, seed=SEED + 1,
-                                          workers=WORKERS)
+    pairs2k = _generate(PAIRS, TURN_LENGTH, ERR, SEED + 1)
     args2k, _ = pack_batch_staggered(pairs2k, 32, device="cuda")
     n2, S2 = args2k[0].shape[0], args2k[2].shape[0]
     gap2k = banded.pair_gap_schedule(args2k[4], args2k[5], TIMED_SW, n2, S2)[0]
@@ -1064,11 +1094,12 @@ def phase9_time(spy: RoundSpy) -> dict:
     }
 
 
-def phase10_grid() -> int:
+def phase10_grid() -> tuple[int, tuple, tuple]:
     """K5 and K6 == plain on a grid; returns the max abs difference over
     costs, every checkpoint row (the zero rows outside the true windows
-    included) and every top value.  K5 is held against the costs of the
-    plain ck sweep where K6 applies: the plain versions are one loop."""
+    included) and every top value, and the grid's 160- and 33-lane packs
+    (phase 22 reuses them).  K5 is held against the costs of the plain ck
+    sweep where K6 applies: the plain versions are one loop."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(13)
     pairs = [att.generate.uniform_seeded(int(rng.integers(1, 1501)),
@@ -1109,22 +1140,49 @@ def phase10_grid() -> int:
     torch.cuda.synchronize()
     say(f"[10 striped=plain] {len(cases)}/{len(cases)} cases (n_max {n_max}, S {S}: "
         f"{'; '.join(labels)}); max_abs_err {worst}, {time.perf_counter() - t0:.1f} s")
-    return worst
+    return worst, wide, narrow
+
+
+def _cost_route(args) -> str:
+    """The wrapper the runner sends a shared cost rung to, from the rung's
+    arguments (planes, SW, diag)."""
+    *planes, sw, diag = args
+    if sw < runner.STRIPED_MIN_SW:
+        return "banded_cost"
+    return "pinned_cost" if banded_kernel.pinned_cost_takes(sw) else "striped_cost"
+
+
+def _check_cost_rungs(calls, label: str) -> list[str]:
+    """Every recorded shared cost rung ran the wrapper the routing names;
+    returns the wrappers that ran."""
+    names = []
+    for name, args, *_ in calls:
+        if name in ("banded_cost", "striped_cost", "pinned_cost"):
+            want = _cost_route(args)
+            if name != want:
+                fail(f"{label}: a rung of SW={args[6]} ran {name}, routing says {want} "
+                     f"(STRIPED_MIN_SW={runner.STRIPED_MIN_SW}, K7's ring "
+                     f"{banded_kernel.RING_MAX_WORDS} words)")
+            names.append(name)
+    if not names:
+        fail(f"{label}: no cost rung was recorded")
+    return names
 
 
 def phase11_config5() -> tuple[dict, RoundSpy, tuple]:
-    """Config #5 through the big shared band (K5, K6): costs, a cost
-    stream and an align stream; returns the launch counts of its run, the
-    spy holding each kernel's last inputs, and ``(pairs of seed 7, their
-    costs, {pair: levenshtein_myers})`` for phase 14."""
+    """Config #5 through the big shared band (K7 for costs up to its ring,
+    K5 past it, K6 for checkpoints): costs, a cost stream, costs from a
+    band past K7's ring and an align stream; returns the
+    launch counts of its run, the spy holding each kernel's last inputs,
+    and ``(pairs of seed 7, their costs, {pair: levenshtein_myers})`` for
+    phase 14."""
     t0 = time.perf_counter()
-    sets = {s: att.generate.generate_batch(C5_PAIRS, C5_LENGTH, C5_ERR, seed=s,
-                                           workers=WORKERS) for s in C5_SEEDS}
+    sets = {s: _generate(C5_PAIRS, C5_LENGTH, C5_ERR, s) for s in C5_SEEDS}
     p7, p8 = (sets[s] for s in C5_SEEDS)
     bp = sum(len(a) for a, _ in p7)
     say(f"[11 config5] {C5_PAIRS} x {C5_LENGTH} bp e={C5_ERR}, seeds {C5_SEEDS}, "
         f"generated in {time.perf_counter() - t0:.1f} s on {WORKERS} processes")
-    spy = RoundSpy(("striped_cost", "striped_ck", "banded_cost", "banded_ck"))
+    spy = RoundSpy(("pinned_cost", "striped_cost", "striped_ck", "banded_cost", "banded_ck"))
     spy.install()
     banded_kernel.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -1138,12 +1196,13 @@ def phase11_config5() -> tuple[dict, RoundSpy, tuple]:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     rungs, split = spy.rounds(), spy.split(dt)
-    if st.kernel != "cuda-striped" or not (costs == costs1).all() or (costs < 0).any():
+    ran = _check_cost_rungs(spy.history + spy.calls, "config #5 cost")
+    if st.kernel != "cuda-pinned" or not (costs == costs1).all() or (costs < 0).any():
         fail(f"config #5 cost: kernel {st.kernel!r}, or runs disagree")
     say(f"[11 cost] 1st call rungs [{', '.join(first)}], retries {st1.band_retries}; "
         f"2nd call {dt:.4f} s = {bp / dt / 1e6:.3f} Mbp/s: rungs [{', '.join(rungs)}] "
         f"(CUDA events), retries {st.band_retries}, cells {st.cells_computed}, "
-        f"kernel {st.kernel}")
+        f"kernel {st.kernel}; every cost rung ran the routed wrapper ({', '.join(ran)})")
     say(f"[11 cost split] 2nd call, host clock and CUDA events: {split}")
 
     spy.reset()
@@ -1159,6 +1218,9 @@ def phase11_config5() -> tuple[dict, RoundSpy, tuple]:
     if not ((outs[0] == costs).all() and (outs[2] == costs).all()
             and (outs[1] == outs[3]).all()):
         fail("config #5 cost_iter disagrees with cost_with_stats")
+    ran_iter = _check_cost_rungs(spy.calls, "config #5 cost_iter")
+    if "pinned_cost" not in ran_iter:
+        fail(f"config #5 cost_iter ran no K7 rung ({ran_iter})")
     say(f"[11 cost_iter] 4 batches (seeds 7, 8, 7, 8): periods "
         f"{', '.join(f'{x:.4f}' for x in diffs)} s; mid-stream min {period:.4f} s = "
         f"{bp / period / 1e6:.3f} Mbp/s, median {median:.4f} s = {bp / median / 1e6:.3f} "
@@ -1171,6 +1233,25 @@ def phase11_config5() -> tuple[dict, RoundSpy, tuple]:
     got = [int(costs[i]) for i in range(4)] + [int(outs[1][i]) for i in range(4)]
     if got != want:
         fail(f"config #5 costs {got} != levenshtein_myers {want}")
+
+    # K5's place on the path: a band past K7's ring, which the ladder
+    # reaches from 2048 words in two doublings.
+    spy.reset()
+    t0 = time.perf_counter()
+    costs5, st5 = BatchAligner(device="cuda", band_words=C5_K5_BAND,
+                               domain_mode="off").cost_with_stats(p7)
+    torch.cuda.synchronize()
+    dt5 = time.perf_counter() - t0
+    ran5 = _check_cost_rungs(spy.calls, "config #5 cost past the ring")
+    if set(ran5) != {"striped_cost"} or st5.kernel != "cuda-striped":
+        fail(f"config #5 cost at band_words={C5_K5_BAND} ran {ran5} (stats {st5.kernel!r})")
+    if not (costs5 == costs).all():
+        fail(f"config #5 costs at band_words={C5_K5_BAND} differ from band_words={C5_BAND}'s")
+    say(f"[11 cost past the ring] BatchAligner(band_words={C5_K5_BAND}, domain_mode='off')"
+        f".cost_with_stats, one call: {dt5:.4f} s = {bp / dt5 / 1e6:.3f} Mbp/s: rungs "
+        f"[{', '.join(spy.rounds())}] (CUDA events), K5 stripes of "
+        f"{banded_kernel.striped_threads(C5_K5_BAND) * 8} words, retries {st5.band_retries}, "
+        f"kernel {st5.kernel}; costs == band_words={C5_BAND}'s on all {len(costs5)} pairs")
 
     bac = BatchAligner(device="cuda", band_words=C5_BAND, domain_mode="off",
                        ck_col_block=C5_CB)
@@ -1206,26 +1287,30 @@ def phase11_config5() -> tuple[dict, RoundSpy, tuple]:
         f"(torch.cuda.max_memory_allocated)")
     spy.remove()
     launches = dict(banded_kernel.LAUNCHES)
-    for name in ("striped_cost", "striped_ck"):
+    for name in ("pinned_cost", "striped_cost", "striped_ck"):
         if not launches[name]:
             fail(f"config #5 never launched {name}")
     return launches, spy, (p7, costs, dict(zip(range(4), want[:4])))
 
 
 def phase12_time(spy: RoundSpy) -> dict:
-    """K5/K6 == plain at config #5's shapes, timed in turns, and K5
-    against K1 across bands on the cut; returns K5's and K6's JSON records
-    (without the launch counts)."""
+    """K5, K7 and K6 == plain at config #5's shapes, timed in turns, and K5
+    against K1 across bands on the cut; returns K5's, K7's and K6's JSON
+    records (without the launch counts; phase 23 adds the whole-rung
+    times)."""
     torch.cuda.synchronize()
     rung_ms = {name: [RoundSpy.kernel_ms(c) for c in spy.history + spy.calls
                       if c[0] == name]
-               for name in ("striped_cost", "striped_ck")}
-    *planes, sw, diag = spy.last["striped_cost"]
+               for name in ("pinned_cost", "striped_cost", "striped_ck")}
+    # The main path's cost rungs ran K7; K5 computes the same function on
+    # the same inputs.
+    *planes, sw, diag = spy.last["pinned_cost"]
     cut = _cut(planes, C5_CUT)
     dg = _cut_diag(cut)
     shape = {"B": cut[0].shape[1], "n_max": cut[0].shape[0], "S": cut[2].shape[0], "SW": sw}
     p5, k5, e5 = _turns(lambda: striped.striped_cost_ref(*cut, sw, dg), {
-        "striped_cost": (lambda: banded_kernel.striped_cost(*cut, sw, dg), lambda r: r)})
+        "striped_cost": (lambda: banded_kernel.striped_cost(*cut, sw, dg), lambda r: r),
+        "pinned_cost": (lambda: banded_kernel.pinned_cost(*cut, sw, dg), lambda r: r)})
     *ck_planes, sw_ck, cb_path, _ = spy.last["striped_ck"]
     cut_ck = _cut(ck_planes, C5_CUT)
     dg_ck = _cut_diag(cut_ck)
@@ -1233,11 +1318,12 @@ def phase12_time(spy: RoundSpy) -> dict:
     p6, k6, e6 = _turns(lambda: striped.striped_ck_ref(*cut_ck, sw_ck, cb, dg_ck), {
         "striped_ck": (lambda: banded_kernel.striped_ck(*cut_ck, sw_ck, cb, dg_ck), lambda r: r)})
     if e5 or e6:
-        fail("K5/K6 != plain on config #5's cut pack")
+        fail("K5/K7/K6 != plain on config #5's cut pack")
     ck_shape = {"B": cut_ck[0].shape[1], "n_max": cut_ck[0].shape[0],
                 "S": cut_ck[2].shape[0], "SW": sw_ck, "CB": cb}
-    say(f"[12 config5 cut] first {C5_CUT} columns, turns plain, kernel, kernel, plain: "
-        f"K5 {shape} {k5['striped_cost'][0]:.3f}/{k5['striped_cost'][1]:.3f} ms vs plain "
+    say(f"[12 config5 cut] first {C5_CUT} columns, turns plain, kernels, kernels, plain: "
+        f"K5 {shape} {k5['striped_cost'][0]:.3f}/{k5['striped_cost'][1]:.3f} ms, K7 "
+        f"{k5['pinned_cost'][0]:.3f}/{k5['pinned_cost'][1]:.3f} ms vs plain "
         f"{p5[0]:.1f}/{p5[1]:.1f} ms; K6 {ck_shape} {k6['striped_ck'][0]:.3f}/"
         f"{k6['striped_ck'][1]:.3f} ms vs plain {p6[0]:.1f}/{p6[1]:.1f} ms; max_abs_err "
         f"{max(e5, e6)} (CUDA events)")
@@ -1257,23 +1343,31 @@ def phase12_time(spy: RoundSpy) -> dict:
         f"covered lanes): {'; '.join(rows)}; K5 faster at SW {wins}; "
         f"runner.STRIPED_MIN_SW = {runner.STRIPED_MIN_SW}")
 
-    def record(turns_ms, plain_ms, planes_, sw_, outs, shp, rungs, full_planes, full_sw):
+    def record(turns_ms, plain_ms, planes_, sw_, outs, shp):
         return {"max_abs_err": max(e5, e6), "ms": float(np.mean(turns_ms)),
                 "plain_ms": float(np.mean(plain_ms)),
-                **plane_bound(planes_, sw_, outs), "library_ms": None, "shape": shp,
-                # Every launch on the main path at its full shape (the last
-                # launch's shape and bound).
-                "rung_ms": rungs, "rung_bound_ms": plane_bound(full_planes, full_sw, [])["bound_ms"],
-                "rung_shape": {"B": full_planes[0].shape[1], "n_max": full_planes[0].shape[0],
-                               "S": full_planes[2].shape[0], "SW": full_sw}}
+                **plane_bound(planes_, sw_, outs), "library_ms": None, "shape": shp}
+
+    def rung(rec, name, full_planes, full_sw):
+        # Every launch on the main path at its full shape (the last
+        # launch's shape and bound).
+        rec.update({"rung_ms": rung_ms[name],
+                    "rung_bound_ms": plane_bound(full_planes, full_sw, [])["bound_ms"],
+                    "rung_shape": {"B": full_planes[0].shape[1],
+                                   "n_max": full_planes[0].shape[0],
+                                   "S": full_planes[2].shape[0], "SW": full_sw}})
+        return rec
 
     cost_out = [torch.empty(cut[0].shape[1], dtype=torch.int32)]
     ck_out = banded_kernel.striped_ck(*cut_ck, sw_ck, cb, dg_ck)
+    *k5_planes, k5_sw, _ = spy.last["striped_cost"]
     return {
-        "striped_cost": record(k5["striped_cost"], p5, cut, sw, cost_out, shape,
-                               rung_ms["striped_cost"], planes, sw),
-        "striped_ck": record(k6["striped_ck"], p6, cut_ck, sw_ck, ck_out, ck_shape,
-                             rung_ms["striped_ck"], ck_planes, sw_ck),
+        "striped_cost": rung(record(k5["striped_cost"], p5, cut, sw, cost_out, shape),
+                             "striped_cost", k5_planes, k5_sw),
+        "pinned_cost": rung(record(k5["pinned_cost"], p5, cut, sw, cost_out, shape),
+                            "pinned_cost", planes, sw),
+        "striped_ck": rung(record(k6["striped_ck"], p6, cut_ck, sw_ck, ck_out, ck_shape),
+                           "striped_ck", ck_planes, sw_ck),
     }
 
 
@@ -1798,16 +1892,42 @@ def phase19_grid() -> int:
     return max(worst, worst_k2)
 
 
-def phase20_full_height(c4) -> tuple[int, RoundSpy]:
-    """The exact full-height checkpoint path on config #4's pairs:
-    ``BatchAligner(device="cuda", domain_mode="off", max_band_doublings=0)
-    .align_with_stats``, one ck rung at SW = S off the 8-grain on K8;
-    returns K8's launches in the call and the spy holding its inputs."""
+def phase20_full_height(c4) -> tuple[int, RoundSpy, int, dict]:
+    """The exact full-height rungs on config #4's pairs, ``BatchAligner(
+    device="cuda", domain_mode="off", max_band_doublings=0)``: first
+    ``.cost_with_stats``, one cost rung at SW = S on K7; then
+    ``.align_with_stats``, one ck rung at SW = S off the 8-grain on K8.
+    Returns K8's launches in the align call, the spy holding both
+    kernels' inputs, K7's launches in the cost call and K7's rung record
+    (its time in the call, bound and shape)."""
     pairs, costs7, oracle = c4
     bp = sum(len(a) for a, _ in pairs)
     ba = BatchAligner(device="cuda", domain_mode="off", max_band_doublings=0)
-    spy = RoundSpy(("pinned_ck", "striped_ck", "banded_ck"))
+    spy = RoundSpy(("pinned_ck", "striped_ck", "banded_ck", "pinned_cost", "striped_cost",
+                    "banded_cost"))
     spy.install()
+    banded_kernel.reset_launches()
+    t0 = time.perf_counter()
+    costs_c, st_c = ba.cost_with_stats(pairs)
+    torch.cuda.synchronize()
+    dt_c = time.perf_counter() - t0
+    k7_launches = banded_kernel.LAUNCHES["pinned_cost"]
+    rungs_c = spy.rounds()
+    ran = _check_cost_rungs(spy.calls, "full-height cost")
+    if ran != ["pinned_cost"] or st_c.kernel != "cuda-pinned" or k7_launches != 1:
+        fail(f"full-height cost ran {ran} (stats {st_c.kernel!r}, K7 launches {k7_launches})")
+    if list(costs_c) != [int(x) for x in costs7]:
+        fail("full-height cost: costs differ from phase 7's")
+    *k7_planes, k7_sw, _ = spy.last["pinned_cost"]
+    k7_rung = {"full_height_path_ms": RoundSpy.kernel_ms(spy.calls[-1]),
+               "full_height_bound_ms": plane_bound(k7_planes, k7_sw, [])["bound_ms"],
+               "full_height_shape": {"B": k7_planes[0].shape[1], "n_max": k7_planes[0].shape[0],
+                                     "S": k7_planes[2].shape[0], "SW": k7_sw}}
+    say(f"[20 cost] cost_with_stats {dt_c:.4f} s = {bp / dt_c / 1e6:.3f} Mbp/s: one cost rung "
+        f"[{', '.join(rungs_c)}] (CUDA events) {k7_rung['full_height_shape']}, kernel "
+        f"{st_c.kernel} vs bound {k7_rung['full_height_bound_ms']:.4f} ms; costs == phase 7's "
+        f"{len(costs_c)}/{len(costs_c)}")
+    spy.reset()
     banded_kernel.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2**30
@@ -1846,8 +1966,8 @@ def phase20_full_height(c4) -> tuple[int, RoundSpy]:
     say(f"[20 split] host clock and CUDA events: {split}")
     say(f"[20 memory] peak device memory {peak:.3f} GiB, {peak - held:.3f} GiB above the "
         f"{held:.3f} GiB that earlier phases still held (torch.cuda.max_memory_allocated over "
-        f"the call)")
-    return launches["pinned_ck"], spy
+        f"the align call)")
+    return launches["pinned_ck"], spy, k7_launches, k7_rung
 
 
 def phase21_time(spy20: RoundSpy, c5_spy: RoundSpy) -> dict:
@@ -1931,12 +2051,11 @@ def phase21_time(spy20: RoundSpy, c5_spy: RoundSpy) -> dict:
             "c5_cut_bound_ms": bnd5, "c5_cut_shape": shape5}
 
 
-def unported_bounds(spy: RoundSpy, k5: dict) -> str:
-    """The bounds of the two kernels still to port, from this run's inputs:
-    K3 (every column's window planes, ``banded_fill``) at phase 8's ck pack
+def unported_bounds(spy: RoundSpy) -> str:
+    """The bound of the kernel still to port, from this run's inputs: K3
+    (every column's window planes, ``banded_fill``) at phase 8's ck pack
     and ladder band, where writing its (n_max, SW, B) planes twice over
-    outweighs the word steps; K7, which computes K5's function, at config
-    #5's K5 rung."""
+    outweighs the word steps."""
     *planes, sw, _, _ = spy.last["banded_ck"]
     n_max, B = planes[0].shape
     sw = min(sw, planes[2].shape[0])
@@ -1944,22 +2063,203 @@ def unported_bounds(spy: RoundSpy, k5: dict) -> str:
     k3 = bound(int(np.asarray(planes[4], np.int64).sum()) * sw, in_bytes, 2 * 4 * n_max * sw * B)
     shape = {"B": B, "n_max": n_max, "S": planes[2].shape[0], "SW": sw}
     return (f"[21 unported] K3 at phase 8's pack {shape}: bound {k3['bound_ms']:.4f} ms "
-            f"({k3['bound_by']}); K7 at config #5's rung {k5['rung_shape']}: bound "
-            f"{k5['rung_bound_ms']:.4f} ms (K5's function)")
+            f"({k3['bound_by']})")
+
+
+def phase22_grid(wide, narrow) -> tuple[int, int]:
+    """K7 == plain on a grid: phase 10's 160- and 33-lane packs (n <= 1500,
+    an n == 0 lane, a skewed pair making S ~ 280 off the 8-grain) with an
+    m == 0 lane and one lane, SW 8, 13, 64, 67, 256 and full height, with
+    and without a diagonal; a skewed bucket (m > 32 n); rings forced to
+    256 words on pairs of up to 5 kbp beside a tall one (S = 1188), which
+    wrap at least 3 times, also on a shape-quantized pack (n_max past the
+    longest a); a skewed bucket at full height whose ring is lower than the
+    band (its ended top word's slot reused); and the refusal of a band
+    whose live words exceed the 4096-word ring.  Returns (max abs difference, the fewest
+    wraps of a forced ring)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(22)
+    m0 = (wide[0].clone(), wide[1].clone(), wide[2].clone(), wide[3].clone(),
+          wide[4].copy(), wide[5].copy())
+    m0[5][3] = 0  # an m == 0 lane: its profile rows are never read
+    n_max, S = wide[0].shape[0], wide[2].shape[0]
+    if S % 8 == 0 or S <= 256:
+        fail(f"phase 22's pack has S = {S}: not a full height off the 8-grain above 256")
+    diag = (n_max, int(np.asarray(wide[5])[3:].max()))
+    one = _lanes(wide, 1)
+    skew = [(att.generate.uniform_seeded(int(rng.integers(1, 61)), 0.1, 8200 + s)[0],
+             att.generate.uniform_seeded(int(rng.integers(1, 3001)), 0.1, 8300 + s)[0])
+            for s in range(33)]
+    skew[0] = (skew[0][0], att.generate.uniform_seeded(3000, 0.1, 8299)[0])
+    skewed, _ = pack_batch_staggered(skew, 1, device="cuda")
+    lng = [att.generate.uniform_seeded(int(rng.integers(1, K7_GRID_LONG_N + 1)),
+                                       float(rng.uniform(0, 0.25)), 8400 + s)
+           for s in range(33)]
+    lng[0] = (att.generate.uniform_seeded(K7_GRID_LONG_N, 0.1, 8399)[0],
+              att.generate.uniform_seeded(K7_GRID_TALL_M, 0.1, 8398)[0])
+    long_, _ = pack_batch_staggered(lng, 1, device="cuda")
+    diag_l = (long_[0].shape[0], max(len(b) for _, b in lng))
+    # The same pairs on a shape-quantized pack (n_max 6144 > the longest a),
+    # as the runner packs them: words end at column n_lim - 1 < n_max - 1.
+    long_q, _ = pack_batch_staggered(lng, 1, 2048, device="cuda")
+    # A skewed bucket taller than its ring: S = 375 words over at most 200
+    # columns, so at full height 200 words are live and a 256-word ring
+    # wraps while the top word (word 0) has ended.
+    tall = [(att.generate.uniform_seeded(int(rng.integers(1, 201)), 0.1, 8600 + s)[0],
+             att.generate.uniform_seeded(int(rng.integers(1, 12_001)), 0.1, 8700 + s)[0])
+            for s in range(33)]
+    tall[0] = (att.generate.uniform_seeded(200, 0.1, 8599)[0],
+               att.generate.uniform_seeded(12_000, 0.1, 8598)[0])
+    skew_tall, _ = pack_batch_staggered(tall, 1, device="cuda")
+    cases = [(one, "B=1", 8, None, None), (narrow, "B=33", 8, diag, None),
+             (m0, "B=160", 13, None, None), (narrow, "B=33", 64, diag, 256),
+             (m0, "B=160", 67, diag, None), (m0, "B=160", 256, None, 512),
+             (narrow, "B=33", S, None, None), (m0, "B=160", S, diag, None),
+             (skewed, "skewed B=33", skewed[2].shape[0], None, None),
+             (long_, "long B=33", 64, diag_l, 256), (long_, "long B=33", 256, None, 256),
+             (long_, "long B=33", 67, None, 256),
+             (long_q, "long quantized B=33", 256, diag_l, 256),
+             (skew_tall, "skewed tall B=33", skew_tall[2].shape[0], None, None)]
+    worst, labels, wraps = 0, [], []
+    for planes, label, sw, dg, rw in cases:
+        got = banded_kernel.pinned_cost(*planes, sw, dg, rw)
+        err = _max_err(got, striped.pinned_cost_ref(*planes, sw, dg))
+        sw_eff = min(sw, planes[2].shape[0])
+        plan = striped.plan_striped(planes[0].shape[0], planes[2].shape[0], sw_eff, dg)
+        span = striped.ring_span(plan, int(np.max(planes[4], initial=1)))
+        ring = banded_kernel.ring_threads(span, rw) * 8
+        laps = plan["n_words_live"] / ring
+        if rw is not None and label.startswith("long B"):
+            wraps.append(laps)
+        if label.startswith("skewed tall") and ring >= sw_eff:
+            fail(f"phase 22's tall skewed case has a ring of {ring} words for SW = {sw_eff}")
+        label = (f"{label} SW={sw_eff}{' (full)' if sw_eff == planes[2].shape[0] else ''} "
+                 f"diag={'set' if dg else 'None'} span {span} ring {ring} ({laps:.2f} laps)")
+        if err:
+            fail(f"K7 != plain at {label}")
+        worst = max(worst, err)
+        labels.append(label)
+    if min(wraps) < 3:
+        fail(f"phase 22's forced rings wrap only {min(wraps):.2f} times")
+    # A band whose live words exceed the ring: a full height of > 4096 words
+    # over 4500 columns (every word stays live).
+    big = [(att.generate.uniform_seeded(4500, 0.0, 8500)[0],
+            att.generate.uniform_seeded(140_000, 0.1, 8501)[0])]
+    bargs, _ = pack_batch_staggered(big, 1, device="cuda")
+    before = banded_kernel.LAUNCHES["pinned_cost"]
+    try:
+        banded_kernel.pinned_cost(*bargs, bargs[2].shape[0])
+        fail("K7 took a band of more live words than its ring holds")
+    except ValueError as exc:
+        refused = str(exc)
+    if banded_kernel.LAUNCHES["pinned_cost"] != before:
+        fail("K7 launched past its ring capacity")
+    torch.cuda.synchronize()
+    say(f"[22 pinned cost=plain] {len(cases)}/{len(cases)} cases (n_max {n_max}, S {S}; "
+        f"skewed n_max {skewed[0].shape[0]}, S {skewed[2].shape[0]}; long n_max "
+        f"{long_[0].shape[0]} (quantized {long_q[0].shape[0]}), S {long_[2].shape[0]}; tall "
+        f"skewed n_max {skew_tall[0].shape[0]}, S {skew_tall[2].shape[0]}: "
+        f"{'; '.join(labels)}); max_abs_err "
+        f"{worst}; forced rings wrap >= {min(wraps):.2f} times; S = {bargs[2].shape[0]} at "
+        f"full height refused without a launch ({refused}); {time.perf_counter() - t0:.1f} s")
+    return worst, min(wraps)
+
+
+def _alone(fn) -> float:
+    return _chained_ms(fn, K7_CHAINED)
+
+
+def phase23_time(c5_spy: RoundSpy, c4_spy: RoundSpy) -> dict:
+    """K7 and K5 alone on config #5's whole rung, and the K7/K5 band sweep
+    on whole rungs; returns K7's whole-rung record and K5's."""
+    torch.cuda.synchronize()
+    *planes, sw, diag = c5_spy.last["pinned_cost"]
+    shape = {"B": planes[0].shape[1], "n_max": planes[0].shape[0], "S": planes[2].shape[0],
+             "SW": sw}
+    bnd = plane_bound(planes, sw, [])["bound_ms"]
+    k7 = banded_kernel.pinned_cost(*planes, sw, diag)
+    k5 = banded_kernel.striped_cost(*planes, sw, diag)
+    err = _max_err(k7, k5)
+    if err:
+        fail("K7 != K5 on config #5's whole rung")
+    k7_ms = _alone(lambda: banded_kernel.pinned_cost(*planes, sw, diag))
+    k5_ms = _alone(lambda: banded_kernel.striped_cost(*planes, sw, diag))
+    span = striped.ring_span(striped.plan_striped(shape["n_max"], shape["S"], sw, diag),
+                             int(np.max(planes[4], initial=1)))
+    say(f"[23 rung] config #5's whole rung {shape}, {K7_CHAINED} chained launches behind an "
+        f"untimed one: K7 {k7_ms:.3f} ms ({k7_ms / bnd:.2f}x), K5 {k5_ms:.3f} ms "
+        f"({k5_ms / bnd:.2f}x) vs bound {bnd:.4f} ms; K5/K7 {k5_ms / k7_ms:.3f}; ring "
+        f"{banded_kernel.ring_threads(span) * 8} words for {span} live, K5 stripes of "
+        f"{banded_kernel.striped_threads(sw) * 8}; K7 == K5 on all {shape['B']} lanes, "
+        f"max_abs_err {err} (CUDA events)")
+
+    *c4_planes, s4, d4 = c4_spy.last["pinned_cost"]
+    sweep, rows = {}, []
+    points = [(c4_planes, d4, "config #4", s_) for s_ in K7_SWEEP_SW + (s4,)]
+    points += [(planes, diag, "config #5", s_) for s_ in K7_SWEEP_C5_SW]
+    for pl_, dg, label, s_ in points:
+        times, outs = {"K5": [], "K7": []}, {}
+        for name in ("K5", "K7", "K7", "K5"):
+            fn = banded_kernel.striped_cost if name == "K5" else banded_kernel.pinned_cost
+            ms, outs[name] = _event_ms(lambda: fn(*pl_, s_, dg))
+            times[name].append(ms)
+        if _max_err(outs["K7"], outs["K5"]):
+            fail(f"K7 != K5 on {label}'s pack at SW={s_}")
+        n_max_, S_ = pl_[0].shape[0], pl_[2].shape[0]
+        stripes = -(-striped.plan_striped(n_max_, S_, min(s_, S_), dg)["n_words_live"]
+                    // (banded_kernel.striped_threads(min(s_, S_)) * 8))
+        b_ = plane_bound(pl_, s_, [])["bound_ms"]
+        k7_min, k5_min = min(times["K7"]), min(times["K5"])
+        sweep[f"{label} SW={min(s_, S_)}"] = {"k7_ms": times["K7"], "k5_ms": times["K5"],
+                                              "bound_ms": b_, "k5_stripes": stripes}
+        rows.append(f"{label} SW={min(s_, S_)}{' (full)' if s_ >= S_ else ''} ({stripes} K5 "
+                    f"stripes) K7 {times['K7'][0]:.3f}/{times['K7'][1]:.3f} ms K5 "
+                    f"{times['K5'][0]:.3f}/{times['K5'][1]:.3f} ms bound {b_:.4f} ms, "
+                    f"K5/K7 {k5_min / k7_min:.3f}")
+    wins = [k for k, v in sweep.items() if min(v["k7_ms"]) < min(v["k5_ms"])]
+    say(f"[23 sweep] K7 vs K5 on whole rungs, turns K5, K7, K7, K5 (CUDA events; K7 == K5 "
+        f"on every lane): {'; '.join(rows)}; K7 faster at {wins}; the runner sends cost "
+        f"rungs of {runner.STRIPED_MIN_SW} to {banded_kernel.RING_MAX_WORDS} words to K7")
+    return ({"rung_alone_ms": k7_ms, "rung_alone_bound_ms": bnd, "rung_alone_shape": shape,
+             "k5_rung_alone_ms": k5_ms, "sweep": sweep},
+            {"c5_rung_alone_ms": k5_ms, "c5_rung_bound_ms": bnd, "c5_rung_shape": shape})
+
+
+class Laps:
+    """Host seconds of each stretch of the run, printed at its end."""
+
+    def __init__(self):
+        self.last = time.perf_counter()
+        self.laps = []
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        self.laps.append(f"{label} {now - self.last:.1f}")
+        self.last = now
 
 
 def main() -> None:
-    start = time.perf_counter()
+    global _POOL
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
+    with ProcessPoolExecutor(WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        _POOL = pool
+        run()
+
+
+def run() -> None:
+    start = time.perf_counter()
+    lap = Laps()
     smi = phase0_card()
     phase1_build()
+    lap("0-1")
     grid_err = phase2_grid()
+    lap("2")
 
-    pairs = att.generate.generate_batch(PAIRS, LENGTH, ERR, seed=SEED, workers=WORKERS)
-    batches = [att.generate.generate_batch(STREAM_PAIRS, LENGTH, ERR, seed=SEED + 100 + k,
-                                           workers=WORKERS)
+    pairs = _generate(PAIRS, LENGTH, ERR, SEED)
+    batches = [_generate(STREAM_PAIRS, LENGTH, ERR, SEED + 100 + k)
                for k in range(STREAM_BATCHES)]
+    lap("3-4 generate")
     ba = BatchAligner(device="cuda")
     spy = LayerSpy()
     spy.install()
@@ -1971,48 +2271,75 @@ def main() -> None:
     if launches == 0:
         fail("the main path never launched the banded cost kernel")
     say(f"[main path] banded_cost kernel launches: {launches}")
+    lap("3-4")
 
     record = phase5_time(spy)
     record["max_abs_err"] = max(record["max_abs_err"], grid_err)
+    lap("5")
     new_grid_err = phase6_grid()
+    lap("6")
 
     rounds = RoundSpy()
     rounds.install()
     c4, c4_round, c4_batch = phase7_config4(rounds)
+    lap("7")
     ck = phase8_ck(rounds)
     rounds.remove()
     counts = {k: c4[k] + ck[k] for k in RoundSpy.NAMES}
     if not ck["banded_ck"]:
         fail("the main path never launched banded_ck")
     say(f"[main path] launches: config #4 {c4}; ck align {ck}")
+    lap("8")
     records = phase9_time(rounds)
+    lap("9")
 
-    striped_err = phase10_grid()
+    striped_err, grid_wide, grid_narrow = phase10_grid()
+    lap("10")
     c5, c5_spy, c5_batch = phase11_config5()
     say(f"[main path] launches: config #5 {c5}")
+    lap("11")
     c5_records = phase12_time(c5_spy)
+    lap("12")
     pp_err = phase13_grid()
+    lap("13")
     c5d, c5d_spy = phase14_config5_default(*c5_batch)
     say(f"[main path] launches: config #5 default {c5d}")
+    lap("14")
     pp_records = phase15_time(c5d_spy, c4_round)
+    lap("15")
 
     nw_grid_err = phase16_grid()
+    lap("16")
     t0 = time.perf_counter()
-    c1_pairs = att.generate.generate_batch(C1_PAIRS, C1_LENGTH, C1_ERR, seed=C1_SEED,
-                                           workers=WORKERS)
+    c1_pairs = _generate(C1_PAIRS, C1_LENGTH, C1_ERR, C1_SEED)
     say(f"[17 generate] {C1_PAIRS} x {C1_LENGTH} bp e={C1_ERR} seed {C1_SEED} in "
         f"{time.perf_counter() - t0:.1f} s on {WORKERS} processes")
     c1_launches, c1_full, c1_args = phase17_config1(c1_pairs)
     say(f"[main path] launches: config #1 {{'nw_right_edge': {c1_launches}}}")
+    lap("17")
     nw_record = phase18_time(c1_args, c1_full)
     nw_record["max_abs_err"] = max(nw_record["max_abs_err"], nw_grid_err)
+    lap("18")
 
     k8_grid_err = phase19_grid()
-    k8_launches, k8_spy = phase20_full_height(c4_batch)
-    say(f"[main path] launches: full-height ck path {{'pinned_ck': {k8_launches}}}")
+    lap("19")
+    k8_launches, k8_spy, k7_launches, k7_fh_rung = phase20_full_height(c4_batch)
+    lap("20")
+    say(f"[main path] launches: full-height cost path {{'pinned_cost': {k7_launches}}}; "
+        f"full-height ck path {{'pinned_ck': {k8_launches}}}")
     k8_record = phase21_time(k8_spy, c5_spy)
     k8_record["max_abs_err"] = max(k8_record["max_abs_err"], k8_grid_err)
-    say(unported_bounds(rounds, c5_records["striped_cost"]))
+    say(unported_bounds(rounds))
+    lap("21")
+
+    k7_grid_err, _ = phase22_grid(grid_wide, grid_narrow)
+    lap("22")
+    k7_rung, k5_c5_rung = phase23_time(c5_spy, k8_spy)
+    lap("23")
+    c5_records["pinned_cost"].update({**k7_rung, **k7_fh_rung})
+    c5_records["pinned_cost"]["max_abs_err"] = max(c5_records["pinned_cost"]["max_abs_err"],
+                                                   k7_grid_err)
+    c5_records["striped_cost"].update(k5_c5_rung)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "astarpa_tpu"))
     if loaded:
         fail(f"JAX or the JAX package was imported: {loaded[:5]}")
@@ -2023,6 +2350,7 @@ def main() -> None:
         "banded_ck_pp": "astarpa_tpu/ops/pallas_banded.py:447",
         "striped_cost": "astarpa_tpu/ops/striped.py:522",
         "striped_ck": "astarpa_tpu/ops/striped.py:576",
+        "pinned_cost": "astarpa_tpu/ops/pinned.py:474",
         "pinned_ck": "astarpa_tpu/ops/pinned.py:1157",
         "pinned_cost_pp": "astarpa_tpu/ops/pinned.py:944",
         "pinned_ck_pp": "astarpa_tpu/ops/pinned.py:1316",
@@ -2036,9 +2364,14 @@ def main() -> None:
         rec["max_abs_err"] = max(rec["max_abs_err"], new_grid_err)
         kernels.append({"name": name, "route": "cuda", "source": banded_src,
                         "replaces": replaces[name], "launches": counts[name], **rec})
+    # K7's main path: config #5's cost rungs (phase 11) and phase 20's
+    # full-height cost rung.
+    c5["pinned_cost"] += k7_launches
     for name, rec in c5_records.items():
-        rec["max_abs_err"] = max(rec["max_abs_err"], striped_err)
-        kernels.append({"name": name, "route": "cuda", "source": striped_src,
+        if name != "pinned_cost":
+            rec["max_abs_err"] = max(rec["max_abs_err"], striped_err)
+        src = "astarpa_tpu_torch/csrc/pinned.cu" if name == "pinned_cost" else striped_src
+        kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces[name], "launches": c5[name], **rec})
     for name, rec in pp_records.items():
         rec["max_abs_err"] = max(rec["max_abs_err"], pp_err)
@@ -2052,6 +2385,7 @@ def main() -> None:
                     "replaces": replaces["nw_right_edge"], "launches": c1_launches, **nw_record})
     kernels.append({"name": "pinned_ck", "route": "cuda", "source": striped_src,
                     "replaces": replaces["pinned_ck"], "launches": k8_launches, **k8_record})
+    say(f"[timing] host seconds by phase: {', '.join(lap.laps)}")
     say(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)

@@ -170,9 +170,11 @@ def test_striped_kernels_match_plain(gpu, count):
     assert banded_kernel.LAUNCHES["striped_ck"] == before["striped_ck"] + len(cases) - 1
 
 
-def test_runner_striped_rungs_on_gpu(gpu):
-    """A 64-word band on 3 kbp pairs: cost rungs run K5 and ck rungs K6 on
-    the card, with the costs, ladder and CIGARs of the CPU route."""
+def test_runner_striped_rungs_on_gpu(gpu, monkeypatch):
+    """A 64-word band on 3 kbp pairs, K7 refusing every rung: cost rungs run
+    K5 and ck rungs K6 on the card, with the costs, ladder and CIGARs of
+    the CPU route."""
+    monkeypatch.setattr(runner, "pinned_cost_takes", lambda sw: False)
     pairs = [generate.uniform_seeded(2500 + 97 * s, 0.1, 40 + s) for s in range(6)]
     kw = dict(band_words=64, domain_mode="off")
     costs, stats = BatchAligner(device=gpu, **kw).cost_with_stats(pairs)
@@ -221,6 +223,74 @@ def test_pinned_pp_kernels_match_plain(gpu, quantum):
                 cases += 1
     assert banded_kernel.LAUNCHES["pinned_cost_pp"] == before["pinned_cost_pp"] + 5 * len(scheds)
     assert banded_kernel.LAUNCHES["pinned_ck_pp"] == before["pinned_ck_pp"] + cases
+
+
+@pytest.mark.parametrize("count", [33, 160])
+def test_pinned_cost_kernel_matches_plain(gpu, count):
+    """K7 against its plain version (and K5), bit for bit: bands from 8
+    words to full height off the 8-grain, rings forced to 256 words so
+    they wrap several times (a skewed pair makes S ~ 280), n == 0 and m ==
+    0 lanes, with and without a diagonal; then a skewed bucket whose ring
+    is lower than its full height."""
+    pairs = [generate.uniform_seeded(100 + (s * 61) % 900, [0.03, 0.15][s % 2], 2700 + s)
+             for s in range(count)]
+    pairs[1], pairs[3] = (b"", b"ACGTAC"), (pairs[3][0], b"")
+    pairs[2] = (pairs[2][0][:200], generate.uniform_seeded(9000, 0.1, 2699)[0])
+    args, _ = pack_batch_staggered(pairs, 1, device=gpu)
+    n_max, S = args[0].shape[0], args[2].shape[0]
+    diag = (n_max, max(len(b) for _, b in pairs[3:]))
+    before = banded_kernel.LAUNCHES["pinned_cost"]
+    cases = ((8, diag, None), (13, None, 256), (64, diag, 256), (67, None, None),
+             (256, diag, 512), (S, None, None))
+    for sw, dg, rw in cases:
+        want = striped.pinned_cost_ref(*args, sw, dg)
+        assert torch.equal(banded_kernel.pinned_cost(*args, sw, dg, rw), want), (sw, rw)
+        assert torch.equal(banded_kernel.striped_cost(*args, sw, dg), want), sw
+    assert S % 8 and S > 256
+    # A skewed bucket at full height taller than its ring (S = 375 words,
+    # 200 live), also shape-quantized (n_max 2048 past the longest a):
+    # the ended top word's slot is reused.
+    tall = [(generate.uniform_seeded(200 - 5 * s, 0.1, 2800 + s)[0],
+             generate.uniform_seeded(12_000 - 300 * s, 0.1, 2900 + s)[0]) for s in range(9)]
+    for quantum in (None, 2048):
+        targs, _ = pack_batch_staggered(tall, 1, quantum, device=gpu)
+        St = targs[2].shape[0]
+        assert banded_kernel.ring_threads(200) * 8 < St
+        got = banded_kernel.pinned_cost(*targs, St)
+        assert torch.equal(got, striped.pinned_cost_ref(*targs, St)), quantum
+        assert int(got[0]) == oracle.levenshtein(*tall[0])
+    assert banded_kernel.LAUNCHES["pinned_cost"] == before + len(cases) + 2
+
+
+def test_pinned_cost_raises_past_its_ring(gpu):
+    """More than 4096 live words (a full height of 4375 words over 4500
+    columns) raise before any launch; a ring below the live words too."""
+    pairs = [(generate.uniform_seeded(4500, 0.0, 1)[0],
+              generate.uniform_seeded(140_000, 0.1, 2)[0])]
+    args, _ = pack_batch_staggered(pairs, 1, device=gpu)
+    S = args[2].shape[0]
+    before = banded_kernel.LAUNCHES["pinned_cost"]
+    with pytest.raises(ValueError, match="exceed"):
+        banded_kernel.pinned_cost(*args, S)
+    with pytest.raises(ValueError, match="ring_words"):
+        banded_kernel.pinned_cost(*args, 512, None, 256)
+    assert banded_kernel.LAUNCHES["pinned_cost"] == before
+
+
+def test_runner_config5_shaped_rung_on_k7(gpu):
+    """Config #5's shape at a fifth of its length: 8 pairs of 100 kbp at
+    e=15%, ``band_words=2048``, ``domain_mode="off"``.  The rung (K5 would
+    run two stripes of 2048 words over S ~ 3200) runs K7, and its costs
+    are the exact ones of a full-height K5 sweep."""
+    pairs = [generate.uniform_seeded(100_000, 0.15, 7 + s) for s in range(8)]
+    before = banded_kernel.LAUNCHES["pinned_cost"]
+    costs, stats = BatchAligner(device=gpu, band_words=2048,
+                                domain_mode="off").cost_with_stats(pairs)
+    assert stats.kernel == "cuda-pinned" and stats.band_retries == 0
+    assert banded_kernel.LAUNCHES["pinned_cost"] == before + 1
+    args, _ = pack_batch_staggered(pairs[:2], 1, device=gpu)
+    exact = banded_kernel.striped_cost(*args, args[2].shape[0])
+    assert [int(c) for c in costs[:2]] == exact.tolist()
 
 
 def test_pinned_ck_refuses_short_intervals(gpu):

@@ -39,7 +39,7 @@ def test_port_main_path_never_imports_jax():
         assert (gap.cost(pairs) == costs).all()
         runner.STRIPED_MIN_SW = 8
         calls = []
-        for name in ("striped_cost", "striped_ck"):
+        for name in ("pinned_cost", "striped_cost", "striped_ck"):
             def spy(*args, _fn=getattr(runner, name), _name=name):
                 calls.append(_name)
                 return _fn(*args)
@@ -50,7 +50,7 @@ def test_port_main_path_never_imports_jax():
         assert st.kernel == "torch-ref"
         assert [c for c, _ in res] == list(costs[:4])
         assert (big.cost(pairs) == costs).all()
-        assert {"striped_cost", "striped_ck"} <= set(calls), calls
+        assert {"pinned_cost", "striped_ck"} <= set(calls), calls
         from astarpa_tpu_torch.aligners import nw
         from astarpa_tpu_torch.ops import nw_kernel
         assert list(nw_kernel.nw_cost_pairs(pairs, device="cpu")) == list(costs)

@@ -166,11 +166,13 @@ def _cost_cases():
 
 @pytest.mark.parametrize("case", ["clamp", "mixed"])
 def test_runner_cost_rungs_on_k5(monkeypatch, case):
-    """With the routing constant low every shared cost rung runs K5's
-    plain version: costs equal the oracle and BatchStats (but ``kernel``)
-    equal the reference's, whose ladder ran the sliding kernel."""
+    """With the routing constant low and K7 refusing every rung, every
+    shared cost rung runs K5's plain version: costs equal the oracle and
+    BatchStats (but ``kernel``) equal the reference's, whose ladder ran
+    the sliding kernel."""
     pairs, kw = _cost_cases()[case]
     monkeypatch.setattr(runner, "STRIPED_MIN_SW", 1)
+    monkeypatch.setattr(runner, "pinned_cost_takes", lambda sw: False)
     calls = _spy(monkeypatch, ["striped_cost", "banded_cost"])
     ref_costs, ref_stats = RefAligner(lane_multiple=8, domain_mode="off",
                                       **kw).cost_with_stats(pairs)
