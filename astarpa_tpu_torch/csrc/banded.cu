@@ -3,16 +3,19 @@
 //
 //   K1 banded_cost     shared schedule, costs
 //   K2 banded_ck       shared schedule, costs + window checkpoints
+//   K3 banded_fill     shared schedule, costs + every column's window
+//   K3 banded_fill_pp  per-pair schedules, costs + every column's window
 //   K4 banded_cost_pp  per-pair schedules, costs
 //   K4 banded_ck_pp    per-pair schedules, costs + window checkpoints
 //
 // They replace the TPU kernel astarpa_tpu/ops/pallas_banded.py::_banded_call
 // (state machine _columns): K1 is _kernel_shared in EMIT_COST mode (entry
 // banded_cost_tpu, schedule=None), K2 the same in EMIT_CK mode (banded_ck_tpu),
-// K4 is _kernel_perpair in both modes (schedule=...).  The definitions they
-// must match bit for bit are astarpa_tpu/ops/banded.py::banded_cost_block and
-// banded_cost_block_pp and the checkpoint contract of banded_ck_tpu; their
-// plain torch twins are in astarpa_tpu_torch/ops/banded.py.
+// K3 both kernels in EMIT_FILL mode (banded_fill_tpu, either schedule), K4 is
+// _kernel_perpair in cost and ck mode (schedule=...).  The definitions they
+// must match bit for bit are astarpa_tpu/ops/banded.py::banded_cost_block,
+// banded_fill_block and banded_cost_block_pp and the checkpoint contract of
+// banded_ck_tpu; their plain torch twins are in astarpa_tpu_torch/ops/banded.py.
 //
 // Design: one thread per pair.  The planes are pair-minor ((n_max, B) and
 // (S, B) uint32), so a warp's loads of a0[i*B+p] and pb0[row*B+p] are
@@ -27,10 +30,19 @@
 // sched[::Q]; the wrapper asserts the schedule is quantized), so the shift
 // branch diverges at most once every Q columns.
 //
-// Checkpoints (kCk): before the shift of column k*CB, the thread writes its
-// top_val and the window planes un-rotated (ring slot (top_slot+w) % SW to
-// row w).  A finished pair keeps sliding to n_max, as the reference does, so
-// every checkpoint is defined; it runs no more columns.
+// Checkpoints (kEmitCk): before the shift of column k*CB, the thread writes
+// its top_val and the window planes un-rotated (ring slot (top_slot+w) % SW
+// to row w).  A finished pair keeps sliding to n_max, as the reference does,
+// so every checkpoint is defined; it runs no more columns.
+//
+// Fill (kEmitFill): after column i (its shift and, while i < n[p], its word
+// steps), the thread writes the window un-rotated into row i of the
+// (n_max, SW, B) planes.  A finished pair keeps sliding and writes its
+// unchanged, shifted window, as the reference does past a pair's end.  B is
+// minor, so a warp's stores of one word are one coalesced 128-byte line.
+// K3 is bound by those stores (8*SW bytes a column a pair); one thread per
+// pair issues them behind its own serial column chain, so it runs far from
+// that bound, as K1 does from its own.
 //
 // What bounds it on an H100 (reckoned, not measured): about 20 integer
 // operations and 6 memory operations (2 profile loads, 2 ring loads, 2 ring
@@ -49,7 +61,23 @@ constexpr int kW = 32;
 constexpr int kInf = 1 << 30;
 constexpr int kThreads = 32;
 
-template <bool kPerPair, bool kCk>
+enum Emit { kEmitCost, kEmitCk, kEmitFill };
+
+// Row i of the fill planes: the window un-rotated from the ring.
+__device__ __forceinline__ void store_window(
+    uint32_t* __restrict__ vp_cols, uint32_t* __restrict__ vm_cols,
+    const uint32_t* __restrict__ ring_vp, const uint32_t* __restrict__ ring_vm,
+    int i, int top_slot, int SW, int B, int p) {
+  int s = top_slot;
+  for (int w = 0; w < SW; ++w) {
+    const size_t o = ((size_t)i * SW + w) * B + p;
+    vp_cols[o] = ring_vp[(size_t)s * B + p];
+    vm_cols[o] = ring_vm[(size_t)s * B + p];
+    s = s + 1 == SW ? 0 : s + 1;
+  }
+}
+
+template <bool kPerPair, int kEmit>
 __global__ void banded_kernel(
     const uint32_t* __restrict__ a0, const uint32_t* __restrict__ a1,
     const uint32_t* __restrict__ pb0, const uint32_t* __restrict__ pb1,
@@ -70,11 +98,12 @@ __global__ void banded_kernel(
   int top_val = 0, top_rows = 0, lo = 0, top_slot = 0;
   int result = mp;  // n == 0: cost m
   // Columns past n[p]-1 change nothing the result can observe (it is
-  // captured at n[p]-1); only checkpoints still see the window slide.
+  // captured at n[p]-1); only checkpoints and fill planes still see the
+  // window slide.
   const int stop = np < n_max ? np : n_max;
-  const int last = kCk ? n_max : stop;
+  const int last = kEmit == kEmitCost ? stop : n_max;
   for (int i = 0; i < last; ++i) {
-    if (kCk && i % CB == 0) {
+    if (kEmit == kEmitCk && i % CB == 0) {
       const size_t k = (size_t)(i / CB);
       ck_tv[k * B + p] = top_val;
       int s = top_slot;
@@ -100,7 +129,11 @@ __global__ void banded_kernel(
       ++lo;
       top_slot = top_slot + 1 == SW ? 0 : top_slot + 1;
     }
-    if (kCk && i >= stop) continue;
+    if (kEmit != kEmitCost && i >= stop) {
+      if (kEmit == kEmitFill)
+        store_window(ck_vp, ck_vm, ring_vp, ring_vm, i, top_slot, SW, B, p);
+      continue;
+    }
     const uint32_t ca0 = a0[(size_t)i * B + p];
     const uint32_t ca1 = a1[(size_t)i * B + p];
     uint32_t hp = 1u, hm = 0u;
@@ -129,6 +162,8 @@ __global__ void banded_kernel(
       slot = slot + 1 == SW ? 0 : slot + 1;
     }
     ++top_val;
+    if (kEmit == kEmitFill)
+      store_window(ck_vp, ck_vm, ring_vp, ring_vm, i, top_slot, SW, B, p);
     if (i == np - 1) {
       const int rows = mp - top_rows;  // may be negative: then res = top_val
       if (rows <= SW * kW) {
@@ -152,7 +187,7 @@ __global__ void banded_kernel(
   out[p] = result;
 }
 
-template <bool kPerPair, bool kCk>
+template <bool kPerPair, int kEmit>
 int launch(const void* a0, const void* a1, const void* pb0, const void* pb1,
            const void* n, const void* m, const void* shift_at,
            const void* sched, void* ring_vp, void* ring_vm, void* out,
@@ -160,7 +195,7 @@ int launch(const void* a0, const void* a1, const void* pb0, const void* pb1,
            int SW, int Q, int CB, void* stream) {
   if (B > 0) {
     const int blocks = (B + kThreads - 1) / kThreads;
-    banded_kernel<kPerPair, kCk><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+    banded_kernel<kPerPair, kEmit><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)a0, (const uint32_t*)a1, (const uint32_t*)pb0,
         (const uint32_t*)pb1, (const int32_t*)n, (const int32_t*)m,
         (const int32_t*)shift_at, (const uint8_t*)sched, (uint32_t*)ring_vp,
@@ -175,7 +210,8 @@ int launch(const void* a0, const void* a1, const void* pb0, const void* pb1,
 // C entries for ctypes.  All arrays are device pointers; ring_vp/ring_vm are
 // (SW, B) scratch.  `schedule` is the shared (n_max,) int32 shift_at or the
 // per-pair (n_max, B) uint8 one, read at multiples of Q.  The ck entries
-// write (n_ck, SW, B) planes and (n_ck, B) top values, n_ck = ceil(n_max/CB).
+// write (n_ck, SW, B) planes and (n_ck, B) top values, n_ck = ceil(n_max/CB);
+// the fill entries (n_max, SW, B) planes.
 // Each launches on `stream` without synchronising and returns
 // cudaGetLastError() (0 on success).
 extern "C" {
@@ -185,7 +221,7 @@ int astarpa_banded_cost(const void* a0, const void* a1, const void* pb0,
                         const void* schedule, void* ring_vp, void* ring_vm,
                         void* out, int n_max, int B, int S, int SW,
                         void* stream) {
-  return launch<false, false>(a0, a1, pb0, pb1, n, m, schedule, nullptr,
+  return launch<false, kEmitCost>(a0, a1, pb0, pb1, n, m, schedule, nullptr,
                               ring_vp, ring_vm, out, nullptr, nullptr, nullptr,
                               n_max, B, S, SW, 1, 1, stream);
 }
@@ -195,7 +231,7 @@ int astarpa_banded_ck(const void* a0, const void* a1, const void* pb0,
                       const void* schedule, void* ring_vp, void* ring_vm,
                       void* out, void* ck_vp, void* ck_vm, void* ck_tv,
                       int n_max, int B, int S, int SW, int CB, void* stream) {
-  return launch<false, true>(a0, a1, pb0, pb1, n, m, schedule, nullptr,
+  return launch<false, kEmitCk>(a0, a1, pb0, pb1, n, m, schedule, nullptr,
                              ring_vp, ring_vm, out, ck_vp, ck_vm, ck_tv, n_max,
                              B, S, SW, 1, CB, stream);
 }
@@ -205,7 +241,7 @@ int astarpa_banded_cost_pp(const void* a0, const void* a1, const void* pb0,
                            const void* schedule, void* ring_vp, void* ring_vm,
                            void* out, int n_max, int B, int S, int SW, int Q,
                            void* stream) {
-  return launch<true, false>(a0, a1, pb0, pb1, n, m, nullptr, schedule,
+  return launch<true, kEmitCost>(a0, a1, pb0, pb1, n, m, nullptr, schedule,
                              ring_vp, ring_vm, out, nullptr, nullptr, nullptr,
                              n_max, B, S, SW, Q, 1, stream);
 }
@@ -216,9 +252,29 @@ int astarpa_banded_ck_pp(const void* a0, const void* a1, const void* pb0,
                          void* out, void* ck_vp, void* ck_vm, void* ck_tv,
                          int n_max, int B, int S, int SW, int Q, int CB,
                          void* stream) {
-  return launch<true, true>(a0, a1, pb0, pb1, n, m, nullptr, schedule,
+  return launch<true, kEmitCk>(a0, a1, pb0, pb1, n, m, nullptr, schedule,
                             ring_vp, ring_vm, out, ck_vp, ck_vm, ck_tv, n_max,
                             B, S, SW, Q, CB, stream);
+}
+
+int astarpa_banded_fill(const void* a0, const void* a1, const void* pb0,
+                        const void* pb1, const void* n, const void* m,
+                        const void* schedule, void* ring_vp, void* ring_vm,
+                        void* out, void* vp_cols, void* vm_cols, int n_max,
+                        int B, int S, int SW, void* stream) {
+  return launch<false, kEmitFill>(a0, a1, pb0, pb1, n, m, schedule, nullptr,
+                                  ring_vp, ring_vm, out, vp_cols, vm_cols,
+                                  nullptr, n_max, B, S, SW, 1, 1, stream);
+}
+
+int astarpa_banded_fill_pp(const void* a0, const void* a1, const void* pb0,
+                           const void* pb1, const void* n, const void* m,
+                           const void* schedule, void* ring_vp, void* ring_vm,
+                           void* out, void* vp_cols, void* vm_cols, int n_max,
+                           int B, int S, int SW, int Q, void* stream) {
+  return launch<true, kEmitFill>(a0, a1, pb0, pb1, n, m, nullptr, schedule,
+                                 ring_vp, ring_vm, out, vp_cols, vm_cols,
+                                 nullptr, n_max, B, S, SW, Q, 1, stream);
 }
 
 }  // extern "C"

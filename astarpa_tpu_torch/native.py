@@ -4,15 +4,26 @@ The port's own copy of the loader ``astarpa_tpu/native/__init__.py``.  It
 builds and loads the same C++ sources in the repository's ``native/``
 with their ``Makefile`` (``g++ -O3 -march=native``, plain C ABI), which
 belong to neither Python package, and binds the entries the port calls,
-as the original does: the checkpoint and direct traces (``trace_banded_ck``
-reads K2's SW-row and K6's SW+8-row checkpoint planes alike), the batch
-pack, the gcsh domain hulls and the block DP of the oracle.  The A*
-aligner entries are not bound: the port has no single-pair aligner.
+as the original does: the native A* aligner (``astarpa_native``), the
+traces from every column's window planes (``trace_banded``, fed by K3),
+from checkpoints (``trace_banded_ck`` reads K2's SW-row and K6's SW+8-row
+checkpoint planes alike) and from certified costs alone
+(``trace_direct``, ``trace_direct_batch``), the batch pack, the gcsh
+domain hulls and the block DP of the block aligner (``block_compute``,
+``block_fill``).
+
+The port builds its own copy of the library and never opens or replaces
+``native/libastarpa_native.so``, which the JAX package's loader builds
+there in place.  The copy lives in ``build/native/`` under a name keyed by
+a hash of the sources; one process builds it under an exclusive lock in a
+private directory and renames it into place, so a loader of the port
+(test workers, a process pool) finds either no file or a whole one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 from pathlib import Path
@@ -20,17 +31,40 @@ from pathlib import Path
 from .types import Cigar
 
 _NATIVE_DIR = Path(__file__).resolve().parents[1] / "native"
-_SO = _NATIVE_DIR / "libastarpa_native.so"
-_SRC = _NATIVE_DIR / "astarpa_native.cpp"
+_SOURCES = ("Makefile", "astarpa.h", "astarpa_native.cpp")
+_BUILD_DIR = _NATIVE_DIR.parent / "build" / "native"
 
 _lib = None
 
 
-def _build() -> None:
-    subprocess.run(
-        ["make", "-s", "-C", str(_NATIVE_DIR), "libastarpa_native.so"],
-        check=True,
-    )
+def _so_path() -> Path:
+    """The port's library for the current sources."""
+    h = hashlib.sha256()
+    for name in _SOURCES:
+        h.update(name.encode())
+        h.update((_NATIVE_DIR / name).read_bytes())
+    return _BUILD_DIR / f"libastarpa_native_{h.hexdigest()[:16]}.so"
+
+
+def _build(so: Path) -> None:
+    """Build with ``native/Makefile`` in a private copy of the sources and
+    rename the result to ``so``, holding an exclusive lock: one process
+    builds, the others wait and find it built."""
+    import fcntl
+    import shutil
+    import tempfile
+
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():
+            return
+        with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+            for name in _SOURCES:
+                shutil.copy2(_NATIVE_DIR / name, tmp)
+            subprocess.run(["make", "-s", "-C", tmp, "libastarpa_native.so"],
+                           check=True)
+            os.replace(Path(tmp) / "libastarpa_native.so", so)
 
 
 def load():
@@ -38,13 +72,88 @@ def load():
     global _lib
     if _lib is not None:
         return _lib
-    if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-        _build()
-    lib = ctypes.CDLL(str(_SO))
+    so = _so_path()
+    if not so.exists():
+        _build(so)
+    lib = ctypes.CDLL(str(so))
+    lib.astarpa_align.restype = ctypes.c_int
+    lib.astarpa_align.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int64),
+    ]
     lib.astarpa_free.restype = None
     lib.astarpa_free.argtypes = [ctypes.c_char_p]
+    lib.trace_banded.restype = ctypes.c_int
+    lib.trace_banded.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32),
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_char_p),
+    ]
     _lib = lib
     return lib
+
+
+_PRUNE = {"none": 0, "start": 1, "end": 2, "both": 3}
+
+
+def astarpa_native(
+    a: bytes,
+    b: bytes,
+    r: int = 2,
+    k: int = 15,
+    prune: str = "start",
+    dt: bool = True,
+    use_gap_cost: bool = True,
+    with_stats: bool = False,
+):
+    """Exact alignment via the native A* runtime.
+
+    Returns ``(cost, Cigar)`` (or ``(cost, Cigar, stats_dict)``).
+    """
+    lib = load()
+    cigar_p = ctypes.c_char_p()
+    stats = (ctypes.c_int64 * 5)()
+    prune_mode = _PRUNE[prune.value if hasattr(prune, "value") else prune]
+    cost = lib.astarpa_align(
+        a, len(a), b, len(b), r, k, prune_mode, int(dt), int(use_gap_cost),
+        ctypes.byref(cigar_p), stats,
+    )
+    cigar = Cigar.from_string_lazy(cigar_p.value.decode()) if cigar_p.value else Cigar()
+    # ctypes copies the value; free the C allocation.
+    lib.astarpa_free(cigar_p)
+    if with_stats:
+        keys = ("expanded", "explored", "extended", "reordered", "pruned")
+        return cost, cigar, dict(zip(keys, list(stats)))
+    return cost, cigar
+
+
+def trace_banded(a: bytes, b: bytes, vp_cols, vm_cols, lo, band_words: int):
+    """CIGAR from stored banded window planes (one pair).
+
+    vp_cols/vm_cols: (n, SW) uint32 arrays; lo: (n,) int32 window top word
+    per column.  Returns (cost, Cigar).
+    """
+    import numpy as np
+
+    lib = load()
+    vp = np.ascontiguousarray(vp_cols, dtype=np.uint32)
+    vm = np.ascontiguousarray(vm_cols, dtype=np.uint32)
+    lo = np.ascontiguousarray(lo, dtype=np.int32)
+    cigar_p = ctypes.c_char_p()
+    cost = lib.trace_banded(
+        a, len(a), b, len(b),
+        vp.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        vm.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        lo.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        band_words,
+        ctypes.byref(cigar_p),
+    )
+    assert cost >= 0, "banded traceback failed (inconsistent planes)"
+    cigar = Cigar.from_string_lazy(cigar_p.value.decode()) if cigar_p.value else Cigar()
+    lib.astarpa_free(cigar_p)
+    return cost, cigar
 
 
 def available() -> bool:
@@ -117,6 +226,30 @@ def trace_banded_ck(a: bytes, b: bytes, s_words: int, ck_vp, ck_vm, ck_tv,
 # O(n*SW) stripe recompute.  Covers one-burst 100kbp e=10% traces
 # (d ~ 8500); the compact layer arena keeps memory at O(d * window).
 DIRECT_DT_MAX = 1 << 14
+
+
+def trace_direct(a: bytes, b: bytes, s_words: int, shift_at,
+                 band_words: int, known_cost: int):
+    """CIGAR from the certified cost alone — no device checkpoints.
+
+    Runs :func:`trace_banded_ck` with a single synthesized checkpoint at
+    column 0 (the all-ones Myers init, whose values are exact:
+    value(0, j) = j) and a checkpoint interval spanning the whole pair,
+    so ONE backward DT burst recovers the full path.  Valid whenever
+    ``known_cost <= DIRECT_DT_MAX``.  Exactness is unchanged: the cost
+    is certified by the banded kernel, the burst landing is checked
+    against the exact column-0 values, and a pruned burst retries
+    unpruned before the banded stripe-recompute fallback (which uses
+    ``shift_at``/``band_words``, the certifying rung's schedule).
+    """
+    import numpy as np
+
+    assert 0 <= known_cost <= DIRECT_DT_MAX, known_cost
+    vp = np.full((1, band_words), 0xFFFFFFFF, np.uint32)
+    vm = np.zeros((1, band_words), np.uint32)
+    tv = np.zeros(1, np.int32)
+    return trace_banded_ck(a, b, s_words, vp, vm, tv, shift_at, band_words,
+                           col_block=max(len(a), 1), known_cost=known_cost)
 
 
 def trace_direct_batch(pairs, s_words: int, shift_at, band_words: int,
@@ -344,6 +477,10 @@ def _blk_lib():
         lib.block_compute.argtypes = [_U32P, _U32P, ctypes.c_int, _U32P,
                                       _U32P, ctypes.c_int, _U32P, _U32P,
                                       _U32P, _U32P]
+        lib.block_fill.restype = None
+        lib.block_fill.argtypes = [_U32P, _U32P, ctypes.c_int, _U32P, _U32P,
+                                   ctypes.c_int, _U32P, _U32P, _U32P, _U32P,
+                                   _U32P, _U32P]
         lib._blk_proto_set = True
     return lib
 
@@ -355,3 +492,11 @@ def block_compute(a0, a1, pb0, pb1, vp, vm, hp, hm):
     p = lambda x: x.ctypes.data_as(_U32P)
     lib.block_compute(p(a0), p(a1), len(a0), p(pb0), p(pb1), len(pb0),
                       p(vp), p(vm), p(hp), p(hm))
+
+
+def block_fill(a0, a1, pb0, pb1, vp, vm, hp, hm, vp_cols, vm_cols):
+    """Fill variant: writes (ncols, nwords) planes into vp_cols/vm_cols."""
+    lib = _blk_lib()
+    p = lambda x: x.ctypes.data_as(_U32P)
+    lib.block_fill(p(a0), p(a1), len(a0), p(pb0), p(pb1), len(pb0),
+                   p(vp), p(vm), p(hp), p(hm), p(vp_cols), p(vm_cols))

@@ -108,6 +108,8 @@ def load() -> ctypes.CDLL:
                                    ("astarpa_banded_ck", 13, 5),
                                    ("astarpa_banded_cost_pp", 10, 5),
                                    ("astarpa_banded_ck_pp", 13, 6),
+                                   ("astarpa_banded_fill", 12, 4),
+                                   ("astarpa_banded_fill_pp", 12, 5),
                                    ("astarpa_striped_cost", 10, 8),
                                    ("astarpa_striped_ck", 14, 10),
                                    ("astarpa_pinned_cost", 8, 7),

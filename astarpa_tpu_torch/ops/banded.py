@@ -13,9 +13,9 @@ The schedule and certificate helpers are numpy, copied verbatim from the
 reference (which lives in a module that depends on JAX).  The plain torch
 versions of the CUDA kernels (``csrc/banded.cu``) share one column loop,
 :func:`_sweep`: :func:`banded_cost_ref` (K1), :func:`banded_ck_ref` (K2),
-:func:`banded_cost_pp_ref` and :func:`banded_ck_pp_ref` (K4), and
-:func:`banded_fill_ref` (every column's planes, the reference's
-``banded_fill``).  They are bit-identical to the reference; the CPU runs
+:func:`banded_fill_ref` and :func:`banded_fill_pp_ref` (K3: every column's
+planes, the reference's ``banded_fill`` and ``banded_fill_tpu``), and
+:func:`banded_cost_pp_ref` and :func:`banded_ck_pp_ref` (K4).  They are bit-identical to the reference; the CPU runs
 them, the card compares against them.
 """
 
@@ -277,11 +277,27 @@ def banded_fill_ref(a0, a1, pb0, pb1, n, m, band_words: int,
                     diag: tuple | None = None):
     """Like :func:`banded_cost_ref`, also returning the window planes after
     every column: ``(costs, vp_cols, vm_cols)`` with planes (n_max, SW, B),
-    the twin of the reference's ``banded_fill_block``."""
+    the twin of the reference's ``banded_fill_block``: the plain version of
+    kernel K3.  Row i is the window after column i's shift and word steps;
+    a lane past its pair's end keeps its window and still slides."""
     n_max, S = a0.shape[0], pb0.shape[0]
     SW = min(band_words, S)
     res, _, cols = _sweep(a0, a1, pb0, pb1, n, m, SW,
                           shift_at_array(n_max, S, SW, diag), fill=True)
+    return (res,) + cols
+
+
+def banded_fill_pp_ref(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
+                       quantum: int = SCHEDULE_Q):
+    """:func:`banded_fill_ref` on a per-pair schedule: the plain version of
+    kernel K3 with ``schedule=`` (the reference's ``banded_fill_tpu(...,
+    schedule=...)``).  ``schedule``: host (n_max, B) 0/1, shifting only at
+    multiples of ``quantum``; each pair's entering word is clamped at row
+    S-1, as :func:`banded_cost_pp_ref`'s."""
+    n_max, B = a0.shape
+    SW = min(band_words, pb0.shape[0])
+    sched = check_schedule(schedule, n_max, B, quantum)
+    res, _, cols = _sweep(a0, a1, pb0, pb1, n, m, SW, sched, fill=True)
     return (res,) + cols
 
 

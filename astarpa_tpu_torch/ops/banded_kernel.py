@@ -2,14 +2,16 @@
 big-band kernels (``csrc/striped.cu``) and the resident-ring big-band cost
 kernel (``csrc/pinned.cu``).
 
-Counterparts of ``astarpa_tpu/ops/pallas_banded.py::banded_cost_tpu`` and
-``banded_ck_tpu`` (``_banded_call``), of
+Counterparts of ``astarpa_tpu/ops/pallas_banded.py::banded_cost_tpu``,
+``banded_fill_tpu`` and ``banded_ck_tpu`` (``_banded_call``), of
 ``astarpa_tpu/ops/striped.py::striped_cost_tpu`` and ``striped_ck_tpu``
 and of ``astarpa_tpu/ops/pinned.py::pinned_cost_tpu``, ``pinned_ck_tpu``,
 ``pinned_cost_pp_tpu`` and ``pinned_ck_pp_tpu``, one wrapper per kernel:
 
 - :func:`banded_cost` — K1, shared schedule, costs;
 - :func:`banded_ck` — K2, shared schedule, costs and checkpoints;
+- :func:`banded_fill` — K3, shared schedule, costs and every column's planes;
+- :func:`banded_fill_pp` — K3, per-pair schedules, the same;
 - :func:`banded_cost_pp` — K4, per-pair schedules, costs;
 - :func:`banded_ck_pp` — K4, per-pair schedules, costs and checkpoints;
 - :func:`striped_cost` — K5, shared schedule, any band height, costs;
@@ -37,8 +39,8 @@ from .words import lengths, to_tensor
 #: Launches of each CUDA kernel in this process, by wrapper name (callers
 #: that need to show a run went through a kernel reset them first).
 #: ``nw_right_edge`` is K11's, whose wrapper is in :mod:`.nw_kernel`.
-LAUNCHES = {"banded_cost": 0, "banded_ck": 0, "banded_cost_pp": 0,
-            "banded_ck_pp": 0, "striped_cost": 0, "striped_ck": 0,
+LAUNCHES = {"banded_cost": 0, "banded_ck": 0, "banded_fill": 0,
+            "banded_fill_pp": 0, "banded_cost_pp": 0, "banded_ck_pp": 0, "striped_cost": 0, "striped_ck": 0,
             "pinned_cost": 0, "pinned_ck": 0, "pinned_cost_pp": 0,
             "pinned_ck_pp": 0, "nw_right_edge": 0}
 
@@ -49,6 +51,7 @@ def reset_launches() -> None:
 
 
 _LABELS = {"banded_cost": "cuda-banded", "banded_ck": "cuda-banded-ck",
+           "banded_fill": "cuda-banded-fill", "banded_fill_pp": "cuda-banded-fill-pp",
            "banded_cost_pp": "cuda-banded-pp", "banded_ck_pp": "cuda-banded-ck-pp",
            "striped_cost": "cuda-striped", "striped_ck": "cuda-striped-ck",
            "pinned_cost": "cuda-pinned", "pinned_ck": "cuda-pinned-ck",
@@ -84,6 +87,31 @@ def banded_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
                                     col_block, diag)
     return _launch("banded_ck", a0, a1, pb0, pb1, n, m, band_words, diag=diag,
                    col_block=col_block)
+
+
+def banded_fill(a0, a1, pb0, pb1, n, m, band_words: int,
+                diag: tuple | None = None):
+    """Costs plus every column's window planes on the shared schedule:
+    ``(costs, vp_cols, vm_cols)`` with (n_max, SW, B) planes, as
+    :func:`.banded.banded_fill_ref`.  The planes are checked on both
+    routes."""
+    if _plain(a0):
+        _check("banded_fill", a0, a1, pb0, pb1, band_words)
+        return banded.banded_fill_ref(a0, a1, pb0, pb1, n, m, band_words, diag)
+    return _launch("banded_fill", a0, a1, pb0, pb1, n, m, band_words, diag=diag,
+                   fill=True)
+
+
+def banded_fill_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
+                   quantum: int = banded.SCHEDULE_Q):
+    """:func:`banded_fill` on per-pair schedules, as
+    :func:`.banded.banded_fill_pp_ref`."""
+    if _plain(a0):
+        _check("banded_fill_pp", a0, a1, pb0, pb1, band_words)
+        return banded.banded_fill_pp_ref(a0, a1, pb0, pb1, n, m, schedule,
+                                         band_words, quantum)
+    return _launch("banded_fill_pp", a0, a1, pb0, pb1, n, m, band_words,
+                   schedule=schedule, quantum=quantum, fill=True)
 
 
 def banded_cost_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
@@ -200,7 +228,7 @@ def _plain(a0) -> bool:
 
 
 def _launch(kernel, a0, a1, pb0, pb1, n, m, band_words, *, diag=None,
-            schedule=None, quantum=1, col_block=None):
+            schedule=None, quantum=1, col_block=None, fill=False):
     from ._build import load
 
     dev = a0.device
@@ -221,24 +249,27 @@ def _launch(kernel, a0, a1, pb0, pb1, n, m, band_words, *, diag=None,
     ring_vm = torch.empty((SW, B), dtype=torch.int32, device=dev)
     out = torch.empty(B, dtype=torch.int32, device=dev)
     head = [a0, a1, pb0, pb1, n_t, m_t, sched, ring_vp, ring_vm, out]
-    ck = ()
+    outs = ()
     if col_block is not None:
         CB = banded.ck_col_block(col_block, n_max, quantum if per_pair else None)
         n_ck = -(-n_max // CB)
-        ck = (torch.empty((n_ck, SW, B), dtype=torch.int32, device=dev),
-              torch.empty((n_ck, SW, B), dtype=torch.int32, device=dev),
-              torch.empty((n_ck, B), dtype=torch.int32, device=dev))
+        outs = (torch.empty((n_ck, SW, B), dtype=torch.int32, device=dev),
+                torch.empty((n_ck, SW, B), dtype=torch.int32, device=dev),
+                torch.empty((n_ck, B), dtype=torch.int32, device=dev))
+    elif fill:
+        outs = (torch.empty((n_max, SW, B), dtype=torch.int32, device=dev),
+                torch.empty((n_max, SW, B), dtype=torch.int32, device=dev))
     ints = [n_max, B, S, SW] + ([quantum] if per_pair else []) \
-        + ([CB] if ck else [])
+        + ([CB] if col_block is not None else [])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(load(), f"astarpa_{kernel}")(
-            *(t.data_ptr() for t in head + list(ck)), *ints, stream,
+            *(t.data_ptr() for t in head + list(outs)), *ints, stream,
         )
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
     LAUNCHES[kernel] += 1
-    return (out,) + ck if ck else out
+    return (out,) + outs if outs else out
 
 
 #: Words a thread of the striped kernel holds (``kK`` in ``csrc/striped.cu``).

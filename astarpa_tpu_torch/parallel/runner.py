@@ -27,6 +27,27 @@ pairs retry at the band their banded upper bound predicts.
   per-pair kernels (K9 for costs, K10 for checkpoint traces), a smaller
   one K4 (cost mode, or ck mode).
 
+CIGARs take one of two routes, chosen by :attr:`BatchAligner.combined`
+(the reference chooses by backend, ``runner.py:962-985``):
+
+- ``combined=True`` (the default; the reference's ``_align_combined``, its
+  TPU route): the align rungs and rounds above, each certifying costs and
+  staging its certified pairs' traces (direct DT traces, or checkpoint
+  traces from K2/K4/K6/K8/K10).
+- ``combined=False`` (the reference's route on every other backend): the
+  cost ladder, then :meth:`BatchAligner._trace_bucket` per bucket: direct
+  DT traces for certified costs within the native burst budget; for bands
+  of more than 64 words the host arm (native A* at moderate divergence, the
+  block aligner :mod:`..aligners.astarpa2` above it); else the fill arm, K3
+  (:func:`..ops.banded_kernel.banded_fill`: every column's window planes)
+  and a native ``trace_banded`` per pair.  The reference's checkpoint arm
+  of ``_trace_bucket`` is not ported: it runs only on the reference's TPU
+  backend (or in interpret mode), where the port's combined route serves.
+
+Without the native library both routes end in
+:meth:`BatchAligner._align_host_fallback` (the block aligner on every pair,
+after the cost ladder), as the reference's do.
+
 The ladder arithmetic (rounding, repack rule, cell counts, warm band
 hints, sticky diagonal, full-height clamp, f feedback) is the reference's,
 verbatim, so ``BatchStats`` match it field for field.
@@ -42,29 +63,29 @@ card, and K7's ring capacity; a kernel that fails raises, and the domain
 ladder breaks only when its band reaches full height or its rounds run
 out.
 
-Not ported yet: ``mesh`` (raises ``NotImplementedError``), and the
-host-only trace fallbacks ``_trace_bucket`` and ``_align_host_fallback``
-(CIGARs without the native library raise).
+Not ported yet: ``mesh`` (raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
 from .. import native
+from ..aligners.astarpa2 import AstarPa2Params
 from ..device import resolve_device
 from ..domain import domain_schedule, gap_domain
 from ..ops import banded, striped
 from ..ops.banded_kernel import (banded_ck, banded_ck_pp, banded_cost,
-                                 banded_cost_pp, pinned_ck, pinned_ck_pp,
-                                 pinned_cost, pinned_cost_pp, pinned_cost_takes,
-                                 route, striped_ck, striped_cost)
-from ..ops.bitpack import W
+                                 banded_cost_pp, banded_fill, pinned_ck,
+                                 pinned_ck_pp, pinned_cost, pinned_cost_pp,
+                                 pinned_cost_takes, route, striped_ck,
+                                 striped_cost)
+from ..ops.bitpack import W, n_words
 from ..ops.pack import pack_batch_staggered
 from ..ops.words import to_tensor
 from ..types import Cigar, CigarOp
@@ -87,7 +108,6 @@ STRIPED_MIN_SW = 64
 PINNED_PP_MIN_SW = 64
 
 _TODO_MESH = "ROADMAP.md queue 1 item 12 (multi-GPU and multi-host)"
-_TODO_HOST = "ROADMAP.md queue 1 item 15 (the host-only CIGAR fallback)"
 
 
 @dataclass
@@ -99,11 +119,12 @@ class BatchStats:
     aligned_bp: int = 0
     # Pairs whose CIGAR came from the direct whole-pair DT trace.
     direct_traces: int = 0
-    # What ran the last rung or round (a label of ``banded_kernel.route``:
-    # "cuda-banded", "cuda-banded-ck", "cuda-banded-pp", "cuda-banded-ck-pp",
-    # "cuda-striped", "cuda-striped-ck", "cuda-pinned", "cuda-pinned-ck",
-    # "cuda-pinned-pp", "cuda-pinned-pp-ck", or "torch-ref" on the CPU), set
-    # at dispatch.
+    # What ran the last rung, round or fill (a label of
+    # ``banded_kernel.route``: "cuda-banded", "cuda-banded-ck",
+    # "cuda-banded-fill", "cuda-banded-fill-pp", "cuda-banded-pp",
+    # "cuda-banded-ck-pp", "cuda-striped", "cuda-striped-ck", "cuda-pinned",
+    # "cuda-pinned-ck", "cuda-pinned-pp", "cuda-pinned-pp-ck", or "torch-ref"
+    # on the CPU), set at dispatch.
     kernel: str | None = None
 
 
@@ -126,7 +147,14 @@ class BatchAligner:
       ck_col_block: checkpoint interval (columns) of the ck rungs and
         rounds; None = ``max(4096, band, n_max // 32)`` (see :meth:`_cb`).
       direct_dt: CIGARs by direct DT traces where the certified costs fit
-        the native burst budget; False pins the checkpoint path.
+        the native burst budget; False pins the checkpoint path (or, with
+        ``combined=False``, the fill and host arms).
+      combined: CIGARs from the align rungs themselves (True), or from the
+        cost ladder followed by :meth:`_trace_bucket` (False): the
+        reference's two routes, which it picks by backend
+        (``runner.py:962-985``).  False is the reference-parity route
+        that gives K3 its caller, not a faster choice.  Without the
+        native library both end in :meth:`_align_host_fallback`.
       shape_quantum: padded-geometry quantum ("auto" as the reference).
       device: None or "cuda" (the card; raises without one) or "cpu" (the
         kernels' plain torch versions).
@@ -143,6 +171,7 @@ class BatchAligner:
     max_f_rounds: int = 10
     ck_col_block: int | None = None
     direct_dt: bool = True
+    combined: bool = True
     shape_quantum: object = "auto"
     device: object = None
     # Warm-start band hints: bucket class -> the tightest band the last
@@ -718,13 +747,31 @@ class BatchAligner:
         return self.align_with_stats(pairs)[0]
 
     def align_with_stats(self, pairs) -> tuple[list[tuple[int, Cigar]], BatchStats]:
-        """Costs and CIGARs: each rung or domain round certifies costs on
-        the device, and its certified pairs are traced on the host (direct
-        DT traces from the certified costs, or checkpoint traces)."""
-        results, stats, trace_jobs = self._align_dispatch_finish(
-            self._align_dispatch_start(pairs)
-        )
-        self._flush_traces(trace_jobs, pairs, results)
+        """Costs and CIGARs.  With :attr:`combined` each rung or domain
+        round certifies costs on the device, and its certified pairs are
+        traced on the host (direct DT traces from the certified costs, or
+        checkpoint traces).  Otherwise the cost ladder runs first and
+        :meth:`_trace_bucket` traces each bucket from the certified costs.
+        Without the native library: :meth:`_align_host_fallback`."""
+        if native.available() and self.combined:
+            results, stats, trace_jobs = self._align_dispatch_finish(
+                self._align_dispatch_start(pairs)
+            )
+            self._flush_traces(trace_jobs, pairs, results)
+            return results, stats
+
+        costs, stats = self.cost_with_stats(pairs)
+        if not native.available():
+            return self._align_host_fallback(pairs, costs), stats
+        results: list = [None] * len(pairs)
+        todo = []
+        for idx, (a, b) in enumerate(pairs):
+            if len(a) == 0 or len(b) == 0:
+                results[idx] = (int(costs[idx]), _trivial_cigar(a, b))
+            else:
+                todo.append(idx)
+        for bucket in _buckets(pairs, todo):
+            self._trace_bucket(pairs, bucket, costs, results, stats)
         return results, stats
 
     def align_iter(self, batches):
@@ -732,7 +779,12 @@ class BatchAligner:
         input batch, in order.  Batch k+1 is dispatched before batch k is
         certified, and batch k's traces run on a side thread while batch
         k+1 certifies and k+2 dispatches; yields trail the input by up to
-        two batches."""
+        two batches.  Without :attr:`combined` or the native library, each
+        batch runs :meth:`align_with_stats` in turn."""
+        if not (native.available() and self.combined):
+            for pairs in batches:
+                yield self.align_with_stats(pairs)
+            return
         started = None    # (pairs, state) dispatched, not certified
         flushing = None   # (results, stats, future)
         it = iter(batches)
@@ -769,10 +821,6 @@ class BatchAligner:
         """Pack and dispatch the first rung of every shared-ladder bucket,
         nothing synchronised, and start the gcsh builds of the domain
         buckets; :meth:`_align_dispatch_finish` certifies."""
-        if not native.available():
-            raise NotImplementedError(
-                f"CIGARs without the native library: see {_TODO_HOST}"
-            )
         stats, out, buckets = self._cost_batch(pairs)
         results: list = [None] * len(pairs)
         for idx in np.flatnonzero(out >= 0):
@@ -838,6 +886,113 @@ class BatchAligner:
                     results[i] = (cost, cigar)
         trace_jobs.clear()
 
+    def _trace_bucket(self, pairs, idxs, costs, results, stats: BatchStats) -> None:
+        """CIGARs of one bucket from its certified costs (the reference's
+        ``_trace_bucket``, ``runner.py:1579-1704``, without its TPU-only
+        checkpoint arm).  Costs within the native burst budget trace
+        directly; the rest repack at the least band that certifies them
+        all: above 64 words each pair runs on the host (native A* when
+        ``cost * 12 < min(n, m)``, else the block aligner), else K3 fills
+        every column's window planes, which cross to the host once, and
+        ``native.trace_banded`` traces each pair from them.  A trace whose
+        cost differs from the certified one raises."""
+        if self.direct_dt:
+            direct_idx = [i for i in idxs if costs[i] <= native.DIRECT_DT_MAX]
+            if direct_idx:
+                ns = np.array([len(pairs[i][0]) for i in direct_idx], np.int32)
+                ms = np.array([len(pairs[i][1]) for i in direct_idx], np.int32)
+                n_max = max(8, int(ns.max()))
+                S = max(1, n_words(int(ms.max())))
+                diag = self._diag(ns, ms, len(direct_idx), n_max, S)
+                sw = self._certifying_band([costs[i] for i in direct_idx], ns, ms, S, diag)
+                if sw > 64:
+                    sw = min(-(-sw // 8) * 8, S)
+                shift = banded.shift_at_array(n_max, S, sw, diag)
+                jobs = [
+                    _TraceJob(pair=i, slices=None, pos=0, shift=shift,
+                              s_words=S, sw=sw, cb=0, want=int(costs[i]))
+                    for i in direct_idx
+                ]
+                self._flush_traces(jobs, pairs, results)
+                idxs = [i for i in idxs if costs[i] > native.DIRECT_DT_MAX]
+                if not idxs:
+                    return
+
+        bucket_pairs = [pairs[i] for i in idxs]
+        args, B0 = pack_batch_staggered(
+            bucket_pairs, self.lane_multiple,
+            shape_quantum=self._shape_quantum(bucket_pairs), device=self.device,
+        )
+        n, m = args[4], args[5]
+        n_max, S = args[0].shape[0], args[2].shape[0]
+        diag = self._diag(n, m, B0, n_max, S)
+        sw = self._certifying_band([costs[i] for i in idxs], n[:B0], m[:B0], S, diag)
+        if sw > 64:
+            # Too tall for the fill's planes: exact per-pair traces on the
+            # host, native A* at moderate divergence, the band-doubling
+            # block aligner where A*'s open set would explode.
+            block_aligner = None
+            for i in idxs:
+                a, b = pairs[i]
+                if int(costs[i]) * 12 >= min(len(a), len(b)):
+                    if block_aligner is None:
+                        block_aligner = replace(AstarPa2Params.simple(),
+                                                device=self.device).make_aligner(True)
+                    cost, cigar = block_aligner.align(a, b)
+                else:
+                    cost, cigar = native.astarpa_native(a, b)
+                _check_trace(cost, costs[i])
+                results[i] = (cost, cigar)
+            return
+        shift = banded.shift_at_array(n_max, S, sw, diag)
+        _, vp_cols, vm_cols = banded_fill(*args, sw, diag)
+        stats.kernel = route(self.device, "banded_fill")
+        # The real lanes only, pair-major so that each pair's planes are
+        # one contiguous block, into pinned host memory in one copy.
+        vp_h, vm_h = (x.view(np.uint32) for x in _Readback(*(
+            x[:, :, :B0].permute(2, 0, 1).contiguous() for x in (vp_cols, vm_cols)
+        )).numpy())
+        del vp_cols, vm_cols
+        lo = np.cumsum(shift).astype(np.int32)  # top word after col i's shift
+
+        def run(slot: int, i: int):
+            a, b = pairs[i]
+            cost, cigar = native.trace_banded(a, b, vp_h[slot, :len(a)],
+                                              vm_h[slot, :len(a)], lo[:len(a)], sw)
+            _check_trace(cost, costs[i])
+            return i, cost, cigar
+
+        with ThreadPoolExecutor(max(1, min(len(idxs), os.cpu_count() or 1))) as ex:
+            for i, cost, cigar in ex.map(run, range(len(idxs)), idxs):
+                results[i] = (cost, cigar)
+
+    def _certifying_band(self, want, n, m, S: int, diag) -> int:
+        """The least doubling of the start band whose threshold certifies
+        every cost in ``want`` (at most the full height S)."""
+        want = np.asarray(want)
+        sw = min(self.band_words, S)
+        while sw < S and not (want <= banded.band_threshold(sw, n, m, *diag)).all():
+            sw *= 2
+        return min(sw, S)
+
+    def _align_host_fallback(self, pairs, costs) -> list[tuple[int, Cigar]]:
+        """CIGARs without the native library: the block aligner
+        (``AstarPa2Params.simple()``, its block DP in torch on this
+        aligner's device) on every pair, held to the certified costs."""
+        aligner = replace(AstarPa2Params.simple(), device=self.device).make_aligner(True)
+        results = []
+        for (a, b), c in zip(pairs, costs):
+            cost, cigar = aligner.align(a, b)
+            _check_trace(cost, c)
+            results.append((cost, cigar))
+        return results
+
+
+def _check_trace(cost: int, certified) -> None:
+    """A trace must land on the certified cost (the reference asserts it)."""
+    if cost != certified:
+        raise RuntimeError(f"device cost {certified} != trace cost {cost}")
+
 
 class _Readback:
     """Device results on their way to the host: the copies into pinned
@@ -847,11 +1002,9 @@ class _Readback:
     def __init__(self, *ts: torch.Tensor):
         self.event = None
         if ts[0].device.type == "cuda":
-            self.host = []
-            for t in ts:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host = [_pinned_like(t) for t in ts]
+            for h, t in zip(self.host, ts):
                 h.copy_(t, non_blocking=True)
-                self.host.append(h)
             self.event = torch.cuda.Event()
             self.event.record(torch.cuda.current_stream(ts[0].device))
         else:
@@ -863,6 +1016,12 @@ class _Readback:
             self.event.synchronize()
         arrs = [h.numpy() for h in self.host]
         return arrs[0] if len(arrs) == 1 else arrs
+
+
+def _pinned_like(t: torch.Tensor) -> torch.Tensor:
+    """An empty pinned host tensor of ``t``'s shape and dtype (torch's
+    caching host allocator hands back freed blocks)."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
 
 
 @dataclass

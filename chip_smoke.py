@@ -110,7 +110,7 @@ Phases, one output line each (any failure exits non-zero):
 21. K8 alone on phase 20's whole rung over chained launches; K8 against its
     plain version and against K2 on that rung cut to its first 1024
     columns; K8 against K6 on config #5's cut (4096 columns, SW = 2048, CB
-    = 2056), each beside its bound; the bound of K3, not ported;
+    = 2056), each beside its bound;
 22. the resident-ring cost kernel K7 against its plain version on a grid
     (B 1/33/160, n <= 1500 with n == 0 and m == 0 lanes, SW 8, 13, 64, 67,
     256 and a full height S ~ 280 off the 8-grain, a skewed bucket, rings
@@ -122,17 +122,38 @@ Phases, one output line each (any failure exits non-zero):
     against K5 on whole rungs in turns (K5, K7, K7, K5): config #4's pack
     (phase 20's) at SW 64 to 2048 and its full height 3149, config #5's at
     SW 3072 and 4096, the bands behind the runner's K7/K5 routing;
+24. the banded fill kernel K3 against its plain versions in both schedule
+    modes on a grid (B 1/37/128, n <= 100 with n == 0 and m == 0 lanes, SW 1,
+    8, 28, 32, 64 and a full height of 72 words, a diagonal whose only
+    shift is at column 0, per-pair schedules with Q 32/8/1 shifting at
+    column 0 and at the last column), bit for bit on costs and both planes;
+25. main path, the cost-then-trace align route on phase 8's 512 pairs of
+    10 kbp at e=5%: ``BatchAligner(device="cuda", combined=False,
+    direct_dt=False).align_with_stats`` (K1 cost rungs, one K3 fill, the
+    planes read back once, a native ``trace_banded`` per pair), costs equal
+    to phase 8's, all 512 CIGARs verified, split by layer, peak device
+    memory; the same pairs with ``direct_dt=True`` (the direct arm);
+    ``align_iter`` over three of phase 4's batches; then K3 alone on the
+    whole pack over chained launches against its bound, and K3 (both modes)
+    against its plain versions on the pack cut to its first 1024 columns;
+26. the host arm and the fallback: a 30 kbp pair at e=3% with 1100 bp cut
+    from b (native A*) and a 10 kbp pair at e=30% (the block aligner)
+    through ``combined=False, direct_dt=False``; the block aligner with its
+    block DP in torch on the card on three 2 kbp pairs, and
+    ``BatchAligner(device="cuda").align`` on them with the native library
+    reported missing (``_align_host_fallback``); costs against
+    ``oracle.levenshtein_myers``, CIGARs verified;
 
 then the host seconds of each phase, the kernels' JSON line (each
 kernel's time, its plain version's, its bound from this run's inputs, its
 launches on the main path), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
-The plain sweeps of phases 5, 9, 12, 15 and 21 run on their packs' first
-columns, the grids of phases 2 and 6 hold a few cases each, and the pairs
+The plain sweeps of phases 5, 9, 12, 15, 21 and 25 run on their packs'
+first columns, the grids of phases 2 and 6 hold a few cases each, and the pairs
 are generated and the CIGARs verified on one pool of the host's cores,
 started once for the whole run, to keep the run short.  Launch counts are
 reset just before each main-path phase (3-4, 7, 8, 11, 14, 17, both calls
-of 20) and read just after it.  Imports nothing of JAX and nothing of the
+of 20, 25) and read just after it.  Imports nothing of JAX and nothing of the
 JAX package.  Exits 1 without a usable GPU.
 """
 
@@ -142,6 +163,7 @@ import json
 import multiprocessing
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
@@ -189,6 +211,10 @@ K7_CHAINED = 2
 K7_SWEEP_SW = (64, 128, 256, 512, 1024, 2048)  # phase 23, config #4's pack
 K7_SWEEP_C5_SW = (3072, 4096)  # phase 23, config #5's pack
 K7_GRID_LONG_N, K7_GRID_TALL_M = 5000, 38_000  # phase 22: ~1188 words, 4.6 rings of 256
+K3_GRID_PAIRS, K3_GRID_N, K3_COL0_SW = 128, 100, 8  # phase 24
+K3_CHAINED = 2
+K3_STREAM_BATCHES = 3  # phase 25's align_iter, over phase 4's batches
+K3_BLOCK_N, K3_BLOCK_ERRS = 2000, (0.05, 0.15, 0.1)  # phase 26's torch block DP
 WORKERS = 8
 
 # The card's limits for each kernel's bound (the least time the card could
@@ -947,9 +973,9 @@ def phase7_config4(spy: RoundSpy) -> tuple[dict, tuple, tuple]:
     return launches, c4_round, (pairs, c4_costs, c4_oracle)
 
 
-def phase8_ck(spy: RoundSpy) -> dict:
+def phase8_ck(spy: RoundSpy) -> tuple[dict, tuple]:
     """K2 on the main path: one 512-pair 10 kbp align with direct_dt=False;
-    returns the launch counts of its run."""
+    returns the launch counts of its run, and its pairs and costs."""
     pairs = _generate(CK_PAIRS, LENGTH, ERR, SEED + 200)
     ba = BatchAligner(device="cuda", direct_dt=False)
     banded_kernel.reset_launches()
@@ -962,11 +988,12 @@ def phase8_ck(spy: RoundSpy) -> dict:
     if not launches["banded_ck"] or st.direct_traces or st.kernel != "cuda-banded-ck":
         fail(f"ck align: K2 launches {launches['banded_ck']}, direct traces "
              f"{st.direct_traces}, kernel {st.kernel!r}")
-    _verify(pairs, res, BatchAligner(device="cuda").cost(pairs))
+    costs = BatchAligner(device="cuda").cost(pairs)
+    _verify(pairs, res, costs)
     say(f"[8 ck align] {CK_PAIRS} x {LENGTH} bp e={ERR}, direct_dt=False: {dt:.4f} s "
         f"({dt / CK_PAIRS * 1e3:.4f} ms/pair), {CK_PAIRS} CIGARs verified at the K1 "
         f"costs; rungs [{', '.join(rounds)}], retries {st.band_retries}")
-    return launches
+    return launches, (pairs, costs)
 
 
 def _turns(plain, kernels):
@@ -2051,21 +2078,6 @@ def phase21_time(spy20: RoundSpy, c5_spy: RoundSpy) -> dict:
             "c5_cut_bound_ms": bnd5, "c5_cut_shape": shape5}
 
 
-def unported_bounds(spy: RoundSpy) -> str:
-    """The bound of the kernel still to port, from this run's inputs: K3
-    (every column's window planes, ``banded_fill``) at phase 8's ck pack
-    and ladder band, where writing its (n_max, SW, B) planes twice over
-    outweighs the word steps."""
-    *planes, sw, _, _ = spy.last["banded_ck"]
-    n_max, B = planes[0].shape
-    sw = min(sw, planes[2].shape[0])
-    in_bytes = sum(x.numel() * x.element_size() for x in planes[:4]) + 8 * B
-    k3 = bound(int(np.asarray(planes[4], np.int64).sum()) * sw, in_bytes, 2 * 4 * n_max * sw * B)
-    shape = {"B": B, "n_max": n_max, "S": planes[2].shape[0], "SW": sw}
-    return (f"[21 unported] K3 at phase 8's pack {shape}: bound {k3['bound_ms']:.4f} ms "
-            f"({k3['bound_by']})")
-
-
 def phase22_grid(wide, narrow) -> tuple[int, int]:
     """K7 == plain on a grid: phase 10's 160- and 33-lane packs (n <= 1500,
     an n == 0 lane, a skewed pair making S ~ 280 off the 8-grain) with an
@@ -2225,6 +2237,450 @@ def phase23_time(c5_spy: RoundSpy, c4_spy: RoundSpy) -> dict:
             {"c5_rung_alone_ms": k5_ms, "c5_rung_bound_ms": bnd, "c5_rung_shape": shape})
 
 
+def _fill_pack(rng, count: int):
+    """Phase 24's 128-lane pack: n <= K3_GRID_N with an n == 0 and an m == 0
+    lane, and one tall b (2280 rows, S = 72 words) so that bands of up to 64
+    words stay below full height."""
+    pairs = _random_pairs(rng, count, K3_GRID_N, K3_GRID_N)
+    pairs[3] = (pairs[3][0], b"")
+    pairs[4] = (b"GATTACA" * 14, b"TACGGA" * 380)
+    return pack_batch_staggered(pairs, 1, device="cuda")[0]
+
+
+def _fill_schedules(rng, n_max: int, B: int, sw: int, S: int, q: int, args) -> np.ndarray:
+    """Per-pair schedules for K3's per-pair mode: the pairs' own gap
+    schedules (at Q = 32), or random shifts at multiples of ``q``; every
+    lane shifts at column 0 and, where room is left, at the last quantum
+    column."""
+    if q == banded.SCHEDULE_Q:
+        sched, _ = banded.pair_gap_schedule(args[4], args[5], sw, n_max, S)
+    else:
+        sched = _random_schedule(rng, n_max, B, q)
+    if S > sw:
+        sched[0] = 1
+        sched[n_max - 1 - (n_max - 1) % q] = 1
+    return sched
+
+
+def phase24_grid() -> int:
+    """K3 == plain in both schedule modes on a grid: B 1/37/128 (the first
+    lanes of one 128-lane pack, so one plain sweep serves all three), SW 1,
+    8, 28, 32, 64 and a full height of 72 words, a diagonal whose only shift
+    is at column 0, per-pair schedules (Q 32/8/1) shifting at column 0 and
+    at the last column; costs and both planes on every row.  Returns the
+    max abs difference."""
+    rng = np.random.default_rng(24)
+    args = _fill_pack(rng, K3_GRID_PAIRS)
+    n_max, S, B = args[0].shape[0], args[2].shape[0], args[0].shape[1]
+    packs = [_lanes(args, k) for k in (1, 37)] + [args]
+    worst, cases = 0, 0
+    t0 = time.perf_counter()
+    col0 = (1, (K3_COL0_SW * 32 // 2 + 32) * 2)  # desired word 1 at every column
+    shared = [(sw, None) for sw in (1, 8, 28, 32, 64, S)]
+    shared.append((K3_COL0_SW, col0))
+    for sw, diag in shared:
+        if diag == col0 and banded.shift_at_array(n_max, S, sw, diag)[:2].tolist() != [1, 0]:
+            fail("phase 24: the column-0 diagonal does not shift at column 0 only")
+        ref = banded.banded_fill_ref(*args, sw, diag)
+        for planes in packs:
+            k = planes[0].shape[1]
+            err = _max_err(banded_kernel.banded_fill(*planes, sw, diag),
+                           (ref[0][:k], ref[1][:, :, :k], ref[2][:, :, :k]))
+            if err:
+                fail(f"K3 != plain at B={k} SW={sw} diag={diag}")
+            worst, cases = max(worst, err), cases + 1
+    for sw, q in ((8, 32), (28, 8), (64, 1)):
+        sched = _fill_schedules(rng, n_max, B, sw, S, q, args)
+        ref = banded.banded_fill_pp_ref(*args, sched, sw, q)
+        for planes in packs:
+            k = planes[0].shape[1]
+            got = banded_kernel.banded_fill_pp(*planes, np.ascontiguousarray(sched[:, :k]),
+                                               sw, q)
+            err = _max_err(got, (ref[0][:k], ref[1][:, :, :k], ref[2][:, :, :k]))
+            if err:
+                fail(f"K3 per-pair != plain at B={k} SW={sw} Q={q}")
+            worst, cases = max(worst, err), cases + 1
+    say(f"[24 K3=plain] {cases}/{cases} cases equal (B 1/37/{B}, n_max {n_max}, S {S}, shared "
+        f"SW 1/8/28/32/64/{S} and a column-0 shift, per-pair Q 32/8/1 shifting at column 0 "
+        f"and the last column, n == 0 and m == 0 lanes), costs and both planes on every "
+        f"row, max_abs_err {worst}, {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+class FillSpy:
+    """Splits one call of the cost-then-trace route: the pack (host clock),
+    K1 and K3 (CUDA events around each launch), the planes' readback in
+    three parts (CUDA events: K3's end to the readback's start is the
+    transpose to pair-major; from there to the last pinned allocation is
+    the time the card waits on the host allocating the pinned buffers,
+    whose host seconds are summed apart; from there to the copies' end is
+    the copy), the traces (host clock from the first native
+    ``trace_banded`` call's start to the last one's end, and the seconds
+    summed over the pool's threads); keeps K3's last inputs."""
+
+    def __init__(self):
+        self._orig = (runner.pack_batch_staggered, runner.banded_cost, runner.banded_fill,
+                      runner._Readback.__init__, runner._pinned_like,
+                      runner.native.trace_banded)
+        self.reset()
+
+    def reset(self):
+        self.pack_s = 0.0
+        self.k1, self.k3, self.readback = [], [], []
+        self.alloc_s = 0.0
+        self.trace_span, self.trace_sum = [None, None], 0.0
+        self._fill_end = None
+        self._alloc_end = None
+        self.lock = threading.Lock()
+
+    def install(self):
+        pack, k1, k3, rb_init, pinned, trace = self._orig
+
+        def timed_pack(*args, **kw):
+            t0 = time.perf_counter()
+            out = pack(*args, **kw)
+            self.pack_s += time.perf_counter() - t0
+            return out
+
+        def evented(fn, store: str, fill=False):
+            def call(*args):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn(*args)
+                b.record()
+                getattr(self, store).append((a, b))  # reset() replaces the lists
+                if fill:
+                    self.last = args
+                    self._fill_end = b
+                return out
+            return call
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def timed_pinned(t):
+            if self._fill_end is None:  # not the fill arm's planes
+                return pinned(t)
+            t0 = time.perf_counter()
+            out = pinned(t)
+            self.alloc_s += time.perf_counter() - t0
+            self._alloc_end = event()
+            return out
+
+        def rb(readback, *ts):
+            if self._fill_end is None:
+                return rb_init(readback, *ts)
+            start = event()  # the transposes were queued before this call
+            rb_init(readback, *ts)
+            self.readback.append((self._fill_end, start, self._alloc_end, event()))
+            self._fill_end = self._alloc_end = None
+
+        def timed_trace(*args, **kw):
+            t0 = time.perf_counter()
+            out = trace(*args, **kw)
+            t1 = time.perf_counter()
+            with self.lock:
+                self.trace_sum += t1 - t0
+                lo, hi = self.trace_span
+                self.trace_span = [t0 if lo is None else min(lo, t0), max(hi or t1, t1)]
+            return out
+
+        runner.pack_batch_staggered = timed_pack
+        runner.banded_cost = evented(k1, "k1")
+        runner.banded_fill = evented(k3, "k3", fill=True)
+        runner._Readback.__init__ = rb
+        runner._pinned_like = timed_pinned
+        runner.native.trace_banded = timed_trace
+
+    def remove(self):
+        (runner.pack_batch_staggered, runner.banded_cost, runner.banded_fill,
+         runner._Readback.__init__, runner._pinned_like,
+         runner.native.trace_banded) = self._orig
+
+    def split(self, wall: float) -> dict:
+        torch.cuda.synchronize()
+        ms = lambda evs: sum(a.elapsed_time(b) for a, b in evs)
+        parts = lambda k: sum(evs[k].elapsed_time(evs[k + 1]) for evs in self.readback)
+        traces = (self.trace_span[1] - self.trace_span[0]) if self.trace_span[0] else 0.0
+        out = {"pack_s": self.pack_s, "k1_ms": ms(self.k1), "k1_launches": len(self.k1),
+               "k3_ms": ms(self.k3), "k3_launches": len(self.k3),
+               "transpose_ms": parts(0), "alloc_wait_ms": parts(1), "copy_ms": parts(2),
+               "alloc_host_s": self.alloc_s, "traces_s": traces,
+               "traces_thread_s": self.trace_sum}
+        out["readback_ms"] = out["transpose_ms"] + out["alloc_wait_ms"] + out["copy_ms"]
+        out["other_s"] = wall - self.pack_s - traces - (
+            out["k1_ms"] + out["k3_ms"] + out["readback_ms"]) / 1e3
+        return out
+
+
+def _say_split(label: str, split: dict, wall: float, gib: float, traces: bool = True) -> None:
+    """Prints a split; ``traces`` False leaves out the traces and the rest,
+    whose host spans overlap when the split covers several calls."""
+    rest = (f", traces {split['traces_s']:.4f} s ({split['traces_thread_s']:.3f} s over the "
+            f"pool's threads), other {split['other_s']:.4f} s of {wall:.4f} s") if traces else ""
+    say(f"[{label}] pack {split['pack_s']:.4f} s, K1 {split['k1_ms']:.3f} ms over "
+        f"{split['k1_launches']} launches, K3 {split['k3_ms']:.3f} ms over "
+        f"{split['k3_launches']}, plane readback ({gib:.3f} GiB) "
+        f"{split['readback_ms']:.3f} ms = transpose {split['transpose_ms']:.3f} + card waiting "
+        f"on the pinned allocation {split['alloc_wait_ms']:.3f} (host "
+        f"{split['alloc_host_s'] * 1e3:.3f} ms allocating) + copy to pinned memory "
+        f"{split['copy_ms']:.3f} ms (CUDA events){rest}")
+
+
+def _plane_gib(args) -> float:
+    """GiB of the two uint32 planes a fill of K3 inputs ``args`` writes."""
+    *planes, sw, _ = args
+    return 2 * 4 * planes[0].shape[0] * sw * planes[0].shape[1] / 2**30
+
+
+def _plain_then_kernel(plain, kernel) -> tuple[float, list[float], int]:
+    """The plain version once, then the kernel twice (CUDA events); returns
+    (plain ms, kernel ms of each run, max abs difference)."""
+    plain_ms, ref = _event_ms(plain)
+    runs = [_event_ms(kernel) for _ in range(2)]
+    return plain_ms, [ms for ms, _ in runs], max(_max_err(got, ref) for _, got in runs)
+
+
+def _verify_all(pairs, results, costs, label: str) -> int:
+    """Every CIGAR verified at its cost on the run's processes, and the
+    costs equal to ``costs``; returns the count."""
+    got = [c for c, _ in results]
+    if got != [int(x) for x in costs]:
+        fail(f"{label}: {sum(g != int(w) for g, w in zip(got, costs))} costs differ")
+    ok = _pool(_verify_job, [(a, b, cig.to_string(), c)
+                             for (a, b), (c, cig) in zip(pairs, results)])
+    if not all(ok):
+        fail(f"{label}: {len(ok) - sum(ok)} CIGARs do not verify at their cost")
+    return len(ok)
+
+
+def phase25_route(p8, batches) -> tuple[dict, FillSpy, dict]:
+    """The cost-then-trace route on phase 8's 512 x 10 kbp pairs:
+    ``BatchAligner(device="cuda", combined=False, direct_dt=False)
+    .align_with_stats`` (K1 cost rungs, one K3 fill, a native trace per
+    pair), called twice on one aligner and split by layer; the second call
+    is the steady state, the first also pays the process's first pinned
+    allocation of the planes' size.  Then the same pairs with
+    ``direct_dt=True`` (the direct arm) and ``align_iter`` over three of
+    phase 4's batches, split the same way.  Returns the launches of the two
+    route calls, the spy and the second call's split."""
+    pairs, costs8 = p8
+    bp = sum(len(a) for a, _ in pairs)
+    ba = BatchAligner(device="cuda", combined=False, direct_dt=False)
+    spy = FillSpy()
+    spy.install()
+    banded_kernel.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    calls = []
+    for _ in range(2):
+        spy.reset()
+        t0 = time.perf_counter()
+        res, st = ba.align_with_stats(pairs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        calls.append((res, st, dt, spy.split(dt)))
+    launches = dict(banded_kernel.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    spy.remove()
+    for res, st, _, split in calls:
+        if split["k3_launches"] != 1 or st.kernel != "cuda-banded-fill" or st.direct_traces:
+            fail(f"trace route: K3 launches {split['k3_launches']}, kernel {st.kernel!r}, "
+                 f"direct traces {st.direct_traces}")
+    if launches["banded_fill"] != 2:
+        fail(f"trace route: {launches['banded_fill']} K3 launches in two calls")
+    route_args = spy.last
+    *planes, sw, diag = route_args
+    n_max, S, B = planes[0].shape[0], planes[2].shape[0], planes[0].shape[1]
+    n_ok = sum(_verify_all(pairs, res, costs8, f"trace route call {k + 1}")
+               for k, (res, *_) in enumerate(calls))
+    for k, (res, st, dt, split) in enumerate(calls):
+        say(f"[25 route] call {k + 1} of BatchAligner(device='cuda', combined=False, "
+            f"direct_dt=False).align_with_stats on phase 8's {len(pairs)} x {LENGTH} bp "
+            f"e={ERR} pairs: {dt:.4f} s = {dt / len(pairs) * 1e3:.4f} ms/pair = "
+            f"{bp / dt / 1e6:.3f} Mbp/s cost+CIGAR; K3 at n_max {n_max}, S {S}, SW {sw}, "
+            f"B {B}, kernel {st.kernel}; costs == phase 8's {len(pairs)}/{len(pairs)}")
+        _say_split(f"25 split call {k + 1}", split, dt, _plane_gib(route_args))
+    say(f"[25 route] launches over both calls {launches['banded_cost']} K1, "
+        f"{launches['banded_fill']} K3; {n_ok} CIGARs verified at their cost")
+    say(f"[25 memory] peak device memory {peak:.3f} GiB, {peak - held:.3f} GiB above the "
+        f"{held:.3f} GiB that earlier phases still held")
+
+    bd = BatchAligner(device="cuda", combined=False, direct_dt=True)
+    banded_kernel.reset_launches()
+    t0 = time.perf_counter()
+    res_d, st_d = bd.align_with_stats(pairs)
+    dt_d = time.perf_counter() - t0
+    if banded_kernel.LAUNCHES["banded_fill"]:
+        fail("the direct arm launched K3")
+    n_d = _verify_all(pairs, res_d, costs8, "direct arm")
+    say(f"[25 direct] the same pairs with direct_dt=True (the direct arm, no fill): "
+        f"{dt_d:.4f} s = {dt_d / len(pairs) * 1e3:.4f} ms/pair; {n_d} CIGARs verified")
+
+    stream = batches[:K3_STREAM_BATCHES]
+    spy.reset()
+    spy.install()
+    t0 = time.perf_counter()
+    got = list(ba.align_iter(iter(stream)))
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t0
+    split_s = spy.split(dt_s)
+    spy.remove()
+    iter_gib = _plane_gib(spy.last)
+    spy.last = route_args  # phase25_time runs K3 alone on the route's pack
+    if len(got) != len(stream):
+        fail("align_iter lost a batch on the trace route")
+    n_s = 0
+    cost_ba = BatchAligner(device="cuda")
+    for batch, (r, st_s) in zip(stream, got):
+        if st_s.kernel != "cuda-banded-fill":
+            fail(f"align_iter batch ran {st_s.kernel!r}")
+        n_s += _verify_all(batch, r, cost_ba.cost(batch), "align_iter trace route")
+    say(f"[25 align_iter] combined=False, direct_dt=False over {len(stream)} x "
+        f"{STREAM_PAIRS} pairs on the same aligner: {dt_s:.4f} s = "
+        f"{dt_s / (len(stream) * STREAM_PAIRS) * 1e3:.4f} ms/pair, {n_s} CIGARs verified, "
+        f"costs == cost()")
+    _say_split("25 split align_iter", split_s, dt_s, iter_gib, traces=False)
+    first, steady = calls[0][3], calls[1][3]
+    steady.update(wall_s=calls[1][2], first_wall_s=calls[0][2], first=first,
+                  shape={"B": B, "n_max": n_max, "S": S, "SW": sw}, peak_gib=peak,
+                  direct_s=dt_d, align_iter_s=dt_s, align_iter=split_s)
+    return launches, spy, steady
+
+
+def phase25_time(spy: FillSpy, split: dict) -> tuple[dict, dict]:
+    """K3 alone on phase 25's whole pack over chained launches against its
+    bound (bytes: both planes written once, the inputs read once); K3
+    against its plain version on that pack cut to its first CUT_COLS
+    columns (the plain once, then the kernel twice, as phase 5), and K3's
+    per-pair mode on the cut with the pairs' gap schedules.  Returns the two JSON records (without launches)."""
+    torch.cuda.synchronize()
+    *planes, sw, diag = spy.last
+    outs = banded_kernel.banded_fill(*planes, sw, diag)
+    bnd = plane_bound(planes, sw, outs)
+    del outs
+    alone = _chained_ms(lambda: banded_kernel.banded_fill(*planes, sw, diag), K3_CHAINED)
+    shape = split["shape"]
+    say(f"[25 K3 alone] K3 on the whole pack {shape}, {K3_CHAINED} chained launches behind "
+        f"an untimed one: {alone:.3f} ms a launch vs bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}, {alone / bnd['bound_ms']:.1f}x); in the path's call "
+        f"{split['k3_ms']:.3f} ms (CUDA events around the wrapper)")
+    cut = _cut(planes, CUT_COLS)
+    dg = _cut_diag(cut)
+    plain_ms, kernel_ms, err = _plain_then_kernel(
+        lambda: banded.banded_fill_ref(*cut, sw, dg),
+        lambda: banded_kernel.banded_fill(*cut, sw, dg))
+    if err:
+        fail("K3 != plain on the path's cut")
+    cbnd = plane_bound(cut, sw, banded_kernel.banded_fill(*cut, sw, dg))
+    n_max_c, S_c, B_c = cut[0].shape[0], cut[2].shape[0], cut[0].shape[1]
+    sched, _ = banded.pair_gap_schedule(cut[4], cut[5], sw, n_max_c, S_c)
+    pp_plain, pp_ms, pp_err = _plain_then_kernel(
+        lambda: banded.banded_fill_pp_ref(*cut, sched, sw),
+        lambda: banded_kernel.banded_fill_pp(*cut, sched, sw))
+    if pp_err:
+        fail("K3 per-pair != plain on the path's cut")
+    cshape = {"B": B_c, "n_max": n_max_c, "S": S_c, "SW": sw}
+    say(f"[25 K3 cut] the path's pack cut to its first {CUT_COLS} columns {cshape}, plain once "
+        f"then the kernel twice: K3 {kernel_ms[0]:.3f}/{kernel_ms[1]:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {cbnd['bound_ms']:.4f} ms; per-pair K3 on the pairs' gap "
+        f"schedules {pp_ms[0]:.3f}/{pp_ms[1]:.3f} ms, plain {pp_plain:.1f} ms; both == plain on "
+        f"costs and both planes, max_abs_err {max(err, pp_err)} (CUDA events)")
+    fill = {"max_abs_err": err, "ms": alone, "plain_ms": plain_ms, **bnd,
+            "library_ms": None, "shape": shape, "cut_ms": float(np.mean(kernel_ms)),
+            "cut_bound_ms": cbnd["bound_ms"], "cut_shape": cshape,
+            "path_ms": split["k3_ms"]}
+    fill_pp = {"max_abs_err": pp_err, "ms": float(np.mean(pp_ms)),
+               "plain_ms": pp_plain, **cbnd, "library_ms": None,
+               "shape": cshape}
+    return fill, fill_pp
+
+
+def _high_div_pairs():
+    """Two pairs whose certified band exceeds 64 words: 30 kbp at e=3% with
+    1100 bp cut from b (cost * 12 < min(n, m): native A*), and 10 kbp at
+    e=30% (cost * 12 >= n: the block aligner)."""
+    a, b = att.generate.uniform_seeded(30_000, 0.03, 9)
+    return [(a, b[:10_000] + b[11_100:]), att.generate.uniform_seeded(10_000, 0.30, 10)]
+
+
+def phase26_host() -> dict:
+    """The host arm and the fallback on the card: the high-divergence pairs
+    through ``combined=False, direct_dt=False`` (both branches of the host
+    arm; with direct traces their costs would trace directly); then the
+    block aligner with its block DP in torch on the card
+    (``BlockKernel.use_native=False``) on pairs of ~2 kbp, and the runner's
+    ``_align_host_fallback`` with the native library reported missing.
+    Costs equal ``oracle.levenshtein_myers``, CIGARs verify; timed."""
+    from dataclasses import replace
+
+    from astarpa_tpu_torch.aligners import astarpa2
+    from astarpa_tpu_torch.ops.block_kernel import BlockKernel
+
+    pairs = _high_div_pairs()
+    want = [att.oracle.levenshtein_myers(a, b) for a, b in pairs]
+    calls = []
+    orig = (runner.native.astarpa_native, astarpa2.AstarPa2.align)
+
+    def spy(name, fn):
+        def call(*args, **kw):
+            calls.append(name)
+            return fn(*args, **kw)
+        return call
+
+    runner.native.astarpa_native = spy("native A*", orig[0])
+    astarpa2.AstarPa2.align = spy("block aligner", orig[1])
+    banded_kernel.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res, st = BatchAligner(device="cuda", combined=False,
+                               direct_dt=False).align_with_stats(pairs)
+    finally:
+        runner.native.astarpa_native, astarpa2.AstarPa2.align = orig
+    dt = time.perf_counter() - t0
+    if sorted(calls) != ["block aligner", "native A*"] or banded_kernel.LAUNCHES["banded_fill"]:
+        fail(f"host arm ran {calls} (K3 launches {banded_kernel.LAUNCHES['banded_fill']})")
+    _verify(pairs, res, want)
+    say(f"[26 host arm] combined=False on {[(len(a), len(b)) for a, b in pairs]} bp pairs, "
+        f"costs {want} (bands past 64 words): {calls} in {dt:.3f} s, costs == "
+        f"levenshtein_myers, CIGARs verified")
+
+    small = [att.generate.uniform_seeded(K3_BLOCK_N, e, 260 + k)
+             for k, e in enumerate(K3_BLOCK_ERRS)]
+    want_s = [att.oracle.levenshtein_myers(a, b) for a, b in small]
+    BlockKernel.use_native = False
+    try:
+        aligner = replace(astarpa2.AstarPa2Params.simple(), device="cuda").make_aligner(True)
+        t0 = time.perf_counter()
+        res_b = [aligner.align(a, b) for a, b in small]
+        torch.cuda.synchronize()
+        dt_b = time.perf_counter() - t0
+    finally:
+        BlockKernel.use_native = None
+    _verify(small, res_b, want_s)
+    orig_avail = runner.native.available
+    runner.native.available = lambda: False
+    try:
+        t0 = time.perf_counter()
+        res_f = BatchAligner(device="cuda").align(small)
+        torch.cuda.synchronize()
+        dt_f = time.perf_counter() - t0
+    finally:
+        runner.native.available = orig_avail
+    _verify(small, res_f, want_s)
+    if [c.to_string() for _, c in res_f] != [c.to_string() for _, c in res_b]:
+        fail("the fallback's CIGARs differ from the block aligner's")
+    say(f"[26 block] AstarPa2Params.simple().make_aligner(True) with BlockKernel.use_native="
+        f"False (the torch block DP on the card) on {len(small)} x {K3_BLOCK_N} bp pairs "
+        f"(e {list(K3_BLOCK_ERRS)}, costs {want_s}): {dt_b:.3f} s; BatchAligner(device="
+        f"'cuda').align with the native library reported missing (the cost ladder, then "
+        f"_align_host_fallback): {dt_f:.3f} s; costs == levenshtein_myers, CIGARs verified "
+        f"and equal")
+    return {"host_arm_s": dt, "block_torch_s": dt_b, "fallback_s": dt_f}
+
+
 class Laps:
     """Host seconds of each stretch of the run, printed at its end."""
 
@@ -2283,7 +2739,7 @@ def run() -> None:
     rounds.install()
     c4, c4_round, c4_batch = phase7_config4(rounds)
     lap("7")
-    ck = phase8_ck(rounds)
+    ck, p8 = phase8_ck(rounds)
     rounds.remove()
     counts = {k: c4[k] + ck[k] for k in RoundSpy.NAMES}
     if not ck["banded_ck"]:
@@ -2329,13 +2785,24 @@ def run() -> None:
         f"full-height ck path {{'pinned_ck': {k8_launches}}}")
     k8_record = phase21_time(k8_spy, c5_spy)
     k8_record["max_abs_err"] = max(k8_record["max_abs_err"], k8_grid_err)
-    say(unported_bounds(rounds))
     lap("21")
 
     k7_grid_err, _ = phase22_grid(grid_wide, grid_narrow)
     lap("22")
     k7_rung, k5_c5_rung = phase23_time(c5_spy, k8_spy)
     lap("23")
+
+    k3_grid_err = phase24_grid()
+    lap("24")
+    k3_counts, fill_spy, fill_split = phase25_route(p8, batches)
+    say(f"[main path] launches: trace route {{'banded_fill': {k3_counts['banded_fill']}, "
+        f"'banded_fill_pp': {k3_counts['banded_fill_pp']}}}")
+    fill_record, fill_pp_record = phase25_time(fill_spy, fill_split)
+    for rec in (fill_record, fill_pp_record):
+        rec["max_abs_err"] = max(rec["max_abs_err"], k3_grid_err)
+    lap("25")
+    phase26_host()
+    lap("26")
     c5_records["pinned_cost"].update({**k7_rung, **k7_fh_rung})
     c5_records["pinned_cost"]["max_abs_err"] = max(c5_records["pinned_cost"]["max_abs_err"],
                                                    k7_grid_err)
@@ -2355,6 +2822,8 @@ def run() -> None:
         "pinned_cost_pp": "astarpa_tpu/ops/pinned.py:944",
         "pinned_ck_pp": "astarpa_tpu/ops/pinned.py:1316",
         "nw_right_edge": "astarpa_tpu/ops/pallas_myers.py:98",
+        "banded_fill": "astarpa_tpu/ops/pallas_banded.py:811",
+        "banded_fill_pp": "astarpa_tpu/ops/pallas_banded.py:811",
     }
     banded_src, striped_src = "astarpa_tpu_torch/csrc/banded.cu", "astarpa_tpu_torch/csrc/striped.cu"
     kernels = [{"name": "banded_cost", "route": "cuda", "source": banded_src,
@@ -2385,6 +2854,12 @@ def run() -> None:
                     "replaces": replaces["nw_right_edge"], "launches": c1_launches, **nw_record})
     kernels.append({"name": "pinned_ck", "route": "cuda", "source": striped_src,
                     "replaces": replaces["pinned_ck"], "launches": k8_launches, **k8_record})
+    # K3's main path is the cost-then-trace route's fill (phase 25, one a
+    # call); its per-pair mode has no caller there (the grid of phase 24
+    # holds it), so its count from that run is expected to be 0.
+    for name, rec in (("banded_fill", fill_record), ("banded_fill_pp", fill_pp_record)):
+        kernels.append({"name": name, "route": "cuda", "source": banded_src,
+                        "replaces": replaces[name], "launches": k3_counts[name], **rec})
     say(f"[timing] host seconds by phase: {', '.join(lap.laps)}")
     say(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's framework-free modules
-(``types``, ``generate``/``chacha``, ``oracle``, ``domain``, ``native``)
-against their originals: the same inputs give the same bytes, costs,
-CIGARs and schedules."""
+(``types``, ``generate``/``chacha``, ``oracle``, ``domain``, ``native``,
+``heuristic/``, ``utils/split_vec``) against their originals: the same
+inputs give the same bytes, costs, CIGARs, planes, schedules, matches and
+heuristic values."""
 
 import numpy as np
 import pytest
@@ -11,8 +12,17 @@ import astarpa_tpu.generate as jgenerate
 import astarpa_tpu.oracle as joracle
 import astarpa_tpu.types as jtypes
 from astarpa_tpu import native as jnative
+from astarpa_tpu.heuristic import bruteforce as jbruteforce
+from astarpa_tpu.heuristic import csh as jcsh
+from astarpa_tpu.heuristic import distances as jdistances
+from astarpa_tpu.heuristic import matches as jmatches
+from astarpa_tpu.heuristic import prune as jprune
+from astarpa_tpu.heuristic import sh as jsh
+from astarpa_tpu.utils.split_vec import SplitVec as JSplitVec
 from astarpa_tpu_torch import domain, generate, native, oracle, types
+from astarpa_tpu_torch.heuristic import bruteforce, csh, distances, matches, prune, sh
 from astarpa_tpu_torch.ops import bitpack
+from astarpa_tpu_torch.utils.split_vec import SplitVec
 
 needs_native = pytest.mark.skipif(
     not native.available(), reason="native toolchain unavailable"
@@ -77,3 +87,99 @@ def test_domain_schedules_agree(seed):
             assert np.array_equal(got.sched, want.sched)
             assert got.band_words == want.band_words
     assert bitpack.W == 32 and bitpack.n_words(65) == 3
+
+
+@needs_native
+@pytest.mark.parametrize("seed", SEEDS)
+def test_native_aligner_and_traces_agree(seed):
+    """``astarpa_native``, ``trace_banded`` (from every column's window
+    planes), ``trace_direct`` and ``block_fill``: the same costs, CIGAR
+    strings and planes as the original loader's."""
+    a, b = generate.uniform_seeded(900, 0.08, seed)
+    got, want = native.astarpa_native(a, b), jnative.astarpa_native(a, b)
+    assert got[0] == want[0] == oracle.levenshtein(a, b)
+    assert got[1].to_string() == want[1].to_string()
+    st = native.astarpa_native(a, b, r=1, k=8, prune="both", with_stats=True)
+    assert st[2] == jnative.astarpa_native(a, b, r=1, k=8, prune="both", with_stats=True)[2]
+    # Every column's window planes of a full-height fill (the plain version
+    # of K3): lo stays 0.
+    from astarpa_tpu_torch.ops import banded, words
+    from astarpa_tpu_torch.ops.pack import pack_batch_staggered
+
+    args, _ = pack_batch_staggered([(a, b)], 1, device="cpu")
+    S = args[2].shape[0]
+    _, vp, vm = banded.banded_fill_ref(*args, S)
+    vp, vm = words.to_numpy_u32(vp)[: len(a), :, 0], words.to_numpy_u32(vm)[: len(a), :, 0]
+    lo = np.zeros(len(a), np.int32)
+    got, want = native.trace_banded(a, b, vp, vm, lo, S), jnative.trace_banded(a, b, vp, vm, lo, S)
+    assert got[0] == want[0] == oracle.levenshtein(a, b)
+    assert got[1].to_string() == want[1].to_string()
+    shift = np.zeros(len(a), np.int32)
+    got = native.trace_direct(a, b, S, shift, S, known_cost=want[0])
+    jgot = jnative.trace_direct(a, b, S, shift, S, known_cost=want[0])
+    assert got[0] == jgot[0] and got[1].to_string() == jgot[1].to_string()
+    a0, a1 = bitpack.pack_a(types.seq_to_codes(a[:300]))
+    pb0, pb1 = bitpack.pack_b(types.seq_to_codes(b[:200]))
+    outs = []
+    for mod in (native, jnative):
+        vp0 = np.full(len(pb0), 0xFFFFFFFF, np.uint32)
+        vm0, hp = np.zeros(len(pb0), np.uint32), np.ones(len(a0), np.uint32)
+        hm = np.zeros(len(a0), np.uint32)
+        cols = np.zeros((2, len(a0), len(pb0)), np.uint32)
+        mod.block_fill(a0, a1, pb0, pb1, vp0, vm0, hp, hm, cols[0], cols[1])
+        outs.append((vp0, vm0, hp, hm, cols))
+    for g, w in zip(*outs):
+        assert np.array_equal(g, w)
+
+
+def _heuristics(mods):
+    cfg = mods["matches"].MatchConfig
+    pr = mods["prune"]
+    return {
+        "gcsh": mods["csh"].GCSH(cfg(k=8, r=2), pr.Pruning(pr.Prune.START)),
+        "csh": mods["csh"].CSH(cfg(k=10, r=1), pr.Pruning(pr.Prune.BOTH)),
+        "sh": mods["sh"].SH(cfg(k=8, r=1), pr.Pruning(pr.Prune.START)),
+        "bruteforce": mods["bruteforce"].BruteForceGCSH(
+            cfg(k=8, r=1), mods["distances"].GapCost(), pr.Pruning(pr.Prune.NONE)),
+        "gap": mods["distances"].GapCost(),
+        "count": mods["distances"].CountCost(),
+        "bicount": mods["distances"].BiCountCost(),
+        "mum": mods["csh"].GCSH(cfg(k=8, r=1, max_matches=2), pr.Pruning(pr.Prune.NONE)),
+    }
+
+
+MODS = dict(csh=csh, sh=sh, matches=matches, prune=prune, bruteforce=bruteforce,
+            distances=distances)
+JMODS = dict(csh=jcsh, sh=jsh, matches=jmatches, prune=jprune, bruteforce=jbruteforce,
+             distances=jdistances)
+
+
+@pytest.mark.parametrize("name", sorted(_heuristics(MODS)))
+def test_heuristics_agree(name):
+    """Each heuristic copy builds the same seeds and matches and gives the
+    same h at every queried position, before and after pruning."""
+    a, b = generate.uniform_seeded(400, 0.1, 11)
+    got, want = _heuristics(MODS)[name].build(a, b), _heuristics(JMODS)[name].build(a, b)
+    rng = np.random.default_rng(3)
+    pos = [types.Pos(int(rng.integers(0, len(a) + 1)), int(rng.integers(0, len(b) + 1)))
+           for _ in range(200)]
+    assert [got.h(p) for p in pos] == [want.h(jtypes.Pos(p.i, p.j)) for p in pos]
+    if hasattr(got, "prune"):
+        for p in sorted(pos, key=lambda q: (-q.i, -q.j))[:60]:
+            if got.is_seed_start_or_end(p):
+                assert got.prune(p, None)[0] == want.prune(jtypes.Pos(p.i, p.j), None)[0]
+        assert [got.h(p) for p in pos] == [want.h(jtypes.Pos(p.i, p.j)) for p in pos]
+    if hasattr(got, "seeds"):
+        ms = matches.find_matches(a, b, matches.MatchConfig(k=8, r=2), True)
+        jms = jmatches.find_matches(a, b, jmatches.MatchConfig(k=8, r=2), True)
+        assert [(m.start.i, m.start.j, m.end.i, m.end.j, m.match_cost) for m in ms.matches] \
+            == [(m.start.i, m.start.j, m.end.i, m.end.j, m.match_cost) for m in jms.matches]
+
+
+def test_split_vec_agrees():
+    got, want = SplitVec(range(10)), JSplitVec(range(10))
+    for v in (got, want):
+        v.push(10)
+        v.push(11)
+    assert len(got) == len(want) and [got[i] for i in range(len(got))] == \
+        [want[i] for i in range(len(want))]

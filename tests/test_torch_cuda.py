@@ -398,3 +398,60 @@ def test_nw_kernel_matches_plain(gpu, count):
     assert list(nw.nw_cost_batch(pairs[:40], device=gpu)) == [
         oracle.levenshtein(a, b) for a, b in pairs[:40]]
     assert nw.nw_cost(b"ACTCGCT", b"AACTCGTT", device=gpu) == 2
+
+
+@pytest.mark.parametrize("count", [1, 37, 128])
+def test_fill_kernels_match_plain(gpu, count):
+    """K3 in both schedule modes against its plain versions: costs and both
+    planes on every row, an n == 0 lane, bands of 1 word to full height and
+    a schedule shifting at column 0 and at the last column."""
+    pairs = _random_pairs(300 + count, count, 300, 1300)
+    args, _ = pack_batch_staggered(pairs, 1, device=gpu)
+    n_max, S, B = args[0].shape[0], args[2].shape[0], args[0].shape[1]
+    before = dict(banded_kernel.LAUNCHES)
+    for sw, diag in ((1, None), (8, None), (28, (n_max, S * 32 - 40)), (S, None)):
+        got = banded_kernel.banded_fill(*args, sw, diag)
+        assert got[1].shape == (n_max, min(sw, S), B)
+        _assert_same(got, banded.banded_fill_ref(*args, sw, diag), (sw, diag))
+    rng = np.random.default_rng(count)
+    for sw, q in ((4, 32), (8, 1)):
+        sched = np.zeros((n_max, B), np.uint8)
+        rows = np.arange(0, n_max, q)
+        sched[rows] = rng.random((len(rows), B)) < 0.2
+        sched[0], sched[n_max - 1 - (n_max - 1) % q] = 1, 1
+        got = banded_kernel.banded_fill_pp(*args, sched, sw, q)
+        _assert_same(got, banded.banded_fill_pp_ref(*args, sched, sw, q), (sw, q))
+    assert banded_kernel.LAUNCHES["banded_fill"] == before["banded_fill"] + 4
+    assert banded_kernel.LAUNCHES["banded_fill_pp"] == before["banded_fill_pp"] + 2
+
+
+def test_runner_trace_route_on_gpu(gpu):
+    """``combined=False`` on the card: the cost ladder, then the fill arm
+    (K3) for every bucket, CIGARs equal to the CPU route's."""
+    pairs = [generate.uniform_seeded(900 + 37 * s, 0.08, 700 + s) for s in range(40)]
+    kw = dict(band_words=8, direct_dt=False, combined=False)
+    before = banded_kernel.LAUNCHES["banded_fill"]
+    res, st = BatchAligner(device=gpu, **kw).align_with_stats(pairs)
+    assert banded_kernel.LAUNCHES["banded_fill"] > before
+    assert st.kernel == "cuda-banded-fill"
+    want = BatchAligner(device="cpu", **kw).align(pairs)
+    assert [c.to_string() for _, c in res] == [c.to_string() for _, c in want]
+    for (a, b), (c, cig) in zip(pairs, res):
+        assert c == oracle.levenshtein(a, b) == cig.verify(a, b)
+
+
+def test_block_kernel_on_gpu(gpu, monkeypatch):
+    """The torch block DP on the card: the block aligner's costs and CIGARs
+    equal those of its native block DP."""
+    from dataclasses import replace
+
+    from astarpa_tpu_torch.aligners.astarpa2 import AstarPa2Params
+    from astarpa_tpu_torch.ops.block_kernel import BlockKernel
+
+    pairs = [generate.uniform_seeded(600, e, 40 + k) for k, e in enumerate((0.05, 0.2))]
+    want = [AstarPa2Params.simple().make_aligner(True).align(a, b) for a, b in pairs]
+    monkeypatch.setattr(BlockKernel, "use_native", False)
+    aligner = replace(AstarPa2Params.simple(), device=gpu).make_aligner(True)
+    for (a, b), (c, cig) in zip(pairs, want):
+        got = aligner.align(a, b)
+        assert got[0] == c and got[1].to_string() == cig.to_string()

@@ -21,8 +21,10 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def test_port_main_path_never_imports_jax():
     """Cost, align, the gap domain ladder, a striped rung (K5 and K6's
-    plain versions) and the full-rectangle NW entries (plain K11 and the
-    column loop) on the CPU load no ``jax`` and no ``astarpa_tpu``."""
+    plain versions), the full-rectangle NW entries (plain K11 and the
+    column loop), the cost-then-trace route (plain K3, native A*) and the
+    block aligners on the torch block kernel on the CPU load no ``jax``
+    and no ``astarpa_tpu``."""
     code = textwrap.dedent("""
         import sys
         import torch
@@ -55,6 +57,22 @@ def test_port_main_path_never_imports_jax():
         from astarpa_tpu_torch.ops import nw_kernel
         assert list(nw_kernel.nw_cost_pairs(pairs, device="cpu")) == list(costs)
         assert list(nw.nw_cost_batch(pairs, device="cpu")) == list(costs)
+        # The cost-then-trace route: the fill arm (plain K3), the host arm,
+        # and the block aligners (every heuristic copy) in torch.
+        from dataclasses import replace
+        from astarpa_tpu_torch.aligners.astarpa2 import AstarPa2Params
+        from astarpa_tpu_torch.ops.block_kernel import BlockKernel
+        trace = att.BatchAligner(device="cpu", combined=False, direct_dt=False)
+        assert [c for c, _ in trace.align(pairs)] == list(costs)
+        host = att.BatchAligner(device="cpu", combined=False, direct_dt=False,
+                                band_words=128)
+        long = [att.generate.uniform_seeded(4200, 0.02, 3)]
+        assert host.align(long)[0][0] == att.oracle.levenshtein(*long[0])
+        BlockKernel.use_native = False
+        for name in ("nw", "simple", "full"):
+            params = replace(getattr(AstarPa2Params, name)(), device="cpu")
+            a, b = pairs[0]
+            assert params.make_aligner(True).align(a, b)[0] == costs[0]
         mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "astarpa_tpu"))
         assert not mods, mods
