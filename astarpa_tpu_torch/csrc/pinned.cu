@@ -1,13 +1,23 @@
-// Resident-ring pinned-word big-band Myers edit distance on the shared
-// schedule: kernel K7 (costs).
+// Resident-ring pinned-word big-band Myers edit distance, one template
+// pinned_ring_kernel<kCk, kPP>: kernel K7 (costs on the shared schedule,
+// <false, false>), ring K6 (costs + 8-aligned-top checkpoints on the shared
+// schedule, <true, false>) and ring K9 (costs on per-pair schedules,
+// <false, true>).
 //
-// It replaces the TPU kernel astarpa_tpu/ops/pinned.py::_pinned_shared_call
-// (K7, entry pinned_cost_tpu, running _pinned_kernel / _pinned_body).  Its
-// function is K5's (csrc/striped.cu, the reference holds pinned_cost_tpu ==
+// They replace the TPU kernels astarpa_tpu/ops/pinned.py::_pinned_shared_call
+// (K7, entry pinned_cost_tpu, running _pinned_kernel / _pinned_body),
+// astarpa_tpu/ops/striped.py::_striped_ck_call (K6, entry striped_ck_tpu,
+// running _striped_body) and astarpa_tpu/ops/pinned.py::_pinned_pp_call (K9,
+// entry pinned_cost_pp_tpu, running _pinned_pp_body).  K7's function is
+// K5's (csrc/striped.cu, the reference holds pinned_cost_tpu ==
 // striped_cost_tpu), so its plain torch twin is
-// astarpa_tpu_torch/ops/striped.py::pinned_cost_ref, the striped sweep, and
-// the results must match it bit for bit.  The per-word event steps come from
-// the same host plan (ops/striped.py::plan_striped).
+// astarpa_tpu_torch/ops/striped.py::pinned_cost_ref, the striped sweep; ring
+// K6's is striped.py::striped_ck_ref and ring K9's
+// astarpa_tpu_torch/ops/pinned.py::pinned_cost_pp_ref.  The results must
+// match them bit for bit, and match the stripe kernels of csrc/striped.cu
+// (striped_kernel<true> and <false, true>), which take the bands past the
+// ring.  The per-word event steps come from the same host plans
+// (ops/striped.py::plan_striped, ops/pinned.py::plan_pp).
 //
 // The DP is K5's: word w (absolute, 32 rows) runs column t - w at step t,
 // taking the h carry and the column's char code that word w-1 produced at
@@ -23,19 +33,45 @@
 // word w = j (mod RW) that is next to finish.  A word is live from ent_t to
 // end_t (the step after its absorb, or after its column n_lim - 1); both
 // rise strictly with w, so the live words are a contiguous run, and the
-// host sizes the ring to hold the longest run (ops/striped.py::ring_span).
+// host sizes the ring to hold the longest run (ops/striped.py::ring_span,
+// ops/pinned.py::ring_span_pp).
 // When a slot's word is done the slot takes word w + RW at that word's
 // entry: its state restarts and its profile words come from a register the
 // thread prefetched at its previous entry.  The carry from the slot above
 // passes by warp shuffle within a warp and through shared memory
 // (double-buffered by step parity, one barrier a step) between warps; the
-// ring's one new link is the wrap, slot RW-1 feeding slot 0.  Each thread
+// ring's one new link is the wrap, slot RW-1 feeding slot 0.  A ring of one
+// warp (ring K6 and ring K9 at 256 words) passes the wrap by shuffle too
+// and needs no block barrier, only __syncwarp().  Each thread
 // walks its own words in order (lap by lap) with three event pointers:
 // next to enter, next to absorb (and its top range).  A top event of a word
 // past its column n_lim - 1 is dropped: its slot may already hold the word
 // RW below it.  The block sweeps steps 0 .. once and stops after its own
-// pair's last capture; there is no stripe loop and no carry plane in
-// device memory.  Any B, any SW.
+// pair's last capture (and, for ring K6, after the last checkpoint's last
+// word); there is no stripe loop and no carry plane in device memory.  Any
+// B, any SW.
+//
+// Checkpoints (ring K6, kCk): word w of checkpoint k's true window [w0k, w0k
+// + SW), w0k = lo(k*CB - 1), ends column k*CB - 1 at step k*CB - 1 + w and
+// is written there into row w - (w0k & ~7) of (n_ck, SW+8, B) planes; the
+// thread holding w0k writes ck_tv = the pair's absorbed sum so far + k*CB.
+// CB >= SW + 8 keeps the windows' steps apart, so one word of the block is
+// taken a step, and every thread follows the same (k, word, slot) cursor.
+// Rows outside the true window are zero, checkpoint 0 is the all-ones
+// state.  The sweep runs to n_lim = n_max, where the rows are defined, and
+// the ring is sized for that (ring_span(plan, n_max) never exceeds SW).
+// Word w is live at its checkpoint step (it has entered: w > lo(k*CB - 1) -
+// SW; it is not absorbed: w >= lo(k*CB - 1)), and word w + RW has not
+// entered yet (the live run would exceed the ring).  No word is absorbed at
+// the step the top word is taken (absorb steps rise strictly with the word,
+// word w0k - 1 is absorbed by step k*CB - 2 + w0k, word w0k after step k*CB
+// - 1 + w0k), and the barrier of the step before publishes every earlier
+// absorb, so the shared running sum read there is stable and complete.
+//
+// Per-pair schedules (ring K9, kPP): each block offsets a (B, 3, nw_pad)
+// table of ent/top/abs steps by its pair, and sweeps to its own pair's last
+// capture with n_lim = max(n, 1); it needs no end_t row and no stripe
+// ranges.
 //
 // What bounds it on an H100: integer throughput.  A word step takes at
 // least 14 int32 instructions on sm_90 (the match word, the Myers step and
@@ -47,8 +83,18 @@
 // n_max + S and half its warps only skip and wait at the barrier.  The ring
 // keeps every slot on a live word in the steady state (the live run is
 // about SW words), so it runs the T steps once with all warps busy: it
-// removes K5's stripe ramps.  Memory traffic is each word's profile once,
-// the event steps, and one code byte a step for the top word.
+// removes K5's stripe ramps.  What is left is the latency of a step: the
+// hand-off of the carry, the barrier and the per-step event, top, capture
+// and checkpoint tests.  On an H100 80GB HBM3 at 700 W (PERF.md) K7 takes
+// 2.28x its operation bound on config #5's cost rung, ring K6 2.57x on its
+// align rung (the stripe K6 4.47x) and ring K9 4.4x on config #5 default's
+// round (the stripe K9 7.1x); a one-warp ring, without the block barrier,
+// still takes ~410 ns a step, as K7 does with one to four warps.  Handing
+// the carry from warp to warp by flags in shared memory instead of the
+// barrier ran ring K9 1.18x slower on that round, so the barrier stays.
+// Memory traffic is each word's profile once, the event steps, one code
+// byte a step for the top word, and ring K6's checkpoint rows, one 4-byte
+// word of each plane a step.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -57,6 +103,7 @@ namespace {
 
 constexpr int kW = 32;
 constexpr int kInf = 1 << 30;
+constexpr int kNever = 1 << 30;
 constexpr int kK = 8;            // slots per thread
 constexpr int kMaxThreads = 512;
 constexpr unsigned kFull = 0xffffffffu;
@@ -71,12 +118,15 @@ __device__ __forceinline__ int next_word(int w, int q, int RW) {
   return (q & (kK - 1)) ? w + 1 : w + RW - (kK - 1);
 }
 
+template <bool kCk, bool kPP>
 __global__ void __launch_bounds__(kMaxThreads) pinned_ring_kernel(
     const uint8_t* __restrict__ code, const uint32_t* __restrict__ pb0,
     const uint32_t* __restrict__ pb1, const int32_t* __restrict__ n,
     const int32_t* __restrict__ m, const int32_t* __restrict__ loend,
-    const int32_t* __restrict__ ev, int32_t* __restrict__ out, int n_max,
-    int B, int S, int SW, int nw_pad, int n_lim) {
+    const int32_t* __restrict__ ev, int32_t* __restrict__ out,
+    uint32_t* __restrict__ ck_vp, uint32_t* __restrict__ ck_vm,
+    int32_t* __restrict__ ck_tv, const int32_t* __restrict__ ckw0, int n_max,
+    int B, int S, int SW, int nw_pad, int n_lim, int CB, int n_ck) {
   const int p = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -84,9 +134,15 @@ __global__ void __launch_bounds__(kMaxThreads) pinned_ring_kernel(
   const int NT = blockDim.x;
   const int RW = NT * kK;
   const int last_warp = (NT >> 5) - 1;
+  // A ring of one warp passes the wrap by shuffle and needs no barrier.
+  const bool solo = (kCk || kPP) && NT == 32;
   const int np = n[p];
   const int mp = m[p];
   const int le = loend[p];
+  if (kPP) {
+    ev += (size_t)p * 3 * nw_pad;
+    n_lim = max(np, 1);  // each pair's words stop after its own last column
+  }
   const int32_t* ent_t = ev;
   const int32_t* top_t = ev + nw_pad;
   const int32_t* abs_t = ev + 2 * nw_pad;
@@ -104,10 +160,40 @@ __global__ void __launch_bounds__(kMaxThreads) pinned_ring_kernel(
     s_aux[0][tid] = 0u;
     s_aux[1][tid] = 0u;
   }
+  const int SWP = SW + 8;  // ring K6's plane rows
+  if (kCk) {
+    for (int i = tid; i < n_ck * SWP; i += NT) {
+      const int k = i / SWP;
+      const int row = i - k * SWP;
+      const size_t o = ((size_t)k * SWP + row) * B + p;
+      if (k == 0) {
+        ck_vp[o] = ~0u;
+        ck_vm[o] = 0u;
+      } else {
+        // Rows outside the true window stay zero; the DP writes the others.
+        const int off = ckw0[k] & 7;
+        if (row < off || row >= off + SW) {
+          ck_vp[o] = 0u;
+          ck_vm[o] = 0u;
+        }
+      }
+    }
+    if (tid == 0) ck_tv[p] = 0;
+  }
   __syncthreads();
 
   // The pair's last useful step is its last capture, np - 1 + le + SW - 1.
-  const int t_end = np > 0 ? np + le + SW - 1 : 0;
+  int t_end = np > 0 ? np + le + SW - 1 : 0;
+  // Ring K6's checkpoint cursor, the same in every thread: checkpoint ck_k
+  // takes word t + 1 - ck_k * CB at step t from ck_t0, its window's first
+  // step, for SW steps; ck_slot is that word's slot, ck_top the window top.
+  int ck_k = 1, ck_t0 = kNever, ck_top = 0, ck_slot = 0;
+  if (kCk && n_ck > 1) {
+    ck_top = ckw0[1];
+    ck_t0 = CB - 1 + ck_top;
+    ck_slot = ck_top % RW;
+    t_end = max(t_end, (n_ck - 1) * CB - 1 + ckw0[n_ck - 1] + SW);
+  }
   const int w0 = tid * kK;  // this thread's first slot (and lap-0 word)
   uint32_t vp[kK], vm[kK], p0[kK], p1[kK];
   // Outputs of each slot's last step: the code masks of its column and its
@@ -142,8 +228,13 @@ __global__ void __launch_bounds__(kMaxThreads) pinned_ring_kernel(
   for (int t = 0; t < t_end; ++t) {
     // Slot 0's input: the outputs of the slot above (the previous thread's
     // last slot, or across the wrap) from step t-1.
-    uint32_t up = __shfl_up_sync(kFull, last_aux, 1);
-    if (lane == 0) up = s_aux[(t - 1) & 1][warp > 0 ? warp - 1 : last_warp];
+    uint32_t up;
+    if (solo) {
+      up = __shfl_sync(kFull, last_aux, (lane + 31) & 31);
+    } else {
+      up = __shfl_up_sync(kFull, last_aux, 1);
+      if (lane == 0) up = s_aux[(t - 1) & 1][warp > 0 ? warp - 1 : last_warp];
+    }
     uint32_t in_a0 = 0u - (up & 1u);
     uint32_t in_a1 = 0u - ((up >> 1) & 1u);
     uint32_t in_hp = (up >> 2) & 1u;
@@ -233,11 +324,14 @@ __global__ void __launch_bounds__(kMaxThreads) pinned_ring_kernel(
       xa1[j] = a1;
     }
     last_aux = pack_aux(xa0[kK - 1], xa1[kK - 1], xhp[kK - 1], xhm[kK - 1]);
-    if (lane == 31) s_aux[t & 1][warp] = last_aux;
-    // Cost capture: word t+1-n finishes column n-1 now, in slot wc_slot.
+    if (!solo && lane == 31) s_aux[t & 1][warp] = last_aux;
+    // Cost capture: word t+1-n finishes column n-1 now, in slot wc_slot
+    // (ring K6 also sweeps the columns of a pair with n == 0, which has
+    // none to capture).
     const int wc = t + 1 - np;
     const int jc = wc_slot - w0;
-    if ((unsigned)jc < (unsigned)kK && wc >= le && wc < le + SW) {
+    if ((unsigned)jc < (unsigned)kK && wc >= le && wc < le + SW &&
+        (!kCk || np > 0)) {
       int full = mp - wc * kW;
       full = full < 0 ? 0 : (full > kW ? kW : full);
       const uint32_t mask = full >= kW ? ~0u : (1u << full) - 1u;
@@ -247,7 +341,41 @@ __global__ void __launch_bounds__(kMaxThreads) pinned_ring_kernel(
       }
     }
     wc_slot = wc_slot + 1 == RW ? 0 : wc_slot + 1;
-    __syncthreads();
+    if (kCk && t >= ck_t0) {
+      // Word w ends checkpoint ck_k's column now, in slot ck_slot.
+      const int w = t + 1 - ck_k * CB;
+      const int jk = ck_slot - w0;
+      if ((unsigned)jk < (unsigned)kK) {
+        uint32_t xv = 0u, xm = 0u;
+#pragma unroll
+        for (int j = 0; j < kK; ++j) {
+          if (j == jk) {
+            xv = vp[j];
+            xm = vm[j];
+          }
+        }
+        const size_t o = ((size_t)ck_k * SWP + (w - (ck_top & ~7))) * B + p;
+        ck_vp[o] = xv;
+        ck_vm[o] = xm;
+        if (w == ck_top) ck_tv[(size_t)ck_k * B + p] = s_acc + ck_k * CB;
+      }
+      ck_slot = ck_slot + 1 == RW ? 0 : ck_slot + 1;
+      if (w + 1 == ck_top + SW) {  // the window's last word: next checkpoint
+        ++ck_k;
+        if (ck_k < n_ck) {
+          ck_top = ckw0[ck_k];
+          ck_t0 = ck_k * CB - 1 + ck_top;
+          ck_slot = ck_top % RW;
+        } else {
+          ck_t0 = kNever;
+        }
+      }
+    }
+    if (solo) {
+      __syncwarp();
+    } else {
+      __syncthreads();
+    }
   }
   if (cap) atomicAdd(&s_cap, cap);
   __syncthreads();
@@ -257,31 +385,72 @@ __global__ void __launch_bounds__(kMaxThreads) pinned_ring_kernel(
   }
 }
 
-}  // namespace
-
-// C entry for ctypes.  All arrays are device pointers: code (B, n_max)
-// uint8 char codes (pair-major); pb0/pb1 (S, B); n, m, loend (B,) int32; ev
-// (3, nw_pad) int32 per-word ent_t, top_t and abs_t, NEVER past the live
-// words, nw_pad >= the live words + the ring; out (B,) int32.  `threads` is
-// the block size (a multiple of 32, <= 512): the ring holds threads * 8
-// words, which must cover ops/striped.py::ring_span(plan, n_lim).  Launches
-// on `stream` without synchronising and returns cudaGetLastError() (0 on
-// success).
-extern "C" int astarpa_pinned_cost(const void* code, const void* pb0,
-                                   const void* pb1, const void* n,
-                                   const void* m, const void* loend,
-                                   const void* ev, void* out, int n_max,
-                                   int B, int S, int SW, int nw_pad,
-                                   int n_lim, int threads, void* stream) {
+template <bool kCk, bool kPP>
+int launch(const void* code, const void* pb0, const void* pb1, const void* n,
+           const void* m, const void* loend, const void* ev, void* out,
+           void* ck_vp, void* ck_vm, void* ck_tv, const void* ckw0, int n_max,
+           int B, int S, int SW, int nw_pad, int n_lim, int threads, int CB,
+           int n_ck, void* stream) {
   if (threads < 32 || threads > kMaxThreads || threads % 32 ||
-      nw_pad % (threads * kK) || n_lim < 1) {
+      nw_pad % (threads * kK) || n_lim < 1 ||
+      (kCk && (SW % 8 || CB < SW + 8 || n_ck < 1))) {
     return (int)cudaErrorInvalidValue;
   }
   if (B > 0) {
-    pinned_ring_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
+    pinned_ring_kernel<kCk, kPP><<<B, threads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)code, (const uint32_t*)pb0, (const uint32_t*)pb1,
         (const int32_t*)n, (const int32_t*)m, (const int32_t*)loend,
-        (const int32_t*)ev, (int32_t*)out, n_max, B, S, SW, nw_pad, n_lim);
+        (const int32_t*)ev, (int32_t*)out, (uint32_t*)ck_vp, (uint32_t*)ck_vm,
+        (int32_t*)ck_tv, (const int32_t*)ckw0, n_max, B, S, SW, nw_pad, n_lim,
+        CB, n_ck);
   }
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// C entries for ctypes.  All arrays are device pointers: code (B, n_max)
+// uint8 char codes (pair-major); pb0/pb1 (S, B); n, m, loend (B,) int32; out
+// (B,) int32.  The shared entries take ev (3, nw_pad) int32 per-word ent_t,
+// top_t and abs_t, NEVER past the live words, nw_pad >= the live words + the
+// ring; ring K6's also writes ck_vp/ck_vm (n_ck, SW+8, B) and ck_tv (n_ck, B)
+// from ckw0 (n_ck,) window tops (SW % 8 == 0, CB >= SW + 8).  Ring K9's
+// takes ev (B, 3, nw_pad), each pair's rows so padded.  `threads` is the
+// block size (a multiple of 32, <= 512): the ring holds threads * 8 words,
+// which must cover ops/striped.py::ring_span(plan, n_lim) (n_lim = n_max for
+// ring K6) or, for ring K9, every pair's ops/pinned.py::ring_span_pp.  Each
+// launches on `stream` without synchronising and returns cudaGetLastError()
+// (0 on success).
+extern "C" {
+
+int astarpa_pinned_cost(const void* code, const void* pb0, const void* pb1,
+                        const void* n, const void* m, const void* loend,
+                        const void* ev, void* out, int n_max, int B, int S,
+                        int SW, int nw_pad, int n_lim, int threads,
+                        void* stream) {
+  return launch<false, false>(code, pb0, pb1, n, m, loend, ev, out, nullptr,
+                              nullptr, nullptr, nullptr, n_max, B, S, SW,
+                              nw_pad, n_lim, threads, 1, 0, stream);
+}
+
+int astarpa_ring_ck(const void* code, const void* pb0, const void* pb1,
+                    const void* n, const void* m, const void* loend,
+                    const void* ev, void* out, void* ck_vp, void* ck_vm,
+                    void* ck_tv, const void* ckw0, int n_max, int B, int S,
+                    int SW, int nw_pad, int n_lim, int threads, int CB,
+                    int n_ck, void* stream) {
+  return launch<true, false>(code, pb0, pb1, n, m, loend, ev, out, ck_vp,
+                             ck_vm, ck_tv, ckw0, n_max, B, S, SW, nw_pad,
+                             n_lim, threads, CB, n_ck, stream);
+}
+
+int astarpa_ring_cost_pp(const void* code, const void* pb0, const void* pb1,
+                         const void* n, const void* m, const void* loend,
+                         const void* ev, void* out, int n_max, int B, int S,
+                         int SW, int nw_pad, int threads, void* stream) {
+  return launch<false, true>(code, pb0, pb1, n, m, loend, ev, out, nullptr,
+                             nullptr, nullptr, nullptr, n_max, B, S, SW,
+                             nw_pad, 1, threads, 1, 0, stream);
+}
+
+}  // extern "C"

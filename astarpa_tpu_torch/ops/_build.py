@@ -116,6 +116,8 @@ def load() -> ctypes.CDLL:
                                    ("astarpa_pinned_ck", 14, 10),
                                    ("astarpa_pinned_cost_pp", 11, 8),
                                    ("astarpa_pinned_ck_pp", 15, 10),
+                                   ("astarpa_ring_ck", 12, 9),
+                                   ("astarpa_ring_cost_pp", 8, 6),
                                    ("astarpa_nw_right_edge", 8, 2)):
             fn = getattr(lib, name)
             fn.restype = i32

@@ -1,6 +1,6 @@
 """Wrappers of the banded kernels (``csrc/banded.cu``), the striped
-big-band kernels (``csrc/striped.cu``) and the resident-ring big-band cost
-kernel (``csrc/pinned.cu``).
+big-band kernels (``csrc/striped.cu``) and the resident-ring big-band
+kernels (``csrc/pinned.cu``).
 
 Counterparts of ``astarpa_tpu/ops/pallas_banded.py::banded_cost_tpu``,
 ``banded_fill_tpu`` and ``banded_ck_tpu`` (``_banded_call``), of
@@ -15,10 +15,14 @@ and of ``astarpa_tpu/ops/pinned.py::pinned_cost_tpu``, ``pinned_ck_tpu``,
 - :func:`banded_cost_pp` — K4, per-pair schedules, costs;
 - :func:`banded_ck_pp` — K4, per-pair schedules, costs and checkpoints;
 - :func:`striped_cost` — K5, shared schedule, any band height, costs;
-- :func:`striped_ck` — K6, K5 plus 8-aligned-top checkpoints;
+- :func:`striped_ck` — K6, K5 plus 8-aligned-top checkpoints: the ring
+  kernel (ring K6) up to :data:`RING_MAX_WORDS` live words, the stripe
+  kernel past them;
 - :func:`pinned_cost` — K7, K5's costs from a ring of resident words;
 - :func:`pinned_ck` — K8, K5 plus checkpoints under K2's contract, any SW;
-- :func:`pinned_cost_pp` — K9, K5's DP on per-pair schedules, costs;
+- :func:`pinned_cost_pp` — K9, K5's DP on per-pair schedules, costs: the
+  ring kernel (ring K9) up to :data:`RING_MAX_WORDS` live words, the
+  stripe kernel past them;
 - :func:`pinned_ck_pp` — K10, K9 plus checkpoints under K4's contract.
 
 Each has the contract of its plain version in :mod:`.banded`,
@@ -42,7 +46,8 @@ from .words import lengths, to_tensor
 LAUNCHES = {"banded_cost": 0, "banded_ck": 0, "banded_fill": 0,
             "banded_fill_pp": 0, "banded_cost_pp": 0, "banded_ck_pp": 0, "striped_cost": 0, "striped_ck": 0,
             "pinned_cost": 0, "pinned_ck": 0, "pinned_cost_pp": 0,
-            "pinned_ck_pp": 0, "nw_right_edge": 0}
+            "pinned_ck_pp": 0, "ring_ck": 0, "ring_cost_pp": 0,
+            "nw_right_edge": 0}
 
 
 def reset_launches() -> None:
@@ -56,6 +61,7 @@ _LABELS = {"banded_cost": "cuda-banded", "banded_ck": "cuda-banded-ck",
            "striped_cost": "cuda-striped", "striped_ck": "cuda-striped-ck",
            "pinned_cost": "cuda-pinned", "pinned_ck": "cuda-pinned-ck",
            "pinned_cost_pp": "cuda-pinned-pp", "pinned_ck_pp": "cuda-pinned-pp-ck",
+           "ring_ck": "cuda-ring-ck", "ring_cost_pp": "cuda-ring-pp",
            "nw_right_edge": "cuda-nw"}
 
 
@@ -151,15 +157,31 @@ def striped_cost(a0, a1, pb0, pb1, n, m, band_words: int,
 
 
 def striped_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
-               diag: tuple | None = None, stripe_words: int | None = None):
+               diag: tuple | None = None, stripe_words: int | None = None,
+               ring_words: int | None = None):
     """K5 plus checkpoints: ``(costs, ck_vp, ck_vm, ck_tv)`` with (n_ck,
     SW+8, B) planes as :func:`.striped.striped_ck_ref`.  Raises unless
-    ``SW % 8 == 0`` and ``col_block >= SW + 8`` on both routes."""
+    ``SW % 8 == 0`` and ``col_block >= SW + 8`` on both routes.
+
+    On the card a band the ring holds (:func:`ring_takes`; the live words,
+    :func:`.striped.ring_span` at ``n_max``, never outnumber it) runs ring
+    K6, a taller one the stripe kernel.  ``stripe_words`` picks the stripe
+    kernel at that stripe height, ``ring_words`` the ring kernel at that
+    ring size (as :func:`pinned_cost`; it raises when the ring cannot hold
+    the live words; both at once raise on both routes).  The results do
+    not depend on either."""
+    ring = _takes_ring(min(band_words, pb0.shape[0]), stripe_words, ring_words)
     if _plain(a0):
         return striped.striped_ck_ref(a0, a1, pb0, pb1, n, m, band_words,
                                       col_block, diag)
-    return _launch_striped("striped_ck", a0, a1, pb0, pb1, n, m, band_words,
-                           diag, col_block, stripe_words)
+    SW = _check("striped_ck", a0, a1, pb0, pb1, band_words)
+    if not ring:
+        return _launch_striped("striped_ck", a0, a1, pb0, pb1, n, m, band_words,
+                               diag, col_block, stripe_words)
+    plan = striped.plan_striped(a0.shape[0], pb0.shape[0], SW, diag)
+    striped.ck_layout(a0.shape[0], SW, col_block, plan["lo"])  # raises first
+    threads = ring_threads(striped.ring_span(plan, a0.shape[0]), ring_words)
+    return _launch_pinned(a0, a1, pb0, pb1, n, m, SW, plan, threads, col_block)
 
 
 def pinned_cost(a0, a1, pb0, pb1, n, m, band_words: int,
@@ -194,15 +216,24 @@ def pinned_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
 
 
 def pinned_cost_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
-                   quantum: int = 1, stripe_words: int | None = None) -> torch.Tensor:
+                   quantum: int = 1, stripe_words: int | None = None,
+                   ring_words: int | None = None) -> torch.Tensor:
     """Banded costs on per-pair schedules at any band height, as
     :func:`.pinned.pinned_cost_pp_ref`: ``<=`` :func:`banded_cost_pp`'s on
     the same schedule, ``INF`` where the band misses row m at the last
     column.  The schedule is checked on both routes (quantum, column 0
-    unshifted); ``stripe_words`` as in :func:`striped_cost`."""
+    unshifted).  On the card a band the ring holds (:func:`ring_takes`;
+    each pair's live words, :func:`.pinned.ring_span_pp`, never outnumber
+    it) runs ring K9, a taller one the stripe kernel; ``stripe_words`` and
+    ``ring_words`` pick one as in :func:`striped_ck`."""
+    ring = _takes_ring(min(band_words, pb0.shape[0]), stripe_words, ring_words)
     if _plain(a0):
         return pinned.pinned_cost_pp_ref(a0, a1, pb0, pb1, n, m, schedule,
                                          band_words, quantum)
+    SW = _check("pinned_cost_pp", a0, a1, pb0, pb1, band_words)
+    if ring:
+        return _launch_ring_pp(a0, a1, pb0, pb1, n, m, schedule, SW, quantum,
+                               ring_words)
     return _launch_pinned_pp("pinned_cost_pp", a0, a1, pb0, pb1, n, m, schedule,
                              band_words, quantum, stripe_words=stripe_words)
 
@@ -378,19 +409,19 @@ def _loend(plan, n, n_t, n_max: int, dev) -> torch.Tensor:
     return lo[(n_t.long() - 1).clamp(0, n_max - 1)].to(torch.int32)
 
 
-#: Largest ring of K7 (``kMaxThreads * kK`` in ``csrc/pinned.cu``), K5's
-#: largest stripe.
+#: Largest ring of the ring kernels (``kMaxThreads * kK`` in
+#: ``csrc/pinned.cu``), K5's largest stripe.
 RING_MAX_WORDS = 512 * STRIPED_WORDS_PER_THREAD
 
 
 def ring_threads(span: int, ring_words: int | None = None) -> int:
-    """Block size of K7 for a ring that must hold ``span`` words: the least
+    """Block size of a ring kernel whose ring must hold ``span`` words: the least
     warp multiple whose ``threads * 8`` slots hold them, or ``ring_words //
     8`` (a multiple of 256 words, at least ``span``).  Raises
     ``ValueError`` past :data:`RING_MAX_WORDS`."""
     per = STRIPED_WORDS_PER_THREAD
     if span > RING_MAX_WORDS:
-        raise ValueError(f"pinned cost: {span} live words exceed the ring's "
+        raise ValueError(f"ring kernel: {span} live words exceed the ring's "
                          f"{RING_MAX_WORDS}; use the striped kernel")
     if ring_words is None:
         return max(32, -(-span // (32 * per)) * 32)
@@ -400,15 +431,46 @@ def ring_threads(span: int, ring_words: int | None = None) -> int:
     return ring_words // per
 
 
-def pinned_cost_takes(band_words: int) -> bool:
-    """Whether K7 takes a shared cost rung of ``band_words`` words (at most
-    the full height): its ring holds the rung's live words, which never
-    outnumber the band (:func:`.striped.ring_span`).  Bands past the ring
-    run K5, whose stripes take any height."""
+def ring_takes(band_words: int) -> bool:
+    """Whether the ring kernels (K7, ring K6, ring K9) take a band of
+    ``band_words`` words (at most the full height): their ring holds its
+    live words, which never outnumber the band (:func:`.striped.ring_span`,
+    :func:`.pinned.ring_span_pp`).  Taller bands run the stripe kernels
+    (K5, K6, K9), which take any height."""
     return band_words <= RING_MAX_WORDS
 
 
-def _launch_pinned(a0, a1, pb0, pb1, n, m, SW, plan, threads):
+def pinned_cost_takes(band_words: int) -> bool:
+    """Whether K7 takes a shared cost rung of ``band_words`` words
+    (:func:`ring_takes`); bands past the ring run K5."""
+    return ring_takes(band_words)
+
+
+def _takes_ring(SW: int, stripe_words, ring_words) -> bool:
+    """Whether a wrapper with a ring and a stripe kernel runs the ring:
+    ``ring_words`` asks for it, ``stripe_words`` for the stripes, else the
+    band decides (:func:`ring_takes`)."""
+    if stripe_words is not None and ring_words is not None:
+        raise ValueError("stripe_words picks the stripe kernel and ring_words "
+                         "the ring kernel: give at most one")
+    return ring_words is not None or (stripe_words is None and ring_takes(SW))
+
+
+def ring_events(plan: dict, ring_words: int) -> np.ndarray:
+    """(3, nw_pad) int32 host event table of a shared ring launch (K7, ring
+    K6): the plan's ``ent_t``, ``top_t`` and ``abs_t``, then ``NEVER`` up
+    to one ring past the live words, where a thread's event pointers stop
+    (``nw_pad`` a multiple of ``ring_words``)."""
+    nwl = plan["n_words_live"]
+    ev = np.full((3, (-(-nwl // ring_words) + 1) * ring_words), striped.NEVER, np.int32)
+    ev[0, :nwl] = plan["ent_t"]
+    ev[1, :nwl] = plan["top_t"]
+    ev[2, :nwl] = plan["abs_t"]
+    return ev
+
+
+def _launch_pinned(a0, a1, pb0, pb1, n, m, SW, plan, threads, col_block=None):
+    """K7, or ring K6 with ``col_block``: the shared schedule's ring launch."""
     from ._build import load
 
     dev = a0.device
@@ -416,24 +478,76 @@ def _launch_pinned(a0, a1, pb0, pb1, n, m, SW, plan, threads):
     S = pb0.shape[0]
     n_t, m_t = lengths(n, B, dev), lengths(m, B, dev)
     loend = _loend(plan, n, n_t, n_max, dev)
-    rw = threads * STRIPED_WORDS_PER_THREAD
-    nwl = plan["n_words_live"]
-    # Past the live words a thread's event pointers read NEVER, up to one
-    # ring beyond them.
-    ev = np.full((3, (-(-nwl // rw) + 1) * rw), striped.NEVER, np.int32)
-    ev[0, :nwl] = plan["ent_t"]
-    ev[1, :nwl] = plan["top_t"]
-    ev[2, :nwl] = plan["abs_t"]
+    ev = ring_events(plan, threads * STRIPED_WORDS_PER_THREAD)
     code = ((a0 & 1) | (a1 & 2)).to(torch.uint8).T.contiguous()
     out = torch.empty(B, dtype=torch.int32, device=dev)
     head = [code, pb0, pb1, n_t, m_t, loend, to_tensor(ev, dev), out]
-    ints = [n_max, B, S, SW, ev.shape[1], _cost_n_lim(n, n_max), threads]
+    ck = col_block is not None
+    # Checkpoints are defined (and compared) up to n_max.
+    n_lim = n_max if ck else _cost_n_lim(n, n_max)
+    ints = [n_max, B, S, SW, ev.shape[1], n_lim, threads]
+    outs = ()
+    if ck:
+        CB, n_ck, ckw0 = striped.ck_layout(n_max, SW, col_block, plan["lo"])
+        outs = (torch.empty((n_ck, SW + 8, B), dtype=torch.int32, device=dev),
+                torch.empty((n_ck, SW + 8, B), dtype=torch.int32, device=dev),
+                torch.empty((n_ck, B), dtype=torch.int32, device=dev))
+        head += list(outs) + [to_tensor(ckw0, dev)]
+        ints += [CB, n_ck]
+    key = "ring_ck" if ck else "pinned_cost"
+    entry = "astarpa_ring_ck" if ck else "astarpa_pinned_cost"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = load().astarpa_pinned_cost(*(t.data_ptr() for t in head), *ints, stream)
+        rc = getattr(load(), entry)(*(t.data_ptr() for t in head), *ints, stream)
     if rc != 0:
-        raise RuntimeError(f"pinned_cost kernel launch failed: cudaError {rc}")
-    LAUNCHES["pinned_cost"] += 1
+        raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
+    LAUNCHES[key] += 1
+    return (out,) + outs if ck else out
+
+
+def ring_pp_events(sched: np.ndarray, n, SW: int, dev, ring_words: int | None = None):
+    """Device-side event table of a ring K9 launch, built on the card from
+    the uploaded schedule (:func:`.pinned.plan_pp`): ``(plan, ev (B, 3,
+    nw_pad), threads)``, each pair's rows as :func:`ring_events` builds the
+    shared ones (``ent_t``, ``top_t``, ``abs_t``, ``NEVER`` up to one ring
+    past the longest pair's live words), and the block size whose ring
+    holds every pair's live run (:func:`.pinned.ring_span_pp` with each
+    pair's own last column; read back once), or ``ring_words // 8``
+    (:func:`ring_threads`).  No ``end_t`` row, no stripe ranges."""
+    plan = pinned.plan_pp(sched, n, SW, dev)
+    n_lim = torch.as_tensor(np.maximum(np.asarray(n, np.int64), 1), device=dev)
+    span = int(pinned.ring_span_pp(plan, n_lim, SW).max())
+    threads = ring_threads(span, ring_words)
+    rw = threads * STRIPED_WORDS_PER_THREAD
+    B, nw = plan["ent_t"].shape
+    ev = torch.full((B, 3, (-(-nw // rw) + 1) * rw), striped.NEVER, dtype=torch.int32,
+                    device=dev)
+    for row, key in enumerate(("ent_t", "top_t", "abs_t")):
+        ev[:, row, :nw] = plan[key]
+    return plan, ev, threads
+
+
+def _launch_ring_pp(a0, a1, pb0, pb1, n, m, schedule, SW, quantum, ring_words=None):
+    """Ring K9: per-pair costs from one pass over a ring of resident words."""
+    from ._build import load
+
+    dev = a0.device
+    n_max, B = a0.shape
+    S = pb0.shape[0]
+    sched = pinned.check_pp_schedule(schedule, n_max, B, quantum)
+    n_host = np.asarray(torch.as_tensor(n).cpu(), np.int64)
+    n_t, m_t = lengths(n, B, dev), lengths(m, B, dev)
+    plan, ev, threads = ring_pp_events(sched, n_host, SW, dev, ring_words)
+    code = ((a0 & 1) | (a1 & 2)).to(torch.uint8).T.contiguous()
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    head = [code, pb0, pb1, n_t, m_t, plan["loend"], ev, out]
+    ints = [n_max, B, S, SW, ev.shape[2], threads]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = load().astarpa_ring_cost_pp(*(t.data_ptr() for t in head), *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"ring_cost_pp kernel launch failed: cudaError {rc}")
+    LAUNCHES["ring_cost_pp"] += 1
     return out
 
 

@@ -1,5 +1,6 @@
-"""Pinned-word big-band DP on per-pair schedules: the plan and the plain
-torch versions of kernels K9 (costs) and K10 (costs and checkpoints).
+"""Pinned-word big-band DP on per-pair schedules: the plan, ring K9's ring
+capacity (:func:`ring_span_pp`) and the plain torch versions of kernels K9
+(costs) and K10 (costs and checkpoints).
 
 Counterpart of the per-pair half of ``astarpa_tpu/ops/pinned.py``
 (``pinned_cost_pp_tpu``, ``pinned_ck_pp_tpu``).  It is the striped DP of
@@ -26,8 +27,8 @@ precondition), on both routes.
 
 The plain versions step ``t`` in a Python loop vectorised over the union
 of the pairs' live word ranges and the pairs, with per-pair masks; the CPU
-runs them, the card compares its kernels (``csrc/striped.cu``) against
-them.
+runs them, the card compares its kernels (``csrc/striped.cu``, ring K9 in
+``csrc/pinned.cu``) against them.
 """
 
 from __future__ import annotations
@@ -84,6 +85,27 @@ def plan_pp(sched: np.ndarray, n, SW: int, device, pad_to: int = 1) -> dict:
     loend = lo.gather(1, last[:, None])[:, 0]
     return dict(lo=lo, loend=loend, nwl=nwl, ent_t=ent_t, top_t=top_t,
                 abs_t=abs_t, T=n_max + int(nwl.max(initial=SW)) - 1)
+
+
+def ring_span_pp(plan: dict, n_lim, SW: int) -> torch.Tensor:
+    """Most words live at once in each pair's cost sweep of ``plan`` (from
+    :func:`plan_pp`) when pair p's words stop after its column ``n_lim[p]
+    - 1``: (B,) int64 on the plan's device, the ring capacity ring K9 needs
+    for each pair.  Per pair, :func:`.striped.ring_span` on ``lo_p``: word
+    w is live at steps ``[ent_t[w], end_t[w])``, ``end_t`` the step after
+    its absorb or its column ``n_lim[p] - 1``; only steps before the one
+    after the pair's last capture, ``n_lim[p] - 1 + lo_p(n_lim[p] - 1) +
+    SW``, count.  It never exceeds SW."""
+    ent, ab, lo = plan["ent_t"].long(), plan["abs_t"].long(), plan["lo"]
+    dev = ent.device
+    n_lim = torch.as_tensor(n_lim, device=dev).long().clamp(1, lo.shape[1])
+    w = torch.arange(ent.shape[1], device=dev)
+    end = torch.minimum(torch.where(ab < NEVER, ab + 1, NEVER), n_lim[:, None] + w)
+    t_stop = n_lim - 1 + lo.gather(1, (n_lim - 1)[:, None])[:, 0].long() + SW
+    # Both ent_t and end_t rise strictly with w: the live words at an entry
+    # step are the run from the first word not yet ended.
+    span = w + 1 - torch.searchsorted(end, ent, right=True)
+    return torch.where(ent < t_stop[:, None], span, 0).amax(1)
 
 
 def ck_layout_pp(col_block: int, n_max: int, quantum: int, SW: int) -> tuple[int, int]:

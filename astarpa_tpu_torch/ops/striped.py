@@ -260,17 +260,22 @@ def pinned_cost_ref(a0, a1, pb0, pb1, n, m, band_words: int,
 
 
 def ring_span(plan: dict, n_lim: int) -> int:
-    """Most words live at once in a cost sweep of ``plan`` whose pairs end
-    by column ``n_lim - 1``: the ring capacity K7 needs.
+    """Most words live at once in a sweep of ``plan`` whose words stop
+    after column ``n_lim - 1``: the ring capacity K7 needs (``n_lim`` the
+    longest pair's columns), and ring K6 (``n_lim = n_max``: checkpoint
+    rows are defined up to the last column).
 
     Word w is live at steps ``[ent_t[w], end_t[w])``, ``end_t`` the step
     after its last useful one (its absorb, or its column ``n_lim - 1``).
     Both rise strictly with w, so the live words at step t are the run
     ``[ended(t), entered(t))``; its length peaks at an entry step, and it
-    never exceeds SW (word w runs column t - w, whose band starts at
-    lo(t - w), and ``w - lo(t - w)`` rises strictly with w).  Only the
-    steps a pair can need count: those before ``n_lim - 1 + lo(n_lim - 1)
-    + SW``, the step after the last capture."""
+    never exceeds SW, whatever ``n_lim``: word w runs column ``t - w``; a
+    live word has entered (``w < lo(t - w) + SW``) and is at most the band
+    top or, absorbed at step t, the word ``lo(t - w) - 1`` above it at a
+    column that shifts; every live word below it runs a column to the left,
+    where the band top is at most that word.  Only the steps a pair
+    can need count: those before ``n_lim - 1 + lo(n_lim - 1) + SW``, the
+    step after the last capture (and after the last checkpoint word)."""
     ent = plan["ent_t"].astype(np.int64)
     nwl = len(ent)
     w = np.arange(nwl, dtype=np.int64)

@@ -18,14 +18,15 @@ pairs retry at the band their banded upper bound predicts.
   measured on the card, so the reference's ``PINNED_MIN_SW`` and
   ``PINNED_MAX_SW`` band range is not copied).  For checkpoints it is K6 when ``SW % 8 ==
   0`` and ``CB >= SW + 8`` (their planes have SW+8 rows, which the
-  native trace reads as they are), else K8, K5's DP writing K2's plane
+  native trace reads as they are; ring K6 up to the ring's 4096 words,
+  the stripe kernel past them), else K8, K5's DP writing K2's plane
   contract at any SW (a full height S off the 8-grain; a skewed bucket's
   ``CB = n_max < SW``).
 - Per-pair domain ladder (``domain_mode`` resolving to "gap"/"gcsh"): an f
   ladder over per-pair schedules that follow each pair's domain hull.  A
   round of at least :data:`PINNED_PP_MIN_SW` words runs the pinned
-  per-pair kernels (K9 for costs, K10 for checkpoint traces), a smaller
-  one K4 (cost mode, or ck mode).
+  per-pair kernels (K9 for costs, ring K9 up to the ring's 4096 words;
+  K10 for checkpoint traces), a smaller one K4 (cost mode, or ck mode).
 
 CIGARs take one of two routes, chosen by :attr:`BatchAligner.combined`
 (the reference chooses by backend, ``runner.py:962-985``):
@@ -83,8 +84,8 @@ from ..ops import banded, striped
 from ..ops.banded_kernel import (banded_ck, banded_ck_pp, banded_cost,
                                  banded_cost_pp, banded_fill, pinned_ck,
                                  pinned_ck_pp, pinned_cost, pinned_cost_pp,
-                                 pinned_cost_takes, route, striped_ck,
-                                 striped_cost)
+                                 pinned_cost_takes, ring_takes, route,
+                                 striped_ck, striped_cost)
 from ..ops.bitpack import W, n_words
 from ..ops.pack import pack_batch_staggered
 from ..ops.words import to_tensor
@@ -123,7 +124,8 @@ class BatchStats:
     # ``banded_kernel.route``: "cuda-banded", "cuda-banded-ck",
     # "cuda-banded-fill", "cuda-banded-fill-pp", "cuda-banded-pp",
     # "cuda-banded-ck-pp", "cuda-striped", "cuda-striped-ck", "cuda-pinned",
-    # "cuda-pinned-ck", "cuda-pinned-pp", "cuda-pinned-pp-ck", or "torch-ref"
+    # "cuda-pinned-ck", "cuda-pinned-pp", "cuda-pinned-pp-ck", "cuda-ring-ck",
+    # "cuda-ring-pp", or "torch-ref"
     # on the CPU), set at dispatch.
     kernel: str | None = None
 
@@ -463,7 +465,8 @@ class BatchAligner:
         common case certifies them all).  Bands of at least
         :data:`STRIPED_MIN_SW` words run the big-band kernels, smaller ones
         K1/K2.  A cost rung of such a band runs K7 up to the ring's 4096
-        words, K5 past it; a ck rung runs K6, or K8 where K6 cannot take
+        words, K5 past it; a ck rung runs K6 (ring K6 up to the ring's 4096
+        words, the stripe kernel past it), or K8 where K6 cannot take
         it (``sw % 8``, as at a full height S that is not a multiple of 8,
         or ``CB < sw + 8``, as where n_max clamps CB), whose interval
         contract (:func:`..ops.striped.pinned_ck_fits`) ``_cb`` always
@@ -490,8 +493,10 @@ class BatchAligner:
             if not (self.direct_dt and direct_cap <= native.DIRECT_DT_MAX):
                 CB = self._cb(sw, n_max)
                 if sw >= STRIPED_MIN_SW and sw % 8 == 0 and CB >= sw + 8:
+                    # The wrapper runs ring K6 where the ring holds the band.
                     got, *ck = striped_ck(*args, sw, CB, diag)
-                    stats.kernel = route(self.device, "striped_ck")
+                    stats.kernel = route(self.device,
+                                         "ring_ck" if ring_takes(sw) else "striped_ck")
                 elif sw >= STRIPED_MIN_SW and striped.pinned_ck_fits(n_max, sw, CB):
                     got, *ck = pinned_ck(*args, sw, CB, diag)
                     stats.kernel = route(self.device, "pinned_ck")
@@ -729,8 +734,10 @@ class BatchAligner:
         """One domain round: ``(costs, name)``, or with ``want_ck`` ``((costs,
         ck_vp, ck_vm, ck_tv), name)`` with checkpoints every :meth:`_cb`
         columns rounded to whole quantum groups (K4's contract, which K10
-        keeps); ``name`` is the wrapper that ran.  Rounds of at least
-        :data:`PINNED_PP_MIN_SW` words run K9/K10, smaller ones K4."""
+        keeps); ``name`` is the kernel that ran (its launch key).  Rounds of
+        at least :data:`PINNED_PP_MIN_SW` words run K9 (ring K9 up to the
+        ring's 4096 words, the stripe kernel past it) or K10, smaller ones
+        K4."""
         pinned = sw >= PINNED_PP_MIN_SW
         if want_ck:
             CB = self._cb(sw, args[0].shape[0])
@@ -738,7 +745,9 @@ class BatchAligner:
                 return pinned_ck_pp(*args, sched_arr, sw, CB, quantum), "pinned_ck_pp"
             return banded_ck_pp(*args, sched_arr, sw, CB, quantum), "banded_ck_pp"
         if pinned:
-            return pinned_cost_pp(*args, sched_arr, sw, quantum), "pinned_cost_pp"
+            # The wrapper runs ring K9 where the ring holds the band.
+            return (pinned_cost_pp(*args, sched_arr, sw, quantum),
+                    "ring_cost_pp" if ring_takes(sw) else "pinned_cost_pp")
         return banded_cost_pp(*args, sched_arr, sw, quantum), "banded_cost_pp"
 
     # -- CIGAR path ------------------------------------------------------------

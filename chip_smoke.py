@@ -53,11 +53,13 @@ Phases, one output line each (any failure exits non-zero):
     layer), ``cost_iter`` over 4 batches, then cost once from
     ``band_words=8192``, a band past K7's ring (K5), its costs equal to
     the 2048-word ladder's, ``align_iter`` with ``ck_col_block=16384``
-    over 5 batches; every cost rung checked against the runner's K7/K5
-    routing (K7 up to its ring's 4096 words, K5 past it); 8 costs against
-    ``oracle.levenshtein_myers``, all 640 CIGARs verified; rung SWs,
-    K7/K5/K6 ms per rung, peak device memory, Mbp/s;
-12. K5, K7 and K6 against their plain versions at config #5's own shapes
+    over 5 batches (ring K6), then align once from ``band_words=8192``
+    (the stripe K6), 128 more CIGARs verified; every cost rung checked
+    against the runner's K7/K5 routing (K7 up to its ring's 4096 words,
+    K5 past it); 8 costs against ``oracle.levenshtein_myers``, all 640
+    CIGARs verified; rung SWs, K7/K5/K6 ms per rung, peak device memory,
+    Mbp/s;
+12. K5, K7 and K6 (ring and stripe) against their plain versions at config #5's own shapes
     (its pack cut to the first 4096 columns, at the ladder's SW), timed in
     turns (plain, kernels, kernels, plain); K5 against K1 on that cut at SW
     64 to 2048 (the crossover behind ``runner.STRIPED_MIN_SW``);
@@ -67,13 +69,14 @@ Phases, one output line each (any failure exits non-zero):
     32/8/1, CB 64/512), bit for bit on costs, every checkpoint row and top
     value;
 14. main path, config #5 at its default settings: ``BatchAligner(device=
-    "cuda")`` (gcsh domain ladder: K9 costs, K10 checkpoints) on phase
-    11's seed-7 batch: cost twice (the second timed and split by layer:
+    "cuda")`` (gcsh domain ladder: ring K9 costs, K10 checkpoints) on phase
+    11's seed-7 batch: align once (the aligner's first call), all 128
+    CIGARs verified, then cost (its second call, timed and split by layer:
     gcsh builds, hull samples and schedules, event tables, K9, readback),
     8 costs against ``oracle.levenshtein_myers`` and all 128 equal to
-    phase 11's, align once with all 128 CIGARs verified; f-rounds, SW,
+    phase 11's and the align call's; f-rounds, SW,
     K9/K10 ms per round, peak device memory, Mbp/s; K4 must not run;
-15. K9 and K10 against their plain versions at that path's own shapes (its
+15. K9 (ring and stripe) and K10 against their plain versions at that path's own shapes (its
     last round cut to the first 4096 columns), timed in turns; K9 against
     K4 on config #4's and config #5's cuts at SW 64 to 1088 (the crossover
     behind ``runner.PINNED_PP_MIN_SW``);
@@ -143,17 +146,34 @@ Phases, one output line each (any failure exits non-zero):
     ``BatchAligner(device="cuda").align`` on them with the native library
     reported missing (``_align_host_fallback``); costs against
     ``oracle.levenshtein_myers``, CIGARs verified;
+27. the resident-ring kernels ring K6 (checkpoints) and ring K9 (per-pair
+    costs) against their plain versions and their stripe kernels on a grid
+    (phase 10's and 13's 160- and 33-lane packs with n == 0 and m == 0
+    lanes and a skewed pair making S ~ 280; 33 pairs of up to 3.5 kbp beside
+    a 38 kbp one, where rings forced to 256 words wrap at least 3 times;
+    33 pairs of up to 3 kbp beside a 70 kbp one for SW 2048; K6 at SW 8 to
+    2048 with CB = SW + 8 and larger and a checkpoint at a shifting column;
+    K9 on gap, random, gcsh and broadcast-shared schedules at Q 32, 8, 4
+    and 1), bit for bit on costs, every checkpoint row and top value; both
+    refusing, without a launch, a ring forced on more than 4096 live words;
+28. ring against stripe kernels on whole main-path shapes, in turns, each
+    beside its bound, their results equal: K6 on config #5's align rung
+    (SW 2048, CB 16384) over chained launches, K9 on config #5 default's
+    round (SW 1152) and config #4's round (SW 192), kernel from the end of
+    its event tables with the tables timed apart; K7 again on its rung;
 
 then the host seconds of each phase, the kernels' JSON line (each
 kernel's time, its plain version's, its bound from this run's inputs, its
 launches on the main path), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 The plain sweeps of phases 5, 9, 12, 15, 21 and 25 run on their packs'
-first columns, the grids of phases 2 and 6 hold a few cases each, and the pairs
+first columns, those of phase 27 on packs of at most 3.5 kbp (and reuse
+phases 10's and 13's), the grids of phases 2 and 6 hold a few cases each, and the pairs
 are generated and the CIGARs verified on one pool of the host's cores,
 started once for the whole run, to keep the run short.  Launch counts are
 reset just before each main-path phase (3-4, 7, 8, 11, 14, 17, both calls
-of 20, 25) and read just after it.  Imports nothing of JAX and nothing of the
+of 20, 25) and read just after it; phases 7 and 14 launch ring K9 for
+their cost rounds, phase 11 ring K6 for its 2048-word checkpoint rungs.  Imports nothing of JAX and nothing of the
 JAX package.  Exits 1 without a usable GPU.
 """
 
@@ -215,7 +235,11 @@ K3_GRID_PAIRS, K3_GRID_N, K3_COL0_SW = 128, 100, 8  # phase 24
 K3_CHAINED = 2
 K3_STREAM_BATCHES = 3  # phase 25's align_iter, over phase 4's batches
 K3_BLOCK_N, K3_BLOCK_ERRS = 2000, (0.05, 0.15, 0.1)  # phase 26's torch block DP
+RING_LONG_N, RING_TALL_M = 3500, 38_000  # phase 27: S = 1188, 256-word rings wrap
+RING_BIG_N, RING_BIG_M = 3000, 70_000  # phase 27: S = 2188, SW 2048
+RING_CHAINED = 2
 WORKERS = 8
+_LAPS = None  # the run's Laps, printed by fail()
 
 # The card's limits for each kernel's bound (the least time the card could
 # take for the same work): the int32 rate of 132 SMs x 64 lanes at the SM
@@ -282,6 +306,8 @@ def _verify_job(job) -> bool:
 
 
 def fail(msg: str) -> None:
+    if _LAPS is not None:
+        print(f"[timing] host seconds by phase so far: {', '.join(_LAPS.laps)}", flush=True)
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
@@ -737,7 +763,10 @@ class RoundSpy:
     keeps each kernel's last inputs for the timing phases.  The event
     tables of K9/K10 are also timed on the card (CUDA events), and a K9/K10
     launch's kernel time is taken from the end of its tables to the end of
-    the call.  The launch counts stay with the wrappers."""
+    the call.  Each launch is recorded under the kernel that ran (its
+    launch key: ``ring_ck`` for a ``striped_ck`` call the ring took), and
+    ``last`` keeps each wrapper's and each kernel's last inputs.  The
+    launch counts stay with the wrappers."""
 
     NAMES = ("banded_ck", "banded_cost_pp", "banded_ck_pp", "pinned_cost_pp",
              "pinned_ck_pp")
@@ -746,6 +775,7 @@ class RoundSpy:
             ("hull sample", att.native.DomainHandle, "sample"),
             ("schedule", runner, "domain_schedule"),
             ("event tables", banded_kernel, "pinned_pp_events"),
+            ("event tables", banded_kernel, "ring_pp_events"),
             ("readback wait", runner._Readback, "numpy"),
             ("traces", runner.BatchAligner, "_flush_traces"))
 
@@ -790,11 +820,13 @@ class RoundSpy:
         def call(*args):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             self._tables = None
+            before = dict(banded_kernel.LAUNCHES)
             a.record()
             out = fn(*args)
             b.record()
-            self.calls.append((name, args, a, b, self._tables))
-            self.last[name] = args
+            ran = next((k for k, v in banded_kernel.LAUNCHES.items() if v > before[k]), name)
+            self.calls.append((ran, args, a, b, self._tables))
+            self.last[name] = self.last[ran] = args
             return out
 
         return call
@@ -847,14 +879,21 @@ def _verify(pairs, results, costs=None) -> None:
 
 
 def _pp_route(sw: int, ck: bool) -> str:
-    """The wrapper the runner sends a domain round of ``sw`` words to."""
-    kind = "pinned" if sw >= runner.PINNED_PP_MIN_SW else "banded"
-    return f"{kind}_{'ck' if ck else 'cost'}_pp"
+    """The kernel the runner sends a domain round of ``sw`` words to (its
+    launch key): K4 below ``PINNED_PP_MIN_SW``, else K10 for checkpoints,
+    ring K9 for costs where the ring holds the band, the stripe K9
+    past it."""
+    if sw < runner.PINNED_PP_MIN_SW:
+        return f"banded_{'ck' if ck else 'cost'}_pp"
+    if ck:
+        return "pinned_ck_pp"
+    return "ring_cost_pp" if banded_kernel.ring_takes(sw) else "pinned_cost_pp"
 
 
 def _last_round(spy: RoundSpy, ck: bool) -> tuple[str, tuple]:
-    """(wrapper, arguments) of the last domain round since the spy's reset."""
-    names = ("pinned_ck_pp", "banded_ck_pp") if ck else ("pinned_cost_pp", "banded_cost_pp")
+    """(kernel, arguments) of the last domain round since the spy's reset."""
+    names = (("pinned_ck_pp", "banded_ck_pp") if ck
+             else ("ring_cost_pp", "pinned_cost_pp", "banded_cost_pp"))
     calls = [c for c in spy.calls if c[0] in names]
     if not calls:
         fail(f"no domain round ({' or '.join(names)}) was launched")
@@ -862,7 +901,7 @@ def _last_round(spy: RoundSpy, ck: bool) -> tuple[str, tuple]:
 
 
 def _check_round(spy: RoundSpy, st, ck: bool, label: str) -> tuple:
-    """The last domain round ran the wrapper its band routes to, and the
+    """The last domain round ran the kernel its band routes to, and the
     stats name it; returns its arguments."""
     name, args = _last_round(spy, ck)
     want = _pp_route(args[7], ck)
@@ -1121,11 +1160,12 @@ def phase9_time(spy: RoundSpy) -> dict:
     }
 
 
-def phase10_grid() -> tuple[int, tuple, tuple]:
+def phase10_grid() -> tuple[int, tuple, tuple, tuple, list]:
     """K5 and K6 == plain on a grid; returns the max abs difference over
     costs, every checkpoint row (the zero rows outside the true windows
-    included) and every top value, and the grid's 160- and 33-lane packs
-    (phase 22 reuses them).  K5 is held against the costs of the plain ck
+    included) and every top value, the grid's 160- and 33-lane packs
+    (phase 22 reuses them), its diagonal, and each checkpoint case with
+    its plain result (phase 27 holds ring K6 against them).  K5 is held against the costs of the plain ck
     sweep where K6 applies: the plain versions are one loop."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(13)
@@ -1146,12 +1186,15 @@ def phase10_grid() -> tuple[int, tuple, tuple]:
              (wide, 200, diag, 512, None), (wide, s8, None, 512, 256),
              (narrow, s8, diag, 512, 256), (wide, S, None, None, None),
              (narrow, S, None, None, 256)]
-    worst, labels = 0, []
+    worst, labels, saved = 0, [], []
     for planes, sw, dg, cb, ws in cases:
         sw_eff = min(sw, S)
         if cb is not None:
+            # The stripe kernel (ring K6 takes these bands by default: phase 27).
             want = striped.striped_ck_ref(*planes, sw, cb, dg)
-            err = _max_err(banded_kernel.striped_ck(*planes, sw, cb, dg, ws), want)
+            stripe = ws or 8 * banded_kernel.striped_threads(sw_eff)
+            err = _max_err(banded_kernel.striped_ck(*planes, sw, cb, dg, stripe), want)
+            saved.append((planes, sw_eff, dg, cb, want))
             want = want[0]
         else:
             want = striped.striped_cost_ref(*planes, sw, dg)
@@ -1167,7 +1210,7 @@ def phase10_grid() -> tuple[int, tuple, tuple]:
     torch.cuda.synchronize()
     say(f"[10 striped=plain] {len(cases)}/{len(cases)} cases (n_max {n_max}, S {S}: "
         f"{'; '.join(labels)}); max_abs_err {worst}, {time.perf_counter() - t0:.1f} s")
-    return worst, wide, narrow
+    return worst, wide, narrow, diag, saved
 
 
 def _cost_route(args) -> str:
@@ -1198,8 +1241,9 @@ def _check_cost_rungs(calls, label: str) -> list[str]:
 
 def phase11_config5() -> tuple[dict, RoundSpy, tuple]:
     """Config #5 through the big shared band (K7 for costs up to its ring,
-    K5 past it, K6 for checkpoints): costs, a cost stream, costs from a
-    band past K7's ring and an align stream; returns the
+    K5 past it; for checkpoints ring K6 up to the ring, the stripe K6 past
+    it): costs, a cost stream, costs from a band past K7's ring, an align
+    stream and an align from a band past the ring; returns the
     launch counts of its run, the spy holding each kernel's last inputs,
     and ``(pairs of seed 7, their costs, {pair: levenshtein_myers})`` for
     phase 14."""
@@ -1293,6 +1337,11 @@ def phase11_config5() -> tuple[dict, RoundSpy, tuple]:
     rungs_a, split_a = spy.rounds(), spy.split(wall)
     if len(results) != len(stream):
         fail("config #5 align_iter lost a batch")
+    CK_KEYS = ("ring_ck", "striped_ck", "pinned_ck", "banded_ck")
+    ck_ran = {c[0] for c in spy.calls if c[0] in CK_KEYS}
+    if ck_ran != {"ring_ck"} or {st_a.kernel for _, st_a in results} != {"cuda-ring-ck"}:
+        fail(f"config #5 align_iter ran {ck_ran} (stats {results[-1][1].kernel!r}), "
+             f"not ring K6 alone")
     jobs = []
     for pairs, (res, st_a), want_c in zip(stream, results, [costs, outs[1]] * 2 + [costs]):
         if [c for c, _ in res] != [int(x) for x in want_c] or st_a.direct_traces:
@@ -1309,26 +1358,48 @@ def phase11_config5() -> tuple[dict, RoundSpy, tuple]:
         f"median {np.median(periods):.4f} s = {bp / np.median(periods) / 1e6:.3f} Mbp/s "
         f"cost+CIGAR; kernel {results[-1][1].kernel}; rungs [{', '.join(rungs_a)}]")
     say(f"[11 align split] whole stream {wall:.3f} s, host clock and CUDA events: {split_a}")
+    # The stripe K6's place on the path: a ck rung past the ring, which the
+    # ladder reaches from 2048 words in two doublings.
+    spy.reset()
+    t0 = time.perf_counter()
+    res8, st8 = BatchAligner(device="cuda", band_words=C5_K5_BAND, domain_mode="off",
+                             ck_col_block=C5_CB).align_with_stats(p7)
+    dt8 = time.perf_counter() - t0
+    ran8 = [c[0] for c in spy.calls if c[0] in CK_KEYS]
+    if ran8 != ["striped_ck"] or st8.kernel != "cuda-striped-ck":
+        fail(f"config #5 align at band_words={C5_K5_BAND} ran {ran8} (stats {st8.kernel!r})")
+    if [c for c, _ in res8] != [int(x) for x in costs] or st8.direct_traces:
+        fail(f"config #5 align at band_words={C5_K5_BAND}: costs differ, or traced directly")
+    ok8 = _pool(_verify_job, [(a, b, cig.to_string(), c) for (a, b), (c, cig) in zip(p7, res8)])
+    if not all(ok8):
+        fail(f"config #5 align at band_words={C5_K5_BAND}: {len(ok8) - sum(ok8)} CIGARs "
+             f"do not verify")
+    say(f"[11 align past the ring] BatchAligner(band_words={C5_K5_BAND}, domain_mode='off', "
+        f"ck_col_block={C5_CB}).align_with_stats, one call: {dt8:.4f} s = "
+        f"{bp / dt8 / 1e6:.3f} Mbp/s cost+CIGAR: rungs [{', '.join(spy.rounds())}] (CUDA "
+        f"events), stripes of {banded_kernel.striped_threads(C5_K5_BAND) * 8} words, kernel "
+        f"{st8.kernel}; costs == the cost path's, {len(ok8)} CIGARs verified; split: "
+        f"{spy.split(dt8)}")
     say(f"[11 oracle] levenshtein_myers 8/8 (pairs 0-3 of seeds 7 and 8); peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
         f"(torch.cuda.max_memory_allocated)")
     spy.remove()
     launches = dict(banded_kernel.LAUNCHES)
-    for name in ("pinned_cost", "striped_cost", "striped_ck"):
+    for name in ("pinned_cost", "striped_cost", "ring_ck", "striped_ck"):
         if not launches[name]:
             fail(f"config #5 never launched {name}")
     return launches, spy, (p7, costs, dict(zip(range(4), want[:4])))
 
 
 def phase12_time(spy: RoundSpy) -> dict:
-    """K5, K7 and K6 == plain at config #5's shapes, timed in turns, and K5
-    against K1 across bands on the cut; returns K5's, K7's and K6's JSON
-    records (without the launch counts; phase 23 adds the whole-rung
-    times)."""
+    """K5, K7 and K6 (ring and stripe kernels) == plain at config #5's
+    shapes, timed in turns, and K5 against K1 across bands on the cut;
+    returns K5's, K7's and both K6 kernels' JSON records (without the
+    launch counts; phases 23 and 28 add the whole-rung times)."""
     torch.cuda.synchronize()
     rung_ms = {name: [RoundSpy.kernel_ms(c) for c in spy.history + spy.calls
                       if c[0] == name]
-               for name in ("pinned_cost", "striped_cost", "striped_ck")}
+               for name in ("pinned_cost", "striped_cost", "ring_ck", "striped_ck")}
     # The main path's cost rungs ran K7; K5 computes the same function on
     # the same inputs.
     *planes, sw, diag = spy.last["pinned_cost"]
@@ -1338,12 +1409,15 @@ def phase12_time(spy: RoundSpy) -> dict:
     p5, k5, e5 = _turns(lambda: striped.striped_cost_ref(*cut, sw, dg), {
         "striped_cost": (lambda: banded_kernel.striped_cost(*cut, sw, dg), lambda r: r),
         "pinned_cost": (lambda: banded_kernel.pinned_cost(*cut, sw, dg), lambda r: r)})
-    *ck_planes, sw_ck, cb_path, _ = spy.last["striped_ck"]
+    *ck_planes, sw_ck, cb_path, _ = spy.last["ring_ck"]
     cut_ck = _cut(ck_planes, C5_CUT)
     dg_ck = _cut_diag(cut_ck)
     cb = sw_ck + 8  # the smallest interval K6 takes: a checkpoint inside the cut
+    stripe = 8 * banded_kernel.striped_threads(sw_ck)
     p6, k6, e6 = _turns(lambda: striped.striped_ck_ref(*cut_ck, sw_ck, cb, dg_ck), {
-        "striped_ck": (lambda: banded_kernel.striped_ck(*cut_ck, sw_ck, cb, dg_ck), lambda r: r)})
+        "ring_ck": (lambda: banded_kernel.striped_ck(*cut_ck, sw_ck, cb, dg_ck), lambda r: r),
+        "striped_ck": (lambda: banded_kernel.striped_ck(*cut_ck, sw_ck, cb, dg_ck, stripe),
+                       lambda r: r)})
     if e5 or e6:
         fail("K5/K7/K6 != plain on config #5's cut pack")
     ck_shape = {"B": cut_ck[0].shape[1], "n_max": cut_ck[0].shape[0],
@@ -1351,7 +1425,8 @@ def phase12_time(spy: RoundSpy) -> dict:
     say(f"[12 config5 cut] first {C5_CUT} columns, turns plain, kernels, kernels, plain: "
         f"K5 {shape} {k5['striped_cost'][0]:.3f}/{k5['striped_cost'][1]:.3f} ms, K7 "
         f"{k5['pinned_cost'][0]:.3f}/{k5['pinned_cost'][1]:.3f} ms vs plain "
-        f"{p5[0]:.1f}/{p5[1]:.1f} ms; K6 {ck_shape} {k6['striped_ck'][0]:.3f}/"
+        f"{p5[0]:.1f}/{p5[1]:.1f} ms; K6 {ck_shape} ring {k6['ring_ck'][0]:.3f}/"
+        f"{k6['ring_ck'][1]:.3f} ms, stripes {k6['striped_ck'][0]:.3f}/"
         f"{k6['striped_ck'][1]:.3f} ms vs plain {p6[0]:.1f}/{p6[1]:.1f} ms; max_abs_err "
         f"{max(e5, e6)} (CUDA events)")
     rows, wins = [], []
@@ -1388,13 +1463,16 @@ def phase12_time(spy: RoundSpy) -> dict:
     cost_out = [torch.empty(cut[0].shape[1], dtype=torch.int32)]
     ck_out = banded_kernel.striped_ck(*cut_ck, sw_ck, cb, dg_ck)
     *k5_planes, k5_sw, _ = spy.last["striped_cost"]
+    *k6_planes, k6_sw, _, _ = spy.last["striped_ck"]
     return {
         "striped_cost": rung(record(k5["striped_cost"], p5, cut, sw, cost_out, shape),
                              "striped_cost", k5_planes, k5_sw),
         "pinned_cost": rung(record(k5["pinned_cost"], p5, cut, sw, cost_out, shape),
                             "pinned_cost", planes, sw),
+        "ring_ck": rung(record(k6["ring_ck"], p6, cut_ck, sw_ck, ck_out, ck_shape),
+                        "ring_ck", ck_planes, sw_ck),
         "striped_ck": rung(record(k6["striped_ck"], p6, cut_ck, sw_ck, ck_out, ck_shape),
-                           "striped_ck", ck_planes, sw_ck),
+                           "striped_ck", k6_planes, k6_sw),
     }
 
 
@@ -1406,11 +1484,13 @@ def _pp_random(rng, n_max: int, B: int, quantum: int) -> np.ndarray:
     return sched
 
 
-def phase13_grid() -> int:
-    """K9 and K10 == plain on a grid; returns the max abs difference over
-    costs, every checkpoint row and every top value.  K9 is held against
-    the costs of the plain ck sweep where a case has an interval: the
-    plain versions are one loop."""
+def phase13_grid() -> tuple[int, tuple]:
+    """K9 (its stripe kernel) and K10 == plain on a grid; returns the max
+    abs difference over costs, every checkpoint row and every top value,
+    and each case with its plain costs, for phase 27 (which holds ring K9
+    against them).  K9 is held against the costs of
+    the plain ck sweep where a case has an interval: the plain versions
+    are one loop."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(17)
     pairs = [att.generate.uniform_seeded(int(rng.integers(1, 1501)),
@@ -1441,7 +1521,7 @@ def phase13_grid() -> int:
         (wide, "random", _pp_random(rng, n_max, len(pairs), 1), S, 1, 512, 256),
         (narrow, "shared", shared(S, 33), S, 1, None, None),
     ]
-    worst, labels = 0, []
+    worst, labels, saved = 0, [], []
     for planes, kind, sched, sw, q, cb, ws in cases:
         if cb is not None:
             want = pinned.pinned_ck_pp_ref(*planes, sched, sw, cb, q)
@@ -1449,7 +1529,11 @@ def phase13_grid() -> int:
             want = want[0]
         else:
             want, err = pinned.pinned_cost_pp_ref(*planes, sched, sw, q), 0
-        err = max(err, _max_err(banded_kernel.pinned_cost_pp(*planes, sched, sw, q, ws), want))
+        saved.append((planes, kind, sched, min(sw, S), q, want))
+        # The stripe kernel (ring K9 takes these bands by default: phase 27).
+        stripe = ws or 8 * banded_kernel.striped_threads(min(sw, S))
+        err = max(err, _max_err(banded_kernel.pinned_cost_pp(*planes, sched, sw, q, stripe),
+                                want))
         label = (f"{kind} B={planes[0].shape[1]} SW={sw}{' (full)' if sw == S else ''} Q={q} "
                  f"CB={cb} stripe={ws or 8 * banded_kernel.striped_threads(sw)}")
         if err:
@@ -1459,13 +1543,13 @@ def phase13_grid() -> int:
     torch.cuda.synchronize()
     say(f"[13 pinned=plain] {len(cases)}/{len(cases)} cases (n_max {n_max}, S {S}: "
         f"{'; '.join(labels)}); max_abs_err {worst}, {time.perf_counter() - t0:.1f} s")
-    return worst
+    return worst, saved
 
 
 def phase14_config5_default(p7, costs_off, oracle: dict) -> tuple[dict, RoundSpy]:
-    """Config #5 at its default settings (gcsh domain ladder: K9 costs, K10
-    checkpoints) on phase 11's first batch; returns the launch counts of
-    its run and the spy holding each kernel's last inputs."""
+    """Config #5 at its default settings (gcsh domain ladder: ring K9
+    costs, K10 checkpoints) on phase 11's first batch; returns the launch
+    counts of its run and the spy holding each kernel's last inputs."""
     bp = sum(len(a) for a, _ in p7)
     ba = BatchAligner(device="cuda")
     mode = ba._resolve_domain_mode(p7, list(range(len(p7))), want_cigars=False)
@@ -1475,11 +1559,12 @@ def phase14_config5_default(p7, costs_off, oracle: dict) -> tuple[dict, RoundSpy
     spy.install()
     banded_kernel.reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    # The align call is the aligner's first; the timed cost call its second.
     t0 = time.perf_counter()
-    costs1, _ = ba.cost_with_stats(p7)
-    torch.cuda.synchronize()
-    dt1 = time.perf_counter() - t0
-    first = spy.rounds()
+    res, sta = ba.align_with_stats(p7)
+    dta = time.perf_counter() - t0
+    rounds_a, split_a = spy.rounds(), spy.split(dta)
+    _check_round(spy, sta, True, "config #5 default align")
     spy.reset()
     t0 = time.perf_counter()
     costs, st = ba.cost_with_stats(p7)
@@ -1487,8 +1572,10 @@ def phase14_config5_default(p7, costs_off, oracle: dict) -> tuple[dict, RoundSpy
     dt = time.perf_counter() - t0
     rounds, split = spy.rounds(), spy.split(dt)
     _check_round(spy, st, False, "config #5 default cost")
-    if not ((costs == costs1).all() and (costs == costs_off).all()):
-        fail("config #5 default costs differ between calls or from phase 11's")
+    if not (costs == costs_off).all():
+        fail("config #5 default costs differ from phase 11's")
+    if [c for c, _ in res] != [int(x) for x in costs] or sta.direct_traces:
+        fail("config #5 default align: costs differ from the cost path, or traced directly")
     picks = [32, 64, 96, C5_PAIRS - 1]
     with ThreadPoolExecutor(len(picks)) as ex:
         oracle = {**oracle, **dict(zip(picks, ex.map(
@@ -1496,36 +1583,27 @@ def phase14_config5_default(p7, costs_off, oracle: dict) -> tuple[dict, RoundSpy
     agree = sum(int(costs[i]) == w for i, w in oracle.items())
     if agree != len(oracle):
         fail(f"config #5 default: {agree}/{len(oracle)} costs equal levenshtein_myers")
-    say(f"[14 config5 default] BatchAligner(device='cuda'), domain mode {mode}, seed 7's "
-        f"{C5_PAIRS} pairs: 1st call {dt1:.4f} s, rounds [{', '.join(first)}]; 2nd call "
-        f"{dt:.4f} s = {bp / dt / 1e6:.3f} Mbp/s cost: f-rounds {len(rounds)} "
-        f"[{', '.join(rounds)}] (CUDA events), retries {st.band_retries}, cells "
-        f"{st.cells_computed}, kernel {st.kernel}; costs == phase 11's; levenshtein_myers "
-        f"{agree}/{len(oracle)} (pairs {sorted(oracle)})")
-    say(f"[14 cost split] 2nd call, host clock and CUDA events: {split}")
-    spy.reset()
-    t0 = time.perf_counter()
-    res, sta = ba.align_with_stats(p7)
-    dta = time.perf_counter() - t0
-    rounds_a, split_a = spy.rounds(), spy.split(dta)
-    _check_round(spy, sta, True, "config #5 default align")
-    if [c for c, _ in res] != [int(x) for x in costs] or sta.direct_traces:
-        fail("config #5 default align: costs differ from the cost path, or traced directly")
     t1 = time.perf_counter()
     ok = _pool(_verify_job, [(a, b, cig.to_string(), c) for (a, b), (c, cig) in zip(p7, res)])
     if not all(ok):
         fail(f"config #5 default: {len(ok) - sum(ok)} CIGARs do not verify at their cost")
-    say(f"[14 align] align_with_stats {dta:.4f} s = {bp / dta / 1e6:.3f} Mbp/s cost+CIGAR, "
-        f"{len(ok)} CIGARs verified at the cost path's costs ({time.perf_counter() - t1:.1f} s "
-        f"on {WORKERS} processes); f-rounds {len(rounds_a)} [{', '.join(rounds_a)}], kernel "
-        f"{sta.kernel}; split: {split_a}")
+    say(f"[14 config5 default] BatchAligner(device='cuda'), domain mode {mode}, seed 7's "
+        f"{C5_PAIRS} pairs: 2nd call (cost) {dt:.4f} s = {bp / dt / 1e6:.3f} Mbp/s cost: "
+        f"f-rounds {len(rounds)} [{', '.join(rounds)}] (CUDA events), retries "
+        f"{st.band_retries}, cells {st.cells_computed}, kernel {st.kernel}; costs == phase "
+        f"11's; levenshtein_myers {agree}/{len(oracle)} (pairs {sorted(oracle)})")
+    say(f"[14 cost split] 2nd call, host clock and CUDA events: {split}")
+    say(f"[14 align] 1st call, align_with_stats {dta:.4f} s = {bp / dta / 1e6:.3f} Mbp/s "
+        f"cost+CIGAR, {len(ok)} CIGARs verified at the cost path's costs "
+        f"({time.perf_counter() - t1:.1f} s on {WORKERS} processes); f-rounds {len(rounds_a)} "
+        f"[{', '.join(rounds_a)}], kernel {sta.kernel}; split: {split_a}")
     say(f"[14 memory] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
-        f"(torch.cuda.max_memory_allocated over the three calls)")
+        f"(torch.cuda.max_memory_allocated over the two calls)")
     spy.remove()
     launches = dict(banded_kernel.LAUNCHES)
     if launches["banded_cost_pp"] or launches["banded_ck_pp"]:
         fail(f"config #5 default launched K4: {launches}")
-    for name in ("pinned_cost_pp", "pinned_ck_pp"):
+    for name in ("ring_cost_pp", "pinned_ck_pp"):
         if not launches[name]:
             fail(f"config #5 default never launched {name}")
     return launches, spy
@@ -1539,19 +1617,25 @@ def _cut_round(round_args, cols: int):
 
 
 def phase15_time(spy: RoundSpy, c4_round) -> dict:
-    """K9/K10 == plain at config #5's default shapes, timed in turns, and
-    K9 against K4 across bands on config #4's and config #5's cuts (the
-    crossover behind ``runner.PINNED_PP_MIN_SW``); returns K9's and K10's
-    JSON records (without the launch counts)."""
+    """K9 (ring and stripe kernels) and K10 == plain at config #5's default
+    shapes, timed in turns, and K9 against K4 across bands on config #4's
+    and config #5's cuts (the crossover behind
+    ``runner.PINNED_PP_MIN_SW``); returns both K9 kernels' and K10's JSON
+    records (without the launch counts)."""
     torch.cuda.synchronize()
     round_ms = {name: [RoundSpy.kernel_ms(c) for c in spy.history + spy.calls
                        if c[0] == name]
-                for name in ("pinned_cost_pp", "pinned_ck_pp")}
+                for name in ("ring_cost_pp", "pinned_ck_pp")}
     full = {name: spy.last[name] for name in round_ms}
-    cut, sched, sw, q = _cut_round(full["pinned_cost_pp"], C5_CUT)
+    full["pinned_cost_pp"] = full["ring_cost_pp"]
+    round_ms["pinned_cost_pp"] = []  # the stripe K9 runs no round of this path
+    cut, sched, sw, q = _cut_round(full["ring_cost_pp"], C5_CUT)
     cb = sw  # the smallest interval K10 takes: checkpoints inside the cut
+    stripe = 8 * banded_kernel.striped_threads(sw)
     p, k, err = _turns(lambda: pinned.pinned_ck_pp_ref(*cut, sched, sw, cb, q), {
-        "pinned_cost_pp": (lambda: banded_kernel.pinned_cost_pp(*cut, sched, sw, q),
+        "ring_cost_pp": (lambda: banded_kernel.pinned_cost_pp(*cut, sched, sw, q),
+                         lambda r: r[0]),
+        "pinned_cost_pp": (lambda: banded_kernel.pinned_cost_pp(*cut, sched, sw, q, stripe),
                            lambda r: r[0]),
         "pinned_ck_pp": (lambda: banded_kernel.pinned_ck_pp(*cut, sched, sw, cb, q),
                          lambda r: r)})
@@ -1560,13 +1644,14 @@ def phase15_time(spy: RoundSpy, c4_round) -> dict:
     shape = {"B": cut[0].shape[1], "n_max": cut[0].shape[0], "S": cut[2].shape[0],
              "SW": sw, "Q": q, "CB": banded.ck_col_block(cb, cut[0].shape[0], q)}
     say(f"[15 config5 cut] first {C5_CUT} columns of the default path's last K9 round "
-        f"{shape}, turns plain, kernels, kernels, plain: K9 "
+        f"{shape}, turns plain, kernels, kernels, plain: K9 ring "
+        f"{k['ring_cost_pp'][0]:.3f}/{k['ring_cost_pp'][1]:.3f} ms, stripes "
         f"{k['pinned_cost_pp'][0]:.3f}/{k['pinned_cost_pp'][1]:.3f} ms, K10 "
         f"{k['pinned_ck_pp'][0]:.3f}/{k['pinned_ck_pp'][1]:.3f} ms (event tables "
         f"included) vs plain {p[0]:.1f}/{p[1]:.1f} ms; max_abs_err {err} (CUDA events)")
 
     rows, wins = [], {}
-    for label, round_args in (("config #4", c4_round), ("config #5", full["pinned_cost_pp"])):
+    for label, round_args in (("config #4", c4_round), ("config #5", full["ring_cost_pp"])):
         planes, sch, _, qx = _cut_round(round_args, C5_CUT)
         wins[label] = []
         for s_ in PP_CROSSOVER_SW:
@@ -1603,7 +1688,8 @@ def phase15_time(spy: RoundSpy, c4_round) -> dict:
                                 "S": full_planes[2].shape[0], "SW": full_sw}}
 
     ck_out = banded_kernel.pinned_ck_pp(*cut, sched, sw, cb, q)
-    return {"pinned_cost_pp": record("pinned_cost_pp", ck_out[:1]),
+    return {"ring_cost_pp": record("ring_cost_pp", ck_out[:1]),
+            "pinned_cost_pp": record("pinned_cost_pp", ck_out[:1]),
             "pinned_ck_pp": record("pinned_ck_pp", ck_out)}
 
 
@@ -2044,7 +2130,7 @@ def phase21_time(spy20: RoundSpy, c5_spy: RoundSpy) -> dict:
         f"K8 == K2 on every readable checkpoint, max_abs_err {max(err, err_k2)} (CUDA events)")
     # K8 against K6 on config #5's cut, where both take the band: the cost
     # of rows from the true window top.
-    *c5_planes, sw6, _, _ = c5_spy.last["striped_ck"]
+    *c5_planes, sw6, _, _ = c5_spy.last["ring_ck"]
     cut5 = _cut(c5_planes, C5_CUT)
     dg5 = _cut_diag(cut5)
     cb6 = sw6 + 8
@@ -2681,6 +2767,239 @@ def phase26_host() -> dict:
     return {"host_arm_s": dt, "block_torch_s": dt_b, "fallback_s": dt_f}
 
 
+def _ring_pack(n_hi: int, m_tall: int, seed: int):
+    """33 pairs of up to ``n_hi`` bp beside one whose b is ``m_tall`` bp
+    (the band's full height), packed on the card; returns the planes and
+    the diagonal to the longest b."""
+    rng = np.random.default_rng(seed)
+    pairs = [att.generate.uniform_seeded(int(rng.integers(1, n_hi + 1)),
+                                         float(rng.uniform(0, 0.25)), seed + 1 + s)
+             for s in range(33)]
+    pairs[0] = (att.generate.uniform_seeded(n_hi, 0.1, seed - 1)[0],
+                att.generate.uniform_seeded(m_tall, 0.1, seed - 2)[0])
+    planes, _ = pack_batch_staggered(pairs, 1, device="cuda")
+    return planes, (planes[0].shape[0], max(len(b) for _, b in pairs))
+
+
+def phase27_grid(packs, k6_saved, k9_saved) -> tuple[int, int]:
+    """Ring K6 and ring K9 == plain (and == their stripe kernels) on a grid;
+    returns the max abs difference of each over costs, every checkpoint row
+    (the zero rows outside the true windows included) and every top value.
+    On phase 10's and 13's 160- and 33-lane packs (n <= 1500 with an n ==
+    0 lane, a skewed pair making S ~ 280) each ring kernel is held against
+    the plain results those phases computed, at its own ring size and, up
+    to 256 words, at a ring forced to 256.  New cases: ring K6 with CB = SW
+    + 8 on the 160-lane pack with an m == 0 lane, and on 33 pairs of up to
+    3.5 kbp beside a 38 kbp one (S = 1188), where rings forced to 256 words
+    wrap at least 3 times and checkpoint columns shift (the word above the
+    window top absorbed the step before it is taken), and at SW 2048 on 33
+    pairs of up to 3 kbp beside a 70 kbp one (S = 2188); ring K9 on the
+    3.5 kbp pack with forced rings.  Then both refuse a band of more live
+    words than their 4096-word ring, without a launch."""
+    t0 = time.perf_counter()
+    wide, narrow, diag = packs
+    m0 = (wide[0], wide[1], wide[2], wide[3], wide[4].copy(), wide[5].copy())
+    m0[5][3] = 0  # an m == 0 lane
+    long_, diag_l = _ring_pack(RING_LONG_N, RING_TALL_M, 9400)
+    big, diag_b = _ring_pack(RING_BIG_N, RING_BIG_M, 9500)
+    if big[2].shape[0] < 2048 + 8:
+        fail(f"phase 27's big pack has S = {big[2].shape[0]} < 2056")
+    k6_cases = [(planes, "phase 10", sw, cb, dg, rw, want)
+                for planes, sw, dg, cb, want in k6_saved
+                for rw in ((None, 256) if sw <= 256 else (None,))]
+    for planes, label, sw, cb, dg, rw in (
+            (m0, "m == 0 lane", 64, 72, diag, None), (narrow, "phase 10", 256, 264, diag, 256),
+            (long_, "long", 64, 72, diag_l, 256), (big, "big", 2048, 2056, diag_b, None)):
+        k6_cases.append((planes, label, sw, cb, dg, rw,
+                         striped.striped_ck_ref(*planes, sw, cb, dg)))
+    before = dict(banded_kernel.LAUNCHES)
+    worst6, labels, wraps, shifted = 0, [], [], 0
+    for planes, pack, sw, cb, dg, rw, want in k6_cases:
+        got = banded_kernel.striped_ck(*planes, sw, cb, dg, ring_words=rw)
+        err = _max_err(got, want)
+        nm, S_ = planes[0].shape[0], planes[2].shape[0]
+        plan = striped.plan_striped(nm, S_, sw, dg)
+        CB, n_ck, _ = striped.ck_layout(nm, sw, cb, plan["lo"])
+        span = striped.ring_span(plan, nm)
+        ring = banded_kernel.ring_threads(span, rw) * 8
+        laps = plan["n_words_live"] / ring
+        if pack != "phase 10":
+            stripe = banded_kernel.striped_ck(*planes, sw, cb, dg,
+                                              8 * banded_kernel.striped_threads(sw))
+            err = max(err, _max_err(stripe, want))
+        if rw is not None and pack == "long":
+            wraps.append(laps)
+        sh = sum(int(plan["lo"][k * CB - 1] != plan["lo"][k * CB - 2]) for k in range(1, n_ck))
+        shifted += sh
+        label = (f"{pack} B={planes[0].shape[1]} SW={sw} CB={CB} ({n_ck} ck, {sh} at a shift) "
+                 f"diag={'set' if dg else 'None'} span {span} ring {ring} ({laps:.2f} laps)")
+        if err:
+            fail(f"ring K6 != plain or stripes at {label}")
+        worst6 = max(worst6, err)
+        labels.append(label)
+    if min(wraps) < 3 or not shifted:
+        fail(f"phase 27's ring K6 grid: forced rings wrap {min(wraps):.2f} times, "
+             f"{shifted} checkpoints at a shift")
+    t6 = time.perf_counter() - t0
+    rng = np.random.default_rng(27)
+    nl = long_[0].shape[0]
+    k9_cases = [(planes, kind, sched, sw, q, rw, want)
+                for planes, kind, sched, sw, q, want in k9_saved
+                for rw in ((None, 256) if sw <= 256 else (None,))]
+    sched_l = _pp_random(rng, nl, 33, 4)
+    k9_cases.append((long_, "long random", sched_l, 64, 4, 256,
+                     pinned.pinned_cost_pp_ref(*long_, sched_l, 64, 4)))
+    worst9, labels9, wraps9 = 0, [], []
+    for planes, kind, sched, sw, q, rw, want in k9_cases:
+        got = banded_kernel.pinned_cost_pp(*planes, sched, sw, q, ring_words=rw)
+        stripe = banded_kernel.pinned_cost_pp(*planes, sched, sw, q,
+                                              8 * banded_kernel.striped_threads(sw))
+        err = max(_max_err(got, want), _max_err(stripe, want))
+        plan, _, threads = banded_kernel.ring_pp_events(
+            pinned.check_pp_schedule(sched, planes[0].shape[0], planes[0].shape[1], q),
+            np.asarray(planes[4]), sw, "cuda", rw)
+        laps = float(plan["nwl"].max()) / (threads * 8)
+        if planes is long_:
+            wraps9.append(laps)
+        label = f"{kind} B={planes[0].shape[1]} SW={sw} Q={q} ring {threads * 8} ({laps:.2f} laps)"
+        if err:
+            fail(f"ring K9 != plain or stripes at {label}")
+        worst9 = max(worst9, err)
+        labels9.append(label)
+    if min(wraps9) < 3:
+        fail(f"phase 27's ring K9 grid: forced rings wrap only {min(wraps9):.2f} times")
+    t9 = time.perf_counter() - t0 - t6
+    got_ring = {k: banded_kernel.LAUNCHES[k] - before[k] for k in ("ring_ck", "ring_cost_pp")}
+    if got_ring != {"ring_ck": len(k6_cases), "ring_cost_pp": len(k9_cases)}:
+        fail(f"phase 27 launched the ring kernels {got_ring} times")
+    # A band of more live words than the ring holds: a full height of 4376
+    # words over 4500 columns (every word stays live).
+    bargs, _ = pack_batch_staggered([(att.generate.uniform_seeded(4500, 0.0, 8500)[0],
+                                      att.generate.uniform_seeded(140_032, 0.1, 8501)[0])],
+                                    1, device="cuda")
+    Sb = bargs[2].shape[0]
+    sched_b = np.broadcast_to(banded.shift_at_array(bargs[0].shape[0], Sb, Sb)[:, None],
+                              (bargs[0].shape[0], 1))
+    before = dict(banded_kernel.LAUNCHES)
+    refused = []
+    for fn in (lambda: banded_kernel.striped_ck(*bargs, Sb, Sb + 8, None, ring_words=4096),
+               lambda: banded_kernel.pinned_cost_pp(*bargs, sched_b, Sb, 1, ring_words=4096)):
+        try:
+            fn()
+            fail("a ring kernel took a band of more live words than its ring holds")
+        except ValueError as exc:
+            refused.append(str(exc))
+    if banded_kernel.LAUNCHES != before or Sb % 8 or banded_kernel.ring_takes(Sb):
+        fail(f"ring refusal: launches {banded_kernel.LAUNCHES} (before {before}), S = {Sb}")
+    torch.cuda.synchronize()
+    say(f"[27 ring K6=plain] {len(k6_cases)}/{len(k6_cases)} cases (phase 10's n_max "
+        f"{wide[0].shape[0]}, S {wide[2].shape[0]}; long n_max {nl}, S {long_[2].shape[0]}; "
+        f"big n_max {big[0].shape[0]}, S {big[2].shape[0]}: {'; '.join(labels)}); the new "
+        f"cases also == the stripe kernel; max_abs_err {worst6}; forced rings wrap >= "
+        f"{min(wraps):.2f} times; {shifted} checkpoints at a shifting column; {t6:.1f} s")
+    say(f"[27 ring K9=plain] {len(k9_cases)}/{len(k9_cases)} cases (phase 13's and long n_max "
+        f"{nl}: {'; '.join(labels9)}); == the stripe kernel on each; max_abs_err {worst9}; forced rings wrap >= "
+        f"{min(wraps9):.2f} times; {t9:.1f} s")
+    say(f"[27 refusal] S = {Sb} at full height over {bargs[0].shape[0]} columns, ring forced: "
+        f"both refused without a launch ({refused[0]}); by default the stripe kernels take "
+        f"it; {time.perf_counter() - t0:.1f} s")
+    return worst6, worst9
+
+
+def _pp_kernel_ms(fn) -> tuple[float, float, torch.Tensor]:
+    """One call of a per-pair wrapper: (CUDA-event ms from the end of its
+    event tables to the end of the call, the tables' ms, its result)."""
+    spy = RoundSpy(())
+    spy.install()
+    try:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        spy._tables = None
+        a.record()
+        out = fn()
+        b.record()
+    finally:
+        spy.remove()
+    b.synchronize()
+    t0, t1 = spy._tables
+    return t1.elapsed_time(b), t0.elapsed_time(t1), out
+
+
+def phase28_time(c5_spy: RoundSpy, c5d_spy: RoundSpy, c4_round, k7_alone_ms: float) -> dict:
+    """Ring against stripe kernels on whole main-path shapes, in turns
+    (stripes, ring, ring, stripes), each with its bound: K6 on config #5's
+    align rung over chained launches; K9 on config #5 default's round and
+    on config #4's round (kernel from the end of its event tables, tables
+    timed apart); K7 again on config #5's cost rung.  The ring's results
+    equal the stripes' on every lane, plane row and top value.  Returns
+    the records phase 28 adds to ring K6's and ring K9's."""
+    torch.cuda.synchronize()
+    *planes, sw, cb, dg = c5_spy.last["ring_ck"]
+    stripe = 8 * banded_kernel.striped_threads(sw)
+    fns = {"stripe": lambda: banded_kernel.striped_ck(*planes, sw, cb, dg, stripe),
+           "ring": lambda: banded_kernel.striped_ck(*planes, sw, cb, dg)}
+    outs = {k: fn() for k, fn in fns.items()}
+    err6 = _max_err(outs["ring"], outs["stripe"])
+    if err6:
+        fail("ring K6 != the stripe K6 on config #5's align rung")
+    times = {"stripe": [], "ring": []}
+    for name in ("stripe", "ring", "ring", "stripe"):
+        times[name].append(_chained_ms(fns[name], RING_CHAINED))
+    bnd6 = plane_bound(planes, sw, outs["ring"])
+    shape6 = {"B": planes[0].shape[1], "n_max": planes[0].shape[0], "S": planes[2].shape[0],
+              "SW": sw, "CB": cb}
+    span = striped.ring_span(striped.plan_striped(shape6["n_max"], shape6["S"], sw, dg),
+                             shape6["n_max"])
+    r6, s6 = min(times["ring"]), min(times["stripe"])
+    say(f"[28 K6 rung] config #5's align rung {shape6}, {RING_CHAINED} chained launches behind "
+        f"an untimed one, turns stripes, ring, ring, stripes: ring K6 "
+        f"{times['ring'][0]:.3f}/{times['ring'][1]:.3f} ms ({r6 / bnd6['bound_ms']:.2f}x), "
+        f"stripe K6 {times['stripe'][0]:.3f}/{times['stripe'][1]:.3f} ms "
+        f"({s6 / bnd6['bound_ms']:.2f}x) vs bound {bnd6['bound_ms']:.4f} ms "
+        f"({bnd6['bound_by']}); stripes/ring {s6 / r6:.3f}; ring {span} live words in "
+        f"{banded_kernel.ring_threads(span) * 8}, stripes of {stripe}; ring == stripes on "
+        f"all {shape6['B']} lanes, every plane row and top value (CUDA events)")
+    rec6 = {"rung_alone_ms": times["ring"], "stripe_rung_alone_ms": times["stripe"],
+            "rung_alone_bound_ms": bnd6["bound_ms"], "rung_alone_shape": shape6}
+
+    rec9 = {}
+    for label, args in (("config #5 default", c5d_spy.last["ring_cost_pp"]),
+                        ("config #4", c4_round)):
+        *pl, sched, s_, q = args
+        stripe = 8 * banded_kernel.striped_threads(s_)
+        fns = {"stripe": lambda: banded_kernel.pinned_cost_pp(*pl, sched, s_, q, stripe),
+               "ring": lambda: banded_kernel.pinned_cost_pp(*pl, sched, s_, q)}
+        kern, tabs, res = {"stripe": [], "ring": []}, {"stripe": [], "ring": []}, {}
+        for name in ("stripe", "ring", "ring", "stripe"):
+            ms, tab_ms, res[name] = _pp_kernel_ms(fns[name])
+            kern[name].append(ms)
+            tabs[name].append(tab_ms)
+        if _max_err(res["ring"], res["stripe"]):
+            fail(f"ring K9 != the stripe K9 on {label}'s round")
+        b9 = plane_bound(pl, s_, [], sched.size)
+        shape9 = {"B": pl[0].shape[1], "n_max": pl[0].shape[0], "S": pl[2].shape[0],
+                  "SW": s_, "Q": q}
+        r9, s9 = min(kern["ring"]), min(kern["stripe"])
+        say(f"[28 K9 {label}] round {shape9}, turns stripes, ring, ring, stripes, kernel "
+            f"from the end of its event tables: ring K9 {kern['ring'][0]:.3f}/"
+            f"{kern['ring'][1]:.3f} ms ({r9 / b9['bound_ms']:.2f}x), stripe K9 "
+            f"{kern['stripe'][0]:.3f}/{kern['stripe'][1]:.3f} ms ({s9 / b9['bound_ms']:.2f}x) "
+            f"vs bound {b9['bound_ms']:.4f} ms; stripes/ring {s9 / r9:.3f}; event tables on "
+            f"the card: ring {tabs['ring'][0]:.3f}/{tabs['ring'][1]:.3f} ms (3 rows, ring "
+            f"sized on the card), stripes {tabs['stripe'][0]:.3f}/{tabs['stripe'][1]:.3f} ms; "
+            f"ring == stripes on all {shape9['B']} lanes (CUDA events)")
+        key = "c5_default" if label.startswith("config #5") else "c4"
+        rec9.update({f"{key}_round_ms": kern["ring"], f"{key}_stripe_round_ms": kern["stripe"],
+                     f"{key}_tables_ms": tabs["ring"], f"{key}_stripe_tables_ms": tabs["stripe"],
+                     f"{key}_round_bound_ms": b9["bound_ms"], f"{key}_round_shape": shape9})
+
+    *pl7, s7, d7 = c5_spy.last["pinned_cost"]
+    k7_ms = _chained_ms(lambda: banded_kernel.pinned_cost(*pl7, s7, d7), K7_CHAINED)
+    say(f"[28 K7 rung] K7 again on config #5's cost rung (SW={s7}), {K7_CHAINED} chained "
+        f"launches: {k7_ms:.3f} ms (phase 23: {k7_alone_ms:.3f} ms in this run) vs bound "
+        f"{plane_bound(pl7, s7, [])['bound_ms']:.4f} ms")
+    return {"ring_ck": rec6, "ring_cost_pp": rec9, "k7_again_ms": k7_ms}
+
+
 class Laps:
     """Host seconds of each stretch of the run, printed at its end."""
 
@@ -2704,8 +3023,9 @@ def main() -> None:
 
 
 def run() -> None:
+    global _LAPS
     start = time.perf_counter()
-    lap = Laps()
+    lap = _LAPS = Laps()
     smi = phase0_card()
     phase1_build()
     lap("0-1")
@@ -2741,7 +3061,7 @@ def run() -> None:
     lap("7")
     ck, p8 = phase8_ck(rounds)
     rounds.remove()
-    counts = {k: c4[k] + ck[k] for k in RoundSpy.NAMES}
+    counts = {k: c4[k] + ck[k] for k in c4}
     if not ck["banded_ck"]:
         fail("the main path never launched banded_ck")
     say(f"[main path] launches: config #4 {c4}; ck align {ck}")
@@ -2749,14 +3069,14 @@ def run() -> None:
     records = phase9_time(rounds)
     lap("9")
 
-    striped_err, grid_wide, grid_narrow = phase10_grid()
+    striped_err, grid_wide, grid_narrow, grid_diag, k6_cases = phase10_grid()
     lap("10")
     c5, c5_spy, c5_batch = phase11_config5()
     say(f"[main path] launches: config #5 {c5}")
     lap("11")
     c5_records = phase12_time(c5_spy)
     lap("12")
-    pp_err = phase13_grid()
+    pp_err, k9_packs = phase13_grid()
     lap("13")
     c5d, c5d_spy = phase14_config5_default(*c5_batch)
     say(f"[main path] launches: config #5 default {c5d}")
@@ -2803,6 +3123,17 @@ def run() -> None:
     lap("25")
     phase26_host()
     lap("26")
+    ring_k6_err, ring_k9_err = phase27_grid((grid_wide, grid_narrow, grid_diag), k6_cases,
+                                            k9_packs)
+    lap("27")
+    ring_records = phase28_time(c5_spy, c5d_spy, c4_round, k7_rung["rung_alone_ms"])
+    lap("28")
+    c5_records["ring_ck"].update(ring_records["ring_ck"])
+    c5_records["ring_ck"]["max_abs_err"] = max(c5_records["ring_ck"]["max_abs_err"], ring_k6_err)
+    pp_records["ring_cost_pp"].update(ring_records["ring_cost_pp"])
+    pp_records["ring_cost_pp"]["max_abs_err"] = max(pp_records["ring_cost_pp"]["max_abs_err"],
+                                                    ring_k9_err)
+    c5_records["pinned_cost"]["k7_again_ms"] = ring_records["k7_again_ms"]
     c5_records["pinned_cost"].update({**k7_rung, **k7_fh_rung})
     c5_records["pinned_cost"]["max_abs_err"] = max(c5_records["pinned_cost"]["max_abs_err"],
                                                    k7_grid_err)
@@ -2820,12 +3151,16 @@ def run() -> None:
         "pinned_cost": "astarpa_tpu/ops/pinned.py:474",
         "pinned_ck": "astarpa_tpu/ops/pinned.py:1157",
         "pinned_cost_pp": "astarpa_tpu/ops/pinned.py:944",
+        "ring_ck": "astarpa_tpu/ops/striped.py:576",
+        "ring_cost_pp": "astarpa_tpu/ops/pinned.py:944",
         "pinned_ck_pp": "astarpa_tpu/ops/pinned.py:1316",
         "nw_right_edge": "astarpa_tpu/ops/pallas_myers.py:98",
         "banded_fill": "astarpa_tpu/ops/pallas_banded.py:811",
         "banded_fill_pp": "astarpa_tpu/ops/pallas_banded.py:811",
     }
     banded_src, striped_src = "astarpa_tpu_torch/csrc/banded.cu", "astarpa_tpu_torch/csrc/striped.cu"
+    pinned_src = "astarpa_tpu_torch/csrc/pinned.cu"
+    ring = ("pinned_cost", "ring_ck", "ring_cost_pp")
     kernels = [{"name": "banded_cost", "route": "cuda", "source": banded_src,
                 "replaces": replaces["banded_cost"], "launches": launches, **record}]
     for name in ("banded_ck", "banded_cost_pp", "banded_ck_pp"):
@@ -2837,16 +3172,19 @@ def run() -> None:
     # full-height cost rung.
     c5["pinned_cost"] += k7_launches
     for name, rec in c5_records.items():
-        if name != "pinned_cost":
+        if name not in ring:
             rec["max_abs_err"] = max(rec["max_abs_err"], striped_err)
-        src = "astarpa_tpu_torch/csrc/pinned.cu" if name == "pinned_cost" else striped_src
+        src = pinned_src if name in ring else striped_src
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces[name], "launches": c5[name], **rec})
     for name, rec in pp_records.items():
-        rec["max_abs_err"] = max(rec["max_abs_err"], pp_err)
+        if name not in ring:
+            rec["max_abs_err"] = max(rec["max_abs_err"], pp_err)
         # Launches of both main-path runs: config #4 (phase 7, when its
         # rounds reach PINNED_PP_MIN_SW) and config #5 at default settings.
-        kernels.append({"name": name, "route": "cuda", "source": striped_src,
+        # The stripe K9 takes rounds past the ring, which neither reaches.
+        kernels.append({"name": name, "route": "cuda",
+                        "source": pinned_src if name in ring else striped_src,
                         "replaces": replaces[name], "launches": counts[name] + c5d[name],
                         **rec})
     kernels.append({"name": "nw_right_edge", "route": "cuda",

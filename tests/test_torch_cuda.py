@@ -163,7 +163,8 @@ def test_striped_kernels_match_plain(gpu, count):
         want = striped.striped_cost_ref(*args, sw, dg)
         assert torch.equal(banded_kernel.striped_cost(*args, sw, dg, ws), want), sw
         if cb is not None:
-            got = banded_kernel.striped_ck(*args, sw, cb, dg, ws)
+            stripe = ws or 8 * banded_kernel.striped_threads(min(sw, S))
+            got = banded_kernel.striped_ck(*args, sw, cb, dg, stripe)
             _assert_same(got, striped.striped_ck_ref(*args, sw, cb, dg), (sw, cb))
             assert got[1].shape == (n_max // min(cb, n_max) + 1, sw + 8, len(pairs))
     assert banded_kernel.LAUNCHES["striped_cost"] == before["striped_cost"] + len(cases)
@@ -172,8 +173,9 @@ def test_striped_kernels_match_plain(gpu, count):
 
 def test_runner_striped_rungs_on_gpu(gpu, monkeypatch):
     """A 64-word band on 3 kbp pairs, K7 refusing every rung: cost rungs run
-    K5 and ck rungs K6 on the card, with the costs, ladder and CIGARs of
-    the CPU route."""
+    K5 and ck rungs K6 on the card (ring K6, and the stripe kernel with
+    the ring's capacity patched below the band), with the costs, ladder
+    and CIGARs of the CPU route."""
     monkeypatch.setattr(runner, "pinned_cost_takes", lambda sw: False)
     pairs = [generate.uniform_seeded(2500 + 97 * s, 0.1, 40 + s) for s in range(6)]
     kw = dict(band_words=64, domain_mode="off")
@@ -181,10 +183,14 @@ def test_runner_striped_rungs_on_gpu(gpu, monkeypatch):
     ref, ref_stats = BatchAligner(device="cpu", **kw).cost_with_stats(pairs)
     assert list(costs) == list(ref) == [oracle.levenshtein(a, b) for a, b in pairs]
     assert (stats.kernel, stats.cells_computed) == ("cuda-striped", ref_stats.cells_computed)
-    res, astats = BatchAligner(device=gpu, direct_dt=False, **kw).align_with_stats(pairs)
-    assert astats.kernel == "cuda-striped-ck"
-    for (a, b), (c, cig), want in zip(pairs, res, ref):
-        assert cig.verify(a, b) == c == want
+    for ring, label in ((banded_kernel.RING_MAX_WORDS, "cuda-ring-ck"), (32, "cuda-striped-ck")):
+        monkeypatch.setattr(banded_kernel, "RING_MAX_WORDS", ring)
+        key = "ring_ck" if label == "cuda-ring-ck" else "striped_ck"
+        before = banded_kernel.LAUNCHES[key]
+        res, astats = BatchAligner(device=gpu, direct_dt=False, **kw).align_with_stats(pairs)
+        assert astats.kernel == label and banded_kernel.LAUNCHES[key] > before
+        for (a, b), (c, cig), want in zip(pairs, res, ref):
+            assert cig.verify(a, b) == c == want
 
 
 @pytest.mark.parametrize("quantum", [32, 1])
@@ -212,7 +218,8 @@ def test_pinned_pp_kernels_match_plain(gpu, quantum):
             scheds.append((banded.pair_gap_schedule(args[4], args[5], sw, n_max, S)[0], 32))
         for sched, q in scheds:
             want = pinned.pinned_cost_pp_ref(*args, sched, sw, q)
-            got = banded_kernel.pinned_cost_pp(*args, sched, sw, q, ws)
+            stripe = ws or 8 * banded_kernel.striped_threads(min(sw, S))
+            got = banded_kernel.pinned_cost_pp(*args, sched, sw, q, stripe)
             assert torch.equal(got, want), (sw, q)
             for cb in (64, 512):
                 if banded.ck_col_block(cb, n_max, q) < min(sw, S):
@@ -275,6 +282,109 @@ def test_pinned_cost_raises_past_its_ring(gpu):
     with pytest.raises(ValueError, match="ring_words"):
         banded_kernel.pinned_cost(*args, 512, None, 256)
     assert banded_kernel.LAUNCHES["pinned_cost"] == before
+
+
+def _ring_packs(gpu, seed):
+    """A 160-lane pack of pairs up to 1 kbp with an n == 0 lane, an m == 0
+    lane and a skewed pair making S ~ 280 words, its first 33 lanes, and
+    33 pairs of up to 5 kbp beside a tall one (S = 1188), on which a
+    256-word ring wraps at least 3 times."""
+    pairs = [generate.uniform_seeded(100 + (s * 61) % 900, [0.03, 0.15][s % 2], seed + s)
+             for s in range(160)]
+    pairs[1], pairs[3] = (b"", b"ACGTAC"), (pairs[3][0], b"")
+    pairs[2] = (pairs[2][0][:200], generate.uniform_seeded(9000, 0.1, seed - 1)[0])
+    wide, _ = pack_batch_staggered(pairs, 1, device=gpu)
+    narrow = tuple(x[..., :33].contiguous() if torch.is_tensor(x) else x[:33] for x in wide)
+    rng = np.random.default_rng(seed)
+    lng = [generate.uniform_seeded(int(rng.integers(1, 5001)), float(rng.uniform(0, 0.25)),
+                                   seed + 200 + s) for s in range(33)]
+    lng[0] = (generate.uniform_seeded(5000, 0.1, seed + 198)[0],
+              generate.uniform_seeded(38_000, 0.1, seed + 199)[0])
+    long_, _ = pack_batch_staggered(lng, 1, device=gpu)
+    return wide, narrow, long_, (long_[0].shape[0], max(len(b) for _, b in lng))
+
+
+@pytest.mark.parametrize("which", ["wide", "narrow", "long"])
+def test_ring_ck_kernel_matches_plain(gpu, which):
+    """Ring K6 against its plain version and the stripe kernel, bit for bit
+    on costs, every checkpoint row (the zero rows outside the true windows
+    included) and every top value: SW 8 to the 8-grain below full height,
+    CB = SW + 8 and larger, with and without a diagonal, rings forced to
+    256 words; on the long pack the forced rings wrap at least 3 times."""
+    wide, narrow, long_, diag_l = _ring_packs(gpu, 3100)
+    args = {"wide": wide, "narrow": narrow, "long": long_}[which]
+    n_max, S = args[0].shape[0], args[2].shape[0]
+    diag = diag_l if which == "long" else (n_max, int(np.asarray(args[5]).max()))
+    s8 = S // 8 * 8
+    cases = ((8, 16, diag, None), (64, 72, diag, 256), (64, 512, None, None),
+             (256, 264, diag, 256), (s8, s8 + 8, None, None), (s8, 4096, diag, None))
+    before = dict(banded_kernel.LAUNCHES)
+    for sw, cb, dg, rw in cases:
+        want = striped.striped_ck_ref(*args, sw, cb, dg)
+        got = banded_kernel.striped_ck(*args, sw, cb, dg, ring_words=rw)
+        _assert_same(got, want, (which, sw, cb, rw))
+        stripe = banded_kernel.striped_ck(*args, sw, cb, dg, 8 * banded_kernel.striped_threads(min(sw, S)))
+        _assert_same(got, stripe, (which, sw, cb, "stripe"))
+        if which == "long" and rw == 256:
+            plan = striped.plan_striped(n_max, S, min(sw, S), dg)
+            assert plan["n_words_live"] >= 3 * 256, plan["n_words_live"]
+    assert banded_kernel.LAUNCHES["ring_ck"] == before["ring_ck"] + len(cases)
+    assert banded_kernel.LAUNCHES["striped_ck"] == before["striped_ck"] + len(cases)
+
+
+@pytest.mark.parametrize("quantum", [32, 8, 1])
+def test_ring_pp_kernel_matches_plain(gpu, quantum):
+    """Ring K9 against its plain version and the stripe kernel, bit for
+    bit: gap, random and broadcast schedules, bands from 8 words to full
+    height off the 8-grain, rings forced to 256 words; on the long pack
+    they wrap at least 3 times."""
+    wide, narrow, long_, _ = _ring_packs(gpu, 3300 + quantum)
+    before = dict(banded_kernel.LAUNCHES)
+    rng = np.random.default_rng(quantum)
+    runs = 0
+    for args, sws in ((narrow, (8, 64)), (wide, (24, "S")), (long_, (64, 256))):
+        n_max, S, B = args[0].shape[0], args[2].shape[0], args[0].shape[1]
+        rand = np.zeros((n_max, B), np.uint8)
+        rows = np.arange(quantum, n_max, quantum)
+        rand[rows] = rng.random((len(rows), B)) < 0.3
+        for sw in sws:
+            sw = S if sw == "S" else sw
+            shared = np.broadcast_to(banded.shift_at_array(n_max, S, sw)[:, None], (n_max, B))
+            scheds = [(rand, quantum), (shared, 1)]
+            if quantum == 32:
+                scheds.append((banded.pair_gap_schedule(args[4], args[5], sw, n_max, S)[0], 32))
+            for sched, q in scheds:
+                want = pinned.pinned_cost_pp_ref(*args, sched, sw, q)
+                for rw in (None, 256 if sw <= 256 else None):
+                    got = banded_kernel.pinned_cost_pp(*args, sched, sw, q, ring_words=rw)
+                    assert torch.equal(got, want), (sw, q, rw)
+                    runs += 1
+                stripe = 8 * banded_kernel.striped_threads(min(sw, S))
+                assert torch.equal(banded_kernel.pinned_cost_pp(*args, sched, sw, q, stripe),
+                                   want), (sw, q)
+    assert banded_kernel.LAUNCHES["ring_cost_pp"] == before["ring_cost_pp"] + runs
+
+
+def test_ring_kernels_raise_past_their_ring(gpu):
+    """Asked for a ring, ring K6 and ring K9 refuse a band of more live
+    words than 4096 (a full height of 4376 words over 4500 columns)
+    before any launch; by default the stripe kernels take it."""
+    pairs = [(generate.uniform_seeded(4500, 0.0, 1)[0],
+              generate.uniform_seeded(140_032, 0.1, 2)[0])]
+    args, _ = pack_batch_staggered(pairs, 1, device=gpu)
+    n_max, S = args[0].shape[0], args[2].shape[0]
+    s8 = S // 8 * 8
+    sched = np.broadcast_to(banded.shift_at_array(n_max, S, s8)[:, None], (n_max, 1))
+    before = dict(banded_kernel.LAUNCHES)
+    with pytest.raises(ValueError, match="exceed"):
+        banded_kernel.striped_ck(*args, s8, s8 + 8, None, ring_words=4096)
+    with pytest.raises(ValueError, match="exceed"):
+        banded_kernel.pinned_cost_pp(*args, sched, s8, 1, ring_words=4096)
+    assert banded_kernel.LAUNCHES == before
+    assert not banded_kernel.ring_takes(s8)
+    got = banded_kernel.pinned_cost_pp(*args, sched, s8, 1)
+    assert banded_kernel.LAUNCHES["pinned_cost_pp"] == before["pinned_cost_pp"] + 1
+    assert torch.equal(got, pinned.pinned_cost_pp_ref(*args, sched, s8, 1))
 
 
 def test_runner_config5_shaped_rung_on_k7(gpu):
@@ -357,13 +467,13 @@ def test_runner_full_height_ck_rung_on_k8(gpu, monkeypatch):
 
 def test_runner_routes_domain_rounds_on_gpu(gpu, monkeypatch):
     """Domain rounds below PINNED_PP_MIN_SW words run K4, at or above it
-    K9 (costs) and K10 (checkpoints), with the costs and CIGARs of the CPU
-    route."""
+    K9 (costs; ring K9, whose ring holds these bands) and K10
+    (checkpoints), with the costs and CIGARs of the CPU route."""
     pairs = [generate.uniform_seeded(2000 + 97 * s, 0.1, 60 + s) for s in range(6)]
     kw = dict(band_words=4, domain_mode="gap", domain_min_bp=0)
     ref, _ = BatchAligner(device="cpu", **kw).cost_with_stats(pairs)
     for limit, labels in ((10**6, ("cuda-banded-pp", "cuda-banded-ck-pp")),
-                          (1, ("cuda-pinned-pp", "cuda-pinned-pp-ck"))):
+                          (1, ("cuda-ring-pp", "cuda-pinned-pp-ck"))):
         monkeypatch.setattr(runner, "PINNED_PP_MIN_SW", limit)
         costs, stats = BatchAligner(device=gpu, **kw).cost_with_stats(pairs)
         assert list(costs) == list(ref) == [oracle.levenshtein(a, b) for a, b in pairs]
