@@ -1,23 +1,30 @@
-// Resident-ring pinned-word big-band Myers edit distance, one template
-// pinned_ring_kernel<kCk, kPP>: kernel K7 (costs on the shared schedule,
-// <false, false>), ring K6 (costs + 8-aligned-top checkpoints on the shared
-// schedule, <true, false>) and ring K9 (costs on per-pair schedules,
-// <false, true>).
+// Resident-ring pinned-word big-band Myers edit distance, two kernels:
+// pinned_ring_kernel<kCk, kPP>, ring K6 (costs + 8-aligned-top checkpoints
+// on the shared schedule, <true, false>) and ring K9 (costs on per-pair
+// schedules, <false, true>); and ring_cost_kernel<kS>, costs on the shared
+// schedule: K7 (kS = 0, 8 register slots a thread) and the wide ring (kS =
+// 8 or 24 further slots a thread in shared memory).
 //
 // They replace the TPU kernels astarpa_tpu/ops/pinned.py::_pinned_shared_call
 // (K7, entry pinned_cost_tpu, running _pinned_kernel / _pinned_body),
-// astarpa_tpu/ops/striped.py::_striped_ck_call (K6, entry striped_ck_tpu,
-// running _striped_body) and astarpa_tpu/ops/pinned.py::_pinned_pp_call (K9,
-// entry pinned_cost_pp_tpu, running _pinned_pp_body).  K7's function is
-// K5's (csrc/striped.cu, the reference holds pinned_cost_tpu ==
-// striped_cost_tpu), so its plain torch twin is
-// astarpa_tpu_torch/ops/striped.py::pinned_cost_ref, the striped sweep; ring
-// K6's is striped.py::striped_ck_ref and ring K9's
+// astarpa_tpu/ops/striped.py::_striped_call (K5, entry striped_cost_tpu, on
+// the bands the wide ring holds), astarpa_tpu/ops/striped.py::_striped_ck_call
+// (K6, entry striped_ck_tpu, running _striped_body) and
+// astarpa_tpu/ops/pinned.py::_pinned_pp_call (K9, entry pinned_cost_pp_tpu,
+// running _pinned_pp_body).  K7's function is K5's (csrc/striped.cu, the
+// reference holds pinned_cost_tpu == striped_cost_tpu), so its plain torch
+// twin is astarpa_tpu_torch/ops/striped.py::pinned_cost_ref, the striped
+// sweep; ring K6's is striped.py::striped_ck_ref and ring K9's
 // astarpa_tpu_torch/ops/pinned.py::pinned_cost_pp_ref.  The results must
 // match them bit for bit, and match the stripe kernels of csrc/striped.cu
-// (striped_kernel<true> and <false, true>), which take the bands past the
-// ring.  The per-word event steps come from the same host plans
+// (striped_kernel<false>, <true> and <false, true>), which take the bands
+// past the rings.  The per-word event steps come from the same host plans
 // (ops/striped.py::plan_striped, ops/pinned.py::plan_pp).
+//
+// Which bands each serves (ops/banded_kernel.py): ring K6 and ring K9 up to
+// 4096 live words (ring_takes), K7 every shared cost rung of up to 4096
+// live words and the wide ring those of 4097 to 16384 (pinned_cost_takes,
+// ring_cost_layout: 16 slots a thread up to 8192, 32 up to 16384).
 //
 // The DP is K5's: word w (absolute, 32 rows) runs column t - w at step t,
 // taking the h carry and the column's char code that word w-1 produced at
@@ -73,6 +80,31 @@
 // capture with n_lim = max(n, 1); it needs no end_t row and no stripe
 // ranges.
 //
+// The cost kernel (ring_cost_kernel) keeps the slots and the ring but not
+// pinned_ring_kernel's step, which issued 202 instructions a thread-step
+// for the 8 slots' 112 (ops/sass_count.py --ring): 144 word ALU (each carry
+// shifted out and back in), 20 moves, 13 tests, 19 control.  Its step: the
+// word step with funnel-shifted carry words (14 instructions); the loop
+// unrolled by 8 so that the char masks pass down the slots by register
+// naming (A0/A1 hold slot 0's inputs of the last 8 steps; slot j reads the
+// one of step t - j); one compare a step against the thread's next event
+// (enter, absorb, capture, re-arm, memory mode) with the event work out of
+// line; the link as four shuffles and, between warps, one 16-byte store and
+// load.  The band top costs its thread a few instructions a step: its
+// char codes enter slot 0 from memory (memory mode, from the step the
+// thread's slot-0 word is the top), and its +1 carry comes from the slot
+// above, which is armed (vp = 0, vm = ~0: its carry words' top bits stay 1
+// and 0 for 32 steps whatever its inputs) when its word is absorbed.  Only
+// when a word of the next lap has entered the top's thread (the ring almost
+// full) does the top thread write the top slot's inputs each step.  No
+// block barrier in a one-warp ring.  The wide ring's shared slots are laid
+// out [slot][thread] (state and profile apart, 8 bytes a thread: a warp
+// reads consecutive words); their char masks ride in two registers of bits
+// (C0, C1) and their carries in two more (Php, Phm: each slot pops its input
+// at the top and pushes its output at the bottom), and its register slots'
+// profiles live in shared memory too; its dynamic shared memory (96 KB or
+// 224 KB) is granted before each launch.
+//
 // What bounds it on an H100: integer throughput.  A word step takes at
 // least 14 int32 instructions on sm_90 (the match word, the Myers step and
 // the funnel-shifted carries; ops/sass_count.py), 64 lanes per SM per
@@ -85,16 +117,21 @@
 // about SW words), so it runs the T steps once with all warps busy: it
 // removes K5's stripe ramps.  What is left is the latency of a step: the
 // hand-off of the carry, the barrier and the per-step event, top, capture
-// and checkpoint tests.  On an H100 80GB HBM3 at 700 W (PERF.md) K7 takes
-// 2.28x its operation bound on config #5's cost rung, ring K6 2.57x on its
-// align rung (the stripe K6 4.47x) and ring K9 4.4x on config #5 default's
-// round (the stripe K9 7.1x); a one-warp ring, without the block barrier,
-// still takes ~410 ns a step, as K7 does with one to four warps.  Handing
-// the carry from warp to warp by flags in shared memory instead of the
-// barrier ran ring K9 1.18x slower on that round, so the barrier stays.
-// Memory traffic is each word's profile once, the event steps, one code
+// and checkpoint tests.  On an H100 80GB HBM3 at 700 W (PERF.md) ring K6
+// takes 2.57x its operation bound on config #5's align rung (the stripe K6
+// 4.47x) and ring K9 4.4x on config #5 default's round (the stripe K9
+// 7.1x).  Handing the carry from warp to warp by flags in shared memory
+// instead of the barrier ran ring K9 1.18x slower on that round, so the
+// barrier stays.  Memory traffic is each word's profile once (and the wide
+// ring's shared slots, 24 bytes a slot-step), the event steps, one code
 // byte a step for the top word, and ring K6's checkpoint rows, one 4-byte
-// word of each plane a step.
+// word of each plane a step.  On the same card the cost kernel's step
+// issues 147 instructions a thread-step (121 word ALU; K7 in
+// pinned_ring_kernel issued 202), K7 runs config #5's SW = 2048 rung in
+// ~178 ms (1.6x its bound; 248 ms in pinned_ring_kernel) and the wide ring
+// its SW = 8192 rung in ~613-624 ms (1.4x; K5's stripes 933-940 ms); the
+// barrier and the link cost ~95 ns of K7's ~340 ns step (ops/ring_step.py:
+// ~220 ns without them).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -385,6 +422,458 @@ __global__ void __launch_bounds__(kMaxThreads) pinned_ring_kernel(
   }
 }
 
+// One Myers word step of a slot: the char masks a0/a1 of its column, the
+// profile words, and the carry words of the slot above from the step before
+// (their top bits are the h carries).  Updates vp/vm and returns the slot's
+// own carry words (hpo/hmo before the shift).  14 int32 instructions: the
+// match word, the carry-in bit, eq | hm with its AND and add, four
+// three-input logicals, the two vertical words and two funnel shifts.
+__device__ __forceinline__ void word_step(uint32_t a0, uint32_t a1,
+                                          uint32_t p0, uint32_t p1,
+                                          uint32_t hp_up, uint32_t hm_up,
+                                          uint32_t& vp, uint32_t& vm,
+                                          uint32_t& hp_out, uint32_t& hm_out) {
+  const uint32_t eq = (a0 ^ p0) & (a1 ^ p1);
+  const uint32_t v = vp;
+  const uint32_t vx = eq | vm;
+  const uint32_t eq2 = eq | (hm_up >> (kW - 1));
+  const uint32_t hx = (((eq2 & v) + v) ^ v) | eq2;
+  const uint32_t hpo = vm | ~(hx | v);
+  const uint32_t hmo = v & hx;
+  const uint32_t hps = __funnelshift_l(hp_up, hpo, 1);  // hpo << 1 | carry
+  const uint32_t hms = __funnelshift_l(hm_up, hmo, 1);
+  vp = hms | ~(vx | hps);
+  vm = hps & vx;
+  hp_out = hpo;
+  hm_out = hmo;
+}
+
+// All-ones or zero: bit k of x.
+__device__ __forceinline__ uint32_t bit_mask(uint32_t x, int k) {
+  return (uint32_t)((int32_t)(x << (31 - k)) >> 31);
+}
+
+// K7 (kS = 0) and the wide ring (kS = 8 or 24 shared slots a thread); see
+// the header.  A thread holds kT = 8 + kS consecutive slots: 8 in registers,
+// then kS in shared memory, laid out [slot][thread] at a stride of
+// kMaxThreads, state (vp, vm) and profile (p0, p1) apart, so a warp touches
+// consecutive 8-byte words.
+template <int kS>
+__global__ void __launch_bounds__(kMaxThreads) ring_cost_kernel(
+    const uint8_t* __restrict__ code, const uint32_t* __restrict__ pb0,
+    const uint32_t* __restrict__ pb1, const int32_t* __restrict__ n,
+    const int32_t* __restrict__ m, const int32_t* __restrict__ loend,
+    const int32_t* __restrict__ ev, int32_t* __restrict__ out, int n_max,
+    int B, int S, int SW, int nw_pad, int n_lim) {
+  constexpr int kT = kK + kS;  // slots a thread, a power of two
+  const int p = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int NT = blockDim.x;
+  const int RW = NT * kT;
+  const bool multi = NT > 32;  // a one-warp ring wraps by shuffle alone
+  const int prev_warp = warp > 0 ? warp - 1 : (NT >> 5) - 1;
+  const int src = (lane + 31) & 31;
+  const int np = n[p];
+  const int mp = m[p];
+  const int le = loend[p];
+  const int32_t* ent_t = ev;
+  const int32_t* top_t = ev + nw_pad;
+  const int32_t* abs_t = ev + 2 * nw_pad;
+  const uint8_t* cp = code + (size_t)p * n_max;
+
+  extern __shared__ uint2 s_dyn[];
+  uint2* s_v = s_dyn + tid;                     // s_v[k * kMaxThreads]
+  uint2* s_p = s_dyn + kS * kMaxThreads + tid;  // s_p[k * kMaxThreads]
+  // The wide ring keeps its register slots' profiles in shared memory too
+  // (s_q[j * kMaxThreads]), which leaves it 16 registers for its shared
+  // slots' bits at 512 threads.
+  uint2* s_q = s_dyn + 2 * kS * kMaxThreads + tid;
+  // The link between warps: carry words and char masks of a warp's last
+  // slot, double-buffered by step parity.
+  __shared__ uint4 s_link[2][kMaxThreads / 32];
+  __shared__ int s_sum;
+  if (tid == 0) s_sum = 0;
+  if (tid < kMaxThreads / 32) {
+    s_link[0][tid] = make_uint4(0u, 0u, 0u, 0u);
+    s_link[1][tid] = make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  const int w0 = tid * kT;  // this thread's first slot (and lap-0 word)
+  // Register slots: state, profile and carry words; A0/A1 hold the char
+  // masks that entered slot 0 at the last 8 steps (slot j reads the one of
+  // step t - j, at (t - j) & 7), so masks pass down the slots by register
+  // naming in the 8-step unrolled loop, with no moves.
+  uint32_t vp[kK], vm[kK], p0[kK], p1[kK], xhp[kK], xhm[kK], A0[kK], A1[kK];
+#pragma unroll
+  for (int j = 0; j < kK; ++j) {
+    const int r = min(w0 + j, S - 1);
+    if constexpr (kS > 0) {
+      s_q[j * kMaxThreads] = make_uint2(pb0[(size_t)r * B + p], pb1[(size_t)r * B + p]);
+    } else {
+      p0[j] = pb0[(size_t)r * B + p];
+      p1[j] = pb1[(size_t)r * B + p];
+    }
+    vp[j] = ~0u;
+    vm[j] = 0u;
+    xhp[j] = xhm[j] = A0[j] = A1[j] = 0u;
+  }
+  // Shared slots' char mask bits (C0, C1: bit k is shared slot k's) and
+  // carry bits (Php, Phm: shared slot k's carry at bit 32 - kS + k, so the
+  // last slot's is the top bit of the thread's link out; each step shifts
+  // them up one, then each slot reads its input at the top and pushes its
+  // output at the bottom).
+  uint32_t C0 = 0u, C1 = 0u, Php = 0u, Phm = 0u;
+#pragma unroll
+  for (int k = 0; k < kS; ++k) {
+    const int r = min(w0 + kK + k, S - 1);
+    s_v[k * kMaxThreads] = make_uint2(~0u, 0u);
+    s_p[k * kMaxThreads] = make_uint2(pb0[(size_t)r * B + p], pb1[(size_t)r * B + p]);
+  }
+  __syncthreads();
+  // Profile words of the thread's next word of a later lap (word w0 + RW
+  // first), taken at its entry.
+  uint32_t pn0, pn1;
+  {
+    const int r = min(w0 + RW, S - 1);
+    pn0 = pb0[(size_t)r * B + p];
+    pn1 = pb1[(size_t)r * B + p];
+  }
+  // The thread's word of sequence index q is lap q / kT, slot q % kT.
+  auto next_of = [&](int w, int q) {
+    return (q & (kT - 1)) ? w + 1 : w + RW - (kT - 1);
+  };
+  int e = 0, a = 0;  // sequence indices: next to enter, next to absorb
+  int ent_w = w0, abs_w = w0;
+  int ent_next = ent_t[ent_w];
+  int abs_next = abs_t[abs_w];
+  int top_next = top_t[abs_w];
+  // Capture: the thread's next word in [le, le + SW), word wc finishing
+  // column np - 1 at step wc + np - 1 (taken before the next step).
+  int cap_q, cap_w;
+  {
+    const int d = le - w0;
+    const int lap = d > 0 ? d / RW : 0;
+    const int r = d > 0 ? d - lap * RW : 0;
+    cap_q = r < kT ? lap * kT + r : (lap + 1) * kT;
+    cap_w = w0 + (cap_q & (kT - 1)) + (cap_q / kT) * RW;
+  }
+  int cap_next = np > 0 && cap_w < le + SW ? cap_w + np - 1 : kNever;
+  int acc = 0;  // this thread's absorbed and captured values
+  // The band top.  Its input is the +1 carry and its own column's char
+  // code.  The code: from the step the thread's slot-0 word is the top, the
+  // thread is in memory mode (mm): slot 0's input masks are its own words'
+  // column codes, read from code a step ahead (tc, at tptr), until its lap
+  // is absorbed, its slot 0 takes a word of the next lap, or slot 0's column
+  // reaches n_lim (mm_end); every slot below reads them from the history.
+  // The carry: the top in slot 0 takes it in place of the link (top0);
+  // the top in slot s >= 1 reads it from slot s - 1, whose word was just
+  // absorbed: that slot is armed (vp = 0, vm = ~0), so its carry words have
+  // top bits 1 and 0 whatever its inputs for the next 32 steps, and re-armed
+  // every 31 steps while the same word stays the top (rearm).  When a word
+  // of the thread's next lap enters while the top is still in the thread
+  // (straddle: the ring is almost full), the top slot ts takes its inputs
+  // directly each step (slow, steps before top_end with no other event).
+  bool mm = false, top0 = false, slow = false;
+  int mm_end = kNever, rearm = kNever, ev_next = 0, top_end = 0, ts = 0;
+  uint32_t tc = 0u;
+  const uint8_t* tptr = cp;
+
+  // The values of slot j (before this step's compute).
+  auto read_slot = [&](int j, uint32_t& xv, uint32_t& xm) {
+    if (kS > 0 && j >= kK) {
+      const uint2 v = s_v[(j - kK) * kMaxThreads];
+      xv = v.x;
+      xm = v.y;
+      return;
+    }
+    xv = xm = 0u;
+#pragma unroll
+    for (int jj = 0; jj < kK; ++jj) {
+      if (jj == j) {
+        xv = vp[jj];
+        xm = vm[jj];
+      }
+    }
+  };
+  // Slot j's state (and, for a word of a later lap, its profile).
+  auto set_slot = [&](int j, uint32_t xv, uint32_t xm, bool profile) {
+    if (kS > 0 && j >= kK) {
+      s_v[(j - kK) * kMaxThreads] = make_uint2(xv, xm);
+      if (profile) s_p[(j - kK) * kMaxThreads] = make_uint2(pn0, pn1);
+      return;
+    }
+#pragma unroll
+    for (int jj = 0; jj < kK; ++jj) {
+      if (jj == j) {
+        vp[jj] = xv;
+        vm[jj] = xm;
+        if (profile) {
+          if constexpr (kS > 0) {
+            s_q[jj * kMaxThreads] = make_uint2(pn0, pn1);
+          } else {
+            p0[jj] = pn0;
+            p1[jj] = pn1;
+          }
+        }
+      }
+    }
+  };
+
+  const int t_end = np > 0 ? np + le + SW - 1 : 0;
+  int t = 0;
+  for (; t < t_end; t += kK) {
+#pragma unroll
+    for (int u = 0; u < kK; ++u) {
+      const int tt = t + u;
+      // Slot 0's input: the outputs of the slot above (the previous
+      // thread's last slot, or across the wrap) from step tt - 1.
+      uint32_t in_hp, in_hm;
+      {
+        // The thread's last slot's outputs of step tt - 1: register slot
+        // 7's masks entered slot 0 at step tt - 8.
+        const uint32_t o_hp = kS > 0 ? Php : xhp[kK - 1];
+        const uint32_t o_hm = kS > 0 ? Phm : xhm[kK - 1];
+        const uint32_t o_a0 = kS > 0 ? bit_mask(C0, kS - 1) : A0[u];
+        const uint32_t o_a1 = kS > 0 ? bit_mask(C1, kS - 1) : A1[u];
+        if constexpr (kS > 0) {
+          // Shared slot 0's masks this step entered slot 0 at step tt - 8.
+          C0 = __funnelshift_l(A0[u], C0, 1);
+          C1 = __funnelshift_l(A1[u], C1, 1);
+          Php <<= 1;
+          Phm <<= 1;
+        }
+        in_hp = __shfl_sync(kFull, o_hp, src);
+        in_hm = __shfl_sync(kFull, o_hm, src);
+        A0[u] = __shfl_sync(kFull, o_a0, src);
+        A1[u] = __shfl_sync(kFull, o_a1, src);
+        if (multi && lane == 0) {
+          const uint4 l = s_link[(u + 1) & 1][prev_warp];
+          in_hp = l.x;
+          in_hm = l.y;
+          A0[u] = l.z;
+          A1[u] = l.w;
+        }
+      }
+      if (tt >= ev_next) {
+        if (!(slow && tt < top_end)) {
+          // A capture due at step tt - 1, after its compute.
+          if (tt - 1 == cap_next) {
+            int full = mp - cap_w * kW;
+            full = full < 0 ? 0 : (full > kW ? kW : full);
+            const uint32_t mask = full >= kW ? ~0u : (1u << full) - 1u;
+            uint32_t xv, xm;
+            read_slot(cap_q & (kT - 1), xv, xm);
+            acc += __popc(xv & mask) - __popc(xm & mask);
+            ++cap_q;
+            cap_w = next_of(cap_w, cap_q);
+            cap_next = cap_w < le + SW ? cap_w + np - 1 : kNever;
+          }
+          if (tt == ent_next) {
+            const int j = e & (kT - 1);
+            const bool later_lap = e >= kT;
+            set_slot(j, ~0u, 0u, later_lap);
+            if (j == 0 && later_lap) mm = top0 = false;  // slot 0 reads the link
+            ++e;
+            ent_w = next_of(ent_w, e);
+            ent_next = ent_t[ent_w];
+            if (later_lap) {
+              // Prefetch the profile of the thread's next word.
+              const int r = min(ent_w, S - 1);
+              pn0 = pb0[(size_t)r * B + p];
+              pn1 = pb1[(size_t)r * B + p];
+            }
+          }
+          // A word of the thread's next lap has entered.
+          const bool straddle = e > (a & ~(kT - 1)) + kT;
+          if (tt == abs_next) {
+            const int j = a & (kT - 1);
+            uint32_t xv, xm;
+            read_slot(j, xv, xm);
+            if (tt - abs_w <= np - 1) acc += __popc(xv) - __popc(xm);
+            ++a;
+            abs_w = next_of(abs_w, a);
+            abs_next = abs_t[abs_w];
+            top_next = top_t[abs_w];
+            if (j == 0) top0 = false;
+            if (j == kT - 1) {
+              mm = false;  // the lap is absorbed: the top is in the next thread
+            } else if (!straddle) {
+              set_slot(j, 0u, ~0u, false);  // the next top's carry
+              rearm = abs_next > tt + 32 ? tt + 31 : kNever;
+            }
+          }
+          if (tt == rearm) {
+            rearm = kNever;
+            if (!straddle && (a & (kT - 1)) != 0 && tt < abs_next) {
+              set_slot((a - 1) & (kT - 1), 0u, ~0u, false);
+              rearm = abs_next > tt + 32 ? tt + 31 : kNever;
+            }
+          }
+          if (tt >= mm_end) {
+            mm = top0 = false;
+            mm_end = kNever;
+          }
+          // The thread's next word to absorb is the band top at [top_next,
+          // abs_next) while its column is below n_lim (after an absorb the
+          // next top starts a step later).
+          const bool top = tt >= top_next && tt < abs_next && tt - abs_w < n_lim;
+          const bool straddle_now = e > (a & ~(kT - 1)) + kT;
+          if (top && (a & (kT - 1)) == 0 && !mm) {
+            mm = top0 = true;
+            tptr = cp + (tt - abs_w);
+            tc = *tptr;
+            mm_end = abs_w + n_lim;
+          }
+          slow = top && straddle_now;
+          if (slow) {
+            ts = a & (kT - 1);
+            tptr = cp + (tt - abs_w);
+            tc = *tptr;
+            top_end = min(min(min(abs_next, ent_next), min(cap_next + 1, rearm)),
+                          abs_w + n_lim);
+            ev_next = tt;
+          } else {
+            const int top_start = (straddle_now || (a & (kT - 1)) == 0) && top_next > tt &&
+                                          top_next - abs_w < n_lim
+                                      ? top_next
+                                      : kNever;
+            ev_next = min(min(min(ent_next, abs_next), min(top_start, cap_next + 1)),
+                          min(rearm, mm_end));
+          }
+        }
+        if (slow) {
+          // The top slot's input, directly: the +1 carry and its column's
+          // masks.
+          const uint32_t m0 = 0u - (tc & 1u);
+          const uint32_t m1 = 0u - ((tc >> 1) & 1u);
+          tc = *++tptr;  // next step's code (the buffer is padded)
+          if (kS == 0 || ts < kK) {
+            switch (ts) {  // the carry words and masks slot ts reads
+#define RING_TOP_CASE(J)                  \
+  case J:                                 \
+    A0[(u - J) & (kK - 1)] = m0;          \
+    A1[(u - J) & (kK - 1)] = m1;          \
+    xhp[J - 1] = ~0u;                     \
+    xhm[J - 1] = 0u;                      \
+    break;
+              RING_TOP_CASE(1)
+              RING_TOP_CASE(2)
+              RING_TOP_CASE(3)
+              RING_TOP_CASE(4)
+              RING_TOP_CASE(5)
+              RING_TOP_CASE(6)
+              RING_TOP_CASE(7)
+#undef RING_TOP_CASE
+              default:
+                break;
+            }
+          } else if constexpr (kS > 0) {
+            const int k = ts - kK;
+            C0 = (C0 & ~(1u << k)) | ((m0 & 1u) << k);
+            C1 = (C1 & ~(1u << k)) | ((m1 & 1u) << k);
+            if (k == 0) {
+              xhp[kK - 1] = ~0u;
+              xhm[kK - 1] = 0u;
+            } else {
+              const int pos = 32 - kS + k;
+              Php |= 1u << pos;
+              Phm &= ~(1u << pos);
+            }
+          }
+        }
+      }
+      if (mm) {
+        // Memory mode: slot 0's input masks are its own column's.
+        A0[u] = 0u - (tc & 1u);
+        A1[u] = 0u - ((tc >> 1) & 1u);
+        tc = *++tptr;  // next step's code (the buffer is padded)
+        if (top0) {
+          in_hp = ~0u;
+          in_hm = 0u;
+        }
+      }
+      // Slots from the bottom up, so slot j still sees slot j-1's carries of
+      // step tt - 1: the shared slots, then the register slots.
+#pragma unroll
+      for (int k = kS - 1; k >= 0; --k) {
+        const uint2 v = s_v[k * kMaxThreads];
+        const uint2 pr = s_p[k * kMaxThreads];
+        const uint32_t a0 = bit_mask(C0, k);
+        const uint32_t a1 = bit_mask(C1, k);
+        uint32_t x = v.x, y = v.y, ho, mo;
+        word_step(a0, a1, pr.x, pr.y, k ? Php : xhp[kK - 1],
+                  k ? Phm : xhm[kK - 1], x, y, ho, mo);
+        s_v[k * kMaxThreads] = make_uint2(x, y);
+        Php = __funnelshift_l(ho, Php, 1);  // push the carry at the bottom
+        Phm = __funnelshift_l(mo, Phm, 1);
+      }
+      if constexpr (kS > 0) {
+        Php <<= 32 - kS;  // the last slot's carry to the top
+        Phm <<= 32 - kS;
+      }
+#pragma unroll
+      for (int j = kK - 1; j >= 0; --j) {
+        const uint2 pr = kS > 0 ? s_q[j * kMaxThreads] : make_uint2(p0[j], p1[j]);
+        word_step(A0[(u - j) & (kK - 1)], A1[(u - j) & (kK - 1)], pr.x, pr.y,
+                  j ? xhp[j - 1] : in_hp, j ? xhm[j - 1] : in_hm, vp[j], vm[j],
+                  xhp[j], xhm[j]);
+      }
+      if (multi) {
+        if (lane == 31) {
+          s_link[u & 1][warp] =
+              kS > 0 ? make_uint4(Php, Phm, bit_mask(C0, kS - 1), bit_mask(C1, kS - 1))
+                     : make_uint4(xhp[kK - 1], xhm[kK - 1],
+                                  A0[(u + 1) & (kK - 1)], A1[(u + 1) & (kK - 1)]);
+        }
+        __syncthreads();
+      }
+    }
+  }
+  // The capture of the last computed step, if due.
+  if (t - 1 == cap_next) {
+    int full = mp - cap_w * kW;
+    full = full < 0 ? 0 : (full > kW ? kW : full);
+    const uint32_t mask = full >= kW ? ~0u : (1u << full) - 1u;
+    uint32_t xv, xm;
+    read_slot(cap_q & (kT - 1), xv, xm);
+    acc += __popc(xv & mask) - __popc(xm & mask);
+  }
+  if (acc) atomicAdd(&s_sum, acc);
+  __syncthreads();
+  if (tid == 0) {
+    const bool covered = mp - le * kW <= SW * kW;
+    out[p] = covered ? s_sum + np : kInf;
+  }
+}
+
+template <int kS>
+int launch_cost(const void* code, const void* pb0, const void* pb1,
+                const void* n, const void* m, const void* loend, const void* ev,
+                void* out, int n_max, int B, int S, int SW, int nw_pad,
+                int n_lim, int threads, void* stream) {
+  constexpr int kT = kK + kS;
+  if (threads < 32 || threads > kMaxThreads || threads % 32 ||
+      nw_pad % (threads * kT) || n_lim < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t shm = (size_t)(kS > 0 ? 2 * kS + kK : 0) * kMaxThreads * sizeof(uint2);
+  if (kS > 0) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        ring_cost_kernel<kS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)shm);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  if (B > 0) {
+    ring_cost_kernel<kS><<<B, threads, shm, (cudaStream_t)stream>>>(
+        (const uint8_t*)code, (const uint32_t*)pb0, (const uint32_t*)pb1,
+        (const int32_t*)n, (const int32_t*)m, (const int32_t*)loend,
+        (const int32_t*)ev, (int32_t*)out, n_max, B, S, SW, nw_pad, n_lim);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <bool kCk, bool kPP>
 int launch(const void* code, const void* pb0, const void* pb1, const void* n,
            const void* m, const void* loend, const void* ev, void* out,
@@ -428,9 +917,24 @@ int astarpa_pinned_cost(const void* code, const void* pb0, const void* pb1,
                         const void* ev, void* out, int n_max, int B, int S,
                         int SW, int nw_pad, int n_lim, int threads,
                         void* stream) {
-  return launch<false, false>(code, pb0, pb1, n, m, loend, ev, out, nullptr,
-                              nullptr, nullptr, nullptr, n_max, B, S, SW,
-                              nw_pad, n_lim, threads, 1, 0, stream);
+  return launch_cost<0>(code, pb0, pb1, n, m, loend, ev, out, n_max, B, S, SW,
+                        nw_pad, n_lim, threads, stream);
+}
+
+int astarpa_ring_cost_wide(const void* code, const void* pb0, const void* pb1,
+                           const void* n, const void* m, const void* loend,
+                           const void* ev, void* out, int n_max, int B, int S,
+                           int SW, int nw_pad, int n_lim, int threads,
+                           int thread_words, void* stream) {
+  if (thread_words == kK + 8) {
+    return launch_cost<8>(code, pb0, pb1, n, m, loend, ev, out, n_max, B, S,
+                          SW, nw_pad, n_lim, threads, stream);
+  }
+  if (thread_words == kK + 24) {
+    return launch_cost<24>(code, pb0, pb1, n, m, loend, ev, out, n_max, B, S,
+                           SW, nw_pad, n_lim, threads, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int astarpa_ring_ck(const void* code, const void* pb0, const void* pb1,

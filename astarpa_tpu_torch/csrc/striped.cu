@@ -9,10 +9,12 @@
 // true window top (K8, K10) or from the 8-aligned one (K6).
 //
 // Which bands each instance serves: K8 and K10 take every band they are
-// routed; K5, K6 and K9 take only bands of more live words than the
-// resident ring of csrc/pinned.cu holds (4096): shorter ones run K7, ring
-// K6 and ring K9 there, the same functions without the stripe ramps
-// (ops/banded_kernel.py::ring_takes).
+// routed; K6 and K9 take only bands of more live words than the resident
+// rings of csrc/pinned.cu hold (4096: ring K6 and ring K9 take the shorter
+// ones, ops/banded_kernel.py::ring_takes), and K5 only bands of more than
+// 16384 live words, which no configuration reaches: K7 and the wide ring
+// there take the shorter ones (pinned_cost_takes).  Each ring computes the
+// same function without the stripe ramps.
 //
 // They replace the TPU kernels astarpa_tpu/ops/striped.py::_striped_call (K5,
 // entry striped_cost_tpu) and _striped_ck_call (K6, entry striped_ck_tpu),
@@ -74,10 +76,11 @@
 // (words entering and leaving) keep part of a block's warps idle, the block
 // waits at a barrier every step, and one block per pair fills at most B
 // SMs.  On an H100 80GB HBM3 at 700 W (PERF.md): at config #5 (128 pairs of
-// 500 kbp, SW=2048) a K5 rung runs at 4.3-4.4x that operation bound, K6's
-// at 4.5x and K9's config #5 default round (SW=1152) at 7.1x, where the
-// ring kernels of csrc/pinned.cu now run them; K8's full-height rung at
-// config #4 (SW=3149) runs at 2.7x.  In cost mode K9 stops each pair's
+// 500 kbp, SW=2048) a K5 rung runs at 4.2-4.4x that operation bound, K6's
+// at 4.5x and K9's config #5 default round (SW=1152) at 7.1x, and K5 at
+// SW=8192 (4 stripes of 4096 words) at 2.1-2.2x, where the ring kernels of
+// csrc/pinned.cu now run them (K7 1.6x, the wide ring 1.4x); K8's
+// full-height rung at config #4 (SW=3149) runs at 2.7x.  In cost mode K9 stops each pair's
 // words at its own last column.
 
 #include <cstdint>

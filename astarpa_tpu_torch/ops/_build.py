@@ -118,6 +118,7 @@ def load() -> ctypes.CDLL:
                                    ("astarpa_pinned_ck_pp", 15, 10),
                                    ("astarpa_ring_ck", 12, 9),
                                    ("astarpa_ring_cost_pp", 8, 6),
+                                   ("astarpa_ring_cost_wide", 8, 8),
                                    ("astarpa_nw_right_edge", 8, 2)):
             fn = getattr(lib, name)
             fn.restype = i32

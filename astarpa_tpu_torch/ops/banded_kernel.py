@@ -14,11 +14,16 @@ and of ``astarpa_tpu/ops/pinned.py::pinned_cost_tpu``, ``pinned_ck_tpu``,
 - :func:`banded_fill_pp` — K3, per-pair schedules, the same;
 - :func:`banded_cost_pp` — K4, per-pair schedules, costs;
 - :func:`banded_ck_pp` — K4, per-pair schedules, costs and checkpoints;
-- :func:`striped_cost` — K5, shared schedule, any band height, costs;
+- :func:`striped_cost` — K5, shared schedule, any band height, costs: the
+  ring kernels of :func:`pinned_cost` up to :data:`RING_COST_MAX_WORDS`
+  live words, the stripe kernel past them;
 - :func:`striped_ck` — K6, K5 plus 8-aligned-top checkpoints: the ring
   kernel (ring K6) up to :data:`RING_MAX_WORDS` live words, the stripe
   kernel past them;
-- :func:`pinned_cost` — K7, K5's costs from a ring of resident words;
+- :func:`pinned_cost` — K7, K5's costs from a ring of resident words in
+  registers (up to :data:`RING_MAX_WORDS`), and past it the wide ring,
+  whose further slots are in shared memory (up to
+  :data:`RING_COST_MAX_WORDS`);
 - :func:`pinned_ck` — K8, K5 plus checkpoints under K2's contract, any SW;
 - :func:`pinned_cost_pp` — K9, K5's DP on per-pair schedules, costs: the
   ring kernel (ring K9) up to :data:`RING_MAX_WORDS` live words, the
@@ -47,7 +52,7 @@ LAUNCHES = {"banded_cost": 0, "banded_ck": 0, "banded_fill": 0,
             "banded_fill_pp": 0, "banded_cost_pp": 0, "banded_ck_pp": 0, "striped_cost": 0, "striped_ck": 0,
             "pinned_cost": 0, "pinned_ck": 0, "pinned_cost_pp": 0,
             "pinned_ck_pp": 0, "ring_ck": 0, "ring_cost_pp": 0,
-            "nw_right_edge": 0}
+            "ring_cost_wide": 0, "nw_right_edge": 0}
 
 
 def reset_launches() -> None:
@@ -62,7 +67,7 @@ _LABELS = {"banded_cost": "cuda-banded", "banded_ck": "cuda-banded-ck",
            "pinned_cost": "cuda-pinned", "pinned_ck": "cuda-pinned-ck",
            "pinned_cost_pp": "cuda-pinned-pp", "pinned_ck_pp": "cuda-pinned-pp-ck",
            "ring_ck": "cuda-ring-ck", "ring_cost_pp": "cuda-ring-pp",
-           "nw_right_edge": "cuda-nw"}
+           "ring_cost_wide": "cuda-ring-wide", "nw_right_edge": "cuda-nw"}
 
 
 def route(device: torch.device, kernel: str = "banded_cost") -> str:
@@ -148,10 +153,16 @@ def striped_cost(a0, a1, pb0, pb1, n, m, band_words: int,
     """Banded costs at any band height (exact at ``band_words >= S``), as
     :func:`.striped.striped_cost_ref`: equal to :func:`banded_cost` where
     the window covers row m at the last column, ``INF`` elsewhere.
-    ``stripe_words`` sets the kernel's stripe height (see
-    :func:`striped_threads`; the results do not depend on it)."""
+
+    On the card a band the cost ring holds (:func:`pinned_cost_takes`; the
+    live words never outnumber the band) runs :func:`pinned_cost`'s ring
+    kernels, a taller one the stripe kernel K5.  ``stripe_words`` picks the
+    stripe kernel at that stripe height (see :func:`striped_threads`).  The
+    results do not depend on either."""
     if _plain(a0):
         return striped.striped_cost_ref(a0, a1, pb0, pb1, n, m, band_words, diag)
+    if stripe_words is None and pinned_cost_takes(min(band_words, pb0.shape[0])):
+        return pinned_cost(a0, a1, pb0, pb1, n, m, band_words, diag)
     return _launch_striped("striped_cost", a0, a1, pb0, pb1, n, m, band_words,
                            diag, stripe_words=stripe_words)
 
@@ -185,21 +196,25 @@ def striped_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
 
 
 def pinned_cost(a0, a1, pb0, pb1, n, m, band_words: int,
-                diag: tuple | None = None,
-                ring_words: int | None = None) -> torch.Tensor:
+                diag: tuple | None = None, ring_words: int | None = None,
+                thread_words: int | None = None) -> torch.Tensor:
     """K5's costs (:func:`striped_cost`) from one pass over a ring of
     resident words, as :func:`.striped.pinned_cost_ref`.  The ring holds
-    the most words live at once (:func:`.striped.ring_span`), rounded up
-    to whole warps of 256 words, or ``ring_words`` (a multiple of 256 that
-    holds them; the results do not depend on it).  Raises ``ValueError`` on
-    both routes when the ring would need more than 4096 words."""
+    the most words live at once (:func:`.striped.ring_span`), sized by
+    :func:`ring_cost_layout`: K7 (8 register slots a thread) up to 4096
+    words, the wide ring (8 register and 8 or 24 shared slots a thread) up
+    to 16384; ``ring_words`` and ``thread_words`` force a size and a
+    design (the results do not depend on them).  Raises ``ValueError`` on
+    both routes when the ring would need more than 16384 words, or the
+    forced ring cannot hold the live words."""
     SW = _check("pinned_cost", a0, a1, pb0, pb1, band_words)
     n_max, S = a0.shape[0], pb0.shape[0]
     plan = striped.plan_striped(n_max, S, SW, diag)
-    threads = ring_threads(striped.ring_span(plan, _cost_n_lim(n, n_max)), ring_words)
+    threads, words = ring_cost_layout(striped.ring_span(plan, _cost_n_lim(n, n_max)),
+                                      ring_words, thread_words)
     if _plain(a0):
         return striped.pinned_cost_ref(a0, a1, pb0, pb1, n, m, band_words, diag)
-    return _launch_pinned(a0, a1, pb0, pb1, n, m, SW, plan, threads)
+    return _launch_ring_cost(a0, a1, pb0, pb1, n, m, SW, plan, threads, words)
 
 
 def pinned_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
@@ -409,41 +424,82 @@ def _loend(plan, n, n_t, n_max: int, dev) -> torch.Tensor:
     return lo[(n_t.long() - 1).clamp(0, n_max - 1)].to(torch.int32)
 
 
-#: Largest ring of the ring kernels (``kMaxThreads * kK`` in
-#: ``csrc/pinned.cu``), K5's largest stripe.
+#: Largest ring of ring K6 and ring K9, and of K7 (``kMaxThreads * kK`` in
+#: ``csrc/pinned.cu``: 8 register slots a thread), K5's largest stripe.
 RING_MAX_WORDS = 512 * STRIPED_WORDS_PER_THREAD
+#: Slots a thread of the shared cost ring holds: K7's 8 in registers, the
+#: wide ring's 8 in registers and 8 or 24 in shared memory
+#: (``ring_cost_kernel<kS>`` in ``csrc/pinned.cu``).
+RING_THREAD_WORDS = (8, 16, 32)
+#: Largest ring of the shared cost kernels: 512 threads of 32 slots.
+RING_COST_MAX_WORDS = 512 * RING_THREAD_WORDS[-1]
 
 
 def ring_threads(span: int, ring_words: int | None = None) -> int:
-    """Block size of a ring kernel whose ring must hold ``span`` words: the least
-    warp multiple whose ``threads * 8`` slots hold them, or ``ring_words //
-    8`` (a multiple of 256 words, at least ``span``).  Raises
-    ``ValueError`` past :data:`RING_MAX_WORDS`."""
-    per = STRIPED_WORDS_PER_THREAD
-    if span > RING_MAX_WORDS:
-        raise ValueError(f"ring kernel: {span} live words exceed the ring's "
-                         f"{RING_MAX_WORDS}; use the striped kernel")
-    if ring_words is None:
-        return max(32, -(-span // (32 * per)) * 32)
-    if ring_words % (32 * per) or not span <= ring_words <= RING_MAX_WORDS:
-        raise ValueError(f"ring_words must be a multiple of {32 * per} from the "
-                         f"{span} live words up to {RING_MAX_WORDS}, got {ring_words}")
-    return ring_words // per
+    """Block size of ring K6 or ring K9 (8 register slots a thread) whose
+    ring must hold ``span`` words: the least warp multiple whose ``threads *
+    8`` slots hold them, or ``ring_words // 8`` (a multiple of 256 words, at
+    least ``span``).  Raises ``ValueError`` past :data:`RING_MAX_WORDS`
+    (:func:`ring_cost_layout` at 8 slots a thread)."""
+    return ring_cost_layout(span, ring_words, STRIPED_WORDS_PER_THREAD)[0]
 
 
 def ring_takes(band_words: int) -> bool:
-    """Whether the ring kernels (K7, ring K6, ring K9) take a band of
-    ``band_words`` words (at most the full height): their ring holds its
-    live words, which never outnumber the band (:func:`.striped.ring_span`,
+    """Whether ring K6 and ring K9 take a band of ``band_words`` words (at
+    most the full height): their register ring holds its live words, which
+    never outnumber the band (:func:`.striped.ring_span`,
     :func:`.pinned.ring_span_pp`).  Taller bands run the stripe kernels
-    (K5, K6, K9), which take any height."""
+    (K6, K9), which take any height.  The shared cost ring goes further
+    (:func:`pinned_cost_takes`)."""
     return band_words <= RING_MAX_WORDS
 
 
 def pinned_cost_takes(band_words: int) -> bool:
-    """Whether K7 takes a shared cost rung of ``band_words`` words
-    (:func:`ring_takes`); bands past the ring run K5."""
-    return ring_takes(band_words)
+    """Whether the shared cost ring (:func:`pinned_cost`: K7, or the wide
+    ring past 4096 live words) takes a cost rung of ``band_words`` words
+    (at most the full height): its live words never outnumber the band,
+    and the ring holds :data:`RING_COST_MAX_WORDS`.  Taller bands run K5's
+    stripes."""
+    return band_words <= RING_COST_MAX_WORDS
+
+
+def ring_cost_layout(span: int, ring_words: int | None = None,
+                     thread_words: int | None = None) -> tuple[int, int]:
+    """``(threads, thread_words)`` of a shared cost ring that must hold
+    ``span`` live words: the fewest slots a thread (8, 16 or 32, from
+    :data:`RING_THREAD_WORDS`) whose 512 threads hold them, then the least
+    warp multiple of threads (so K7 takes up to 4096 words and the wide
+    ring the rest); or ``ring_words`` (a multiple of 32 threads' slots from
+    the live words up to 512 threads' slots) and ``thread_words``, either
+    of them forced.  Raises ``ValueError`` past :data:`RING_COST_MAX_WORDS`
+    or when the forced ring cannot hold the live words."""
+    if thread_words is not None and thread_words not in RING_THREAD_WORDS:
+        raise ValueError(f"thread_words must be one of {RING_THREAD_WORDS}, got {thread_words}")
+    if thread_words is None:
+        if span > RING_COST_MAX_WORDS:
+            raise ValueError(f"ring kernel: {span} live words exceed the ring's "
+                             f"{RING_COST_MAX_WORDS}; use the striped kernel")
+        need = span if ring_words is None else ring_words
+        thread_words = next((k for k in RING_THREAD_WORDS if need <= 512 * k),
+                            RING_THREAD_WORDS[-1])
+    if span > 512 * thread_words:
+        raise ValueError(f"ring kernel: {span} live words exceed the ring's "
+                         f"{512 * thread_words} at {thread_words} slots a thread")
+    if ring_words is None:
+        return max(32, -(-span // (32 * thread_words)) * 32), thread_words
+    if ring_words % (32 * thread_words) or not span <= ring_words <= 512 * thread_words:
+        raise ValueError(f"ring_words must be a multiple of {32 * thread_words} from the "
+                         f"{span} live words up to {512 * thread_words}, got {ring_words}")
+    return ring_words // thread_words, thread_words
+
+
+def pinned_cost_kernel(n_max: int, S: int, band_words: int, diag, n) -> str:
+    """The :data:`LAUNCHES` key of the ring kernel :func:`pinned_cost` runs
+    for these planes' shape at its default ring: ``"pinned_cost"`` (K7) or
+    ``"ring_cost_wide"``."""
+    plan = striped.plan_striped(n_max, S, min(band_words, S), diag)
+    _, words = ring_cost_layout(striped.ring_span(plan, _cost_n_lim(n, n_max)))
+    return "pinned_cost" if words == STRIPED_WORDS_PER_THREAD else "ring_cost_wide"
 
 
 def _takes_ring(SW: int, stripe_words, ring_words) -> bool:
@@ -457,8 +513,8 @@ def _takes_ring(SW: int, stripe_words, ring_words) -> bool:
 
 
 def ring_events(plan: dict, ring_words: int) -> np.ndarray:
-    """(3, nw_pad) int32 host event table of a shared ring launch (K7, ring
-    K6): the plan's ``ent_t``, ``top_t`` and ``abs_t``, then ``NEVER`` up
+    """(3, nw_pad) int32 host event table of a shared ring launch (K7, the
+    wide ring, ring K6): the plan's ``ent_t``, ``top_t`` and ``abs_t``, then ``NEVER`` up
     to one ring past the live words, where a thread's event pointers stop
     (``nw_pad`` a multiple of ``ring_words``)."""
     nwl = plan["n_words_live"]
@@ -469,8 +525,8 @@ def ring_events(plan: dict, ring_words: int) -> np.ndarray:
     return ev
 
 
-def _launch_pinned(a0, a1, pb0, pb1, n, m, SW, plan, threads, col_block=None):
-    """K7, or ring K6 with ``col_block``: the shared schedule's ring launch."""
+def _launch_pinned(a0, a1, pb0, pb1, n, m, SW, plan, threads, col_block):
+    """Ring K6: the shared schedule's checkpoint ring launch."""
     from ._build import load
 
     dev = a0.device
@@ -481,28 +537,56 @@ def _launch_pinned(a0, a1, pb0, pb1, n, m, SW, plan, threads, col_block=None):
     ev = ring_events(plan, threads * STRIPED_WORDS_PER_THREAD)
     code = ((a0 & 1) | (a1 & 2)).to(torch.uint8).T.contiguous()
     out = torch.empty(B, dtype=torch.int32, device=dev)
-    head = [code, pb0, pb1, n_t, m_t, loend, to_tensor(ev, dev), out]
-    ck = col_block is not None
+    CB, n_ck, ckw0 = striped.ck_layout(n_max, SW, col_block, plan["lo"])
     # Checkpoints are defined (and compared) up to n_max.
-    n_lim = n_max if ck else _cost_n_lim(n, n_max)
-    ints = [n_max, B, S, SW, ev.shape[1], n_lim, threads]
-    outs = ()
-    if ck:
-        CB, n_ck, ckw0 = striped.ck_layout(n_max, SW, col_block, plan["lo"])
-        outs = (torch.empty((n_ck, SW + 8, B), dtype=torch.int32, device=dev),
-                torch.empty((n_ck, SW + 8, B), dtype=torch.int32, device=dev),
-                torch.empty((n_ck, B), dtype=torch.int32, device=dev))
-        head += list(outs) + [to_tensor(ckw0, dev)]
-        ints += [CB, n_ck]
-    key = "ring_ck" if ck else "pinned_cost"
-    entry = "astarpa_ring_ck" if ck else "astarpa_pinned_cost"
+    outs = (torch.empty((n_ck, SW + 8, B), dtype=torch.int32, device=dev),
+            torch.empty((n_ck, SW + 8, B), dtype=torch.int32, device=dev),
+            torch.empty((n_ck, B), dtype=torch.int32, device=dev))
+    head = [code, pb0, pb1, n_t, m_t, loend, to_tensor(ev, dev), out, *outs,
+            to_tensor(ckw0, dev)]
+    ints = [n_max, B, S, SW, ev.shape[1], n_max, threads, CB, n_ck]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(load(), entry)(*(t.data_ptr() for t in head), *ints, stream)
+        rc = load().astarpa_ring_ck(*(t.data_ptr() for t in head), *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"ring_ck kernel launch failed: cudaError {rc}")
+    LAUNCHES["ring_ck"] += 1
+    return (out,) + outs
+
+
+#: Bytes past the last pair's codes: the top word's code is read a step
+#: ahead, one column past the pair's last (``ring_cost_kernel``).
+CODE_PAD = 64
+
+
+def _launch_ring_cost(a0, a1, pb0, pb1, n, m, SW, plan, threads, thread_words):
+    """K7 (8 slots a thread) or the wide ring: the shared cost ring launch."""
+    from ._build import load
+
+    dev = a0.device
+    n_max, B = a0.shape
+    S = pb0.shape[0]
+    n_t, m_t = lengths(n, B, dev), lengths(m, B, dev)
+    loend = _loend(plan, n, n_t, n_max, dev)
+    ev = ring_events(plan, threads * thread_words)
+    code = torch.zeros(B * n_max + CODE_PAD, dtype=torch.uint8, device=dev)
+    code[:B * n_max].view(B, n_max).copy_(((a0 & 1) | (a1 & 2)).to(torch.uint8).T)
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    head = [code, pb0, pb1, n_t, m_t, loend, to_tensor(ev, dev), out]
+    ints = [n_max, B, S, SW, ev.shape[1], _cost_n_lim(n, n_max), threads]
+    wide = thread_words != STRIPED_WORDS_PER_THREAD
+    key = "ring_cost_wide" if wide else "pinned_cost"
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if wide:
+            rc = load().astarpa_ring_cost_wide(*(t.data_ptr() for t in head), *ints,
+                                               thread_words, stream)
+        else:
+            rc = load().astarpa_pinned_cost(*(t.data_ptr() for t in head), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
     LAUNCHES[key] += 1
-    return (out,) + outs if ck else out
+    return out
 
 
 def ring_pp_events(sched: np.ndarray, n, SW: int, dev, ring_words: int | None = None):

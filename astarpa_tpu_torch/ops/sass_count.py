@@ -1,6 +1,8 @@
-"""Count the instructions of a K11 word step in the compiled SASS.
+"""Count the instructions of a K11 word step, or of a ring kernel's step, in
+the compiled SASS.
 
     python -m astarpa_tpu_torch.ops.sass_count [--kernel nw_kernel] [--words 32]
+    python -m astarpa_tpu_torch.ops.sass_count --kernel pinned_ring_kernel --ring [--steps 1]
 
 Builds the kernel library (:func:`._build.build`), disassembles it with
 ``cuobjdump -sass`` and finds every loop (a branch back to a label) of the
@@ -9,8 +11,20 @@ loop: its instructions by opcode, split into integer ALU, memory, control
 and uniform-datapath classes.  K11's largest innermost loop is its column
 loop with the stripe's ``kWords`` = 32 word steps unrolled, so its ALU
 instructions over ``--words`` are what one word step runs there, the
-loop's own overhead included.  The last line is that summary.  Needs the CUDA
-toolkit's ``cuobjdump``; no GPU.
+loop's own overhead included.  The last line is that summary.
+
+With ``--ring`` it splits the step loop of each matching ring kernel
+(``pinned_ring_kernel``, ``ring_cost_kernel``; :func:`step_split`): the
+largest loop closed by a conditional branch, whose body runs ``--steps``
+steps (1 for ``pinned_ring_kernel``, 8 for the unrolled
+``ring_cost_kernel``).  It prints one JSON line per kernel instance with
+the instructions per thread-step by class (word-step ALU, moves, hand-off,
+event/top/capture tests, memory, control, uniform), both over the whole
+loop body and on the path that skips every block a forward conditional
+branch jumps over (a step with no event), and the ALU instructions beyond
+``OPS_PER_WORD_STEP`` (14) per slot of a thread (``--slots``, read from the
+instance's name when it holds it).  Needs the CUDA toolkit's ``cuobjdump``;
+no GPU.
 """
 
 from __future__ import annotations
@@ -29,9 +43,19 @@ MEMORY = {"LDG", "STG", "LD", "ST", "LDS", "STS", "LDL", "STL", "LDC", "ATOM", "
 CONTROL = {"BRA", "BRX", "JMP", "JMX", "EXIT", "RET", "CALL", "BSSY", "BSYNC", "WARPSYNC",
            "BAR", "NOP", "YIELD", "BPT", "NANOSLEEP", "BREAK", "KILL"}
 
+#: Classes of :func:`step_class`, in print order.
+STEP_CLASSES = ("word_alu", "moves", "handoff", "tests", "memory", "control", "uniform", "other")
+#: Least int32 instructions of one Myers word step on sm_90 (``chip_smoke.py``).
+OPS_PER_WORD_STEP = 14
+_HANDOFF = {"SHFL", "LDS", "STS", "BAR", "WARPSYNC", "LDSM"}
+_MOVES = {"MOV", "MOV32I", "SEL", "FSEL", "PRMT"}
+_TESTS = {"ISETP", "PLOP3", "P2R", "R2P", "VOTE", "VOTEU", "POPC", "FLO", "ICMP", "IABS", "IMNMX",
+          "VIMNMX", "BMSK", "SGXT", "CSET", "CSETP", "FSETP"}
+_WORD = {"LOP3", "LOP", "SHF", "IADD3", "IADD", "IMAD", "LEA", "SHL", "SHR", "IMUL", "XMAD"}
+
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
-_INSN = re.compile(r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+_INSN = re.compile(r"/\*([0-9a-f]+)\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 # A branch names its target by label (`(.L_x_3)) or by address (0x1f0).
 _TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b")
 
@@ -72,9 +96,9 @@ def loops(lines: list[str]) -> list[tuple[list[str], bool]]:
         if not m:
             continue
         at[int(m.group(1), 16)] = len(ops)
-        ops.append(m.group(2))
-        t = _TARGET.search(m.group(3))
-        if m.group(2).startswith("BRA") and t:
+        ops.append(m.group(3))
+        t = _TARGET.search(m.group(4))
+        if m.group(3).startswith("BRA") and t:
             branches.append((len(ops), t.group(1) or int(t.group(2), 16)))
     spans = []
     for end, target in branches:
@@ -85,11 +109,104 @@ def loops(lines: list[str]) -> list[tuple[list[str], bool]]:
             for a, b in spans]
 
 
+def step_class(opcode: str) -> str:
+    """Class of an instruction in a ring kernel's step (:data:`STEP_CLASSES`):
+    the integer ALU a word step is made of, moves and selects, the hand-off
+    of the carry (shuffles, shared memory, barriers), the tests and counts
+    of the events, top and capture, memory, control and uniform-datapath
+    instructions.  ``IMAD.MOV`` is a move."""
+    base = opcode.split(".")[0]
+    if base in _HANDOFF:
+        return "handoff"
+    if base in _MOVES or opcode.startswith("IMAD.MOV"):
+        return "moves"
+    if base in _TESTS:
+        return "tests"
+    if base in MEMORY:
+        return "memory"
+    if base in CONTROL or base == "BRX":
+        return "control"
+    if base.startswith("U") or base == "S2UR":
+        return "uniform"
+    return "word_alu" if base in _WORD else "other"
+
+
+def _parse(lines: list[str]):
+    """(opcodes, whether each is predicated, {index: branch target index})."""
+    ops, pred, at, labels, raw = [], [], {}, {}, []
+    for line in lines:
+        m = _LABEL.match(line)
+        if m:
+            labels[m.group(1)] = len(ops)
+            continue
+        m = _INSN.search(line)
+        if not m:
+            continue
+        at[int(m.group(1), 16)] = len(ops)
+        t = _TARGET.search(m.group(4))
+        if m.group(3).startswith("BRA") and t:
+            raw.append((len(ops), t.group(1) or int(t.group(2), 16)))
+        ops.append(m.group(3))
+        pred.append(bool(m.group(2)))
+    targets = {}
+    for i, tg in raw:
+        j = labels.get(tg) if isinstance(tg, str) else at.get(tg)
+        if j is not None:
+            targets[i] = j
+    return ops, pred, targets
+
+
+def step_split(lines: list[str], steps: int = 1, slots: int = 8) -> dict:
+    """Instructions per thread-step of a ring kernel's step loop, by
+    :func:`step_class`: the largest loop closed by a conditional branch back
+    (the step loop; a return from an out-of-line block is unconditional),
+    over its whole body (``body``) and on the path that skips every block a
+    forward conditional branch inside the loop jumps over (``no_event``: a
+    step whose tests all fail, when the compiler places the rare blocks
+    there or out of line).  ``alu_beyond_word_steps`` is that path's word
+    ALU over ``OPS_PER_WORD_STEP * slots``."""
+    ops, pred, targets = _parse(lines)
+    spans = [(j, i + 1) for i, j in targets.items() if j <= i and pred[i]]
+    if not spans:
+        raise ValueError("no loop closed by a conditional branch")
+    a, b = max(spans, key=lambda s: s[1] - s[0])
+    skipped = set()
+    for i in range(a, b - 1):
+        j = targets.get(i)
+        if pred[i] and j is not None and i < j <= b:
+            skipped.update(range(i + 1, j))
+    body = Counter(step_class(op) for op in ops[a:b])
+    path = Counter(step_class(ops[i]) for i in range(a, b) if i not in skipped)
+
+    def per_step(c):
+        return {k: c[k] / steps for k in STEP_CLASSES if c[k]}
+
+    no_event = per_step(path)
+    return {"instructions": b - a, "steps": steps, "slots": slots,
+            "body_per_step": per_step(body), "body_total_per_step": (b - a) / steps,
+            "no_event_per_step": no_event,
+            "no_event_total_per_step": sum(no_event.values()),
+            "alu_beyond_word_steps": no_event.get("word_alu", 0.0) - OPS_PER_WORD_STEP * slots,
+            "opcodes": Counter(ops[i] for i in range(a, b) if i not in skipped).most_common()}
+
+
+def _slots(name: str, default: int) -> int:
+    """A thread's slots from a ring kernel instance's mangled name: 8 plus
+    ``ring_cost_kernel``'s first template argument (shared slots), else
+    ``default``."""
+    m = re.search(r"ring_cost_kernel(?:Li|ILi)(\d+)E", name)
+    return 8 + int(m.group(1)) if m else default
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", default="nw_kernel")
     ap.add_argument("--words", type=int, default=32, help="word steps in one pass of the largest loop")
     ap.add_argument("--dump", help="also write the matching functions' SASS to this file")
+    ap.add_argument("--ring", action="store_true", help="split a ring kernel's step loop")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="steps in one pass of the step loop (default: 8 for ring_cost_kernel, else 1)")
+    ap.add_argument("--slots", type=int, default=8, help="slots a thread, if the name does not say")
     args = ap.parse_args()
     lib = _build.build()
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
@@ -100,6 +217,14 @@ def main() -> None:
     if args.dump:
         Path(args.dump).write_text("".join(f"{name}\n" + "\n".join(lines) + "\n"
                                            for name, lines in matching.items()))
+    if args.ring:
+        if not matching:
+            raise SystemExit(f"no function matches {args.kernel!r}")
+        for name, lines in matching.items():
+            steps = args.steps or (8 if "ring_cost_kernel" in name else 1)
+            print(json.dumps({"function": name, **step_split(lines, steps,
+                                                             _slots(name, args.slots))}), flush=True)
+        return
     for name, lines in matching.items():
         for body, innermost in loops(lines):
             classes = Counter(klass(op) for op in body)

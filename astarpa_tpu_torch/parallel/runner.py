@@ -11,12 +11,14 @@ pairs retry at the band their banded upper bound predicts.
   (CIGARs by direct whole-pair DT traces), else K2, whose window
   checkpoints feed the native ``trace_banded_ck``.  Bands of at least
   :data:`STRIPED_MIN_SW` words run the big-band kernels instead.  For
-  costs (and the direct-trace align rungs) that is K7, one pass over a
-  ring of resident words, up to the ring's 4096 words
-  (:func:`..ops.banded_kernel.pinned_cost_takes`), and K5, whose stripes
-  take any height, past it (K7 beat K5 at every band of 64 to 4096 words
-  measured on the card, so the reference's ``PINNED_MIN_SW`` and
-  ``PINNED_MAX_SW`` band range is not copied).  For checkpoints it is K6 when ``SW % 8 ==
+  costs (and the direct-trace align rungs) that is one pass over a ring
+  of resident words up to the ring's 16384 words
+  (:func:`..ops.banded_kernel.pinned_cost_takes`): K7, whose slots are
+  all in registers, up to 4096 live words, the wide ring (further slots
+  in shared memory) past them; K5, whose stripes take any height, runs
+  taller bands, which no configuration reaches (K7 beat K5 at every band
+  of 64 to 4096 words measured on the card, so the reference's
+  ``PINNED_MIN_SW`` and ``PINNED_MAX_SW`` band range is not copied).  For checkpoints it is K6 when ``SW % 8 ==
   0`` and ``CB >= SW + 8`` (their planes have SW+8 rows, which the
   native trace reads as they are; ring K6 up to the ring's 4096 words,
   the stripe kernel past them), else K8, K5's DP writing K2's plane
@@ -83,8 +85,8 @@ from ..domain import domain_schedule, gap_domain
 from ..ops import banded, striped
 from ..ops.banded_kernel import (banded_ck, banded_ck_pp, banded_cost,
                                  banded_cost_pp, banded_fill, pinned_ck,
-                                 pinned_ck_pp, pinned_cost, pinned_cost_pp,
-                                 pinned_cost_takes, ring_takes, route,
+                                 pinned_ck_pp, pinned_cost, pinned_cost_kernel,
+                                 pinned_cost_pp, pinned_cost_takes, ring_takes, route,
                                  striped_ck, striped_cost)
 from ..ops.bitpack import W, n_words
 from ..ops.pack import pack_batch_staggered
@@ -509,7 +511,8 @@ class BatchAligner:
         if ck is None:
             if run_sw >= STRIPED_MIN_SW and pinned_cost_takes(run_sw):
                 costs = _Readback(pinned_cost(*args, run_sw, diag))
-                stats.kernel = route(self.device, "pinned_cost")
+                stats.kernel = route(self.device, pinned_cost_kernel(
+                    n_max, S, run_sw, diag, args[4]))
             elif run_sw >= STRIPED_MIN_SW:
                 costs = _Readback(striped_cost(*args, run_sw, diag))
                 stats.kernel = route(self.device, "striped_cost")

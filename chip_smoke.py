@@ -51,17 +51,17 @@ Phases, one output line each (any failure exits non-zero):
     domain_mode="off")`` on 128 pairs of 500 kbp at e=15% (seeds 7 and 8,
     as ``bench.py:239-253``): cost twice (the second timed and split by
     layer), ``cost_iter`` over 4 batches, then cost once from
-    ``band_words=8192``, a band past K7's ring (K5), its costs equal to
-    the 2048-word ladder's, ``align_iter`` with ``ck_col_block=16384``
-    over 5 batches (ring K6), then align once from ``band_words=8192``
-    (the stripe K6), 128 more CIGARs verified; every cost rung checked
-    against the runner's K7/K5 routing (K7 up to its ring's 4096 words,
-    K5 past it); 8 costs against ``oracle.levenshtein_myers``, all 640
-    CIGARs verified; rung SWs, K7/K5/K6 ms per rung, peak device memory,
-    Mbp/s;
-12. K5, K7 and K6 (ring and stripe) against their plain versions at config #5's own shapes
+    ``band_words=8192``, a band past K7's 4096-word ring (the wide ring),
+    its costs equal to the 2048-word ladder's, ``align_iter`` with
+    ``ck_col_block=16384`` over 5 batches (ring K6), then align once from
+    ``band_words=8192`` (the stripe K6), 128 more CIGARs verified; every
+    cost rung checked against the runner's routing (K7 up to 4096 live
+    words, the wide ring up to 16384, K5's stripes past it); 8 costs
+    against ``oracle.levenshtein_myers``, all 640 CIGARs verified; rung
+    SWs, K7/wide ring/K6 ms per rung, peak device memory, Mbp/s;
+12. K5's stripes, K7 and K6 (ring and stripe) against their plain versions at config #5's own shapes
     (its pack cut to the first 4096 columns, at the ladder's SW), timed in
-    turns (plain, kernels, kernels, plain); K5 against K1 on that cut at SW
+    turns (plain, kernels, kernels, plain); K5's stripes against K1 on that cut at SW
     64 to 2048 (the crossover behind ``runner.STRIPED_MIN_SW``);
 13. the pinned per-pair kernels K9 and K10 against their plain versions on
     a grid (B 33/160, n <= 1500, SW 8 to full height, bands taller than one
@@ -118,13 +118,14 @@ Phases, one output line each (any failure exits non-zero):
     (B 1/33/160, n <= 1500 with n == 0 and m == 0 lanes, SW 8, 13, 64, 67,
     256 and a full height S ~ 280 off the 8-grain, a skewed bucket, rings
     forced to 256 words on pairs of up to 5 kbp beside a tall one so that
-    they wrap at least 3 times), bit for bit, and K7 refusing a band whose
-    live words exceed its 4096-word ring (no launch);
-23. K7 and K5 alone over chained launches on config #5's whole SW = 2048
-    rung, each beside its bound, their costs equal; the band sweep, K7
-    against K5 on whole rungs in turns (K5, K7, K7, K5): config #4's pack
-    (phase 20's) at SW 64 to 2048 and its full height 3149, config #5's at
-    SW 3072 and 4096, the bands behind the runner's K7/K5 routing;
+    they wrap at least 3 times), bit for bit, and K7 (forced) refusing a
+    band whose live words exceed its 4096-word ring (no launch);
+23. K7 and K5's stripes alone over chained launches on config #5's whole SW = 2048
+    rung, each beside its bound, their costs equal; the band sweep, the
+    cost ring against K5's stripes on whole rungs in turns (K5, ring, ring,
+    K5): config #4's pack (phase 20's) at SW 64 to 2048 and its full height
+    3149, config #5's at SW 3072, 4096 and 8192 (the wide ring), the bands
+    behind the runner's routing;
 24. the banded fill kernel K3 against its plain versions in both schedule
     modes on a grid (B 1/37/128, n <= 100 with n == 0 and m == 0 lanes, SW 1,
     8, 28, 32, 64 and a full height of 72 words, a diagonal whose only
@@ -161,6 +162,20 @@ Phases, one output line each (any failure exits non-zero):
     (SW 2048, CB 16384) over chained launches, K9 on config #5 default's
     round (SW 1152) and config #4's round (SW 192), kernel from the end of
     its event tables with the tables timed apart; K7 again on its rung;
+29. the redesigned K7 and the wide ring against their plain version and
+    K5's stripes on a grid (phase 10's packs with n == 0 and m == 0 lanes
+    and rings forced to both designs; 33 pairs of up to 5 kbp beside a
+    tall one with K7 rings forced to 256 words wrapping >= 3 times; the
+    full height beside a skewed 5000 x 300 kbp pair, more than 4096 live
+    words on the wide ring by default, wrapping; SW 4352 with forced wide
+    rings of 512 and 1024 words wrapping >= 3 times beside a 500 x 150 kbp
+    pair; config #5's pack cut to 4096 columns at SW 8192 on the wide
+    ring, timed against plain), bit for bit, and the refusal, without a
+    launch, of more than 16384 live words;
+30. the cost ring against K5's stripes on whole main-path rungs, in turns
+    over chained launches, each beside its bound: K7 on config #5's SW =
+    2048 rung and config #4's full-height rung, the wide ring on config
+    #5's SW = 8192 rung;
 
 then the host seconds of each phase, the kernels' JSON line (each
 kernel's time, its plain version's, its bound from this run's inputs, its
@@ -173,7 +188,8 @@ are generated and the CIGARs verified on one pool of the host's cores,
 started once for the whole run, to keep the run short.  Launch counts are
 reset just before each main-path phase (3-4, 7, 8, 11, 14, 17, both calls
 of 20, 25) and read just after it; phases 7 and 14 launch ring K9 for
-their cost rounds, phase 11 ring K6 for its 2048-word checkpoint rungs.  Imports nothing of JAX and nothing of the
+their cost rounds, phase 11 ring K6 for its 2048-word checkpoint rungs
+and the wide ring for its cost call from 8192 words.  Imports nothing of JAX and nothing of the
 JAX package.  Exits 1 without a usable GPU.
 """
 
@@ -229,7 +245,7 @@ K8_LONG_N = 5000  # phase 19: several capture windows at SW 1152 and 1188
 K8_CHAINED = 3
 K7_CHAINED = 2
 K7_SWEEP_SW = (64, 128, 256, 512, 1024, 2048)  # phase 23, config #4's pack
-K7_SWEEP_C5_SW = (3072, 4096)  # phase 23, config #5's pack
+K7_SWEEP_C5_SW = (3072, 4096, 8192)  # phase 23, config #5's pack (8192: the wide ring)
 K7_GRID_LONG_N, K7_GRID_TALL_M = 5000, 38_000  # phase 22: ~1188 words, 4.6 rings of 256
 K3_GRID_PAIRS, K3_GRID_N, K3_COL0_SW = 128, 100, 8  # phase 24
 K3_CHAINED = 2
@@ -238,6 +254,8 @@ K3_BLOCK_N, K3_BLOCK_ERRS = 2000, (0.05, 0.15, 0.1)  # phase 26's torch block DP
 RING_LONG_N, RING_TALL_M = 3500, 38_000  # phase 27: S = 1188, 256-word rings wrap
 RING_BIG_N, RING_BIG_M = 3000, 70_000  # phase 27: S = 2188, SW 2048
 RING_CHAINED = 2
+WIDE_GRID_N, WIDE_GRID_TALL_M = 5000, 300_000  # phase 29: S = 9375, > 4096 live words
+WIDE_LOW_N, WIDE_LOW_TALL_M = 500, 150_000  # phase 29: S = 4688, forced wide rings wrap
 WORKERS = 8
 _LAPS = None  # the run's Laps, printed by fail()
 
@@ -765,8 +783,8 @@ class RoundSpy:
     launch's kernel time is taken from the end of its tables to the end of
     the call.  Each launch is recorded under the kernel that ran (its
     launch key: ``ring_ck`` for a ``striped_ck`` call the ring took), and
-    ``last`` keeps each wrapper's and each kernel's last inputs.  The
-    launch counts stay with the wrappers."""
+    ``last`` keeps each kernel's last inputs (and a wrapper's whose name is
+    no launch key).  The launch counts stay with the wrappers."""
 
     NAMES = ("banded_ck", "banded_cost_pp", "banded_ck_pp", "pinned_cost_pp",
              "pinned_ck_pp")
@@ -826,7 +844,9 @@ class RoundSpy:
             b.record()
             ran = next((k for k, v in banded_kernel.LAUNCHES.items() if v > before[k]), name)
             self.calls.append((ran, args, a, b, self._tables))
-            self.last[name] = self.last[ran] = args
+            self.last[ran] = args
+            if ran == name or name not in banded_kernel.LAUNCHES:
+                self.last[name] = args
             return out
 
         return call
@@ -1160,6 +1180,13 @@ def phase9_time(spy: RoundSpy) -> dict:
     }
 
 
+def _stripes(planes, sw: int, diag):
+    """K5's stripes on a shared cost rung (the cost ring takes bands of up
+    to 16384 words by default), at their default stripe height."""
+    stripe = 8 * banded_kernel.striped_threads(min(sw, planes[2].shape[0]))
+    return banded_kernel.striped_cost(*planes, sw, diag, stripe)
+
+
 def phase10_grid() -> tuple[int, tuple, tuple, tuple, list]:
     """K5 and K6 == plain on a grid; returns the max abs difference over
     costs, every checkpoint row (the zero rows outside the true windows
@@ -1199,7 +1226,9 @@ def phase10_grid() -> tuple[int, tuple, tuple, tuple, list]:
         else:
             want = striped.striped_cost_ref(*planes, sw, dg)
             err = 0
-        err = max(err, _max_err(banded_kernel.striped_cost(*planes, sw, dg, ws), want))
+        # The stripe kernel (the cost ring takes these bands by default).
+        stripe = ws or 8 * banded_kernel.striped_threads(sw_eff)
+        err = max(err, _max_err(banded_kernel.striped_cost(*planes, sw, dg, stripe), want))
         label = (f"B={planes[0].shape[1]} SW={sw_eff}{' (full)' if sw_eff == S else ''} "
                  f"CB={cb} stripe={ws or 8 * banded_kernel.striped_threads(sw_eff)} "
                  f"diag={'set' if dg else 'None'}")
@@ -1213,26 +1242,34 @@ def phase10_grid() -> tuple[int, tuple, tuple, tuple, list]:
     return worst, wide, narrow, diag, saved
 
 
+COST_KEYS = ("banded_cost", "striped_cost", "pinned_cost", "ring_cost_wide")
+
+
 def _cost_route(args) -> str:
-    """The wrapper the runner sends a shared cost rung to, from the rung's
-    arguments (planes, SW, diag)."""
+    """The kernel a shared cost rung runs by the runner's routing, from the
+    rung's arguments (planes, SW, diag): K1, the ring (K7, or the wide ring
+    past 4096 live words) or K5's stripes."""
     *planes, sw, diag = args
     if sw < runner.STRIPED_MIN_SW:
         return "banded_cost"
-    return "pinned_cost" if banded_kernel.pinned_cost_takes(sw) else "striped_cost"
+    if not banded_kernel.pinned_cost_takes(sw):
+        return "striped_cost"
+    return banded_kernel.pinned_cost_kernel(planes[0].shape[0], planes[2].shape[0], sw, diag,
+                                            planes[4])
 
 
 def _check_cost_rungs(calls, label: str) -> list[str]:
-    """Every recorded shared cost rung ran the wrapper the routing names;
-    returns the wrappers that ran."""
+    """Every recorded shared cost rung ran the kernel the routing names;
+    returns the kernels that ran."""
     names = []
     for name, args, *_ in calls:
-        if name in ("banded_cost", "striped_cost", "pinned_cost"):
+        if name in COST_KEYS:
             want = _cost_route(args)
             if name != want:
                 fail(f"{label}: a rung of SW={args[6]} ran {name}, routing says {want} "
-                     f"(STRIPED_MIN_SW={runner.STRIPED_MIN_SW}, K7's ring "
-                     f"{banded_kernel.RING_MAX_WORDS} words)")
+                     f"(STRIPED_MIN_SW={runner.STRIPED_MIN_SW}, the cost ring "
+                     f"{banded_kernel.RING_COST_MAX_WORDS} words, K7's "
+                     f"{banded_kernel.RING_MAX_WORDS})")
             names.append(name)
     if not names:
         fail(f"{label}: no cost rung was recorded")
@@ -1240,10 +1277,11 @@ def _check_cost_rungs(calls, label: str) -> list[str]:
 
 
 def phase11_config5() -> tuple[dict, RoundSpy, tuple]:
-    """Config #5 through the big shared band (K7 for costs up to its ring,
-    K5 past it; for checkpoints ring K6 up to the ring, the stripe K6 past
-    it): costs, a cost stream, costs from a band past K7's ring, an align
-    stream and an align from a band past the ring; returns the
+    """Config #5 through the big shared band (K7 for costs up to 4096 live
+    words, the wide ring past them; for checkpoints ring K6 up to the ring,
+    the stripe K6 past it): costs, a cost stream, costs from a band past
+    K7's ring, an align stream and an align from a band past the ring;
+    returns the
     launch counts of its run, the spy holding each kernel's last inputs,
     and ``(pairs of seed 7, their costs, {pair: levenshtein_myers})`` for
     phase 14."""
@@ -1305,8 +1343,8 @@ def phase11_config5() -> tuple[dict, RoundSpy, tuple]:
     if got != want:
         fail(f"config #5 costs {got} != levenshtein_myers {want}")
 
-    # K5's place on the path: a band past K7's ring, which the ladder
-    # reaches from 2048 words in two doublings.
+    # The wide ring's place on the path: a band past K7's 4096-word ring,
+    # which the ladder reaches from 2048 words in two doublings.
     spy.reset()
     t0 = time.perf_counter()
     costs5, st5 = BatchAligner(device="cuda", band_words=C5_K5_BAND,
@@ -1314,15 +1352,21 @@ def phase11_config5() -> tuple[dict, RoundSpy, tuple]:
     torch.cuda.synchronize()
     dt5 = time.perf_counter() - t0
     ran5 = _check_cost_rungs(spy.calls, "config #5 cost past the ring")
-    if set(ran5) != {"striped_cost"} or st5.kernel != "cuda-striped":
+    if set(ran5) != {"ring_cost_wide"} or st5.kernel != "cuda-ring-wide":
         fail(f"config #5 cost at band_words={C5_K5_BAND} ran {ran5} (stats {st5.kernel!r})")
     if not (costs5 == costs).all():
         fail(f"config #5 costs at band_words={C5_K5_BAND} differ from band_words={C5_BAND}'s")
+    *w_planes, w_sw, w_dg = spy.last["ring_cost_wide"]
+    w_plan = striped.plan_striped(w_planes[0].shape[0], w_planes[2].shape[0], w_sw, w_dg)
+    w_span = striped.ring_span(w_plan, int(np.max(w_planes[4], initial=1)))
+    w_threads, w_words = banded_kernel.ring_cost_layout(w_span)
     say(f"[11 cost past the ring] BatchAligner(band_words={C5_K5_BAND}, domain_mode='off')"
-        f".cost_with_stats, one call: {dt5:.4f} s = {bp / dt5 / 1e6:.3f} Mbp/s: rungs "
-        f"[{', '.join(spy.rounds())}] (CUDA events), K5 stripes of "
-        f"{banded_kernel.striped_threads(C5_K5_BAND) * 8} words, retries {st5.band_retries}, "
-        f"kernel {st5.kernel}; costs == band_words={C5_BAND}'s on all {len(costs5)} pairs")
+        f".cost_with_stats, one call: {dt5:.4f} s = {bp / dt5 / 1e6:.3f} Mbp/s (on K5's "
+        f"stripes before the wide ring: 64.172 Mbp/s): rungs [{', '.join(spy.rounds())}] (CUDA events), the wide "
+        f"ring: {w_span} live words in {w_threads * w_words} ({w_threads} threads of 8 register "
+        f"and {w_words - 8} shared slots), {w_plan['n_words_live'] / (w_threads * w_words):.2f} "
+        f"laps, retries {st5.band_retries}, kernel {st5.kernel}; costs == "
+        f"band_words={C5_BAND}'s on all {len(costs5)} pairs")
 
     bac = BatchAligner(device="cuda", band_words=C5_BAND, domain_mode="off",
                        ck_col_block=C5_CB)
@@ -1385,7 +1429,7 @@ def phase11_config5() -> tuple[dict, RoundSpy, tuple]:
         f"(torch.cuda.max_memory_allocated)")
     spy.remove()
     launches = dict(banded_kernel.LAUNCHES)
-    for name in ("pinned_cost", "striped_cost", "ring_ck", "striped_ck"):
+    for name in ("pinned_cost", "ring_cost_wide", "ring_ck", "striped_ck"):
         if not launches[name]:
             fail(f"config #5 never launched {name}")
     return launches, spy, (p7, costs, dict(zip(range(4), want[:4])))
@@ -1399,15 +1443,15 @@ def phase12_time(spy: RoundSpy) -> dict:
     torch.cuda.synchronize()
     rung_ms = {name: [RoundSpy.kernel_ms(c) for c in spy.history + spy.calls
                       if c[0] == name]
-               for name in ("pinned_cost", "striped_cost", "ring_ck", "striped_ck")}
-    # The main path's cost rungs ran K7; K5 computes the same function on
-    # the same inputs.
+               for name in ("pinned_cost", "ring_cost_wide", "ring_ck", "striped_ck")}
+    # The main path's cost rungs ran K7; K5's stripes compute the same
+    # function on the same inputs.
     *planes, sw, diag = spy.last["pinned_cost"]
     cut = _cut(planes, C5_CUT)
     dg = _cut_diag(cut)
     shape = {"B": cut[0].shape[1], "n_max": cut[0].shape[0], "S": cut[2].shape[0], "SW": sw}
     p5, k5, e5 = _turns(lambda: striped.striped_cost_ref(*cut, sw, dg), {
-        "striped_cost": (lambda: banded_kernel.striped_cost(*cut, sw, dg), lambda r: r),
+        "striped_cost": (lambda: _stripes(cut, sw, dg), lambda r: r),
         "pinned_cost": (lambda: banded_kernel.pinned_cost(*cut, sw, dg), lambda r: r)})
     *ck_planes, sw_ck, cb_path, _ = spy.last["ring_ck"]
     cut_ck = _cut(ck_planes, C5_CUT)
@@ -1431,9 +1475,9 @@ def phase12_time(spy: RoundSpy) -> dict:
         f"{max(e5, e6)} (CUDA events)")
     rows, wins = [], []
     for s_ in CROSSOVER_SW:
-        t5 = [_event_ms(lambda: banded_kernel.striped_cost(*cut, s_, dg))[0] for _ in range(2)]
+        t5 = [_event_ms(lambda: _stripes(cut, s_, dg))[0] for _ in range(2)]
         t1 = [_event_ms(lambda: banded_kernel.banded_cost(*cut, s_, dg))[0] for _ in range(2)]
-        a = banded_kernel.striped_cost(*cut, s_, dg)
+        a = _stripes(cut, s_, dg)
         b = banded_kernel.banded_cost(*cut, s_, dg)
         cov = a < banded.INF
         if not (torch.equal(a[cov], b[cov]) and (b[~cov] == banded.INF).all()):
@@ -1462,11 +1506,13 @@ def phase12_time(spy: RoundSpy) -> dict:
 
     cost_out = [torch.empty(cut[0].shape[1], dtype=torch.int32)]
     ck_out = banded_kernel.striped_ck(*cut_ck, sw_ck, cb, dg_ck)
-    *k5_planes, k5_sw, _ = spy.last["striped_cost"]
     *k6_planes, k6_sw, _, _ = spy.last["striped_ck"]
+    *w_planes, w_sw, _ = spy.last["ring_cost_wide"]
+    # K5's stripes run no rung of the path (phase 30 times them on the whole
+    # rungs beside the rings).
     return {
-        "striped_cost": rung(record(k5["striped_cost"], p5, cut, sw, cost_out, shape),
-                             "striped_cost", k5_planes, k5_sw),
+        "striped_cost": record(k5["striped_cost"], p5, cut, sw, cost_out, shape),
+        "ring_cost_wide": rung({}, "ring_cost_wide", w_planes, w_sw),
         "pinned_cost": rung(record(k5["pinned_cost"], p5, cut, sw, cost_out, shape),
                             "pinned_cost", planes, sw),
         "ring_ck": rung(record(k6["ring_ck"], p6, cut_ck, sw_ck, ck_out, ck_shape),
@@ -2239,14 +2285,15 @@ def phase22_grid(wide, narrow) -> tuple[int, int]:
         labels.append(label)
     if min(wraps) < 3:
         fail(f"phase 22's forced rings wrap only {min(wraps):.2f} times")
-    # A band whose live words exceed the ring: a full height of > 4096 words
-    # over 4500 columns (every word stays live).
+    # A band whose live words exceed K7's ring: a full height of > 4096
+    # words over 4500 columns (every word stays live), K7 forced (8 slots a
+    # thread); the wide ring takes it by default (phase 29).
     big = [(att.generate.uniform_seeded(4500, 0.0, 8500)[0],
             att.generate.uniform_seeded(140_000, 0.1, 8501)[0])]
     bargs, _ = pack_batch_staggered(big, 1, device="cuda")
     before = banded_kernel.LAUNCHES["pinned_cost"]
     try:
-        banded_kernel.pinned_cost(*bargs, bargs[2].shape[0])
+        banded_kernel.pinned_cost(*bargs, bargs[2].shape[0], None, None, 8)
         fail("K7 took a band of more live words than its ring holds")
     except ValueError as exc:
         refused = str(exc)
@@ -2276,12 +2323,12 @@ def phase23_time(c5_spy: RoundSpy, c4_spy: RoundSpy) -> dict:
              "SW": sw}
     bnd = plane_bound(planes, sw, [])["bound_ms"]
     k7 = banded_kernel.pinned_cost(*planes, sw, diag)
-    k5 = banded_kernel.striped_cost(*planes, sw, diag)
+    k5 = _stripes(planes, sw, diag)
     err = _max_err(k7, k5)
     if err:
         fail("K7 != K5 on config #5's whole rung")
     k7_ms = _alone(lambda: banded_kernel.pinned_cost(*planes, sw, diag))
-    k5_ms = _alone(lambda: banded_kernel.striped_cost(*planes, sw, diag))
+    k5_ms = _alone(lambda: _stripes(planes, sw, diag))
     span = striped.ring_span(striped.plan_striped(shape["n_max"], shape["S"], sw, diag),
                              int(np.max(planes[4], initial=1)))
     say(f"[23 rung] config #5's whole rung {shape}, {K7_CHAINED} chained launches behind an "
@@ -2298,8 +2345,10 @@ def phase23_time(c5_spy: RoundSpy, c4_spy: RoundSpy) -> dict:
     for pl_, dg, label, s_ in points:
         times, outs = {"K5": [], "K7": []}, {}
         for name in ("K5", "K7", "K7", "K5"):
-            fn = banded_kernel.striped_cost if name == "K5" else banded_kernel.pinned_cost
-            ms, outs[name] = _event_ms(lambda: fn(*pl_, s_, dg))
+            if name == "K5":
+                ms, outs[name] = _event_ms(lambda: _stripes(pl_, s_, dg))
+            else:
+                ms, outs[name] = _event_ms(lambda: banded_kernel.pinned_cost(*pl_, s_, dg))
             times[name].append(ms)
         if _max_err(outs["K7"], outs["K5"]):
             fail(f"K7 != K5 on {label}'s pack at SW={s_}")
@@ -2310,14 +2359,17 @@ def phase23_time(c5_spy: RoundSpy, c4_spy: RoundSpy) -> dict:
         k7_min, k5_min = min(times["K7"]), min(times["K5"])
         sweep[f"{label} SW={min(s_, S_)}"] = {"k7_ms": times["K7"], "k5_ms": times["K5"],
                                               "bound_ms": b_, "k5_stripes": stripes}
+        ring = banded_kernel.pinned_cost_kernel(n_max_, S_, s_, dg, pl_[4])
         rows.append(f"{label} SW={min(s_, S_)}{' (full)' if s_ >= S_ else ''} ({stripes} K5 "
-                    f"stripes) K7 {times['K7'][0]:.3f}/{times['K7'][1]:.3f} ms K5 "
+                    f"stripes) {'K7' if ring == 'pinned_cost' else 'the wide ring'} "
+                    f"{times['K7'][0]:.3f}/{times['K7'][1]:.3f} ms K5 "
                     f"{times['K5'][0]:.3f}/{times['K5'][1]:.3f} ms bound {b_:.4f} ms, "
                     f"K5/K7 {k5_min / k7_min:.3f}")
     wins = [k for k, v in sweep.items() if min(v["k7_ms"]) < min(v["k5_ms"])]
-    say(f"[23 sweep] K7 vs K5 on whole rungs, turns K5, K7, K7, K5 (CUDA events; K7 == K5 "
-        f"on every lane): {'; '.join(rows)}; K7 faster at {wins}; the runner sends cost "
-        f"rungs of {runner.STRIPED_MIN_SW} to {banded_kernel.RING_MAX_WORDS} words to K7")
+    say(f"[23 sweep] the cost ring (K7, past 4096 live words the wide ring) vs K5 on whole "
+        f"rungs, turns K5, ring, ring, K5 (CUDA events; ring == K5 on every lane): "
+        f"{'; '.join(rows)}; the ring faster at {wins}; the runner sends cost rungs of "
+        f"{runner.STRIPED_MIN_SW} to {banded_kernel.RING_COST_MAX_WORDS} words to the ring")
     return ({"rung_alone_ms": k7_ms, "rung_alone_bound_ms": bnd, "rung_alone_shape": shape,
              "k5_rung_alone_ms": k5_ms, "sweep": sweep},
             {"c5_rung_alone_ms": k5_ms, "c5_rung_bound_ms": bnd, "c5_rung_shape": shape})
@@ -3000,6 +3052,169 @@ def phase28_time(c5_spy: RoundSpy, c5d_spy: RoundSpy, c4_round, k7_alone_ms: flo
     return {"ring_ck": rec6, "ring_cost_pp": rec9, "k7_again_ms": k7_ms}
 
 
+def _tall_pack(rng, count: int, n_hi: int, tall: tuple, seed: int):
+    """``count`` pairs of up to ``n_hi`` bp at e <= 25%, the first a tall
+    pair (``tall`` = (n, m)), the second with n == 0, the third with m ==
+    0, packed on the card."""
+    pairs = [att.generate.uniform_seeded(int(rng.integers(1, n_hi + 1)),
+                                         float(rng.uniform(0, 0.25)), seed + s)
+             for s in range(count)]
+    pairs[0] = (att.generate.uniform_seeded(tall[0], 0.1, seed - 1)[0],
+                att.generate.uniform_seeded(tall[1], 0.1, seed - 2)[0])
+    pairs[1] = (b"", pairs[1][1])
+    pairs[2] = (pairs[2][0], b"")
+    return pack_batch_staggered(pairs, 1, device="cuda")[0]
+
+
+def phase29_grid(wide, narrow, c5_spy: RoundSpy) -> tuple[int, dict]:
+    """The redesigned K7 and the wide ring == plain and == K5's stripes on
+    a grid: phase 10's 160- and 33-lane packs (n == 0 and m == 0 lanes, S ~
+    280) with rings forced to both designs; 33 pairs of up to 5 kbp beside
+    a tall one (S = 1188) with forced rings; the full height of 33 pairs of
+    up to 5 kbp beside a skewed 5000 x 300 kbp pair (S = 9375, 5000 live
+    words: the wide ring by default, wrapping); 33 pairs of up to 500 bp
+    beside a 500 x 150 kbp pair (S = 4688) at SW 4352 with wide rings
+    forced to 512 and 1024 words, which wrap at least 3 times; config #5's
+    pack cut to its first 4096 columns at SW 8192 on the wide ring, timed
+    against plain (CUDA events); and the refusal, without a launch, of a
+    band of more than 16384 live words.
+    Returns (max abs difference, the wide ring's JSON record without its
+    launch count)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(29)
+    diag = (wide[0].shape[0], int(np.asarray(wide[5])[3:].max()))
+    S = wide[2].shape[0]
+    lng = _tall_pack(rng, 33, K7_GRID_LONG_N, (K7_GRID_LONG_N, K7_GRID_TALL_M), 29_000)
+    dl = (lng[0].shape[0], int(np.asarray(lng[5]).max()))  # aimed at the tall pair
+    big = _tall_pack(rng, 33, WIDE_GRID_N, (WIDE_GRID_N, WIDE_GRID_TALL_M), 29_100)
+    low = _tall_pack(rng, 33, WIDE_LOW_N, (WIDE_LOW_N, WIDE_LOW_TALL_M), 29_200)
+    Sb, Sl = big[2].shape[0], low[2].shape[0]
+    # A skewed pack (S > n_max): a band below full height slides a word a
+    # column.
+    dlo = (low[0].shape[0], 32 * low[0].shape[0])
+    # (planes, label, SW, diag, ring_words, thread_words)
+    # The plain sweeps take most of the phase: a band of 8192 words runs on
+    # config #5's cut below, the wide-band pack only at its full height.
+    cases = [(narrow, "B=33", 67, diag, None, None), (wide, "B=160", S, None, 512, 16),
+             (narrow, "B=33", 256, diag, 1024, 32), (wide, "B=160", 64, diag, 2048, 16),
+             (lng, "long", 64, dl, 256, None), (lng, "long", 256, None, 512, 16),
+             (lng, "long", 67, None, 1024, 32), (big, "wide band", Sb, None, None, None),
+             (low, "low", 4352, dlo, 512, 16), (low, "low", 4352, dlo, 1024, 32),
+             (low, "low", Sl, None, None, None)]
+    worst, labels, wraps, plain_s, by_default = 0, [], {8: [], 16: [], 32: []}, 0.0, 0
+    for planes, label, sw, dg, rw, tw in cases:
+        t1 = time.perf_counter()
+        want = striped.pinned_cost_ref(*planes, sw, dg)
+        plain_s += time.perf_counter() - t1
+        got = banded_kernel.pinned_cost(*planes, sw, dg, rw, tw)
+        err = max(_max_err(got, want), _max_err(_stripes(planes, sw, dg), want))
+        sw_eff = min(sw, planes[2].shape[0])
+        plan = striped.plan_striped(planes[0].shape[0], planes[2].shape[0], sw_eff, dg)
+        span = striped.ring_span(plan, int(np.max(planes[4], initial=1)))
+        threads, words = banded_kernel.ring_cost_layout(span, rw, tw)
+        laps = plan["n_words_live"] / (threads * words)
+        if label in ("long", "wide band", "low") and (rw is not None or words > 8):
+            wraps[words].append(laps)
+        by_default += rw is None and tw is None and words > 8
+        text = (f"{label} SW={sw_eff}{' (full)' if sw_eff == planes[2].shape[0] else ''} "
+                f"span {span} ring {threads}x{words} ({laps:.2f} laps)")
+        if err:
+            fail(f"the cost ring != plain or K5 at {text}")
+        worst = max(worst, err)
+        labels.append(text)
+    if min(wraps[8]) < 3 or min(wraps[16] + wraps[32]) < 1 or max(wraps[16] + wraps[32]) < 3:
+        fail(f"phase 29's rings wrap too little: {wraps}")
+    if not by_default:
+        fail("phase 29's wide band did not take the wide ring by default")
+    # Config #5's pack cut to its first columns at SW 8192 on the wide ring.
+    *c5_planes, _, _ = c5_spy.last["pinned_cost"]
+    cut = _cut(c5_planes, C5_CUT)
+    dg = _cut_diag(cut)
+    p_ms, want = _event_ms(lambda: striped.pinned_cost_ref(*cut, C5_K5_BAND, dg))
+    k_ms = []
+    for _ in range(2):
+        ms, got = _event_ms(lambda: banded_kernel.pinned_cost(*cut, C5_K5_BAND, dg, None, 16))
+        k_ms.append(ms)
+        worst = max(worst, _max_err(got, want), _max_err(_stripes(cut, C5_K5_BAND, dg), want))
+    if worst:
+        fail("the wide ring != plain on config #5's cut at SW 8192")
+    shape = {"B": cut[0].shape[1], "n_max": cut[0].shape[0], "S": cut[2].shape[0],
+             "SW": C5_K5_BAND}
+    bnd = plane_bound(cut, C5_K5_BAND, [got])
+    # More than 16384 live words: a full height over 16400 columns.
+    over = [(att.generate.uniform_seeded(16_400, 0.0, 29_300)[0],
+             att.generate.uniform_seeded(530_000, 0.1, 29_301)[0])]
+    oargs, _ = pack_batch_staggered(over, 1, device="cuda")
+    before = dict(banded_kernel.LAUNCHES)
+    try:
+        banded_kernel.pinned_cost(*oargs, oargs[2].shape[0])
+        fail("the cost ring took more live words than it holds")
+    except ValueError as exc:
+        refused = str(exc)
+    if banded_kernel.LAUNCHES != before:
+        fail("the cost ring launched past its capacity")
+    torch.cuda.synchronize()
+    say(f"[29 cost ring=plain] {len(cases)}/{len(cases)} cases, each also == K5's stripes "
+        f"({'; '.join(labels)}); config #5's cut {shape} on the wide ring: "
+        f"{k_ms[0]:.3f}/{k_ms[1]:.3f} ms vs plain {p_ms:.1f} ms, bound {bnd['bound_ms']:.4f} "
+        f"ms; max_abs_err {worst}; forced K7 rings wrap >= {min(wraps[8]):.2f} times, wide "
+        f"rings up to {max(wraps[16] + wraps[32]):.2f}; S = {oargs[2].shape[0]} at full height "
+        f"over {oargs[0].shape[0]} columns refused without a launch ({refused}); plain sweeps "
+        f"{plain_s:.1f} s; {time.perf_counter() - t0:.1f} s")
+    return worst, {"max_abs_err": worst, "ms": float(np.mean(k_ms)), "plain_ms": p_ms, **bnd,
+                   "library_ms": None, "shape": shape}
+
+
+def phase30_time(c5_spy: RoundSpy, c4_spy: RoundSpy) -> dict:
+    """The cost ring against K5's stripes on whole main-path rungs, in
+    turns (stripes, ring, ring, stripes), each over chained launches behind
+    an untimed one, with its bound, their costs equal: K7 on config #5's
+    SW = 2048 rung and on config #4's full-height rung (SW = 3149), the
+    wide ring on config #5's SW = 8192 rung.  Returns the records phase 30
+    adds to K7's, the wide ring's and K5's."""
+    torch.cuda.synchronize()
+    rows, recs = [], {"pinned_cost": {}, "ring_cost_wide": {}, "striped_cost": {}}
+    # The earlier designs' times on these rungs (PERF.md): K7 in
+    # pinned_ring_kernel, K5's stripes in the path's call.
+    before = {"config #5 SW=2048": "K7 in pinned_ring_kernel 249.8 ms",
+              "config #4 full height": "K7 in pinned_ring_kernel 79.6 ms in the path",
+              "config #5 SW=8192": "K5's stripes 973.5 ms in the path"}
+    for label, key, args in (("config #5 SW=2048", "c5", c5_spy.last["pinned_cost"]),
+                             ("config #4 full height", "c4", c4_spy.last["pinned_cost"]),
+                             ("config #5 SW=8192", "c5_wide", c5_spy.last["ring_cost_wide"])):
+        *pl, sw, dg = args
+        fns = {"stripes": lambda: _stripes(pl, sw, dg),
+               "ring": lambda: banded_kernel.pinned_cost(*pl, sw, dg)}
+        if _max_err(fns["ring"](), fns["stripes"]()):
+            fail(f"the cost ring != K5's stripes on {label}'s rung")
+        times = {"stripes": [], "ring": []}
+        for name in ("stripes", "ring", "ring", "stripes"):
+            times[name].append(_chained_ms(fns[name], RING_CHAINED))
+        b = plane_bound(pl, sw, [])["bound_ms"]
+        n_max, S = pl[0].shape[0], pl[2].shape[0]
+        plan = striped.plan_striped(n_max, S, min(sw, S), dg)
+        span = striped.ring_span(plan, int(np.max(pl[4], initial=1)))
+        threads, words = banded_kernel.ring_cost_layout(span)
+        kern = "K7" if words == 8 else "the wide ring"
+        r, st = min(times["ring"]), min(times["stripes"])
+        shape = {"B": pl[0].shape[1], "n_max": n_max, "S": S, "SW": min(sw, S)}
+        rows.append(f"{label} {shape}: {kern} {times['ring'][0]:.3f}/{times['ring'][1]:.3f} ms "
+                    f"({r / b:.2f}x), K5's stripes {times['stripes'][0]:.3f}/"
+                    f"{times['stripes'][1]:.3f} ms ({st / b:.2f}x) vs bound {b:.4f} ms; "
+                    f"stripes/ring {st / r:.3f}; {span} live words in {threads} threads of "
+                    f"{words} slots ({plan['n_words_live'] / (threads * words):.2f} laps), "
+                    f"stripes of {8 * banded_kernel.striped_threads(min(sw, S))}; before: "
+                    f"{before[label]}")
+        rec = {f"{key}_turns_ms": times["ring"], f"{key}_bound_ms": b, f"{key}_shape": shape}
+        recs["ring_cost_wide" if words > 8 else "pinned_cost"].update(rec)
+        recs["striped_cost"].update({f"{key}_turns_ms": times["stripes"], f"{key}_bound_ms": b,
+                                     f"{key}_shape": shape})
+    say(f"[30 cost ring vs stripes] {RING_CHAINED} chained launches behind an untimed one, "
+        f"turns stripes, ring, ring, stripes (CUDA events; ring == stripes on every lane): "
+        f"{'; '.join(rows)}")
+    return recs
+
+
 class Laps:
     """Host seconds of each stretch of the run, printed at its end."""
 
@@ -3128,16 +3343,21 @@ def run() -> None:
     lap("27")
     ring_records = phase28_time(c5_spy, c5d_spy, c4_round, k7_rung["rung_alone_ms"])
     lap("28")
+    wide_err, wide_record = phase29_grid(grid_wide, grid_narrow, c5_spy)
+    lap("29")
+    cost_turns = phase30_time(c5_spy, k8_spy)
+    lap("30")
     c5_records["ring_ck"].update(ring_records["ring_ck"])
     c5_records["ring_ck"]["max_abs_err"] = max(c5_records["ring_ck"]["max_abs_err"], ring_k6_err)
     pp_records["ring_cost_pp"].update(ring_records["ring_cost_pp"])
     pp_records["ring_cost_pp"]["max_abs_err"] = max(pp_records["ring_cost_pp"]["max_abs_err"],
                                                     ring_k9_err)
     c5_records["pinned_cost"]["k7_again_ms"] = ring_records["k7_again_ms"]
-    c5_records["pinned_cost"].update({**k7_rung, **k7_fh_rung})
+    c5_records["pinned_cost"].update({**k7_rung, **k7_fh_rung, **cost_turns["pinned_cost"]})
     c5_records["pinned_cost"]["max_abs_err"] = max(c5_records["pinned_cost"]["max_abs_err"],
-                                                   k7_grid_err)
-    c5_records["striped_cost"].update(k5_c5_rung)
+                                                   k7_grid_err, wide_err)
+    c5_records["striped_cost"].update({**k5_c5_rung, **cost_turns["striped_cost"]})
+    c5_records["ring_cost_wide"].update({**wide_record, **cost_turns["ring_cost_wide"]})
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "astarpa_tpu"))
     if loaded:
         fail(f"JAX or the JAX package was imported: {loaded[:5]}")
@@ -3153,6 +3373,7 @@ def run() -> None:
         "pinned_cost_pp": "astarpa_tpu/ops/pinned.py:944",
         "ring_ck": "astarpa_tpu/ops/striped.py:576",
         "ring_cost_pp": "astarpa_tpu/ops/pinned.py:944",
+        "ring_cost_wide": "astarpa_tpu/ops/striped.py:522",
         "pinned_ck_pp": "astarpa_tpu/ops/pinned.py:1316",
         "nw_right_edge": "astarpa_tpu/ops/pallas_myers.py:98",
         "banded_fill": "astarpa_tpu/ops/pallas_banded.py:811",
@@ -3160,7 +3381,7 @@ def run() -> None:
     }
     banded_src, striped_src = "astarpa_tpu_torch/csrc/banded.cu", "astarpa_tpu_torch/csrc/striped.cu"
     pinned_src = "astarpa_tpu_torch/csrc/pinned.cu"
-    ring = ("pinned_cost", "ring_ck", "ring_cost_pp")
+    ring = ("pinned_cost", "ring_ck", "ring_cost_pp", "ring_cost_wide")
     kernels = [{"name": "banded_cost", "route": "cuda", "source": banded_src,
                 "replaces": replaces["banded_cost"], "launches": launches, **record}]
     for name in ("banded_ck", "banded_cost_pp", "banded_ck_pp"):
@@ -3169,7 +3390,8 @@ def run() -> None:
         kernels.append({"name": name, "route": "cuda", "source": banded_src,
                         "replaces": replaces[name], "launches": counts[name], **rec})
     # K7's main path: config #5's cost rungs (phase 11) and phase 20's
-    # full-height cost rung.
+    # full-height cost rung; the wide ring's: phase 11's cost past K7's
+    # ring.  K5's stripes run no rung of the path (launches 0).
     c5["pinned_cost"] += k7_launches
     for name, rec in c5_records.items():
         if name not in ring:

@@ -161,9 +161,10 @@ def test_striped_kernels_match_plain(gpu, count):
              (S // 8 * 8, 512, None, 256), (S, None, None, None))
     for sw, cb, dg, ws in cases:
         want = striped.striped_cost_ref(*args, sw, dg)
-        assert torch.equal(banded_kernel.striped_cost(*args, sw, dg, ws), want), sw
+        # The stripe kernel (the cost ring takes these bands by default).
+        stripe = ws or 8 * banded_kernel.striped_threads(min(sw, S))
+        assert torch.equal(banded_kernel.striped_cost(*args, sw, dg, stripe), want), sw
         if cb is not None:
-            stripe = ws or 8 * banded_kernel.striped_threads(min(sw, S))
             got = banded_kernel.striped_ck(*args, sw, cb, dg, stripe)
             _assert_same(got, striped.striped_ck_ref(*args, sw, cb, dg), (sw, cb))
             assert got[1].shape == (n_max // min(cb, n_max) + 1, sw + 8, len(pairs))
@@ -172,11 +173,11 @@ def test_striped_kernels_match_plain(gpu, count):
 
 
 def test_runner_striped_rungs_on_gpu(gpu, monkeypatch):
-    """A 64-word band on 3 kbp pairs, K7 refusing every rung: cost rungs run
-    K5 and ck rungs K6 on the card (ring K6, and the stripe kernel with
-    the ring's capacity patched below the band), with the costs, ladder
-    and CIGARs of the CPU route."""
-    monkeypatch.setattr(runner, "pinned_cost_takes", lambda sw: False)
+    """A 64-word band on 3 kbp pairs, the cost ring's capacity patched below
+    every rung: cost rungs run K5's stripes and ck rungs K6 on the card
+    (ring K6, and the stripe kernel with the ring's capacity patched below
+    the band), with the costs, ladder and CIGARs of the CPU route."""
+    monkeypatch.setattr(banded_kernel, "RING_COST_MAX_WORDS", 32)
     pairs = [generate.uniform_seeded(2500 + 97 * s, 0.1, 40 + s) for s in range(6)]
     kw = dict(band_words=64, domain_mode="off")
     costs, stats = BatchAligner(device=gpu, **kw).cost_with_stats(pairs)
@@ -266,22 +267,75 @@ def test_pinned_cost_kernel_matches_plain(gpu, count):
         got = banded_kernel.pinned_cost(*targs, St)
         assert torch.equal(got, striped.pinned_cost_ref(*targs, St)), quantum
         assert int(got[0]) == oracle.levenshtein(*tall[0])
-    assert banded_kernel.LAUNCHES["pinned_cost"] == before + len(cases) + 2
+    # striped_cost runs the cost ring on these bands too.
+    assert banded_kernel.LAUNCHES["pinned_cost"] == before + 2 * len(cases) + 2
 
 
 def test_pinned_cost_raises_past_its_ring(gpu):
     """More than 4096 live words (a full height of 4375 words over 4500
-    columns) raise before any launch; a ring below the live words too."""
+    columns) raise before any launch on K7 forced (8 slots a thread) and
+    run the wide ring by default; a ring below the live words raises; more
+    than 16384 live words (a full height over 16400 columns) raise on the
+    cost ring, and K5's stripes take them."""
     pairs = [(generate.uniform_seeded(4500, 0.0, 1)[0],
               generate.uniform_seeded(140_000, 0.1, 2)[0])]
     args, _ = pack_batch_staggered(pairs, 1, device=gpu)
     S = args[2].shape[0]
-    before = banded_kernel.LAUNCHES["pinned_cost"]
+    before = dict(banded_kernel.LAUNCHES)
     with pytest.raises(ValueError, match="exceed"):
-        banded_kernel.pinned_cost(*args, S)
+        banded_kernel.pinned_cost(*args, S, None, None, 8)
     with pytest.raises(ValueError, match="ring_words"):
         banded_kernel.pinned_cost(*args, 512, None, 256)
-    assert banded_kernel.LAUNCHES["pinned_cost"] == before
+    assert banded_kernel.LAUNCHES == before
+    got = banded_kernel.pinned_cost(*args, S)
+    assert banded_kernel.LAUNCHES["ring_cost_wide"] == before["ring_cost_wide"] + 1
+    assert int(got[0]) == oracle.levenshtein(*pairs[0])
+    over = [(generate.uniform_seeded(16_400, 0.0, 3)[0],
+             generate.uniform_seeded(530_000, 0.1, 4)[0])]
+    oargs, _ = pack_batch_staggered(over, 1, device=gpu)
+    before = dict(banded_kernel.LAUNCHES)
+    with pytest.raises(ValueError, match="exceed"):
+        banded_kernel.pinned_cost(*oargs, oargs[2].shape[0])
+    assert banded_kernel.LAUNCHES == before
+    assert not banded_kernel.pinned_cost_takes(oargs[2].shape[0])
+
+
+@pytest.mark.parametrize("count", [33, 160])
+def test_ring_cost_kernels_match_plain(gpu, count):
+    """The redesigned K7 and the wide ring against their plain version and
+    K5's stripes, bit for bit: n == 0 and m == 0 lanes, K7 and wide rings
+    forced small so they wrap (one warp without a barrier, several warps),
+    a band of 8192 words and the full height beside a 5000 x 300 kbp pair
+    (more than 4096 live words: the wide ring by default)."""
+    pairs = [generate.uniform_seeded(100 + (s * 61) % 900, [0.03, 0.15][s % 2], 3700 + s)
+             for s in range(count)]
+    pairs[1], pairs[3] = (b"", b"ACGTAC"), (pairs[3][0], b"")
+    pairs[2] = (pairs[2][0][:500], generate.uniform_seeded(150_000, 0.1, 3699)[0])
+    args, _ = pack_batch_staggered(pairs, 1, device=gpu)
+    n_max, S = args[0].shape[0], args[2].shape[0]
+    dg = (n_max, 32 * n_max)  # S > n_max: a word a column below full height
+    before = dict(banded_kernel.LAUNCHES)
+    cases = ((64, dg, 256, 8), (4352, dg, 1024, 16), (4352, dg, 1024, 32),
+             (256, dg, 2048, 16), (S, None, 4096, 32))
+    for sw, dg, rw, tw in cases:
+        want = striped.pinned_cost_ref(*args, sw, dg)
+        assert torch.equal(banded_kernel.pinned_cost(*args, sw, dg, rw, tw), want), (sw, rw, tw)
+        stripe = 8 * banded_kernel.striped_threads(min(sw, S))
+        assert torch.equal(banded_kernel.striped_cost(*args, sw, dg, stripe), want), sw
+    assert banded_kernel.LAUNCHES["pinned_cost"] == before["pinned_cost"] + 1
+    assert banded_kernel.LAUNCHES["ring_cost_wide"] == before["ring_cost_wide"] + 4
+    rng = np.random.default_rng(count)
+    tall = [generate.uniform_seeded(int(rng.integers(1, 5001)), 0.1, 3800 + s) for s in range(33)]
+    tall[0] = (generate.uniform_seeded(5000, 0.1, 3799)[0],
+               generate.uniform_seeded(300_000, 0.1, 3798)[0])
+    targs, _ = pack_batch_staggered(tall, 1, device=gpu)
+    St = targs[2].shape[0]
+    dt = (targs[0].shape[0], 32 * targs[0].shape[0])
+    before = banded_kernel.LAUNCHES["ring_cost_wide"]
+    for sw, d in ((8192, dt), (St, None)):
+        want = striped.pinned_cost_ref(*targs, sw, d)
+        assert torch.equal(banded_kernel.pinned_cost(*targs, sw, d), want), sw
+    assert banded_kernel.LAUNCHES["ring_cost_wide"] == before + 2
 
 
 def _ring_packs(gpu, seed):

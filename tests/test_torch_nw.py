@@ -200,3 +200,46 @@ def test_sass_count_finds_loops_by_label_and_by_address():
     assert sass_count.loops(funcs["_Z5otherv"]) == [(["LOP3.LUT", "BRA"], True)]
     assert [sass_count.klass(op) for op in ("LOP3.LUT", "LDG.E", "BRA", "ULDC", "IMAD.IADD")] == [
         "alu", "memory", "control", "uniform", "alu"]
+
+
+_RING_SASS = """
+        Function : _ZN12_GLOBAL__N_116ring_cost_kernelILi8EEEvPKh
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+.L_x_1:
+        /*0010*/                   SHFL.IDX PT, R5, R2, R80, 0x1f ;
+        /*0020*/                   ISETP.GE.AND P1, PT, R7, R8, PT ;
+        /*0030*/               @P1 BRA `(.L_x_3) ;
+        /*0040*/                   MOV R9, R2 ;
+.L_x_3:
+        /*0050*/                   LOP3.LUT R5, R2, R3, R4, 0x96, !PT ;
+        /*0060*/                   IMAD.IADD R5, R2, 0x1, R3 ;
+        /*0070*/                   SHF.L.W.U32.HI R6, R9, 0x1, R5 ;
+        /*0080*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0090*/               @P0 BRA `(.L_x_1) ;
+        /*00a0*/                   EXIT ;
+.L_x_4:
+        /*00b0*/                   MOV R5, R2 ;
+        /*00c0*/                   BRA `(.L_x_1) ;
+"""
+
+
+def test_sass_step_split_of_a_ring_loop():
+    """The ring mode of the SASS counter: the step loop is the largest loop
+    closed by a conditional branch (not the unconditional return of an
+    out-of-line block), split by class over its body and over the path
+    that skips the blocks its forward conditional branches jump over; a
+    ``ring_cost_kernel`` instance names its slots."""
+    from astarpa_tpu_torch.ops import sass_count
+
+    (name, lines), = sass_count.functions(_RING_SASS).items()
+    assert sass_count._slots(name, 8) == 16 and sass_count._slots("_Z3fooPv", 8) == 8
+    split = sass_count.step_split(lines, steps=1, slots=1)
+    assert split["instructions"] == 9
+    assert split["body_per_step"] == {"word_alu": 3.0, "moves": 1.0, "handoff": 2.0,
+                                      "tests": 1.0, "control": 2.0}
+    assert split["no_event_total_per_step"] == 8.0 and "moves" not in split["no_event_per_step"]
+    assert split["alu_beyond_word_steps"] == 3.0 - sass_count.OPS_PER_WORD_STEP
+    assert [sass_count.step_class(op) for op in ("SHFL.IDX", "IMAD.MOV.U32", "POPC", "BRX",
+                                                 "LDG.E.U8", "LOP3.LUT")] == [
+        "handoff", "moves", "tests", "control", "memory", "word_alu"]
+

@@ -100,14 +100,19 @@ def test_plain_k7_equals_plain_k5(seed):
 
 
 def _brute_span(plan, n_lim: int) -> int:
-    """Most live words over every step a pair can need, by definition."""
+    """Most live words over every step a pair can need, by definition: the
+    words with ``ent_t <= t < end_t``, counted at every step ``t`` (each
+    word adds one from its entry and takes it back at its end)."""
     ent = plan["ent_t"].astype(np.int64)
     ab = plan["abs_t"].astype(np.int64)
     w = np.arange(len(ent))
     end = np.minimum(np.where(ab < striped.NEVER, ab + 1, striped.NEVER), n_lim + w)
     SW = len(ent) - int(plan["lo"][-1])
     t_stop = n_lim - 1 + int(plan["lo"][n_lim - 1]) + SW
-    return max(int(((ent <= t) & (t < end)).sum()) for t in range(t_stop))
+    live = np.zeros(t_stop + 1, np.int64)
+    np.add.at(live, np.minimum(ent, t_stop), 1)
+    np.add.at(live, np.minimum(end, t_stop), -1)
+    return int(np.cumsum(live)[:t_stop].max())
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -128,8 +133,11 @@ def test_ring_span_is_the_most_live_words(seed):
 
 
 def test_ring_capacity_rule():
-    """Least warp multiple of 256 words; ``ring_words`` checked; more than
-    4096 live words raise on both routes, before any work."""
+    """Ring K6 and ring K9: the least warp multiple of 256 words,
+    ``ring_words`` checked, more than 4096 live words raise.  The shared
+    cost ring takes more: a full height over 4375 words with 4500 columns
+    (every word stays live) runs the wide ring, and more than 16384 live
+    words raise on both routes, before any work."""
     assert banded_kernel.ring_threads(1) == 32
     assert banded_kernel.ring_threads(257) == 64
     assert banded_kernel.ring_threads(4096) == 512
@@ -139,14 +147,19 @@ def test_ring_capacity_rule():
             banded_kernel.ring_threads(150, bad)
     with pytest.raises(ValueError, match="exceed"):
         banded_kernel.ring_threads(4097)
-    # Full height over 4375 words with 4500 columns: every word stays live.
     pairs = [(generate.uniform_seeded(4500, 0.0, 1)[0], generate.uniform_seeded(140_000, 0.1, 2)[0])]
     args, _ = pack_batch_staggered(pairs, 1, device="cpu")
+    n_max, S = args[0].shape[0], args[2].shape[0]
+    assert S > 4096 and banded_kernel.pinned_cost_takes(S)
+    assert banded_kernel.pinned_cost_kernel(n_max, S, S, None, args[4]) == "ring_cost_wide"
+    assert banded_kernel.pinned_cost_takes(16384) and not banded_kernel.pinned_cost_takes(16385)
+    # Full height over 16563 words with 16400 columns: 16400 live words.
+    pairs = [(generate.uniform_seeded(16_400, 0.0, 3)[0],
+              generate.uniform_seeded(530_000, 0.1, 4)[0])]
+    args, _ = pack_batch_staggered(pairs, 1, device="cpu")
     S = args[2].shape[0]
-    assert S > 4096
     with pytest.raises(ValueError, match="exceed"):
         banded_kernel.pinned_cost(*args, S)
-    assert banded_kernel.pinned_cost_takes(4096) and not banded_kernel.pinned_cost_takes(S)
 
 
 def _spy(monkeypatch, names):
@@ -189,16 +202,125 @@ def test_runner_routes_cost_rungs_to_k7(monkeypatch):
         assert c == oracle.levenshtein(a, b)
 
 
+def _skewed_pairs():
+    """A skewed pair (m > 32 n) whose full height is 4125 words, and a
+    short pair in a bucket of its own."""
+    return [(generate.uniform_seeded(300, 0.1, 5)[0],
+             generate.uniform_seeded(132_000, 0.1, 6)[0]),
+            generate.uniform_seeded(500, 0.1, 7)]
+
+
 def test_runner_routes_past_the_ring_to_k5(monkeypatch):
-    """A skewed pair (m > 32 n) whose full height of 4125 words is more
-    than K7's ring holds runs K5; a short pair beside it stays on K1.  The
-    costs are the oracle's."""
-    pairs = [(generate.uniform_seeded(300, 0.1, 5)[0], generate.uniform_seeded(132_000, 0.1, 6)[0]),
-             generate.uniform_seeded(500, 0.1, 7)]
+    """A rung of more words than the shared cost ring holds runs K5: the
+    skewed pair's full height of 4125 words with the ring's capacity
+    patched to 4096 (no configuration reaches the real 16384); the short
+    pair beside it stays on K1.  The costs are the oracle's."""
+    pairs = _skewed_pairs()
+    monkeypatch.setattr(banded_kernel, "RING_COST_MAX_WORDS", banded_kernel.RING_MAX_WORDS)
     calls = _spy(monkeypatch, ["pinned_cost", "striped_cost", "banded_cost"])
     costs, stats = BatchAligner(device="cpu", lane_multiple=8,
                                 domain_mode="off").cost_with_stats(pairs)
     assert calls == [("striped_cost", 4125), ("banded_cost", 8)], calls
-    assert 4125 > banded_kernel.RING_MAX_WORDS
+    assert not banded_kernel.pinned_cost_takes(4125)
     assert list(costs) == [oracle.levenshtein_myers(a, b) for a, b in pairs]
     assert (stats.buckets, stats.band_retries) == (2, 0)
+
+
+def test_runner_routes_wide_rungs_to_the_wide_ring(monkeypatch):
+    """A full-height rung of 4481 words over 4500 columns (more live words
+    than K7's 4096) runs the shared cost ring,
+    labelled by the design that runs it: the wide ring
+    (``ring_cost_wide``, ``cuda-ring-wide`` on the card); the skewed
+    pair's full height of 4125 words has only 300 columns, so at most 300
+    live words, and runs K7.  The costs are the oracle's."""
+    pairs = [(generate.uniform_seeded(4500, 0.0, 1)[0],
+              generate.uniform_seeded(140_000, 0.1, 2)[0]), _skewed_pairs()[0]]
+    calls = _spy(monkeypatch, ["pinned_cost", "striped_cost", "banded_cost"])
+    labels = []
+
+    def route(device, kernel="banded_cost"):
+        labels.append(kernel)
+        return banded_kernel.route(device, kernel)
+
+    monkeypatch.setattr(runner, "route", route)
+    costs, stats = BatchAligner(device="cpu", lane_multiple=8, domain_mode="off",
+                                max_band_doublings=0).cost_with_stats(pairs)
+    # The runner's shape-quantized bucket of the 4500 x 140 kbp pair has a
+    # full height of 4481 words.
+    assert sorted(calls) == [("pinned_cost", 4125), ("pinned_cost", 4481)], calls
+    assert sorted(labels) == ["pinned_cost", "ring_cost_wide"], labels
+    assert banded_kernel.route(torch.device("cuda"), "ring_cost_wide") == "cuda-ring-wide"
+    assert list(costs) == [oracle.levenshtein_myers(a, b) for a, b in pairs]
+    assert (stats.buckets, stats.band_retries, stats.kernel) == (2, 0, "torch-ref")
+
+
+@pytest.mark.parametrize("sw", [4352, 8192, 16384])
+def test_ring_span_at_wide_bands(sw):
+    """``ring_span`` against the count of live words at every step at the
+    wide ring's bands, on random geometries (up to a shift a column),
+    diagonals and column limits: never more than the band, so the shared
+    cost ring holds every rung of up to 16384 words."""
+    rng = np.random.default_rng(sw)
+    for _ in range(4):
+        S = int(rng.integers(sw, sw + 2000))
+        n_max = int(rng.integers(S, 3 * S))
+        diag = None if rng.random() < 0.3 else (n_max, int(rng.integers(1, S * 32 + 1)))
+        n_lim = int(rng.integers(1, n_max + 1))
+        plan = striped.plan_striped(n_max, S, sw, diag)
+        span = striped.ring_span(plan, n_lim)
+        assert span == _brute_span(plan, n_lim), (n_max, S, diag, n_lim)
+        assert 1 <= span <= sw
+        threads, words = banded_kernel.ring_cost_layout(span)
+        assert span <= threads * words <= banded_kernel.RING_COST_MAX_WORDS
+
+
+def test_ring_cost_layout_at_wide_sizes():
+    """The shared cost ring's block: K7's 8 slots a thread up to 4096 live
+    words, then 16 (up to 8192) and 32 (up to 16384) slots, the least warp
+    multiple of threads; forced sizes checked; the event table padded one
+    ring past the live words; more than 16384 live words raise.  Ring K6
+    and ring K9 still stop at 4096."""
+    layout = banded_kernel.ring_cost_layout
+    assert [layout(s) for s in (1, 4096, 4097, 4352, 8192, 8193, 15742, 16384)] == [
+        (32, 8), (512, 8), (288, 16), (288, 16), (512, 16), (288, 32), (512, 32), (512, 32)]
+    assert layout(100, 256) == (32, 8) and layout(100, 512, 16) == (32, 16)
+    assert layout(100, 1024, 32) == (32, 32) and layout(100, None, 32) == (32, 32)
+    assert layout(4352, 8192) == (512, 16)
+    for args, match in (((16385,), "exceed"), ((5000, None, 8), "exceed"),
+                        ((150, 4352), "ring_words"), ((600, 512, 16), "ring_words"),
+                        ((150, None, 12), "thread_words")):
+        with pytest.raises(ValueError, match=match):
+            layout(*args)
+    for S, sw in ((4800, 4352), (9000, 8192), (17000, 16384)):
+        plan = striped.plan_striped(3 * S, S, sw, None)
+        threads, words = layout(striped.ring_span(plan, 3 * S))
+        rw = threads * words
+        ev = banded_kernel.ring_events(plan, rw)
+        nwl = plan["n_words_live"]
+        assert ev.shape[1] % rw == 0 and nwl + rw <= ev.shape[1] < nwl + 2 * rw
+        assert (ev[:, nwl:] == striped.NEVER).all()
+        assert np.array_equal(ev[2, :nwl], plan["abs_t"])
+    assert banded_kernel.ring_takes(4096) and not banded_kernel.ring_takes(4097)
+    assert banded_kernel.RING_MAX_WORDS == 4096 and banded_kernel.RING_COST_MAX_WORDS == 16384
+
+
+def test_ring_step_variants_build_from_the_source():
+    """``ops.ring_step``'s timed variants are edits of ``csrc/pinned.cu``:
+    each one applies to the source as it stands and ends in the variant
+    entry, the K7 of ``pinned_ring_kernel`` or of ``ring_cost_kernel``."""
+    from astarpa_tpu_torch.ops import _build, ring_step
+
+    src = (_build.CSRC / "pinned.cu").read_text()
+    texts = ring_step.variants(src)
+    assert sorted(texts) == sorted(
+        ["pinned_ring", "pinned_ring_noevent", "pinned_ring_nomove", "pinned_ring_floor",
+         "ring_cost", "ring_cost_notop", "ring_cost_nohandler", "ring_cost_nohandler_nobar"])
+    for name, text in texts.items():
+        assert text.count("astarpa_ring_variant") == 1, name
+        call = "launch_cost<0>" if name.startswith("ring_cost") else "launch<false, false>"
+        assert call in text.split("astarpa_ring_variant")[1], name
+        assert (text.startswith(src)) == (name in ("pinned_ring", "ring_cost")), name
+    assert "if (false) {" in texts["ring_cost_nohandler"]
+    assert "const bool multi = false;" in texts["ring_cost_nohandler_nobar"]
+    assert "xa0[j] = a0" not in texts["pinned_ring_nomove"].split("pinned_ring_kernel(")[1]
+
