@@ -1,7 +1,9 @@
 // Banded batched Myers edit distance: the sliding-window kernels of the
 // batch runtime, one template over (schedule, emit).
 //
-//   K1 banded_cost     shared schedule, costs
+//   K1 banded_cost     shared schedule, costs (the old K1: since the ring
+//                      kernel of csrc/pinned.cu took K1's launches, only
+//                      the internal launch that chip_smoke.py times runs it)
 //   K2 banded_ck       shared schedule, costs + window checkpoints
 //   K3 banded_fill     shared schedule, costs + every column's window
 //   K3 banded_fill_pp  per-pair schedules, costs + every column's window

@@ -1,30 +1,39 @@
-// Resident-ring pinned-word big-band Myers edit distance, two kernels:
-// pinned_ring_kernel<kCk, kPP>, ring K6 (costs + 8-aligned-top checkpoints
-// on the shared schedule, <true, false>) and ring K9 (costs on per-pair
-// schedules, <false, true>); and ring_cost_kernel<kS>, costs on the shared
-// schedule: K7 (kS = 0, 8 register slots a thread) and the wide ring (kS =
-// 8 or 24 further slots a thread in shared memory).
+// Resident-ring pinned-word Myers edit distance: pinned_ring_kernel<kCk,
+// kPP>, ring K6 (costs + 8-aligned-top checkpoints on the shared schedule,
+// <true, false>) and ring K9 (costs on per-pair schedules, <false, true>);
+// and one leaner step, ring_body<kS, kMode>, in three kernels:
+// ring_cost_kernel<kS>, costs on the shared schedule (K7, kS = 0, 8
+// register slots a thread; the wide ring, kS = 8 or 24 further slots a
+// thread in shared memory), ring_ck_pp_kernel, ring K10 (costs + K4's
+// checkpoint rows on per-pair schedules), and banded_ring_kernel, K1
+// (the shared schedule's costs under K1's result rule, small bands).
 //
 // They replace the TPU kernels astarpa_tpu/ops/pinned.py::_pinned_shared_call
 // (K7, entry pinned_cost_tpu, running _pinned_kernel / _pinned_body),
 // astarpa_tpu/ops/striped.py::_striped_call (K5, entry striped_cost_tpu, on
 // the bands the wide ring holds), astarpa_tpu/ops/striped.py::_striped_ck_call
-// (K6, entry striped_ck_tpu, running _striped_body) and
+// (K6, entry striped_ck_tpu, running _striped_body),
 // astarpa_tpu/ops/pinned.py::_pinned_pp_call (K9, entry pinned_cost_pp_tpu,
-// running _pinned_pp_body).  K7's function is K5's (csrc/striped.cu, the
+// running _pinned_pp_body), _pinned_pp_ck_call (K10, entry
+// pinned_ck_pp_tpu) and astarpa_tpu/ops/pallas_banded.py::_banded_call in
+// EMIT_COST mode on the shared schedule (K1, entry banded_cost_tpu).  K7's function is K5's (csrc/striped.cu, the
 // reference holds pinned_cost_tpu == striped_cost_tpu), so its plain torch
 // twin is astarpa_tpu_torch/ops/striped.py::pinned_cost_ref, the striped
-// sweep; ring K6's is striped.py::striped_ck_ref and ring K9's
-// astarpa_tpu_torch/ops/pinned.py::pinned_cost_pp_ref.  The results must
-// match them bit for bit, and match the stripe kernels of csrc/striped.cu
-// (striped_kernel<false>, <true> and <false, true>), which take the bands
-// past the rings.  The per-word event steps come from the same host plans
+// sweep; ring K6's is striped.py::striped_ck_ref, ring K9's
+// astarpa_tpu_torch/ops/pinned.py::pinned_cost_pp_ref, ring K10's
+// pinned.py::pinned_ck_pp_ref and K1's ops/banded.py::banded_cost_ref
+// (its staggered twin: striped.py::banded_cost_staggered_ref).  The results
+// must match them bit for bit, and match the stripe kernels of
+// csrc/striped.cu (striped_kernel<false>, <true>, <false, true> and <true,
+// true, true>), which take the bands past the rings.  The per-word event steps come from the same host plans
 // (ops/striped.py::plan_striped, ops/pinned.py::plan_pp).
 //
-// Which bands each serves (ops/banded_kernel.py): ring K6 and ring K9 up to
-// 4096 live words (ring_takes), K7 every shared cost rung of up to 4096
-// live words and the wide ring those of 4097 to 16384 (pinned_cost_takes,
-// ring_cost_layout: 16 slots a thread up to 8192, 32 up to 16384).
+// Which bands each serves (ops/banded_kernel.py): ring K6, ring K9 and
+// ring K10 up to 4096 live words (ring_takes), K7 every shared cost rung of
+// up to 4096 live words and the wide ring those of 4097 to 16384
+// (pinned_cost_takes, ring_cost_layout: 16 slots a thread up to 8192, 32
+// up to 16384), K1 every shared cost rung below 64 words (the runner's
+// STRIPED_MIN_SW; any band up to 4096 live words when called directly).
 //
 // The DP is K5's: word w (absolute, 32 rows) runs column t - w at step t,
 // taking the h carry and the column's char code that word w-1 produced at
@@ -132,6 +141,47 @@
 // its SW = 8192 rung in ~613-624 ms (1.4x; K5's stripes 933-940 ms); the
 // barrier and the link cost ~95 ns of K7's ~340 ns step (ops/ring_step.py:
 // ~220 ns without them).
+//
+// Ring K10 (ring_ck_pp_kernel) is K7's step on per-pair event rows (each
+// block offsets a (B, 3, nw_pad) table by its pair), swept to n_lim =
+// n_max, where the checkpoint rows are defined (the ring is sized for
+// that, ops/pinned.py::ring_span_pp at n_max).  Checkpoint k's true window
+// is [w0k, w0k + SW), w0k = lo_p(k*CB - 1); word w of it ends column k*CB -
+// 1 at step k*CB - 1 + w and is written into row w - w0k of (n_ck, SW, B)
+// planes, read before the next step as a capture is.  Each thread walks
+// its own words of the windows in order (ck_seek, ck_take), an event like
+// any other, so the store stays out of the word loop.  CB >= SW keeps the
+// windows' steps apart: window k's last word is taken at step k*CB - 2 +
+// w0k + SW <= (k+1)*CB - 2 + w0(k+1) < (k+1)*CB - 1 + w0(k+1), window k+1's
+// first (w0 rises with k), so one word of the block is taken a step and a
+// thread's cursor meets the windows in time order.  A taken word is live
+// (it entered before column k*CB - 1 and is absorbed after it, both at
+// steps rising with the word), and word w + RW has not entered its slot
+// before the read (the live run never exceeds the ring).  The top value
+// ck_tv[k] = k*CB + the values absorbed from the words above w0k: the
+// words are absorbed in order, all those above w0k before step k*CB - 1 +
+// w0k and none below, so each thread adds its own absorbed sum to
+// checkpoint k (an atomic) when it absorbs its first word at or below
+// w0k, or at the end; no shared running sum and no barrier are needed,
+// and a one-warp ring (config #4's SW = 192) keeps none.  On an H100 80GB
+// HBM3 at 700 W ring K10 takes config #5 default's checkpoint round in
+// ~194 ms (3.1x its bound; the stripe K10 ~463 ms) and config #4's in ~27
+// ms (the stripe K10 ~90 ms).
+//
+// K1 (banded_ring_kernel) is K7's step on the shared schedule with K1's
+// result rule (a pair with n == 0 costs m; row m above the window gives
+// the absorbed sum plus n, below it INF).  Its bands are small (the
+// runner sends it rungs below 64 words), so a ring is a few lanes of a
+// warp: 8 slots a lane, the fewest lanes (a power of two) whose slots hold
+// the live words and one more (a full ring keeps its top on the slow
+// path, which measured slower than twice the slots), 32 / lanes pairs a
+// one-warp block.  The link between lanes is a full-warp shuffle from the
+// lane above in the pair's group; the rings of a warp share the schedule,
+// so their events fall on the same steps but the capture at each pair's
+// own last column, and they step to the warp's last capture.  Bands of 256
+// live words or more take a block a pair, as K7.  On the same card it
+// runs the 4096 x 10 kbp pack at SW = 32 in ~4-7 ms against the old
+// one-thread-a-pair K1's 27 ms (its bound 1.1 ms).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -453,31 +503,49 @@ __device__ __forceinline__ uint32_t bit_mask(uint32_t x, int k) {
   return (uint32_t)((int32_t)(x << (31 - k)) >> 31);
 }
 
-// K7 (kS = 0) and the wide ring (kS = 8 or 24 shared slots a thread); see
-// the header.  A thread holds kT = 8 + kS consecutive slots: 8 in registers,
-// then kS in shared memory, laid out [slot][thread] at a stride of
-// kMaxThreads, state (vp, vm) and profile (p0, p1) apart, so a warp touches
-// consecutive 8-byte words.
-template <int kS>
-__global__ void __launch_bounds__(kMaxThreads) ring_cost_kernel(
+// What a ring_body instance computes (see the header): K7 and the wide
+// ring (kRingCost: the shared schedule's costs, a ring a block), ring K10
+// (kRingCkPP: per-pair schedules, a ring a block, checkpoints under K4's
+// row contract) or K1 (kRingBanded: the shared schedule's costs under K1's
+// result rule, a ring of `ring` threads: a block, or `ring` lanes of a
+// warp beside the rings of 32 / ring - 1 other pairs).
+enum RingMode { kRingCost = 0, kRingCkPP = 1, kRingBanded = 2 };
+
+// The ring's step and events; see the header.  A thread holds kT = 8 + kS
+// consecutive slots: 8 in registers, then kS in shared memory, laid out
+// [slot][thread] at a stride of kMaxThreads, state (vp, vm) and profile
+// (p0, p1) apart, so a warp touches consecutive 8-byte words.
+template <int kS, int kMode>
+__device__ __forceinline__ void ring_body(
     const uint8_t* __restrict__ code, const uint32_t* __restrict__ pb0,
     const uint32_t* __restrict__ pb1, const int32_t* __restrict__ n,
     const int32_t* __restrict__ m, const int32_t* __restrict__ loend,
-    const int32_t* __restrict__ ev, int32_t* __restrict__ out, int n_max,
-    int B, int S, int SW, int nw_pad, int n_lim) {
+    const int32_t* __restrict__ ev, int32_t* __restrict__ out,
+    uint32_t* __restrict__ ck_vp, uint32_t* __restrict__ ck_vm,
+    int32_t* __restrict__ ck_tv, const int32_t* __restrict__ ckw0, int n_max,
+    int B, int S, int SW, int nw_pad, int n_lim, int CB, int n_ck, int ring) {
   constexpr int kT = kK + kS;  // slots a thread, a power of two
-  const int p = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int NT = blockDim.x;
+  constexpr bool kCk = kMode == kRingCkPP;
+  constexpr bool kK1 = kMode == kRingBanded;
+  const int NT = kK1 ? ring : blockDim.x;  // the ring's threads
+  // K1's rings below a warp: 32 / NT pairs a warp (one-warp blocks).
+  const bool sub = kK1 && NT < 32;
+  const int pair = sub ? blockIdx.x * (32 / NT) + threadIdx.x / NT : blockIdx.x;
+  const int p = kK1 ? min(pair, B - 1) : pair;  // a tail ring repeats pair B-1
+  const int tid = sub ? threadIdx.x & (NT - 1) : threadIdx.x;
+  // Lane and warp from tid where the ring is the block: taken from
+  // threadIdx.x there, the wide ring's build spilled (8 bytes at 128
+  // registers) and ran ~5% slower on config #5's SW = 8192 rung.
+  const int lane = (kK1 ? (int)threadIdx.x : tid) & 31;
+  const int warp = (kK1 ? (int)threadIdx.x : tid) >> 5;
   const int RW = NT * kT;
   const bool multi = NT > 32;  // a one-warp ring wraps by shuffle alone
   const int prev_warp = warp > 0 ? warp - 1 : (NT >> 5) - 1;
-  const int src = (lane + 31) & 31;
+  const int src = sub ? (lane & ~(NT - 1)) | ((tid + NT - 1) & (NT - 1)) : (lane + 31) & 31;
   const int np = n[p];
   const int mp = m[p];
   const int le = loend[p];
+  if constexpr (kCk) ev += (size_t)p * 3 * nw_pad;  // the pair's own event rows
   const int32_t* ent_t = ev;
   const int32_t* top_t = ev + nw_pad;
   const int32_t* abs_t = ev + 2 * nw_pad;
@@ -494,10 +562,19 @@ __global__ void __launch_bounds__(kMaxThreads) ring_cost_kernel(
   // slot, double-buffered by step parity.
   __shared__ uint4 s_link[2][kMaxThreads / 32];
   __shared__ int s_sum;
-  if (tid == 0) s_sum = 0;
-  if (tid < kMaxThreads / 32) {
-    s_link[0][tid] = make_uint4(0u, 0u, 0u, 0u);
-    s_link[1][tid] = make_uint4(0u, 0u, 0u, 0u);
+  if (threadIdx.x == 0) s_sum = 0;
+  if (threadIdx.x < kMaxThreads / 32) {
+    s_link[0][threadIdx.x] = make_uint4(0u, 0u, 0u, 0u);
+    s_link[1][threadIdx.x] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if constexpr (kCk) {
+    // Checkpoint 0 is the all-ones state.  Top values start at k * CB; the
+    // threads add the values absorbed above each window top (tv_acc below).
+    for (int i = tid; i < SW; i += NT) {
+      ck_vp[(size_t)i * B + p] = ~0u;
+      ck_vm[(size_t)i * B + p] = 0u;
+    }
+    for (int k = tid; k < n_ck; k += NT) ck_tv[(size_t)k * B + p] = k * CB;
   }
 
   const int w0 = tid * kT;  // this thread's first slot (and lap-0 word)
@@ -544,6 +621,14 @@ __global__ void __launch_bounds__(kMaxThreads) ring_cost_kernel(
   auto next_of = [&](int w, int q) {
     return (q & (kT - 1)) ? w + 1 : w + RW - (kT - 1);
   };
+  // The thread's first word at or after word d: its sequence index q, w.
+  auto seek = [&](int d, int& q, int& w) {
+    const int dd = d - w0;
+    const int lap = dd > 0 ? dd / RW : 0;
+    const int r = dd > 0 ? dd - lap * RW : 0;
+    q = r < kT ? lap * kT + r : (lap + 1) * kT;
+    w = w0 + (q & (kT - 1)) + (q / kT) * RW;
+  };
   int e = 0, a = 0;  // sequence indices: next to enter, next to absorb
   int ent_w = w0, abs_w = w0;
   int ent_next = ent_t[ent_w];
@@ -552,15 +637,34 @@ __global__ void __launch_bounds__(kMaxThreads) ring_cost_kernel(
   // Capture: the thread's next word in [le, le + SW), word wc finishing
   // column np - 1 at step wc + np - 1 (taken before the next step).
   int cap_q, cap_w;
-  {
-    const int d = le - w0;
-    const int lap = d > 0 ? d / RW : 0;
-    const int r = d > 0 ? d - lap * RW : 0;
-    cap_q = r < kT ? lap * kT + r : (lap + 1) * kT;
-    cap_w = w0 + (cap_q & (kT - 1)) + (cap_q / kT) * RW;
-  }
+  seek(le, cap_q, cap_w);
   int cap_next = np > 0 && cap_w < le + SW ? cap_w + np - 1 : kNever;
   int acc = 0;  // this thread's absorbed and captured values
+  // Ring K10's checkpoints.  Rows: the thread's next word ck_w of window
+  // ck_k, [top, top + SW) with top = lo_p(ck_k * CB - 1) (ckw0), ends
+  // column ck_k * CB - 1 at step ck_next = ck_k * CB - 1 + ck_w and is read
+  // before the next step, as a capture.  Top values: the thread adds its
+  // absorbed values so far (tv_acc) to checkpoint tv_k's when it absorbs
+  // its first word at or below that window's top (absorbs rise with the
+  // word, so every word above the top is absorbed before the top is taken
+  // and none at or below it), and to the rest at the end.  The window tops
+  // are read again where used (out of line), which keeps the step loop
+  // within its registers.
+  int ck_k = 1, ck_q = 0, ck_w = 0, ck_next = kNever, tv_k = 1, tv_acc = 0;
+  auto ck_top = [&](int k) { return ckw0[(size_t)k * B + p]; };
+  // From window ck_k on, the first window the thread holds a word of.
+  auto ck_seek = [&]() {
+    for (; ck_k < n_ck; ++ck_k) {
+      const int top = ck_top(ck_k);
+      seek(top, ck_q, ck_w);
+      if (ck_w < top + SW) {
+        ck_next = ck_k * CB - 1 + ck_w;
+        return;
+      }
+    }
+    ck_next = kNever;
+  };
+  if constexpr (kCk) ck_seek();
   // The band top.  Its input is the +1 carry and its own column's char
   // code.  The code: from the step the thread's slot-0 word is the top, the
   // thread is in memory mode (mm): slot 0's input masks are its own words'
@@ -620,8 +724,31 @@ __global__ void __launch_bounds__(kMaxThreads) ring_cost_kernel(
       }
     }
   };
+  // Ring K10: write the row of word ck_w and step the row cursor.
+  auto ck_take = [&]() {
+    uint32_t xv, xm;
+    read_slot(ck_q & (kT - 1), xv, xm);
+    const int top = ck_top(ck_k);
+    const size_t o = ((size_t)ck_k * SW + (ck_w - top)) * B + p;
+    ck_vp[o] = xv;
+    ck_vm[o] = xm;
+    ++ck_q;
+    ck_w = next_of(ck_w, ck_q);
+    if (ck_w < top + SW) {
+      ck_next = ck_k * CB - 1 + ck_w;
+    } else {
+      ++ck_k;
+      ck_seek();
+    }
+  };
 
-  const int t_end = np > 0 ? np + le + SW - 1 : 0;
+  int t_end = np > 0 ? np + le + SW - 1 : 0;
+  if constexpr (kCk) {
+    // Checkpoint rows are defined up to n_max: the last window's last word.
+    if (n_ck > 1) t_end = max(t_end, (n_ck - 1) * CB - 1 + ckw0[(size_t)(n_ck - 1) * B + p] + SW);
+  }
+  // The rings of a warp step together (a full-warp shuffle links them).
+  if constexpr (kK1) t_end = __reduce_max_sync(kFull, t_end);
   int t = 0;
   for (; t < t_end; t += kK) {
 #pragma unroll
@@ -670,6 +797,9 @@ __global__ void __launch_bounds__(kMaxThreads) ring_cost_kernel(
             cap_w = next_of(cap_w, cap_q);
             cap_next = cap_w < le + SW ? cap_w + np - 1 : kNever;
           }
+          if constexpr (kCk) {
+            if (tt - 1 == ck_next) ck_take();
+          }
           if (tt == ent_next) {
             const int j = e & (kT - 1);
             const bool later_lap = e >= kT;
@@ -692,6 +822,12 @@ __global__ void __launch_bounds__(kMaxThreads) ring_cost_kernel(
             uint32_t xv, xm;
             read_slot(j, xv, xm);
             if (tt - abs_w <= np - 1) acc += __popc(xv) - __popc(xm);
+            if constexpr (kCk) {
+              for (; tv_k < n_ck && abs_w >= ck_top(tv_k); ++tv_k) {
+                if (tv_acc) atomicAdd(&ck_tv[(size_t)tv_k * B + p], tv_acc);
+              }
+              if (tt - abs_w <= np - 1) tv_acc += __popc(xv) - __popc(xm);
+            }
             ++a;
             abs_w = next_of(abs_w, a);
             abs_next = abs_t[abs_w];
@@ -733,6 +869,7 @@ __global__ void __launch_bounds__(kMaxThreads) ring_cost_kernel(
             tc = *tptr;
             top_end = min(min(min(abs_next, ent_next), min(cap_next + 1, rearm)),
                           abs_w + n_lim);
+            if constexpr (kCk) top_end = min(top_end, ck_next + 1);
             ev_next = tt;
           } else {
             const int top_start = (straddle_now || (a & (kT - 1)) == 0) && top_next > tt &&
@@ -741,6 +878,7 @@ __global__ void __launch_bounds__(kMaxThreads) ring_cost_kernel(
                                       : kNever;
             ev_next = min(min(min(ent_next, abs_next), min(top_start, cap_next + 1)),
                           min(rearm, mm_end));
+            if constexpr (kCk) ev_next = min(ev_next, ck_next + 1);
           }
         }
         if (slow) {
@@ -840,12 +978,65 @@ __global__ void __launch_bounds__(kMaxThreads) ring_cost_kernel(
     read_slot(cap_q & (kT - 1), xv, xm);
     acc += __popc(xv & mask) - __popc(xm & mask);
   }
+  if constexpr (kCk) {
+    if (t - 1 == ck_next) ck_take();
+    if (tv_acc) {
+      for (; tv_k < n_ck; ++tv_k) atomicAdd(&ck_tv[(size_t)tv_k * B + p], tv_acc);
+    }
+  }
+  if constexpr (kK1) {
+    if (sub) {
+      // The ring's lanes' sum; a tail ring writes nothing.
+      for (int o = NT >> 1; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
+      if (pair < B && tid == 0) {
+        out[p] = np == 0 ? mp : (mp - le * kW <= SW * kW ? acc + np : kInf);
+      }
+      return;
+    }
+  }
   if (acc) atomicAdd(&s_sum, acc);
   __syncthreads();
   if (tid == 0) {
     const bool covered = mp - le * kW <= SW * kW;
-    out[p] = covered ? s_sum + np : kInf;
+    // K1's rule: a pair with no column costs m.
+    out[p] = kK1 && np == 0 ? mp : (covered ? s_sum + np : kInf);
   }
+}
+
+// K7 (kS = 0) and the wide ring (kS = 8 or 24 shared slots a thread).
+template <int kS>
+__global__ void __launch_bounds__(kMaxThreads) ring_cost_kernel(
+    const uint8_t* __restrict__ code, const uint32_t* __restrict__ pb0,
+    const uint32_t* __restrict__ pb1, const int32_t* __restrict__ n,
+    const int32_t* __restrict__ m, const int32_t* __restrict__ loend,
+    const int32_t* __restrict__ ev, int32_t* __restrict__ out, int n_max,
+    int B, int S, int SW, int nw_pad, int n_lim) {
+  ring_body<kS, kRingCost>(code, pb0, pb1, n, m, loend, ev, out, nullptr, nullptr,
+                           nullptr, nullptr, n_max, B, S, SW, nw_pad, n_lim, 0, 0, 0);
+}
+
+// Ring K10: per-pair schedules, checkpoints, the sweep to n_max.
+__global__ void __launch_bounds__(kMaxThreads) ring_ck_pp_kernel(
+    const uint8_t* __restrict__ code, const uint32_t* __restrict__ pb0,
+    const uint32_t* __restrict__ pb1, const int32_t* __restrict__ n,
+    const int32_t* __restrict__ m, const int32_t* __restrict__ loend,
+    const int32_t* __restrict__ ev, int32_t* __restrict__ out,
+    uint32_t* __restrict__ ck_vp, uint32_t* __restrict__ ck_vm,
+    int32_t* __restrict__ ck_tv, const int32_t* __restrict__ ckw0, int n_max,
+    int B, int S, int SW, int nw_pad, int CB, int n_ck) {
+  ring_body<0, kRingCkPP>(code, pb0, pb1, n, m, loend, ev, out, ck_vp, ck_vm, ck_tv,
+                          ckw0, n_max, B, S, SW, nw_pad, n_max, CB, n_ck, 0);
+}
+
+// K1: the shared schedule's costs under K1's rule, rings of `ring` threads.
+__global__ void __launch_bounds__(kMaxThreads) banded_ring_kernel(
+    const uint8_t* __restrict__ code, const uint32_t* __restrict__ pb0,
+    const uint32_t* __restrict__ pb1, const int32_t* __restrict__ n,
+    const int32_t* __restrict__ m, const int32_t* __restrict__ loend,
+    const int32_t* __restrict__ ev, int32_t* __restrict__ out, int n_max,
+    int B, int S, int SW, int nw_pad, int n_lim, int ring) {
+  ring_body<0, kRingBanded>(code, pb0, pb1, n, m, loend, ev, out, nullptr, nullptr,
+                            nullptr, nullptr, n_max, B, S, SW, nw_pad, n_lim, 0, 0, ring);
 }
 
 template <int kS>
@@ -870,6 +1061,47 @@ int launch_cost(const void* code, const void* pb0, const void* pb1,
         (const uint8_t*)code, (const uint32_t*)pb0, (const uint32_t*)pb1,
         (const int32_t*)n, (const int32_t*)m, (const int32_t*)loend,
         (const int32_t*)ev, (int32_t*)out, n_max, B, S, SW, nw_pad, n_lim);
+  }
+  return (int)cudaGetLastError();
+}
+
+int launch_ring_ck_pp(const void* code, const void* pb0, const void* pb1,
+                      const void* n, const void* m, const void* loend,
+                      const void* ev, void* out, void* ck_vp, void* ck_vm,
+                      void* ck_tv, const void* ckw0, int n_max, int B, int S,
+                      int SW, int nw_pad, int threads, int CB, int n_ck,
+                      void* stream) {
+  if (threads < 32 || threads > kMaxThreads || threads % 32 ||
+      nw_pad % (threads * kK) || n_max < 1 || CB < SW || n_ck < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B > 0) {
+    ring_ck_pp_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)code, (const uint32_t*)pb0, (const uint32_t*)pb1,
+        (const int32_t*)n, (const int32_t*)m, (const int32_t*)loend,
+        (const int32_t*)ev, (int32_t*)out, (uint32_t*)ck_vp, (uint32_t*)ck_vm,
+        (int32_t*)ck_tv, (const int32_t*)ckw0, n_max, B, S, SW, nw_pad, CB, n_ck);
+  }
+  return (int)cudaGetLastError();
+}
+
+int launch_banded_ring(const void* code, const void* pb0, const void* pb1,
+                       const void* n, const void* m, const void* loend,
+                       const void* ev, void* out, int n_max, int B, int S,
+                       int SW, int nw_pad, int n_lim, int ring, void* stream) {
+  // A ring below a warp is a power of two of lanes, 32 / ring pairs a
+  // one-warp block; a larger one is a block of whole warps, a pair a block.
+  const bool sub = ring < 32;
+  if (ring < 1 || ring > kMaxThreads || (sub ? (ring & (ring - 1)) != 0 : ring % 32 != 0) ||
+      nw_pad % (ring * kK) || n_lim < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int per = sub ? 32 / ring : 1;
+  if (B > 0) {
+    banded_ring_kernel<<<(B + per - 1) / per, sub ? 32 : ring, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)code, (const uint32_t*)pb0, (const uint32_t*)pb1,
+        (const int32_t*)n, (const int32_t*)m, (const int32_t*)loend,
+        (const int32_t*)ev, (int32_t*)out, n_max, B, S, SW, nw_pad, n_lim, ring);
   }
   return (int)cudaGetLastError();
 }
@@ -903,13 +1135,18 @@ int launch(const void* code, const void* pb0, const void* pb1, const void* n,
 // (B,) int32.  The shared entries take ev (3, nw_pad) int32 per-word ent_t,
 // top_t and abs_t, NEVER past the live words, nw_pad >= the live words + the
 // ring; ring K6's also writes ck_vp/ck_vm (n_ck, SW+8, B) and ck_tv (n_ck, B)
-// from ckw0 (n_ck,) window tops (SW % 8 == 0, CB >= SW + 8).  Ring K9's
-// takes ev (B, 3, nw_pad), each pair's rows so padded.  `threads` is the
-// block size (a multiple of 32, <= 512): the ring holds threads * 8 words,
-// which must cover ops/striped.py::ring_span(plan, n_lim) (n_lim = n_max for
-// ring K6) or, for ring K9, every pair's ops/pinned.py::ring_span_pp.  Each
-// launches on `stream` without synchronising and returns cudaGetLastError()
-// (0 on success).
+// from ckw0 (n_ck,) window tops (SW % 8 == 0, CB >= SW + 8).  Ring K9's and
+// ring K10's take ev (B, 3, nw_pad), each pair's rows so padded; ring K10's
+// writes ck_vp/ck_vm (n_ck, SW, B) and ck_tv (n_ck, B) from ckw0 (n_ck, B)
+// window tops (CB >= SW).  `threads` is the block size (a multiple of 32,
+// <= 512): the ring holds threads * 8 words, which must cover
+// ops/striped.py::ring_span(plan, n_lim) (n_lim = n_max for ring K6) or,
+// for ring K9 and ring K10, every pair's ops/pinned.py::ring_span_pp (at
+// n_max for ring K10).  K1's entry takes `ring`, the lanes a pair (a power
+// of two below 32, or a warp multiple up to 512), whose ring must cover
+// ring_span(plan, n_lim); the code buffer is padded past the last pair
+// (ops/banded_kernel.py::CODE_PAD), as K7's.  Each launches on `stream`
+// without synchronising and returns cudaGetLastError() (0 on success).
 extern "C" {
 
 int astarpa_pinned_cost(const void* code, const void* pb0, const void* pb1,
@@ -935,6 +1172,25 @@ int astarpa_ring_cost_wide(const void* code, const void* pb0, const void* pb1,
                            SW, nw_pad, n_lim, threads, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+int astarpa_ring_ck_pp(const void* code, const void* pb0, const void* pb1,
+                       const void* n, const void* m, const void* loend,
+                       const void* ev, void* out, void* ck_vp, void* ck_vm,
+                       void* ck_tv, const void* ckw0, int n_max, int B, int S,
+                       int SW, int nw_pad, int threads, int CB, int n_ck,
+                       void* stream) {
+  return launch_ring_ck_pp(code, pb0, pb1, n, m, loend, ev, out, ck_vp, ck_vm,
+                           ck_tv, ckw0, n_max, B, S, SW, nw_pad, threads, CB,
+                           n_ck, stream);
+}
+
+int astarpa_banded_ring(const void* code, const void* pb0, const void* pb1,
+                        const void* n, const void* m, const void* loend,
+                        const void* ev, void* out, int n_max, int B, int S,
+                        int SW, int nw_pad, int n_lim, int ring, void* stream) {
+  return launch_banded_ring(code, pb0, pb1, n, m, loend, ev, out, n_max, B, S,
+                            SW, nw_pad, n_lim, ring, stream);
 }
 
 int astarpa_ring_ck(const void* code, const void* pb0, const void* pb1,

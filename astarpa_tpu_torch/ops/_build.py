@@ -93,6 +93,30 @@ def build() -> Path:
     return out
 
 
+#: Every C entry of the library: (pointer arguments, int arguments); each
+#: also takes the stream last.  ``load`` declares them for ctypes, which
+#: would otherwise pass every argument as a 32-bit int.
+ENTRIES = {
+    "astarpa_banded_cost": (10, 4),
+    "astarpa_banded_ck": (13, 5),
+    "astarpa_banded_cost_pp": (10, 5),
+    "astarpa_banded_ck_pp": (13, 6),
+    "astarpa_banded_fill": (12, 4),
+    "astarpa_banded_fill_pp": (12, 5),
+    "astarpa_striped_cost": (10, 8),
+    "astarpa_striped_ck": (14, 10),
+    "astarpa_pinned_cost": (8, 7),
+    "astarpa_pinned_ck": (14, 10),
+    "astarpa_pinned_cost_pp": (11, 8),
+    "astarpa_pinned_ck_pp": (15, 10),
+    "astarpa_ring_ck": (12, 9),
+    "astarpa_ring_cost_pp": (8, 6),
+    "astarpa_ring_cost_wide": (8, 8),
+    "astarpa_ring_ck_pp": (12, 8),
+    "astarpa_banded_ring": (8, 7),
+    "astarpa_nw_right_edge": (8, 2),
+}
+
 _lib = None
 
 
@@ -103,23 +127,7 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # Entry -> (pointer arguments, int arguments); the stream comes last.
-        for name, n_ptr, n_int in (("astarpa_banded_cost", 10, 4),
-                                   ("astarpa_banded_ck", 13, 5),
-                                   ("astarpa_banded_cost_pp", 10, 5),
-                                   ("astarpa_banded_ck_pp", 13, 6),
-                                   ("astarpa_banded_fill", 12, 4),
-                                   ("astarpa_banded_fill_pp", 12, 5),
-                                   ("astarpa_striped_cost", 10, 8),
-                                   ("astarpa_striped_ck", 14, 10),
-                                   ("astarpa_pinned_cost", 8, 7),
-                                   ("astarpa_pinned_ck", 14, 10),
-                                   ("astarpa_pinned_cost_pp", 11, 8),
-                                   ("astarpa_pinned_ck_pp", 15, 10),
-                                   ("astarpa_ring_ck", 12, 9),
-                                   ("astarpa_ring_cost_pp", 8, 6),
-                                   ("astarpa_ring_cost_wide", 8, 8),
-                                   ("astarpa_nw_right_edge", 8, 2)):
+        for name, (n_ptr, n_int) in ENTRIES.items():
             fn = getattr(lib, name)
             fn.restype = i32
             fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]

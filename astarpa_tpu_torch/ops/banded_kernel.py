@@ -8,7 +8,9 @@ Counterparts of ``astarpa_tpu/ops/pallas_banded.py::banded_cost_tpu``,
 and of ``astarpa_tpu/ops/pinned.py::pinned_cost_tpu``, ``pinned_ck_tpu``,
 ``pinned_cost_pp_tpu`` and ``pinned_ck_pp_tpu``, one wrapper per kernel:
 
-- :func:`banded_cost` — K1, shared schedule, costs;
+- :func:`banded_cost` — K1, shared schedule, costs: on the card a ring of
+  resident words (8 register slots a lane, a few lanes a pair below 256
+  live words, up to :data:`RING_MAX_WORDS`);
 - :func:`banded_ck` — K2, shared schedule, costs and checkpoints;
 - :func:`banded_fill` — K3, shared schedule, costs and every column's planes;
 - :func:`banded_fill_pp` — K3, per-pair schedules, the same;
@@ -28,7 +30,9 @@ and of ``astarpa_tpu/ops/pinned.py::pinned_cost_tpu``, ``pinned_ck_tpu``,
 - :func:`pinned_cost_pp` — K9, K5's DP on per-pair schedules, costs: the
   ring kernel (ring K9) up to :data:`RING_MAX_WORDS` live words, the
   stripe kernel past them;
-- :func:`pinned_ck_pp` — K10, K9 plus checkpoints under K4's contract.
+- :func:`pinned_ck_pp` — K10, K9 plus checkpoints under K4's contract: the
+  ring kernel (ring K10) up to :data:`RING_MAX_WORDS` live words, the
+  stripe kernel past them.
 
 Each has the contract of its plain version in :mod:`.banded`,
 :mod:`.striped` or :mod:`.pinned`.  A tensor on the CPU goes to that plain
@@ -47,12 +51,16 @@ from .words import lengths, to_tensor
 
 #: Launches of each CUDA kernel in this process, by wrapper name (callers
 #: that need to show a run went through a kernel reset them first).
-#: ``nw_right_edge`` is K11's, whose wrapper is in :mod:`.nw_kernel`.
+#: ``nw_right_edge`` is K11's, whose wrapper is in :mod:`.nw_kernel`;
+#: ``banded_cost`` counts the old one-thread-a-pair K1, which only the
+#: internal ``_launch("banded_cost", ...)`` runs (:func:`banded_cost` runs
+#: ``banded_ring``).
 LAUNCHES = {"banded_cost": 0, "banded_ck": 0, "banded_fill": 0,
             "banded_fill_pp": 0, "banded_cost_pp": 0, "banded_ck_pp": 0, "striped_cost": 0, "striped_ck": 0,
             "pinned_cost": 0, "pinned_ck": 0, "pinned_cost_pp": 0,
             "pinned_ck_pp": 0, "ring_ck": 0, "ring_cost_pp": 0,
-            "ring_cost_wide": 0, "nw_right_edge": 0}
+            "ring_cost_wide": 0, "banded_ring": 0, "ring_ck_pp": 0,
+            "nw_right_edge": 0}
 
 
 def reset_launches() -> None:
@@ -67,7 +75,8 @@ _LABELS = {"banded_cost": "cuda-banded", "banded_ck": "cuda-banded-ck",
            "pinned_cost": "cuda-pinned", "pinned_ck": "cuda-pinned-ck",
            "pinned_cost_pp": "cuda-pinned-pp", "pinned_ck_pp": "cuda-pinned-pp-ck",
            "ring_ck": "cuda-ring-ck", "ring_cost_pp": "cuda-ring-pp",
-           "ring_cost_wide": "cuda-ring-wide", "nw_right_edge": "cuda-nw"}
+           "ring_cost_wide": "cuda-ring-wide", "banded_ring": "cuda-banded-ring",
+           "ring_ck_pp": "cuda-ring-pp-ck", "nw_right_edge": "cuda-nw"}
 
 
 def route(device: torch.device, kernel: str = "banded_cost") -> str:
@@ -82,10 +91,15 @@ def banded_cost(a0, a1, pb0, pb1, n, m, band_words: int,
     a0/a1 (n_max, B), pb0/pb1 (S, B) int32 planes; n/m (B,) lengths (host
     numpy or tensors); ``band_words`` is clamped to S; ``diag`` as in
     :func:`.banded.shift_at_array`.
+
+    On the card the band's live words (:func:`.striped.ring_span`, at most
+    the band) run in a ring of resident words (``banded_ring_kernel``,
+    :func:`banded_ring_layout`); it raises ``ValueError`` past
+    :data:`RING_MAX_WORDS` of them.
     """
     if _plain(a0):
         return banded.banded_cost_ref(a0, a1, pb0, pb1, n, m, band_words, diag)
-    return _launch("banded_cost", a0, a1, pb0, pb1, n, m, band_words, diag=diag)
+    return _launch_banded_ring(a0, a1, pb0, pb1, n, m, band_words, diag)
 
 
 def banded_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
@@ -254,13 +268,22 @@ def pinned_cost_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
 
 
 def pinned_ck_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
-                 col_block: int, quantum: int = 1, stripe_words: int | None = None):
+                 col_block: int, quantum: int = 1, stripe_words: int | None = None,
+                 ring_words: int | None = None):
     """K9 plus checkpoints: ``(costs, ck_vp, ck_vm, ck_tv)`` under K4's
     contract, as :func:`.pinned.pinned_ck_pp_ref`.  Raises on both routes
-    when the Q-rounded interval is below ``min(band_words, S)``."""
+    when the Q-rounded interval is below ``min(band_words, S)``.  On the
+    card a band the ring holds (:func:`ring_takes`; each pair's live words
+    up to column n_max, :func:`.pinned.ring_span_pp`, never outnumber it)
+    runs ring K10, a taller one the stripe kernel; ``stripe_words`` and
+    ``ring_words`` pick one as in :func:`striped_ck`."""
+    ring = _takes_ring(min(band_words, pb0.shape[0]), stripe_words, ring_words)
     if _plain(a0):
         return pinned.pinned_ck_pp_ref(a0, a1, pb0, pb1, n, m, schedule,
                                        band_words, col_block, quantum)
+    if ring:
+        return _launch_ring_ck_pp(a0, a1, pb0, pb1, n, m, schedule, band_words,
+                                  col_block, quantum, ring_words)
     return _launch_pinned_pp("pinned_ck_pp", a0, a1, pb0, pb1, n, m, schedule,
                              band_words, quantum, col_block, stripe_words)
 
@@ -559,6 +582,20 @@ def _launch_pinned(a0, a1, pb0, pb1, n, m, SW, plan, threads, col_block):
 CODE_PAD = 64
 
 
+def _ring_codes(a0, a1) -> torch.Tensor:
+    """The pairs' char codes for ``ring_body``'s kernels: (B, n_max) uint8,
+    pair-major (the band top reads its pair's next column from the same
+    line), flat with :data:`CODE_PAD` zero bytes after the last pair.  The
+    planes narrow to bytes first (their low bits are the codes'), so the
+    int32 planes are read once."""
+    n_max, B = a0.shape
+    code = torch.empty(B * n_max + CODE_PAD, dtype=torch.uint8, device=a0.device)
+    code[B * n_max:] = 0
+    c = a0.to(torch.uint8).bitwise_and_(1).bitwise_or_(a1.to(torch.uint8).bitwise_and_(2))
+    code[:B * n_max].view(B, n_max).copy_(c.T)
+    return code
+
+
 def _launch_ring_cost(a0, a1, pb0, pb1, n, m, SW, plan, threads, thread_words):
     """K7 (8 slots a thread) or the wide ring: the shared cost ring launch."""
     from ._build import load
@@ -569,8 +606,7 @@ def _launch_ring_cost(a0, a1, pb0, pb1, n, m, SW, plan, threads, thread_words):
     n_t, m_t = lengths(n, B, dev), lengths(m, B, dev)
     loend = _loend(plan, n, n_t, n_max, dev)
     ev = ring_events(plan, threads * thread_words)
-    code = torch.zeros(B * n_max + CODE_PAD, dtype=torch.uint8, device=dev)
-    code[:B * n_max].view(B, n_max).copy_(((a0 & 1) | (a1 & 2)).to(torch.uint8).T)
+    code = _ring_codes(a0, a1)
     out = torch.empty(B, dtype=torch.int32, device=dev)
     head = [code, pb0, pb1, n_t, m_t, loend, to_tensor(ev, dev), out]
     ints = [n_max, B, S, SW, ev.shape[1], _cost_n_lim(n, n_max), threads]
@@ -589,17 +625,21 @@ def _launch_ring_cost(a0, a1, pb0, pb1, n, m, SW, plan, threads, thread_words):
     return out
 
 
-def ring_pp_events(sched: np.ndarray, n, SW: int, dev, ring_words: int | None = None):
-    """Device-side event table of a ring K9 launch, built on the card from
-    the uploaded schedule (:func:`.pinned.plan_pp`): ``(plan, ev (B, 3,
-    nw_pad), threads)``, each pair's rows as :func:`ring_events` builds the
-    shared ones (``ent_t``, ``top_t``, ``abs_t``, ``NEVER`` up to one ring
-    past the longest pair's live words), and the block size whose ring
-    holds every pair's live run (:func:`.pinned.ring_span_pp` with each
-    pair's own last column; read back once), or ``ring_words // 8``
-    (:func:`ring_threads`).  No ``end_t`` row, no stripe ranges."""
+def ring_pp_events(sched: np.ndarray, n, SW: int, dev, ring_words: int | None = None,
+                   n_lim: int | None = None):
+    """Device-side event table of a ring K9 or ring K10 launch, built on
+    the card from the uploaded schedule (:func:`.pinned.plan_pp`): ``(plan,
+    ev (B, 3, nw_pad), threads)``, each pair's rows as :func:`ring_events`
+    builds the shared ones (``ent_t``, ``top_t``, ``abs_t``, ``NEVER`` up
+    to one ring past the longest pair's live words), and the block size
+    whose ring holds every pair's live run (:func:`.pinned.ring_span_pp`
+    with each pair's own last column, or column ``n_lim - 1`` for every
+    pair when ``n_lim`` is given, as ring K10's ``n_max``; read back once),
+    or ``ring_words // 8`` (:func:`ring_threads`).  No ``end_t`` row, no
+    stripe ranges."""
     plan = pinned.plan_pp(sched, n, SW, dev)
-    n_lim = torch.as_tensor(np.maximum(np.asarray(n, np.int64), 1), device=dev)
+    n_lim = torch.as_tensor(np.maximum(np.asarray(n, np.int64), 1) if n_lim is None
+                            else np.full(len(n), n_lim, np.int64), device=dev)
     span = int(pinned.ring_span_pp(plan, n_lim, SW).max())
     threads = ring_threads(span, ring_words)
     rw = threads * STRIPED_WORDS_PER_THREAD
@@ -632,6 +672,95 @@ def _launch_ring_pp(a0, a1, pb0, pb1, n, m, schedule, SW, quantum, ring_words=No
     if rc != 0:
         raise RuntimeError(f"ring_cost_pp kernel launch failed: cudaError {rc}")
     LAUNCHES["ring_cost_pp"] += 1
+    return out
+
+
+def _launch_ring_ck_pp(a0, a1, pb0, pb1, n, m, schedule, band_words, col_block, quantum,
+                       ring_words=None):
+    """Ring K10: per-pair costs and checkpoints from one pass over a ring
+    of resident words, swept to column n_max."""
+    from ._build import load
+
+    dev = a0.device
+    n_max, B = a0.shape
+    S = pb0.shape[0]
+    SW = _check("ring_ck_pp", a0, a1, pb0, pb1, band_words)
+    sched = pinned.check_pp_schedule(schedule, n_max, B, quantum)
+    CB, n_ck = pinned.ck_layout_pp(col_block, n_max, quantum, SW)
+    n_host = np.asarray(torch.as_tensor(n).cpu(), np.int64)
+    n_t, m_t = lengths(n, B, dev), lengths(m, B, dev)
+    # Checkpoints are defined (and compared) up to n_max.
+    plan, ev, threads = ring_pp_events(sched, n_host, SW, dev, ring_words, n_lim=n_max)
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    outs = (torch.empty((n_ck, SW, B), dtype=torch.int32, device=dev),
+            torch.empty((n_ck, SW, B), dtype=torch.int32, device=dev),
+            torch.empty((n_ck, B), dtype=torch.int32, device=dev))
+    head = [_ring_codes(a0, a1), pb0, pb1, n_t, m_t, plan["loend"], ev, out, *outs,
+            pinned.ck_tops(plan["lo"], CB, n_ck)]
+    ints = [n_max, B, S, SW, ev.shape[2], threads, CB, n_ck]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = load().astarpa_ring_ck_pp(*(t.data_ptr() for t in head), *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"ring_ck_pp kernel launch failed: cudaError {rc}")
+    LAUNCHES["ring_ck_pp"] += 1
+    return (out,) + outs
+
+
+def banded_ring_layout(span: int, B: int, lanes: int | None = None) -> dict:
+    """Launch layout of K1's ring kernel for ``B`` pairs whose band keeps
+    ``span`` words live (:func:`.striped.ring_span`): ``lanes`` a pair (the
+    ring's threads, 8 register slots each), ``pairs`` a block, ``threads``
+    a block and ``blocks``.  A ring below a warp takes the fewest lanes, a
+    power of two, whose slots hold the span and one slot more, and ``32 // lanes`` pairs
+    share a one-warp block (the last block's extra rings repeat the last
+    pair and write nothing); a larger one takes the least warp multiple
+    (:func:`ring_threads`), a pair a block.  ``lanes`` forces a ring size
+    (a power of two below 32 or a warp multiple) that holds the span.
+    Raises ``ValueError`` past :data:`RING_MAX_WORDS` live words."""
+    if lanes is None:
+        # One slot to spare: a ring below a warp whose slots the live run
+        # fills keeps its top on the slow path (a word of the next lap in
+        # the top's lane), which cost more than twice the slots on the card
+        # (PERF.md §6).
+        lanes = 1
+        while lanes < 32 and lanes * STRIPED_WORDS_PER_THREAD <= span:
+            lanes *= 2
+        if lanes * STRIPED_WORDS_PER_THREAD <= span:
+            lanes = ring_threads(span)
+    elif not (0 < lanes <= 512 and (lanes & (lanes - 1) == 0 if lanes < 32 else lanes % 32 == 0)
+              and span <= lanes * STRIPED_WORDS_PER_THREAD):
+        raise ValueError(f"lanes must be a power of two below 32 or a warp multiple up to "
+                         f"512 whose 8 slots each hold the {span} live words, got {lanes}")
+    pairs = 32 // lanes if lanes < 32 else 1
+    return dict(lanes=lanes, pairs=pairs, threads=max(lanes, 32), blocks=-(-B // pairs))
+
+
+def _launch_banded_ring(a0, a1, pb0, pb1, n, m, band_words, diag, lanes=None):
+    """K1 on the card: the shared schedule's costs from one pass over a
+    ring of resident words (``lanes`` forces the ring's lanes, as
+    :func:`banded_ring_layout`)."""
+    from ._build import load
+
+    dev = a0.device
+    n_max, B = a0.shape
+    S = pb0.shape[0]
+    SW = _check("banded_ring", a0, a1, pb0, pb1, band_words)
+    plan = striped.plan_striped(n_max, S, SW, diag)
+    n_lim = _cost_n_lim(n, n_max)
+    lay = banded_ring_layout(striped.ring_span(plan, n_lim), B, lanes)
+    n_t, m_t = lengths(n, B, dev), lengths(m, B, dev)
+    ev = ring_events(plan, lay["lanes"] * STRIPED_WORDS_PER_THREAD)
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    head = [_ring_codes(a0, a1), pb0, pb1, n_t, m_t, _loend(plan, n, n_t, n_max, dev),
+            to_tensor(ev, dev), out]
+    ints = [n_max, B, S, SW, ev.shape[1], n_lim, lay["lanes"]]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = load().astarpa_banded_ring(*(t.data_ptr() for t in head), *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"banded_ring kernel launch failed: cudaError {rc}")
+    LAUNCHES["banded_ring"] += 1
     return out
 
 

@@ -3,6 +3,7 @@ the compiled SASS.
 
     python -m astarpa_tpu_torch.ops.sass_count [--kernel nw_kernel] [--words 32]
     python -m astarpa_tpu_torch.ops.sass_count --kernel pinned_ring_kernel --ring [--steps 1]
+    python -m astarpa_tpu_torch.ops.sass_count --kernel ring_ck_pp_kernel --ring
 
 Builds the kernel library (:func:`._build.build`), disassembles it with
 ``cuobjdump -sass`` and finds every loop (a branch back to a label) of the
@@ -14,10 +15,11 @@ instructions over ``--words`` are what one word step runs there, the
 loop's own overhead included.  The last line is that summary.
 
 With ``--ring`` it splits the step loop of each matching ring kernel
-(``pinned_ring_kernel``, ``ring_cost_kernel``; :func:`step_split`): the
-largest loop closed by a conditional branch, whose body runs ``--steps``
-steps (1 for ``pinned_ring_kernel``, 8 for the unrolled
-``ring_cost_kernel``).  It prints one JSON line per kernel instance with
+(``pinned_ring_kernel``, and the kernels of ``ring_body``:
+``ring_cost_kernel``, ring K10's ``ring_ck_pp_kernel`` and K1's
+``banded_ring_kernel``; :func:`step_split`): the largest loop closed by a
+conditional branch, whose body runs ``--steps`` steps (1 for
+``pinned_ring_kernel``, 8 for ``ring_body``'s, unrolled by 8).  It prints one JSON line per kernel instance with
 the instructions per thread-step by class (word-step ALU, moves, hand-off,
 event/top/capture tests, memory, control, uniform), both over the whole
 loop body and on the path that skips every block a forward conditional
@@ -45,6 +47,9 @@ CONTROL = {"BRA", "BRX", "JMP", "JMX", "EXIT", "RET", "CALL", "BSSY", "BSYNC", "
 
 #: Classes of :func:`step_class`, in print order.
 STEP_CLASSES = ("word_alu", "moves", "handoff", "tests", "memory", "control", "uniform", "other")
+#: The kernels of ``csrc/pinned.cu``'s ``ring_body``, whose step loop is
+#: unrolled by 8.
+RING_BODY = ("ring_cost_kernel", "ring_ck_pp_kernel", "banded_ring_kernel")
 #: Least int32 instructions of one Myers word step on sm_90 (``chip_smoke.py``).
 OPS_PER_WORD_STEP = 14
 _HANDOFF = {"SHFL", "LDS", "STS", "BAR", "WARPSYNC", "LDSM"}
@@ -205,7 +210,8 @@ def main() -> None:
     ap.add_argument("--dump", help="also write the matching functions' SASS to this file")
     ap.add_argument("--ring", action="store_true", help="split a ring kernel's step loop")
     ap.add_argument("--steps", type=int, default=None,
-                    help="steps in one pass of the step loop (default: 8 for ring_cost_kernel, else 1)")
+                    help="steps in one pass of the step loop (default: 8 for ring_body's "
+                    "kernels, else 1)")
     ap.add_argument("--slots", type=int, default=8, help="slots a thread, if the name does not say")
     args = ap.parse_args()
     lib = _build.build()
@@ -221,7 +227,7 @@ def main() -> None:
         if not matching:
             raise SystemExit(f"no function matches {args.kernel!r}")
         for name, lines in matching.items():
-            steps = args.steps or (8 if "ring_cost_kernel" in name else 1)
+            steps = args.steps or (8 if any(k in name for k in RING_BODY) else 1)
             print(json.dumps({"function": name, **step_split(lines, steps,
                                                              _slots(name, args.slots))}), flush=True)
         return

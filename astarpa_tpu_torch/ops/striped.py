@@ -35,7 +35,8 @@ checkpoints under K2's row contract (:func:`.banded.banded_ck_ref`): SW
 rows from the true window top, ``w - lo(k*CB - 1)``, so the trace reads
 its planes as it reads K2's; it takes any SW (:func:`pinned_ck_layout`).
 K7 computes K5's costs from a ring of resident words, sized by
-:func:`ring_span`.
+:func:`ring_span`, and K1's ring kernel K1's costs the same way
+(:func:`banded_cost_staggered_ref`).
 
 The plain versions step ``t`` in a Python loop, vectorised over the live
 words ``[next to absorb, next to enter)`` and the pairs; the CPU runs them,
@@ -257,6 +258,21 @@ def pinned_cost_ref(a0, a1, pb0, pb1, n, m, band_words: int,
     (a ring of resident slots instead of stripes), which the results do not
     show.  Args and results as :func:`striped_cost_ref`."""
     return _sweep(a0, a1, pb0, pb1, n, m, band_words, diag)[0]
+
+
+def banded_cost_staggered_ref(a0, a1, pb0, pb1, n, m, band_words: int,
+                              diag: tuple | None = None) -> torch.Tensor:
+    """K1's costs from the staggered sweep (word w at column ``t - w``, as
+    K5's), under K1's result rule: the plain twin of the layout K1's ring
+    kernel computes in (``banded_ring_kernel`` in ``csrc/pinned.cu``), bit
+    for bit :func:`.banded.banded_cost_ref`.  K5's rule is K1's but at
+    ``n == 0`` (0 there, ``m`` for K1): row m above the window at column
+    n-1 gives the absorbed sum plus n in both (K1's ``top_val``), below it
+    ``INF``.  Args and results as :func:`.banded.banded_cost_ref`."""
+    costs = _sweep(a0, a1, pb0, pb1, n, m, band_words, diag)[0]
+    n_t = torch.as_tensor(np.asarray(torch.as_tensor(n).cpu(), np.int64), device=costs.device)
+    m_t = torch.as_tensor(np.asarray(torch.as_tensor(m).cpu(), np.int64), device=costs.device)
+    return torch.where(n_t == 0, m_t.to(torch.int32), costs)
 
 
 def ring_span(plan: dict, n_lim: int) -> int:

@@ -6,7 +6,8 @@ kernels (:mod:`..ops.banded_kernel`) and certified per pair; uncertified
 pairs retry at the band their banded upper bound predicts.
 
 - Shared band ladder (buckets below ``domain_min_bp``, or every bucket
-  with ``domain_mode="off"``): K1 for costs; on the align path K1 when
+  with ``domain_mode="off"``): K1 for costs (on the card a ring of
+  resident words, a few lanes a pair); on the align path K1 when
   every cost a rung can certify fits the native direct-trace budget
   (CIGARs by direct whole-pair DT traces), else K2, whose window
   checkpoints feed the native ``trace_banded_ck``.  Bands of at least
@@ -28,7 +29,8 @@ pairs retry at the band their banded upper bound predicts.
   ladder over per-pair schedules that follow each pair's domain hull.  A
   round of at least :data:`PINNED_PP_MIN_SW` words runs the pinned
   per-pair kernels (K9 for costs, ring K9 up to the ring's 4096 words;
-  K10 for checkpoint traces), a smaller one K4 (cost mode, or ck mode).
+  K10 for checkpoint traces, ring K10 up to the ring's 4096 words), a
+  smaller one K4 (cost mode, or ck mode).
 
 CIGARs take one of two routes, chosen by :attr:`BatchAligner.combined`
 (the reference chooses by backend, ``runner.py:962-985``):
@@ -127,7 +129,7 @@ class BatchStats:
     # "cuda-banded-fill", "cuda-banded-fill-pp", "cuda-banded-pp",
     # "cuda-banded-ck-pp", "cuda-striped", "cuda-striped-ck", "cuda-pinned",
     # "cuda-pinned-ck", "cuda-pinned-pp", "cuda-pinned-pp-ck", "cuda-ring-ck",
-    # "cuda-ring-pp", or "torch-ref"
+    # "cuda-ring-pp", "cuda-banded-ring", "cuda-ring-pp-ck", or "torch-ref"
     # on the CPU), set at dispatch.
     kernel: str | None = None
 
@@ -518,7 +520,7 @@ class BatchAligner:
                 stats.kernel = route(self.device, "striped_cost")
             else:
                 costs = _Readback(banded_cost(*args, run_sw, diag))
-                stats.kernel = route(self.device)
+                stats.kernel = route(self.device, "banded_ring")
         stats.cells_computed += n_max * sw * W * len(members)
         return dict(lad=lad, costs=costs, sw=sw, S=S, thr=thr, diag=diag,
                     trace_jobs=trace_jobs, ck=ck, CB=CB, opt_chunks=opt_chunks)
@@ -739,13 +741,16 @@ class BatchAligner:
         columns rounded to whole quantum groups (K4's contract, which K10
         keeps); ``name`` is the kernel that ran (its launch key).  Rounds of
         at least :data:`PINNED_PP_MIN_SW` words run K9 (ring K9 up to the
-        ring's 4096 words, the stripe kernel past it) or K10, smaller ones
+        ring's 4096 words, the stripe kernel past it) or K10 (ring K10 up
+        to the ring's 4096 words, the stripe kernel past it), smaller ones
         K4."""
         pinned = sw >= PINNED_PP_MIN_SW
         if want_ck:
             CB = self._cb(sw, args[0].shape[0])
             if pinned:
-                return pinned_ck_pp(*args, sched_arr, sw, CB, quantum), "pinned_ck_pp"
+                # The wrapper runs ring K10 where the ring holds the band.
+                return (pinned_ck_pp(*args, sched_arr, sw, CB, quantum),
+                        "ring_ck_pp" if ring_takes(sw) else "pinned_ck_pp")
             return banded_ck_pp(*args, sched_arr, sw, CB, quantum), "banded_ck_pp"
         if pinned:
             # The wrapper runs ring K9 where the ring holds the band.

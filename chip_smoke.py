@@ -7,8 +7,8 @@ Phases, one output line each (any failure exits non-zero):
 
 0. card and tools (nvidia-smi, torch, CUDA, nvcc, Triton);
 1. build the CUDA kernel library and the native C++ runtime, timed;
-2. the banded cost kernel against its plain torch version on a grid of
-   shapes, bit for bit;
+2. the banded cost kernel (K1's ring kernel) against its plain torch version
+   (K1's staggered twin) on a grid of shapes, bit for bit;
 3. main path, cost: ``BatchAligner(device="cuda").cost_with_stats`` on
    4096 pairs of 10 kbp at e=5%, twice (the first warms the band hints),
    16 costs against the oracle, aligned Gbp/s of the second call and its
@@ -63,20 +63,22 @@ Phases, one output line each (any failure exits non-zero):
     (its pack cut to the first 4096 columns, at the ladder's SW), timed in
     turns (plain, kernels, kernels, plain); K5's stripes against K1 on that cut at SW
     64 to 2048 (the crossover behind ``runner.STRIPED_MIN_SW``);
-13. the pinned per-pair kernels K9 and K10 against their plain versions on
+13. the pinned per-pair kernels K9 and K10 (their stripe kernels; phases 27
+    and 32 hold the rings against the same plain results) against their plain versions on
     a grid (B 33/160, n <= 1500, SW 8 to full height, bands taller than one
     block's stripe, gap, gcsh, random and broadcast-shared schedules, Q
     32/8/1, CB 64/512), bit for bit on costs, every checkpoint row and top
     value;
 14. main path, config #5 at its default settings: ``BatchAligner(device=
-    "cuda")`` (gcsh domain ladder: ring K9 costs, K10 checkpoints) on phase
+    "cuda")`` (gcsh domain ladder: ring K9 costs, ring K10 checkpoints) on phase
     11's seed-7 batch: align once (the aligner's first call), all 128
     CIGARs verified, then cost (its second call, timed and split by layer:
     gcsh builds, hull samples and schedules, event tables, K9, readback),
     8 costs against ``oracle.levenshtein_myers`` and all 128 equal to
     phase 11's and the align call's; f-rounds, SW,
-    K9/K10 ms per round, peak device memory, Mbp/s; K4 must not run;
-15. K9 (ring and stripe) and K10 against their plain versions at that path's own shapes (its
+    K9/K10 ms per round, peak device memory, Mbp/s; K4 and the stripe
+    kernels must not run;
+15. K9 and K10 (ring and stripe each) against their plain versions at that path's own shapes (its
     last round cut to the first 4096 columns), timed in turns; K9 against
     K4 on config #4's and config #5's cuts at SW 64 to 1088 (the crossover
     behind ``runner.PINNED_PP_MIN_SW``);
@@ -99,8 +101,8 @@ Phases, one output line each (any failure exits non-zero):
 19. the shared-schedule checkpoint kernel K8 against its plain version on
     a grid (B 1/37/128, n <= 1500 with n == 0 and m == 0 lanes, SW 8, 13,
     64, 67, 1152 and a full height S = 1188 off the 8-grain, CB = SW, SW +
-    3, 4096 and n_max, a skewed bucket's single capture window, and five
-    windows at SW 1152 and 1188 on pairs of up to 5 kbp), bit for bit on costs, every checkpoint row and top value, and against K2 on
+    3, 4096 and n_max, a skewed bucket's single capture window, and four
+    windows at SW 1188 on pairs of up to 3.6 kbp), bit for bit on costs, every checkpoint row and top value, and against K2 on
     every checkpoint a trace reads;
 20. main path, the exact full-height rungs on config #4's pairs of phase
     7: ``BatchAligner(device="cuda", domain_mode="off",
@@ -117,7 +119,7 @@ Phases, one output line each (any failure exits non-zero):
 22. the resident-ring cost kernel K7 against its plain version on a grid
     (B 1/33/160, n <= 1500 with n == 0 and m == 0 lanes, SW 8, 13, 64, 67,
     256 and a full height S ~ 280 off the 8-grain, a skewed bucket, rings
-    forced to 256 words on pairs of up to 5 kbp beside a tall one so that
+    forced to 256 words on pairs of up to 2 kbp beside a tall one so that
     they wrap at least 3 times), bit for bit, and K7 (forced) refusing a
     band whose live words exceed its 4096-word ring (no launch);
 23. K7 and K5's stripes alone over chained launches on config #5's whole SW = 2048
@@ -164,18 +166,32 @@ Phases, one output line each (any failure exits non-zero):
     its event tables with the tables timed apart; K7 again on its rung;
 29. the redesigned K7 and the wide ring against their plain version and
     K5's stripes on a grid (phase 10's packs with n == 0 and m == 0 lanes
-    and rings forced to both designs; 33 pairs of up to 5 kbp beside a
+    and rings forced to both designs; 33 pairs of up to 2 kbp beside a
     tall one with K7 rings forced to 256 words wrapping >= 3 times; the
-    full height beside a skewed 5000 x 300 kbp pair, more than 4096 live
-    words on the wide ring by default, wrapping; SW 4352 with forced wide
-    rings of 512 and 1024 words wrapping >= 3 times beside a 500 x 150 kbp
-    pair; config #5's pack cut to 4096 columns at SW 8192 on the wide
+    full height beside a skewed 4200 x 160 kbp pair, more than 4096 live
+    words on the wide ring by default, wrapping; SW 4352 with a forced wide
+    ring of 1024 words wrapping >= 3 times beside a 500 x 150 kbp pair; config #5's pack cut to 2048 columns at SW 8192 on the wide
     ring, timed against plain), bit for bit, and the refusal, without a
     launch, of more than 16384 live words;
 30. the cost ring against K5's stripes on whole main-path rungs, in turns
     over chained launches, each beside its bound: K7 on config #5's SW =
     2048 rung and config #4's full-height rung, the wide ring on config
     #5's SW = 8192 rung;
+31. K1's ring kernel (the main path's K1 since the redesign) against its
+    plain version on a grid (SW 1, 2, 31, 32, 33 and 63 with and without a
+    diagonal, pairs covered by the window, above and below it and n == 0,
+    both layouts: the runner's ring with a spare slot and a full one), bit
+    for bit; against the old K1 in turns (old, ring, ring, old) on phase
+    3's whole pack and its 1024-column cut; a band sweep (SW 8, 16, 32, 48
+    and 63, both layouts) on the whole pack with K7 at SW 64 beside it;
+32. ring K10 against its plain version and the stripe K10 on a grid
+    (phase 13's checkpoint cases at its own ring and a forced 256-word one;
+    pairs of up to 0.8 and 4.2 kbp beside a 10 kbp b with random schedules
+    at Q 1 and 8, CB = SW and larger, 256-word rings wrapping >= 3 times), bit
+    for bit on costs, every checkpoint row and top value, and its refusal,
+    without a launch, of more than 4096 live words; then ring K10 against
+    the stripe K10 in turns on config #5 default's and config #4's whole
+    checkpoint rounds (phases 14 and 7);
 
 then the host seconds of each phase, the kernels' JSON line (each
 kernel's time, its plain version's, its bound from this run's inputs, its
@@ -187,9 +203,11 @@ phases 10's and 13's), the grids of phases 2 and 6 hold a few cases each, and th
 are generated and the CIGARs verified on one pool of the host's cores,
 started once for the whole run, to keep the run short.  Launch counts are
 reset just before each main-path phase (3-4, 7, 8, 11, 14, 17, both calls
-of 20, 25) and read just after it; phases 7 and 14 launch ring K9 for
-their cost rounds, phase 11 ring K6 for its 2048-word checkpoint rungs
-and the wide ring for its cost call from 8192 words.  Imports nothing of JAX and nothing of the
+of 20, 25) and read just after it; phases 3-4 and 25 launch K1's ring
+kernel (the old K1 none), phases 7 and 14 ring K9 for their cost rounds
+and ring K10 for their checkpoint rounds (the stripe K10 none), phase 11
+ring K6 for its 2048-word checkpoint rungs and the wide ring for its cost
+call from 8192 words.  Imports nothing of JAX and nothing of the
 JAX package.  Exits 1 without a usable GPU.
 """
 
@@ -241,12 +259,12 @@ NW_GRID_N = 1500  # the K11 grid's longest a and b
 NW_CUT_PAIRS = 512
 K8_CUT_CB = CUT_COLS * 3 // 4  # one capture window in the cut for K8 and K2
 K8_GRID_N, K8_TALL_M, K8_BIG_SW = 1500, 38_000, 1152  # phase 19: S = 1188 words
-K8_LONG_N = 5000  # phase 19: several capture windows at SW 1152 and 1188
+K8_LONG_N = 3600  # phase 19: several capture windows at full height (1188)
 K8_CHAINED = 3
 K7_CHAINED = 2
 K7_SWEEP_SW = (64, 128, 256, 512, 1024, 2048)  # phase 23, config #4's pack
 K7_SWEEP_C5_SW = (3072, 4096, 8192)  # phase 23, config #5's pack (8192: the wide ring)
-K7_GRID_LONG_N, K7_GRID_TALL_M = 5000, 38_000  # phase 22: ~1188 words, 4.6 rings of 256
+K7_GRID_LONG_N, K7_GRID_TALL_M = 2000, 38_000  # phases 22, 29: ~1188 words, 4.6 rings of 256
 K3_GRID_PAIRS, K3_GRID_N, K3_COL0_SW = 128, 100, 8  # phase 24
 K3_CHAINED = 2
 K3_STREAM_BATCHES = 3  # phase 25's align_iter, over phase 4's batches
@@ -254,7 +272,8 @@ K3_BLOCK_N, K3_BLOCK_ERRS = 2000, (0.05, 0.15, 0.1)  # phase 26's torch block DP
 RING_LONG_N, RING_TALL_M = 3500, 38_000  # phase 27: S = 1188, 256-word rings wrap
 RING_BIG_N, RING_BIG_M = 3000, 70_000  # phase 27: S = 2188, SW 2048
 RING_CHAINED = 2
-WIDE_GRID_N, WIDE_GRID_TALL_M = 5000, 300_000  # phase 29: S = 9375, > 4096 live words
+WIDE_GRID_N, WIDE_GRID_TALL_M = 4200, 160_000  # phase 29: S = 5000, 4200 > 4096 live words
+C5_WIDE_CUT = 2048  # phase 29: config #5's pack cut for the wide ring at SW 8192
 WIDE_LOW_N, WIDE_LOW_TALL_M = 500, 150_000  # phase 29: S = 4688, forced wide rings wrap
 WORKERS = 8
 _LAPS = None  # the run's Laps, printed by fail()
@@ -396,7 +415,10 @@ def phase2_grid() -> int:
     """Kernel == plain on B in {33, 1024}, n in [0, GRID_N], SW from 1 to full
     height, with and without a diagonal; returns the max abs difference.
     The 33-lane pack is the first lanes of the 1024-lane one (same n_max, S
-    and schedule), so one plain sweep of the wide pack serves both."""
+    and schedule), so one plain sweep of the wide pack serves both.  The
+    plain version is K1's staggered twin (the layout K1's ring kernel
+    computes in; bit for bit K1's column loop, which phases 5 and 31 hold
+    the kernel against too)."""
     rng = np.random.default_rng(7)
     pairs = _random_pairs(rng, GRID_PAIRS, GRID_N, GRID_M)
     args, _ = pack_batch_staggered(pairs, 1, device="cuda")
@@ -406,7 +428,7 @@ def phase2_grid() -> int:
     t0 = time.perf_counter()
     dg = (n_max, S * 32 - 50)
     for sw, diag in ((1, None), (5, dg), (32, None), (33, dg), (72, None), (S, dg)):
-        ref = banded.banded_cost_ref(*args, sw, diag)
+        ref = striped.banded_cost_staggered_ref(*args, sw, diag)
         for planes in (small, args):
             got = banded_kernel.banded_cost(*planes, sw, diag)
             torch.cuda.synchronize()
@@ -487,7 +509,7 @@ def phase3_cost(ba: BatchAligner, pairs, spy: LayerSpy) -> None:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     split = (spy.pack_s, spy.launch_s, spy.wait_s, spy.kernel_ms(), len(spy.events))
-    if st2.kernel != "cuda-banded":
+    if st2.kernel != "cuda-banded-ring":
         fail(f"stats.kernel is {st2.kernel!r}")
     if not (costs1 == costs2).all() or (costs2 < 0).any():
         fail("cost runs disagree or left a pair uncertified")
@@ -531,10 +553,10 @@ def _profiled_call(ba: BatchAligner, pairs) -> str:
     first, last = spans[0][0] / 1e6, max(e for _, e in spans) / 1e6
     k1 = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and "banded_kernel<false, false>" in e.name) / 1e3
+             and "banded_ring_kernel" in e.name) / 1e3
     return (f"3rd call under torch.profiler: wall {wall:.4f} s, card busy {busy:.4f} s "
             f"({len(spans)} device events, first to last {last - first:.4f} s), idle share "
-            f"{1 - busy / wall:.3f}; K1 (banded_kernel<false, false>) {k1:.3f} ms in the trace")
+            f"{1 - busy / wall:.3f}; K1 (banded_ring_kernel) {k1:.3f} ms in the trace")
 
 
 def phase4_align(ba: BatchAligner, batches) -> float:
@@ -605,10 +627,11 @@ def _check_equal(planes, sw, diag, label: str) -> tuple[int, float, list[float]]
     return err, plain_ms, [ms for ms, _ in kernel]
 
 
-def phase5_time(spy: LayerSpy) -> dict:
+def phase5_time(spy: LayerSpy) -> tuple[dict, tuple]:
     """The kernel against plain on the main path's own packs (cut to their
     first columns), and timed.  Returns the kernel's JSON record (without
-    the launch count)."""
+    the launch count) and, for phase 31, the cost pack with its diagonal and
+    the plain version's ms on its cut."""
     if PAIRS not in spy.last or STREAM_PAIRS not in spy.last:
         fail(f"main path launched no {PAIRS}- or {STREAM_PAIRS}-pair batch")
     cost_l, align_l = spy.last[PAIRS], spy.last[STREAM_PAIRS]
@@ -665,7 +688,7 @@ def phase5_time(spy: LayerSpy) -> dict:
         "turns_ms": ms, "turns_plain_ms": plain_ms,
         "turns_shape": {"B": PAIRS, "n_max": args1k[0].shape[0],
                         "S": args1k[2].shape[0], "SW": min(TIMED_SW, args1k[2].shape[0])},
-    }
+    }, (args10k, cost_l["diag"], plain10)
 
 
 def _max_err(got, want) -> int:
@@ -900,19 +923,19 @@ def _verify(pairs, results, costs=None) -> None:
 
 def _pp_route(sw: int, ck: bool) -> str:
     """The kernel the runner sends a domain round of ``sw`` words to (its
-    launch key): K4 below ``PINNED_PP_MIN_SW``, else K10 for checkpoints,
-    ring K9 for costs where the ring holds the band, the stripe K9
+    launch key): K4 below ``PINNED_PP_MIN_SW``, else ring K10 (checkpoints)
+    or ring K9 (costs) where the ring holds the band, the stripe K10 or K9
     past it."""
     if sw < runner.PINNED_PP_MIN_SW:
         return f"banded_{'ck' if ck else 'cost'}_pp"
     if ck:
-        return "pinned_ck_pp"
+        return "ring_ck_pp" if banded_kernel.ring_takes(sw) else "pinned_ck_pp"
     return "ring_cost_pp" if banded_kernel.ring_takes(sw) else "pinned_cost_pp"
 
 
 def _last_round(spy: RoundSpy, ck: bool) -> tuple[str, tuple]:
     """(kernel, arguments) of the last domain round since the spy's reset."""
-    names = (("pinned_ck_pp", "banded_ck_pp") if ck
+    names = (("ring_ck_pp", "pinned_ck_pp", "banded_ck_pp") if ck
              else ("ring_cost_pp", "pinned_cost_pp", "banded_cost_pp"))
     calls = [c for c in spy.calls if c[0] in names]
     if not calls:
@@ -931,12 +954,13 @@ def _check_round(spy: RoundSpy, st, ck: bool, label: str) -> tuple:
     return args
 
 
-def phase7_config4(spy: RoundSpy) -> tuple[dict, tuple, tuple]:
+def phase7_config4(spy: RoundSpy) -> tuple[dict, tuple, tuple, tuple]:
     """Config #4 through the default BatchAligner, then 128 x 40 kbp e=5%
     pairs whose gcsh rounds fall below ``PINNED_PP_MIN_SW`` (K4's place on
     the main path); returns the launch counts of both runs, config #4's
-    last cost round's arguments and ``(pairs, costs, {pair:
-    levenshtein_myers})`` of config #4 for phase 20."""
+    last cost round's arguments, ``(pairs, costs, {pair:
+    levenshtein_myers})`` of config #4 for phase 20 and its last checkpoint
+    round's arguments (ring K10's) for phase 32."""
     t0 = time.perf_counter()
     pairs = _pool(_uniform, [(C4_LENGTH, C4_ERR, C4_SEED + s) for s in range(C4_PAIRS)])
     bp = sum(len(a) for a, _ in pairs)
@@ -984,7 +1008,8 @@ def phase7_config4(spy: RoundSpy) -> tuple[dict, tuple, tuple]:
         if direct == (st.direct_traces == 0):
             fail(f"config #4 align ({label}): direct traces {st.direct_traces}")
         if not direct:
-            routes.add(_pp_route(_check_round(spy, st, True, "config #4 align ck")[7], True))
+            c4_ck_round = _check_round(spy, st, True, "config #4 align ck")
+            routes.add(_pp_route(c4_ck_round[7], True))
         say(f"[7 align {label}] {dt:.4f} s = {bp / dt / 1e6:.3f} Mbp/s cost+CIGAR, "
             f"{C4_PAIRS} CIGARs verified; direct traces {st.direct_traces}; f-rounds "
             f"{len(rounds)} [{', '.join(rounds)}], kernel {st.kernel}; split: {split}")
@@ -1029,7 +1054,9 @@ def phase7_config4(spy: RoundSpy) -> tuple[dict, tuple, tuple]:
     for name in routes | {"banded_cost_pp", "banded_ck_pp"}:
         if not launches[name]:
             fail(f"phase 7 never launched {name}")
-    return launches, c4_round, (pairs, c4_costs, c4_oracle)
+    if launches["pinned_ck_pp"] and "pinned_ck_pp" not in routes:
+        fail(f"phase 7 launched the stripe K10 {launches['pinned_ck_pp']} times")
+    return launches, c4_round, (pairs, c4_costs, c4_oracle), c4_ck_round
 
 
 def phase8_ck(spy: RoundSpy) -> tuple[dict, tuple]:
@@ -1242,16 +1269,16 @@ def phase10_grid() -> tuple[int, tuple, tuple, tuple, list]:
     return worst, wide, narrow, diag, saved
 
 
-COST_KEYS = ("banded_cost", "striped_cost", "pinned_cost", "ring_cost_wide")
+COST_KEYS = ("banded_ring", "banded_cost", "striped_cost", "pinned_cost", "ring_cost_wide")
 
 
 def _cost_route(args) -> str:
     """The kernel a shared cost rung runs by the runner's routing, from the
-    rung's arguments (planes, SW, diag): K1, the ring (K7, or the wide ring
-    past 4096 live words) or K5's stripes."""
+    rung's arguments (planes, SW, diag): K1 (its ring kernel), the ring (K7,
+    or the wide ring past 4096 live words) or K5's stripes."""
     *planes, sw, diag = args
     if sw < runner.STRIPED_MIN_SW:
-        return "banded_cost"
+        return "banded_ring"
     if not banded_kernel.pinned_cost_takes(sw):
         return "striped_cost"
     return banded_kernel.pinned_cost_kernel(planes[0].shape[0], planes[2].shape[0], sw, diag,
@@ -1530,11 +1557,12 @@ def _pp_random(rng, n_max: int, B: int, quantum: int) -> np.ndarray:
     return sched
 
 
-def phase13_grid() -> tuple[int, tuple]:
-    """K9 (its stripe kernel) and K10 == plain on a grid; returns the max
+def phase13_grid() -> tuple[int, list, list]:
+    """K9 and K10 (their stripe kernels) == plain on a grid; returns the max
     abs difference over costs, every checkpoint row and every top value,
-    and each case with its plain costs, for phase 27 (which holds ring K9
-    against them).  K9 is held against the costs of
+    each case with its plain costs, for phase 27 (which holds ring K9
+    against them), and each checkpoint case with its plain results, for
+    phase 32 (ring K10).  K9 is held against the costs of
     the plain ck sweep where a case has an interval: the plain versions
     are one loop."""
     t0 = time.perf_counter()
@@ -1565,19 +1593,21 @@ def phase13_grid() -> tuple[int, tuple]:
         (wide, "gcsh 1.25 h0", g, min(sw_g, S), q_g, 512, None),
         (wide, "shared", shared(s8, len(pairs)), s8, 1, 512, 256),
         (wide, "random", _pp_random(rng, n_max, len(pairs), 1), S, 1, 512, 256),
-        (narrow, "shared", shared(S, 33), S, 1, None, None),
     ]
-    worst, labels, saved = 0, [], []
+    worst, labels, saved, saved_ck = 0, [], [], []
     for planes, kind, sched, sw, q, cb, ws in cases:
+        # The stripe kernels (ring K9 and ring K10 take these bands by
+        # default: phases 27 and 32 hold them against the same plain results).
+        stripe = ws or 8 * banded_kernel.striped_threads(min(sw, S))
         if cb is not None:
-            want = pinned.pinned_ck_pp_ref(*planes, sched, sw, cb, q)
-            err = _max_err(banded_kernel.pinned_ck_pp(*planes, sched, sw, cb, q, ws), want)
-            want = want[0]
+            want_ck = pinned.pinned_ck_pp_ref(*planes, sched, sw, cb, q)
+            err = _max_err(banded_kernel.pinned_ck_pp(*planes, sched, sw, cb, q, stripe),
+                           want_ck)
+            saved_ck.append((planes, kind, sched, min(sw, S), q, cb, want_ck))
+            want = want_ck[0]
         else:
             want, err = pinned.pinned_cost_pp_ref(*planes, sched, sw, q), 0
         saved.append((planes, kind, sched, min(sw, S), q, want))
-        # The stripe kernel (ring K9 takes these bands by default: phase 27).
-        stripe = ws or 8 * banded_kernel.striped_threads(min(sw, S))
         err = max(err, _max_err(banded_kernel.pinned_cost_pp(*planes, sched, sw, q, stripe),
                                 want))
         label = (f"{kind} B={planes[0].shape[1]} SW={sw}{' (full)' if sw == S else ''} Q={q} "
@@ -1589,12 +1619,12 @@ def phase13_grid() -> tuple[int, tuple]:
     torch.cuda.synchronize()
     say(f"[13 pinned=plain] {len(cases)}/{len(cases)} cases (n_max {n_max}, S {S}: "
         f"{'; '.join(labels)}); max_abs_err {worst}, {time.perf_counter() - t0:.1f} s")
-    return worst, saved
+    return worst, saved, saved_ck
 
 
 def phase14_config5_default(p7, costs_off, oracle: dict) -> tuple[dict, RoundSpy]:
     """Config #5 at its default settings (gcsh domain ladder: ring K9
-    costs, K10 checkpoints) on phase 11's first batch; returns the launch
+    costs, ring K10 checkpoints) on phase 11's first batch; returns the launch
     counts of its run and the spy holding each kernel's last inputs."""
     bp = sum(len(a) for a, _ in p7)
     ba = BatchAligner(device="cuda")
@@ -1647,9 +1677,10 @@ def phase14_config5_default(p7, costs_off, oracle: dict) -> tuple[dict, RoundSpy
         f"(torch.cuda.max_memory_allocated over the two calls)")
     spy.remove()
     launches = dict(banded_kernel.LAUNCHES)
-    if launches["banded_cost_pp"] or launches["banded_ck_pp"]:
-        fail(f"config #5 default launched K4: {launches}")
-    for name in ("ring_cost_pp", "pinned_ck_pp"):
+    if any(launches[k] for k in ("banded_cost_pp", "banded_ck_pp", "pinned_cost_pp",
+                                 "pinned_ck_pp")):
+        fail(f"config #5 default launched K4 or a stripe kernel: {launches}")
+    for name in ("ring_cost_pp", "ring_ck_pp"):
         if not launches[name]:
             fail(f"config #5 default never launched {name}")
     return launches, spy
@@ -1663,18 +1694,21 @@ def _cut_round(round_args, cols: int):
 
 
 def phase15_time(spy: RoundSpy, c4_round) -> dict:
-    """K9 (ring and stripe kernels) and K10 == plain at config #5's default
-    shapes, timed in turns, and K9 against K4 across bands on config #4's
+    """K9 and K10 (ring and stripe kernels each) == plain at config #5's
+    default shapes, timed in turns, and K9 against K4 across bands on config #4's
     and config #5's cuts (the crossover behind
-    ``runner.PINNED_PP_MIN_SW``); returns both K9 kernels' and K10's JSON
-    records (without the launch counts)."""
+    ``runner.PINNED_PP_MIN_SW``); returns both K9 kernels' and both K10
+    kernels' JSON records (without the launch counts)."""
     torch.cuda.synchronize()
     round_ms = {name: [RoundSpy.kernel_ms(c) for c in spy.history + spy.calls
                        if c[0] == name]
-                for name in ("ring_cost_pp", "pinned_ck_pp")}
+                for name in ("ring_cost_pp", "ring_ck_pp")}
     full = {name: spy.last[name] for name in round_ms}
     full["pinned_cost_pp"] = full["ring_cost_pp"]
-    round_ms["pinned_cost_pp"] = []  # the stripe K9 runs no round of this path
+    full["pinned_ck_pp"] = full["ring_ck_pp"]
+    # The stripe K9 and K10 run no round of this path (phase 32 times the
+    # stripe K10 on the whole rounds beside ring K10).
+    round_ms["pinned_cost_pp"] = round_ms["pinned_ck_pp"] = []
     cut, sched, sw, q = _cut_round(full["ring_cost_pp"], C5_CUT)
     cb = sw  # the smallest interval K10 takes: checkpoints inside the cut
     stripe = 8 * banded_kernel.striped_threads(sw)
@@ -1683,7 +1717,9 @@ def phase15_time(spy: RoundSpy, c4_round) -> dict:
                          lambda r: r[0]),
         "pinned_cost_pp": (lambda: banded_kernel.pinned_cost_pp(*cut, sched, sw, q, stripe),
                            lambda r: r[0]),
-        "pinned_ck_pp": (lambda: banded_kernel.pinned_ck_pp(*cut, sched, sw, cb, q),
+        "ring_ck_pp": (lambda: banded_kernel.pinned_ck_pp(*cut, sched, sw, cb, q),
+                       lambda r: r),
+        "pinned_ck_pp": (lambda: banded_kernel.pinned_ck_pp(*cut, sched, sw, cb, q, stripe),
                          lambda r: r)})
     if err:
         fail("K9/K10 != plain on config #5's cut pack")
@@ -1692,7 +1728,8 @@ def phase15_time(spy: RoundSpy, c4_round) -> dict:
     say(f"[15 config5 cut] first {C5_CUT} columns of the default path's last K9 round "
         f"{shape}, turns plain, kernels, kernels, plain: K9 ring "
         f"{k['ring_cost_pp'][0]:.3f}/{k['ring_cost_pp'][1]:.3f} ms, stripes "
-        f"{k['pinned_cost_pp'][0]:.3f}/{k['pinned_cost_pp'][1]:.3f} ms, K10 "
+        f"{k['pinned_cost_pp'][0]:.3f}/{k['pinned_cost_pp'][1]:.3f} ms, K10 ring "
+        f"{k['ring_ck_pp'][0]:.3f}/{k['ring_ck_pp'][1]:.3f} ms, stripes "
         f"{k['pinned_ck_pp'][0]:.3f}/{k['pinned_ck_pp'][1]:.3f} ms (event tables "
         f"included) vs plain {p[0]:.1f}/{p[1]:.1f} ms; max_abs_err {err} (CUDA events)")
 
@@ -1736,6 +1773,7 @@ def phase15_time(spy: RoundSpy, c4_round) -> dict:
     ck_out = banded_kernel.pinned_ck_pp(*cut, sched, sw, cb, q)
     return {"ring_cost_pp": record("ring_cost_pp", ck_out[:1]),
             "pinned_cost_pp": record("pinned_cost_pp", ck_out[:1]),
+            "ring_ck_pp": record("ring_ck_pp", ck_out),
             "pinned_ck_pp": record("pinned_ck_pp", ck_out)}
 
 
@@ -1979,10 +2017,10 @@ def phase19_grid() -> int:
     the 8-grain, CB = SW, SW + 3, 4096 and n_max, B 1/37/128, ragged n and
     m with n == 0 and m == 0 lanes, with and without a diagonal, and a
     skewed bucket's single capture window (m > 32 n, CB = n_max < S), and
-    five capture windows at SW 1152 and at full height on 5 kbp pairs.
-    Every case is also held against K2 on every readable checkpoint: K2's
-    plain version at SW <= 13, its kernel (held to the plain one by phases
-    6 and 9) above.  Returns the max abs difference."""
+    four capture windows at full height on 3.6 kbp pairs.
+    Every case is also held against K2's kernel (held to its plain version
+    by phases 6 and 9) on every readable checkpoint.  Returns the max abs
+    difference."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(19)
     pairs = [att.generate.uniform_seeded(int(rng.integers(1, K8_GRID_N + 1)),
@@ -2008,8 +2046,8 @@ def phase19_grid() -> int:
     skew[0] = (skew[0][0], att.generate.uniform_seeded(3000, 0.1, 7299)[0])
     skewed, _ = pack_batch_staggered(skew, 1, device="cuda")
     Ss = skewed[2].shape[0]
-    # Several capture windows at a large band: a's of up to 5 kbp beside
-    # the tall pair, so CB = SW + 3 leaves n_max // CB = 4 windows past 0.
+    # Several capture windows at a large band: a's of up to 3.6 kbp beside
+    # the tall pair, so CB = SW + 3 leaves n_max // CB = 3 windows past 0.
     lng = [att.generate.uniform_seeded(int(rng.integers(1, K8_LONG_N + 1)),
                                        float(rng.uniform(0, 0.25)), 7400 + s)
            for s in range(37)]
@@ -2024,17 +2062,14 @@ def phase19_grid() -> int:
              (wide, "B=128", 64, 64, diag), (mid, "B=37", 67, 70, None),
              (wide, "B=128", 67, 4096, diag), (wide, "B=128", K8_BIG_SW, K8_BIG_SW, None),
              (mid, "B=37", K8_BIG_SW, K8_BIG_SW + 3, None), (wide, "B=128", S, S + 3, None),
-             (mid, "B=37", S, 4096, None), (one, "B=1", S, S, None),
-             (skewed, "skewed B=37", Ss, 4096, None),
-             (long_, "long B=37", K8_BIG_SW, K8_BIG_SW + 3, None),
+             (one, "B=1", S, S, None), (skewed, "skewed B=37", Ss, 4096, None),
              (long_, "long B=37", Sl, Sl + 3, diag_l)]
     worst, worst_k2, labels = 0, 0, []
     for planes, label, sw, cb, dg in cases:
         got = banded_kernel.pinned_ck(*planes, sw, cb, dg)
         err = _max_err(got, striped.pinned_ck_ref(*planes, sw, cb, dg))
-        k2_fn = banded.banded_ck_ref if sw <= 13 else banded_kernel.banded_ck
         CB = min(cb, planes[0].shape[0])
-        e2 = _k8_vs_k2(got, k2_fn(*planes, sw, cb, dg), planes[4], CB)
+        e2 = _k8_vs_k2(got, banded_kernel.banded_ck(*planes, sw, cb, dg), planes[4], CB)
         label = (f"{label} SW={min(sw, planes[2].shape[0])}"
                  f"{' (full)' if sw >= planes[2].shape[0] else ''} CB={CB} "
                  f"n_ck={got[1].shape[0]} diag={'set' if dg else 'None'}")
@@ -2046,8 +2081,8 @@ def phase19_grid() -> int:
     say(f"[19 pinned ck=plain] {len(cases)}/{len(cases)} cases (n_max {n_max}, S {S}; "
         f"skewed n_max {skewed[0].shape[0]}, S {Ss}; long n_max {long_[0].shape[0]}, "
         f"S {Sl}: {'; '.join(labels)}); max_abs_err "
-        f"{worst}; K8 == K2 on every readable checkpoint (K2 plain at SW <= 13, "
-        f"kernel above), max_abs_err {worst_k2}; {time.perf_counter() - t0:.1f} s")
+        f"{worst}; K8 == K2's kernel on every readable checkpoint, max_abs_err {worst_k2}; "
+        f"{time.perf_counter() - t0:.1f} s")
     return max(worst, worst_k2)
 
 
@@ -2215,7 +2250,7 @@ def phase22_grid(wide, narrow) -> tuple[int, int]:
     an n == 0 lane, a skewed pair making S ~ 280 off the 8-grain) with an
     m == 0 lane and one lane, SW 8, 13, 64, 67, 256 and full height, with
     and without a diagonal; a skewed bucket (m > 32 n); rings forced to
-    256 words on pairs of up to 5 kbp beside a tall one (S = 1188), which
+    256 words on pairs of up to 2 kbp beside a tall one (S = 1188), which
     wrap at least 3 times, also on a shape-quantized pack (n_max past the
     longest a); a skewed bucket at full height whose ring is lower than the
     band (its ended top word's slot reused); and the refusal of a band
@@ -2243,7 +2278,7 @@ def phase22_grid(wide, narrow) -> tuple[int, int]:
               att.generate.uniform_seeded(K7_GRID_TALL_M, 0.1, 8398)[0])
     long_, _ = pack_batch_staggered(lng, 1, device="cuda")
     diag_l = (long_[0].shape[0], max(len(b) for _, b in lng))
-    # The same pairs on a shape-quantized pack (n_max 6144 > the longest a),
+    # The same pairs on a shape-quantized pack (n_max 2048 > the longest a),
     # as the runner packs them: words end at column n_lim - 1 < n_max - 1.
     long_q, _ = pack_batch_staggered(lng, 1, 2048, device="cuda")
     # A skewed bucket taller than its ring: S = 375 words over at most 200
@@ -2258,10 +2293,9 @@ def phase22_grid(wide, narrow) -> tuple[int, int]:
     cases = [(one, "B=1", 8, None, None), (narrow, "B=33", 8, diag, None),
              (m0, "B=160", 13, None, None), (narrow, "B=33", 64, diag, 256),
              (m0, "B=160", 67, diag, None), (m0, "B=160", 256, None, 512),
-             (narrow, "B=33", S, None, None), (m0, "B=160", S, diag, None),
+             (m0, "B=160", S, diag, None),
              (skewed, "skewed B=33", skewed[2].shape[0], None, None),
              (long_, "long B=33", 64, diag_l, 256), (long_, "long B=33", 256, None, 256),
-             (long_, "long B=33", 67, None, 256),
              (long_q, "long quantized B=33", 256, diag_l, 256),
              (skew_tall, "skewed tall B=33", skew_tall[2].shape[0], None, None)]
     worst, labels, wraps = 0, [], []
@@ -2629,6 +2663,9 @@ def phase25_route(p8, batches) -> tuple[dict, FillSpy, dict]:
                  f"direct traces {st.direct_traces}")
     if launches["banded_fill"] != 2:
         fail(f"trace route: {launches['banded_fill']} K3 launches in two calls")
+    if not launches["banded_ring"] or launches["banded_cost"]:
+        fail(f"trace route: K1's cost rungs ran the ring {launches['banded_ring']} times and "
+             f"the old K1 {launches['banded_cost']} times")
     route_args = spy.last
     *planes, sw, diag = route_args
     n_max, S, B = planes[0].shape[0], planes[2].shape[0], planes[0].shape[1]
@@ -2641,7 +2678,7 @@ def phase25_route(p8, batches) -> tuple[dict, FillSpy, dict]:
             f"{bp / dt / 1e6:.3f} Mbp/s cost+CIGAR; K3 at n_max {n_max}, S {S}, SW {sw}, "
             f"B {B}, kernel {st.kernel}; costs == phase 8's {len(pairs)}/{len(pairs)}")
         _say_split(f"25 split call {k + 1}", split, dt, _plane_gib(route_args))
-    say(f"[25 route] launches over both calls {launches['banded_cost']} K1, "
+    say(f"[25 route] launches over both calls {launches['banded_ring']} K1, "
         f"{launches['banded_fill']} K3; {n_ok} CIGARs verified at their cost")
     say(f"[25 memory] peak device memory {peak:.3f} GiB, {peak - held:.3f} GiB above the "
         f"{held:.3f} GiB that earlier phases still held")
@@ -2833,7 +2870,7 @@ def _ring_pack(n_hi: int, m_tall: int, seed: int):
     return planes, (planes[0].shape[0], max(len(b) for _, b in pairs))
 
 
-def phase27_grid(packs, k6_saved, k9_saved) -> tuple[int, int]:
+def phase27_grid(packs, k6_saved, k9_saved) -> tuple[int, int, tuple]:
     """Ring K6 and ring K9 == plain (and == their stripe kernels) on a grid;
     returns the max abs difference of each over costs, every checkpoint row
     (the zero rows outside the true windows included) and every top value.
@@ -2847,7 +2884,8 @@ def phase27_grid(packs, k6_saved, k9_saved) -> tuple[int, int]:
     window top absorbed the step before it is taken), and at SW 2048 on 33
     pairs of up to 3 kbp beside a 70 kbp one (S = 2188); ring K9 on the
     3.5 kbp pack with forced rings.  Then both refuse a band of more live
-    words than their 4096-word ring, without a launch."""
+    words than their 4096-word ring, without a launch.  Also returns the
+    refused band's planes, for phase 32."""
     t0 = time.perf_counter()
     wide, narrow, diag = packs
     m0 = (wide[0], wide[1], wide[2], wide[3], wide[4].copy(), wide[5].copy())
@@ -2955,7 +2993,7 @@ def phase27_grid(packs, k6_saved, k9_saved) -> tuple[int, int]:
     say(f"[27 refusal] S = {Sb} at full height over {bargs[0].shape[0]} columns, ring forced: "
         f"both refused without a launch ({refused[0]}); by default the stripe kernels take "
         f"it; {time.perf_counter() - t0:.1f} s")
-    return worst6, worst9
+    return worst6, worst9, bargs
 
 
 def _pp_kernel_ms(fn) -> tuple[float, float, torch.Tensor]:
@@ -3069,13 +3107,13 @@ def _tall_pack(rng, count: int, n_hi: int, tall: tuple, seed: int):
 def phase29_grid(wide, narrow, c5_spy: RoundSpy) -> tuple[int, dict]:
     """The redesigned K7 and the wide ring == plain and == K5's stripes on
     a grid: phase 10's 160- and 33-lane packs (n == 0 and m == 0 lanes, S ~
-    280) with rings forced to both designs; 33 pairs of up to 5 kbp beside
+    280) with rings forced to both designs; 33 pairs of up to 2 kbp beside
     a tall one (S = 1188) with forced rings; the full height of 33 pairs of
-    up to 5 kbp beside a skewed 5000 x 300 kbp pair (S = 9375, 5000 live
+    up to 4.2 kbp beside a skewed 4200 x 160 kbp pair (S = 5000, 4200 live
     words: the wide ring by default, wrapping); 33 pairs of up to 500 bp
-    beside a 500 x 150 kbp pair (S = 4688) at SW 4352 with wide rings
-    forced to 512 and 1024 words, which wrap at least 3 times; config #5's
-    pack cut to its first 4096 columns at SW 8192 on the wide ring, timed
+    beside a 500 x 150 kbp pair (S = 4688) at SW 4352 with a wide ring
+    forced to 1024 words, which wraps at least 3 times; config #5's
+    pack cut to its first 2048 columns at SW 8192 on the wide ring, timed
     against plain (CUDA events); and the refusal, without a launch, of a
     band of more than 16384 live words.
     Returns (max abs difference, the wide ring's JSON record without its
@@ -3098,8 +3136,7 @@ def phase29_grid(wide, narrow, c5_spy: RoundSpy) -> tuple[int, dict]:
     cases = [(narrow, "B=33", 67, diag, None, None), (wide, "B=160", S, None, 512, 16),
              (narrow, "B=33", 256, diag, 1024, 32), (wide, "B=160", 64, diag, 2048, 16),
              (lng, "long", 64, dl, 256, None), (lng, "long", 256, None, 512, 16),
-             (lng, "long", 67, None, 1024, 32), (big, "wide band", Sb, None, None, None),
-             (low, "low", 4352, dlo, 512, 16), (low, "low", 4352, dlo, 1024, 32),
+             (big, "wide band", Sb, None, None, None), (low, "low", 4352, dlo, 1024, 32),
              (low, "low", Sl, None, None, None)]
     worst, labels, wraps, plain_s, by_default = 0, [], {8: [], 16: [], 32: []}, 0.0, 0
     for planes, label, sw, dg, rw, tw in cases:
@@ -3128,7 +3165,7 @@ def phase29_grid(wide, narrow, c5_spy: RoundSpy) -> tuple[int, dict]:
         fail("phase 29's wide band did not take the wide ring by default")
     # Config #5's pack cut to its first columns at SW 8192 on the wide ring.
     *c5_planes, _, _ = c5_spy.last["pinned_cost"]
-    cut = _cut(c5_planes, C5_CUT)
+    cut = _cut(c5_planes, C5_WIDE_CUT)
     dg = _cut_diag(cut)
     p_ms, want = _event_ms(lambda: striped.pinned_cost_ref(*cut, C5_K5_BAND, dg))
     k_ms = []
@@ -3227,6 +3264,230 @@ class Laps:
         self.laps.append(f"{label} {now - self.last:.1f}")
         self.last = now
 
+K1_GRID_SW = (1, 2, 31, 32, 33, 63)  # phase 31
+K10_LONG_N = 4200  # phase 32: at Q 8, SW 256, forced 256-word rings wrap 3+ times
+K1_SWEEP_SW = (8, 16, 32, 48, 63)  # phase 31, on phase 3's pack
+
+
+def _full_ring_lanes(span: int) -> int:
+    """The other layout phase 31 times: the fewest lanes whose slots the
+    live run fills (no spare slot), below a warp."""
+    lanes = 1
+    while lanes * 8 < span:
+        lanes *= 2
+    return lanes
+
+
+def phase31_k1(k1_pack) -> dict:
+    """K1's ring kernel against the old K1: == plain on a grid (SW 1, 2, 31,
+    32, 33 and 63 with and without a diagonal, both layouts: a spare slot in
+    the ring, the runner's, and a full ring; pairs covered by the window,
+    above and below it, and n == 0; the plain version is K1's staggered
+    twin, itself held to K1's column loop at SW 2), then in turns (old, ring, ring, old) on
+    phase 3's whole pack and its 1024-column cut, then a band sweep on the
+    whole pack (both layouts) with K7 at SW 64 beside it.  Returns the old
+    K1's record and the fields phase 31 adds to the ring kernel's."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(31)
+    pairs = _random_pairs(rng, 40, 250, 2200) + [
+        (b"", b"ACGT" * 20), (b"ACG", b"ACGT" * 175), (b"ACGT" * 60, b"ACGTAC")]
+    grid, _ = pack_batch_staggered(pairs, 1, device="cuda")
+    n_max, S, B = grid[0].shape[0], grid[2].shape[0], grid[0].shape[1]
+    if S < max(K1_GRID_SW):
+        fail(f"phase 31's grid has S = {S} < {max(K1_GRID_SW)}")
+    n_lim = int(np.max(grid[4]))
+    worst, kinds, labels = 0, set(), []
+    for sw in K1_GRID_SW:
+        for diag in (None, (n_max, S * 32 - 50)):
+            # K1's staggered plain twin (bit for bit K1's column-loop plain
+            # version, held to it on the CPU and below at SW 2; a sweep of
+            # n_max + S steps where the column loop takes n_max * SW).
+            want = striped.banded_cost_staggered_ref(*grid, sw, diag)
+            if sw == 2 and _max_err(banded.banded_cost_ref(*grid, sw, diag), want):
+                fail(f"K1's staggered plain twin != K1's plain version at SW={sw} diag={diag}")
+            plan = striped.plan_striped(n_max, S, sw, diag)
+            span = striped.ring_span(plan, n_lim)
+            lay = banded_kernel.banded_ring_layout(span, B)["lanes"]
+            for lanes in sorted({lay, _full_ring_lanes(span)}):
+                err = _max_err(banded_kernel._launch_banded_ring(*grid, sw, diag, lanes), want)
+                if err:
+                    fail(f"K1's ring kernel != plain at SW={sw} diag={diag} lanes {lanes}")
+                worst = max(worst, err)
+            rows = np.asarray(grid[5], np.int64) - striped.loend_of(plan["lo"], grid[4]) * 32
+            kinds |= {"n == 0" if n == 0 else "above" if r < 0 else "below" if r > sw * 32
+                      else "covered" for n, r in zip(np.asarray(grid[4]), rows)}
+            labels.append(f"SW={sw}{' diag' if diag else ''} span {span} lanes "
+                          f"{lay}/{_full_ring_lanes(span)}")
+    if kinds != {"n == 0", "above", "below", "covered"}:
+        fail(f"phase 31's grid holds only {sorted(kinds)}")
+    say(f"[31 K1=plain] {len(labels)} cases x both layouts (B {B}, n_max {n_max}, S {S}: "
+        f"{'; '.join(labels)}); pairs {sorted(kinds)}; max_abs_err {worst}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    planes, diag, plain_cut_ms = k1_pack
+    sw = TIMED_SW
+    cut = _cut(planes, CUT_COLS)
+    rec = {}
+    for label, p_, d_ in (("whole", planes, diag), ("cut", cut, _cut_diag(cut))):
+        fns = {"old": lambda: banded_kernel._launch("banded_cost", *p_, sw, diag=d_),
+               "ring": lambda: banded_kernel.banded_cost(*p_, sw, d_)}
+        times, outs = {"old": [], "ring": []}, {}
+        for name in ("old", "ring", "ring", "old"):
+            ms, outs[name] = _event_ms(fns[name])
+            times[name].append(ms)
+        err = _max_err(outs["ring"], outs["old"])
+        if err:
+            fail(f"K1's ring kernel != the old K1 on phase 3's {label} pack")
+        bnd = plane_bound(p_, sw, [outs["ring"]])
+        shape = {"B": p_[0].shape[1], "n_max": p_[0].shape[0], "S": p_[2].shape[0], "SW": sw}
+        o, r = min(times["old"]), min(times["ring"])
+        say(f"[31 K1 {label}] phase 3's {label} pack {shape}, turns old, ring, ring, old: "
+            f"ring {times['ring'][0]:.3f}/{times['ring'][1]:.3f} ms ({r / bnd['bound_ms']:.2f}x), "
+            f"old K1 {times['old'][0]:.3f}/{times['old'][1]:.3f} ms ({o / bnd['bound_ms']:.2f}x) "
+            f"vs bound {bnd['bound_ms']:.4f} ms; old/ring {o / r:.2f}; equal on all lanes "
+            f"(CUDA events, the wrapper's call)")
+        rec[label] = (times, bnd, shape)
+    times_c, bnd_c, shape_c = rec["cut"]
+    times_w, bnd_w, shape_w = rec["whole"]
+    old = {"max_abs_err": 0, "ms": float(np.mean(times_c["old"])), "plain_ms": plain_cut_ms,
+           **bnd_c, "library_ms": None, "shape": shape_c,
+           "full_ms": float(np.mean(times_w["old"])), "full_bound_ms": bnd_w["bound_ms"],
+           "full_shape": shape_w}
+    ring = {"turns_old_cut_ms": times_c["old"], "turns_ring_cut_ms": times_c["ring"],
+            "turns_old_full_ms": times_w["old"], "turns_ring_full_ms": times_w["ring"]}
+
+    n_lim = int(np.max(planes[4]))
+    rows, sweep = [], {}
+    for s_ in K1_SWEEP_SW:
+        span = striped.ring_span(striped.plan_striped(planes[0].shape[0], planes[2].shape[0],
+                                                      s_, diag), n_lim)
+        lay = banded_kernel.banded_ring_layout(span, planes[0].shape[1])["lanes"]
+        row = {}
+        for lanes in sorted({lay, _full_ring_lanes(span)}):
+            row[lanes] = [_event_ms(lambda: banded_kernel._launch_banded_ring(
+                *planes, s_, diag, lanes))[0] for _ in range(2)]
+        bnd = plane_bound(planes, s_, [])["bound_ms"]
+        sweep[s_] = {"span": span, "lanes": lay, "ms": row, "bound_ms": bnd}
+        rows.append(f"SW={s_} span {span}: " + ", ".join(
+            f"{lanes} lanes{' (runner)' if lanes == lay else ''} {t[0]:.3f}/{t[1]:.3f} ms"
+            for lanes, t in row.items()) + f" vs bound {bnd:.4f} ms")
+    k7 = [_event_ms(lambda: banded_kernel.pinned_cost(*planes, 64, diag))[0] for _ in range(2)]
+    say(f"[31 K1 sweep] phase 3's whole pack (CUDA events, two runs each): {'; '.join(rows)}; "
+        f"K7 at SW=64 {k7[0]:.3f}/{k7[1]:.3f} ms vs bound "
+        f"{plane_bound(planes, 64, [])['bound_ms']:.4f} ms "
+        f"(runner.STRIPED_MIN_SW = {runner.STRIPED_MIN_SW})")
+    ring.update({"sweep": sweep, "k7_sw64_ms": k7, "max_abs_err": worst})
+    return {"banded_cost": old, "banded_ring": ring}
+
+
+def phase32_ring_k10(saved_ck, bargs, c4_ck_round, c5d_spy: RoundSpy) -> tuple[int, dict]:
+    """Ring K10 == plain and == the stripe K10: on phase 13's checkpoint
+    cases (their plain results) at its own ring and, up to 256 words, a
+    ring forced to 256; at Q 1 (CB = SW) and Q 8 (CB > SW) on pairs of up
+    to 0.8 and 4.2 kbp beside a 10 kbp b, rings forced to 256 words
+    wrapping at least 3 times; then its refusal,
+    without a launch, of a band of more live words than its 4096-word ring.
+    Then ring K10 against the stripe K10 in turns (stripes, ring, ring,
+    stripes) on config #5 default's and config #4's whole checkpoint rounds
+    (phases 14 and 7), kernel from the end of its event tables.  Returns
+    the max abs difference and the fields phase 32 adds to ring K10's and
+    the stripe K10's records."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(32)
+    cases = [(planes, kind, sched, sw, q, cb, rw, want)
+             for planes, kind, sched, sw, q, cb, want in saved_ck
+             for rw in ((None, 256) if sw <= 256 else (None,))]
+    # Rings forced to 256 words that wrap at least 3 times: at Q = 1 on 12
+    # pairs of up to 800 bp (every fifth lane shifts at every column), at
+    # Q = 8 on 8 pairs of 4200 bp (every lane shifts at every eighth
+    # column); each beside a 10 kbp b (S = 313).
+    long_ = None
+    for q, sw, cb, count, n_hi in ((1, 64, 64, 12, 800), (8, 256, 264, 8, K10_LONG_N)):
+        pairs = [att.generate.uniform_seeded(int(rng.integers(n_hi // 2, n_hi + 1)), 0.1,
+                                             9600 + 50 * q + s) for s in range(count)]
+        pairs[0] = (att.generate.uniform_seeded(n_hi, 0.1, 9599 + q)[0],
+                    att.generate.uniform_seeded(10_000, 0.1, 9598 + q)[0])
+        planes, _ = pack_batch_staggered(pairs, 1, device="cuda")
+        sched = _pp_random(rng, planes[0].shape[0], count, q)
+        if q == 8:
+            sched[8::8] = 1
+        cases.append((planes, f"wrap Q={q}", sched, sw, q, cb, 256,
+                      pinned.pinned_ck_pp_ref(*planes, sched, sw, cb, q)))
+    wrap_cases = {id(c[0]) for c in cases[-2:]}
+    before = dict(banded_kernel.LAUNCHES)
+    worst, labels, wraps = 0, [], []
+    for planes, kind, sched, sw, q, cb, rw, want in cases:
+        got = banded_kernel.pinned_ck_pp(*planes, sched, sw, cb, q, ring_words=rw)
+        stripe = banded_kernel.pinned_ck_pp(*planes, sched, sw, cb, q,
+                                            8 * banded_kernel.striped_threads(sw))
+        err = max(_max_err(got, want), _max_err(stripe, want))
+        plan, _, threads = banded_kernel.ring_pp_events(
+            pinned.check_pp_schedule(sched, planes[0].shape[0], planes[0].shape[1], q),
+            np.asarray(planes[4]), sw, "cuda", rw, n_lim=planes[0].shape[0])
+        laps = float(plan["nwl"].max()) / (threads * 8)
+        if id(planes) in wrap_cases:
+            wraps.append(laps)
+        CB = banded.ck_col_block(cb, planes[0].shape[0], q)
+        label = (f"{kind} B={planes[0].shape[1]} SW={sw} Q={q} CB={CB} ring {threads * 8} "
+                 f"({laps:.2f} laps)")
+        if err:
+            fail(f"ring K10 != plain or the stripe K10 at {label}")
+        worst = max(worst, err)
+        labels.append(label)
+    if min(wraps) < 3:
+        fail(f"phase 32's forced rings wrap only {min(wraps):.2f} times")
+    ran = {k: banded_kernel.LAUNCHES[k] - before[k] for k in ("ring_ck_pp", "pinned_ck_pp")}
+    if ran != {"ring_ck_pp": len(cases), "pinned_ck_pp": len(cases)}:
+        fail(f"phase 32's grid launched {ran}")
+    Sb = bargs[2].shape[0]
+    sched_b = np.zeros((bargs[0].shape[0], 1), np.uint8)
+    before = dict(banded_kernel.LAUNCHES)
+    try:
+        banded_kernel.pinned_ck_pp(*bargs, sched_b, Sb, bargs[0].shape[0], 1, ring_words=4096)
+        fail("ring K10 took a band of more live words than its ring holds")
+    except ValueError as exc:
+        refused = str(exc)
+    if banded_kernel.LAUNCHES != before or banded_kernel.ring_takes(Sb):
+        fail(f"ring K10's refusal launched a kernel (S = {Sb})")
+    say(f"[32 ring K10=plain] {len(cases)}/{len(cases)} cases (phase 13's and two wrap packs': "
+        f"{'; '.join(labels)}); == the stripe K10 on each; "
+        f"max_abs_err {worst}; forced rings wrap >= {min(wraps):.2f} times; a full height of "
+        f"{Sb} words refused without a launch ({refused}); {time.perf_counter() - t0:.1f} s")
+
+    recs = {"ring_ck_pp": {}, "pinned_ck_pp": {}}
+    for label, args in (("config #5 default", c5d_spy.last["ring_ck_pp"]),
+                        ("config #4", c4_ck_round)):
+        *pl, sched, s_, cb_, q = args
+        stripe = 8 * banded_kernel.striped_threads(s_)
+        fns = {"stripe": lambda: banded_kernel.pinned_ck_pp(*pl, sched, s_, cb_, q, stripe),
+               "ring": lambda: banded_kernel.pinned_ck_pp(*pl, sched, s_, cb_, q)}
+        kern, tabs, res = {"stripe": [], "ring": []}, {"stripe": [], "ring": []}, {}
+        for name in ("stripe", "ring", "ring", "stripe"):
+            ms, tab_ms, res[name] = _pp_kernel_ms(fns[name])
+            kern[name].append(ms)
+            tabs[name].append(tab_ms)
+        if _max_err(res["ring"], res["stripe"]):
+            fail(f"ring K10 != the stripe K10 on {label}'s checkpoint round")
+        bnd = plane_bound(pl, s_, res["ring"], sched.size)
+        shape = {"B": pl[0].shape[1], "n_max": pl[0].shape[0], "S": pl[2].shape[0], "SW": s_,
+                 "Q": q, "CB": banded.ck_col_block(cb_, pl[0].shape[0], q)}
+        r, st = min(kern["ring"]), min(kern["stripe"])
+        say(f"[32 K10 {label}] checkpoint round {shape}, turns stripes, ring, ring, stripes, "
+            f"kernel from the end of its event tables: ring K10 {kern['ring'][0]:.3f}/"
+            f"{kern['ring'][1]:.3f} ms ({r / bnd['bound_ms']:.2f}x), stripe K10 "
+            f"{kern['stripe'][0]:.3f}/{kern['stripe'][1]:.3f} ms ({st / bnd['bound_ms']:.2f}x) "
+            f"vs bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); stripes/ring {st / r:.3f}; "
+            f"event tables: ring {tabs['ring'][0]:.3f}/{tabs['ring'][1]:.3f} ms, stripes "
+            f"{tabs['stripe'][0]:.3f}/{tabs['stripe'][1]:.3f} ms; ring == stripes on all "
+            f"{shape['B']} lanes, every plane row and top value (CUDA events)")
+        key = "c5_default" if label.startswith("config #5") else "c4"
+        for name, which in (("ring_ck_pp", "ring"), ("pinned_ck_pp", "stripe")):
+            recs[name].update({f"{key}_round_turns_ms": kern[which],
+                               f"{key}_tables_ms": tabs[which],
+                               f"{key}_round_bound_ms": bnd["bound_ms"],
+                               f"{key}_round_shape": shape})
+    return worst, recs
+
 
 def main() -> None:
     global _POOL
@@ -3257,14 +3518,17 @@ def run() -> None:
     banded_kernel.reset_launches()
     phase3_cost(ba, pairs, spy)
     phase4_align(ba, batches)
-    launches = banded_kernel.LAUNCHES["banded_cost"]
+    launches = banded_kernel.LAUNCHES["banded_ring"]
+    old_k1_launches = banded_kernel.LAUNCHES["banded_cost"]
     spy.remove()
-    if launches == 0:
-        fail("the main path never launched the banded cost kernel")
-    say(f"[main path] banded_cost kernel launches: {launches}")
+    if launches == 0 or banded_kernel.LAUNCHES["banded_cost"]:
+        fail(f"the main path launched K1's ring kernel {launches} times and the old K1 "
+             f"{banded_kernel.LAUNCHES['banded_cost']} times")
+    say(f"[main path] K1 launches: banded_ring {launches}, the old banded_cost "
+        f"{banded_kernel.LAUNCHES['banded_cost']}")
     lap("3-4")
 
-    record = phase5_time(spy)
+    record, k1_pack = phase5_time(spy)
     record["max_abs_err"] = max(record["max_abs_err"], grid_err)
     lap("5")
     new_grid_err = phase6_grid()
@@ -3272,7 +3536,7 @@ def run() -> None:
 
     rounds = RoundSpy()
     rounds.install()
-    c4, c4_round, c4_batch = phase7_config4(rounds)
+    c4, c4_round, c4_batch, c4_ck_round = phase7_config4(rounds)
     lap("7")
     ck, p8 = phase8_ck(rounds)
     rounds.remove()
@@ -3291,7 +3555,7 @@ def run() -> None:
     lap("11")
     c5_records = phase12_time(c5_spy)
     lap("12")
-    pp_err, k9_packs = phase13_grid()
+    pp_err, k9_packs, k10_saved = phase13_grid()
     lap("13")
     c5d, c5d_spy = phase14_config5_default(*c5_batch)
     say(f"[main path] launches: config #5 default {c5d}")
@@ -3338,7 +3602,7 @@ def run() -> None:
     lap("25")
     phase26_host()
     lap("26")
-    ring_k6_err, ring_k9_err = phase27_grid((grid_wide, grid_narrow, grid_diag), k6_cases,
+    ring_k6_err, ring_k9_err, refused_band = phase27_grid((grid_wide, grid_narrow, grid_diag), k6_cases,
                                             k9_packs)
     lap("27")
     ring_records = phase28_time(c5_spy, c5d_spy, c4_round, k7_rung["rung_alone_ms"])
@@ -3347,11 +3611,19 @@ def run() -> None:
     lap("29")
     cost_turns = phase30_time(c5_spy, k8_spy)
     lap("30")
+    k1_records = phase31_k1(k1_pack)
+    lap("31")
+    k10_err, k10_records = phase32_ring_k10(k10_saved, refused_band, c4_ck_round, c5d_spy)
+    lap("32")
     c5_records["ring_ck"].update(ring_records["ring_ck"])
     c5_records["ring_ck"]["max_abs_err"] = max(c5_records["ring_ck"]["max_abs_err"], ring_k6_err)
     pp_records["ring_cost_pp"].update(ring_records["ring_cost_pp"])
     pp_records["ring_cost_pp"]["max_abs_err"] = max(pp_records["ring_cost_pp"]["max_abs_err"],
                                                     ring_k9_err)
+    for name, rec in k10_records.items():
+        pp_records[name].update(rec)
+    pp_records["ring_ck_pp"]["max_abs_err"] = max(pp_records["ring_ck_pp"]["max_abs_err"],
+                                                  k10_err)
     c5_records["pinned_cost"]["k7_again_ms"] = ring_records["k7_again_ms"]
     c5_records["pinned_cost"].update({**k7_rung, **k7_fh_rung, **cost_turns["pinned_cost"]})
     c5_records["pinned_cost"]["max_abs_err"] = max(c5_records["pinned_cost"]["max_abs_err"],
@@ -3363,6 +3635,7 @@ def run() -> None:
         fail(f"JAX or the JAX package was imported: {loaded[:5]}")
     replaces = {
         "banded_cost": "astarpa_tpu/ops/pallas_banded.py:533",
+        "banded_ring": "astarpa_tpu/ops/pallas_banded.py:533",
         "banded_ck": "astarpa_tpu/ops/pallas_banded.py:828",
         "banded_cost_pp": "astarpa_tpu/ops/pallas_banded.py:447",
         "banded_ck_pp": "astarpa_tpu/ops/pallas_banded.py:447",
@@ -3375,15 +3648,23 @@ def run() -> None:
         "ring_cost_pp": "astarpa_tpu/ops/pinned.py:944",
         "ring_cost_wide": "astarpa_tpu/ops/striped.py:522",
         "pinned_ck_pp": "astarpa_tpu/ops/pinned.py:1316",
+        "ring_ck_pp": "astarpa_tpu/ops/pinned.py:1316",
         "nw_right_edge": "astarpa_tpu/ops/pallas_myers.py:98",
         "banded_fill": "astarpa_tpu/ops/pallas_banded.py:811",
         "banded_fill_pp": "astarpa_tpu/ops/pallas_banded.py:811",
     }
     banded_src, striped_src = "astarpa_tpu_torch/csrc/banded.cu", "astarpa_tpu_torch/csrc/striped.cu"
     pinned_src = "astarpa_tpu_torch/csrc/pinned.cu"
-    ring = ("pinned_cost", "ring_ck", "ring_cost_pp", "ring_cost_wide")
-    kernels = [{"name": "banded_cost", "route": "cuda", "source": banded_src,
-                "replaces": replaces["banded_cost"], "launches": launches, **record}]
+    ring = ("pinned_cost", "ring_ck", "ring_cost_pp", "ring_cost_wide", "ring_ck_pp")
+    # K1's main path (phases 3-4) ran its ring kernel; the old K1 ran no
+    # launch there (phase 31 times it beside the ring).
+    record.update(k1_records["banded_ring"])
+    record["max_abs_err"] = max(record["max_abs_err"], k1_records["banded_ring"]["max_abs_err"])
+    kernels = [{"name": "banded_ring", "route": "cuda", "source": pinned_src,
+                "replaces": replaces["banded_ring"], "launches": launches, **record},
+               {"name": "banded_cost", "route": "cuda", "source": banded_src,
+                "replaces": replaces["banded_cost"], "launches": old_k1_launches,
+                **k1_records["banded_cost"]}]
     for name in ("banded_ck", "banded_cost_pp", "banded_ck_pp"):
         rec = records[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], new_grid_err)

@@ -45,13 +45,15 @@ def test_kernel_matches_plain(gpu, count):
     pairs = _random_pairs(count, count, 300, 1300)
     args, _ = pack_batch_staggered(pairs, 1, device=gpu)
     S = args[2].shape[0]
-    before = banded_kernel.LAUNCHES["banded_cost"]
+    before = dict(banded_kernel.LAUNCHES)
     for sw in (1, 5, 32, 33, S):
         for diag in (None, (args[0].shape[0], S * 32 - 40)):
             got = banded_kernel.banded_cost(*args, sw, diag)
             want = banded.banded_cost_ref(*args, sw, diag)
             assert torch.equal(got, want), (sw, diag)
-    assert banded_kernel.LAUNCHES["banded_cost"] == before + 10
+    # K1 runs its ring kernel; the old K1 only through its internal launch.
+    assert banded_kernel.LAUNCHES["banded_ring"] == before["banded_ring"] + 10
+    assert banded_kernel.LAUNCHES["banded_cost"] == before["banded_cost"]
 
 
 def _assert_same(got, want, label):
@@ -125,7 +127,7 @@ def test_runner_on_gpu_matches_cpu(gpu):
     assert list(costs) == list(ref) == [oracle.levenshtein(a, b) for a, b in pairs]
     for f in ("pairs", "buckets", "band_retries", "cells_computed", "aligned_bp"):
         assert getattr(stats, f) == getattr(ref_stats, f), f
-    assert (stats.kernel, ref_stats.kernel) == ("cuda-banded", "torch-ref")
+    assert (stats.kernel, ref_stats.kernel) == ("cuda-banded-ring", "torch-ref")
     res, astats = BatchAligner(band_words=4, device=gpu).align_with_stats(pairs)
     assert [c for c, _ in res] == list(ref)
     assert astats.direct_traces == len(pairs) - 1  # the empty pair is trivial
@@ -196,7 +198,7 @@ def test_runner_striped_rungs_on_gpu(gpu, monkeypatch):
 
 @pytest.mark.parametrize("quantum", [32, 1])
 def test_pinned_pp_kernels_match_plain(gpu, quantum):
-    """K9 and K10 against their plain versions, bit for bit on costs, every
+    """K9 and K10 (their stripe kernels) against their plain versions, bit for bit on costs, every
     checkpoint row and top value: gap, random and broadcast schedules,
     bands from 8 words to full height, bands taller than a 256-word stripe
     (a skewed pair makes S ~ 280), CB 64 and 512."""
@@ -225,7 +227,7 @@ def test_pinned_pp_kernels_match_plain(gpu, quantum):
             for cb in (64, 512):
                 if banded.ck_col_block(cb, n_max, q) < min(sw, S):
                     continue
-                got = banded_kernel.pinned_ck_pp(*args, sched, sw, cb, q, ws)
+                got = banded_kernel.pinned_ck_pp(*args, sched, sw, cb, q, stripe)
                 _assert_same(got, pinned.pinned_ck_pp_ref(*args, sched, sw, cb, q),
                              (sw, cb, q))
                 cases += 1
@@ -420,8 +422,8 @@ def test_ring_pp_kernel_matches_plain(gpu, quantum):
 
 
 def test_ring_kernels_raise_past_their_ring(gpu):
-    """Asked for a ring, ring K6 and ring K9 refuse a band of more live
-    words than 4096 (a full height of 4376 words over 4500 columns)
+    """Asked for a ring, ring K6, ring K9 and ring K10 refuse a band of more
+    live words than 4096 (a full height of 4376 words over 4500 columns)
     before any launch; by default the stripe kernels take it."""
     pairs = [(generate.uniform_seeded(4500, 0.0, 1)[0],
               generate.uniform_seeded(140_032, 0.1, 2)[0])]
@@ -434,11 +436,103 @@ def test_ring_kernels_raise_past_their_ring(gpu):
         banded_kernel.striped_ck(*args, s8, s8 + 8, None, ring_words=4096)
     with pytest.raises(ValueError, match="exceed"):
         banded_kernel.pinned_cost_pp(*args, sched, s8, 1, ring_words=4096)
+    with pytest.raises(ValueError, match="exceed"):
+        banded_kernel.pinned_ck_pp(*args, sched, s8, n_max, 1, ring_words=4096)
     assert banded_kernel.LAUNCHES == before
     assert not banded_kernel.ring_takes(s8)
     got = banded_kernel.pinned_cost_pp(*args, sched, s8, 1)
     assert banded_kernel.LAUNCHES["pinned_cost_pp"] == before["pinned_cost_pp"] + 1
     assert torch.equal(got, pinned.pinned_cost_pp_ref(*args, sched, s8, 1))
+    ck = banded_kernel.pinned_ck_pp(*args, sched, s8, n_max, 1)
+    assert banded_kernel.LAUNCHES["pinned_ck_pp"] == before["pinned_ck_pp"] + 1
+    assert torch.equal(ck[0], got)
+
+
+def _k1_grid(gpu):
+    """Pairs of up to 400 bp beside b of up to 2200 bp (S >= 63), an n == 0
+    pair, a short a against a long b (row m below the window at small
+    bands) and a long a against a short b (row m above it)."""
+    rng = np.random.default_rng(11)
+
+    def seq(k):
+        return bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), k).tolist())
+
+    pairs = [generate.uniform_seeded(int(rng.integers(1, 400)), float(rng.uniform(0, 0.3)),
+                                     600 + s) for s in range(30)]
+    pairs += [(seq(int(rng.integers(1, 300))), seq(int(rng.integers(300, 2200))))
+              for _ in range(8)]
+    pairs += [(b"", seq(90)), (b"ACG", seq(700)), (seq(390), b"ACGTAC")]
+    return pack_batch_staggered(pairs, 1, device=gpu)[0]
+
+
+@pytest.mark.parametrize("sw", [1, 2, 31, 32, 33, 63])
+def test_banded_ring_kernel_matches_plain(gpu, sw):
+    """K1's ring kernel against K1's plain version, bit for bit, with and
+    without a diagonal, at the runner's layout and at every other ring
+    size below a warp that holds the band's live words, and as one ring
+    a block (64 lanes); pairs covered, above and below the window and n ==
+    0 (cost m)."""
+    args = _k1_grid(gpu)
+    n_max, S, B = args[0].shape[0], args[2].shape[0], args[0].shape[1]
+    assert S >= 63
+    before = dict(banded_kernel.LAUNCHES)
+    runs = 0
+    for diag in (None, (n_max, S * 32 - 50)):
+        want = banded.banded_cost_ref(*args, sw, diag)
+        assert torch.equal(banded_kernel.banded_cost(*args, sw, diag), want), (sw, diag)
+        span = striped.ring_span(striped.plan_striped(n_max, S, sw, diag),
+                                 int(np.max(args[4])))
+        for lanes in (1, 2, 4, 8, 16, 32, 64):
+            if lanes * 8 >= span:
+                got = banded_kernel._launch_banded_ring(*args, sw, diag, lanes)
+                assert torch.equal(got, want), (sw, diag, lanes)
+                runs += 1
+        n0 = np.flatnonzero(np.asarray(args[4]) == 0)
+        assert len(n0) and want[n0].tolist() == np.asarray(args[5])[n0].tolist()
+    assert banded_kernel.LAUNCHES["banded_ring"] == before["banded_ring"] + 2 + runs
+    assert banded_kernel.LAUNCHES["banded_cost"] == before["banded_cost"]
+
+
+@pytest.mark.parametrize("quantum", [1, 8])
+def test_ring_ck_pp_kernel_matches_plain(gpu, quantum):
+    """Ring K10 against its plain version and the stripe K10, bit for bit
+    on costs, every checkpoint row and top value: random and broadcast
+    schedules, CB = SW and larger, bands from 8 words to full height, rings
+    forced to 256 words; on the long pack (33 pairs of up to 5 kbp beside
+    a 38 kbp one) they wrap at least 3 times."""
+    wide, narrow, long_, _ = _ring_packs(gpu, 3500 + quantum)
+    before = dict(banded_kernel.LAUNCHES)
+    rng = np.random.default_rng(quantum)
+    runs, wraps = 0, []
+    for args, cases in ((narrow, ((8, 8), (64, 100))), (wide, ((24, 40), ("S", "S"))),
+                        (long_, ((256, 256), (200, 264)))):
+        n_max, S, B = args[0].shape[0], args[2].shape[0], args[0].shape[1]
+        rand = np.zeros((n_max, B), np.uint8)
+        rows = np.arange(quantum, n_max, quantum)
+        # Every quantum column shifts on the long pack: 256-word rings wrap
+        # at least 3 times at Q = 8 too.
+        rand[rows] = rng.random((len(rows), B)) < (1.0 if args is long_ else 0.5)
+        for sw, cb in cases:
+            sw = S if sw == "S" else sw
+            cb = -(-S // quantum) * quantum if cb == "S" else cb
+            shared = np.broadcast_to(banded.shift_at_array(n_max, S, sw)[:, None], (n_max, B))
+            scheds = [(rand, quantum)] + ([(shared, 1)] if not shared[0].any() else [])
+            for sched, q in scheds:
+                if banded.ck_col_block(cb, n_max, q) < min(sw, S):
+                    continue
+                want = pinned.pinned_ck_pp_ref(*args, sched, sw, cb, q)
+                for rw in (None, 256 if min(sw, S) <= 256 else None):
+                    got = banded_kernel.pinned_ck_pp(*args, sched, sw, cb, q, ring_words=rw)
+                    _assert_same(got, want, (sw, cb, q, rw))
+                    runs += 1
+                    if rw == 256 and args is long_:
+                        plan = pinned.plan_pp(sched, np.asarray(args[4]), sw, "cpu")
+                        wraps.append(float(plan["nwl"].max()) / 256)
+                stripe = 8 * banded_kernel.striped_threads(min(sw, S))
+                _assert_same(banded_kernel.pinned_ck_pp(*args, sched, sw, cb, q, stripe), want,
+                             (sw, cb, q))
+    assert min(wraps) >= 3
+    assert banded_kernel.LAUNCHES["ring_ck_pp"] == before["ring_ck_pp"] + runs
 
 
 def test_runner_config5_shaped_rung_on_k7(gpu):
@@ -522,12 +616,12 @@ def test_runner_full_height_ck_rung_on_k8(gpu, monkeypatch):
 def test_runner_routes_domain_rounds_on_gpu(gpu, monkeypatch):
     """Domain rounds below PINNED_PP_MIN_SW words run K4, at or above it
     K9 (costs; ring K9, whose ring holds these bands) and K10
-    (checkpoints), with the costs and CIGARs of the CPU route."""
+    (checkpoints; ring K10), with the costs and CIGARs of the CPU route."""
     pairs = [generate.uniform_seeded(2000 + 97 * s, 0.1, 60 + s) for s in range(6)]
     kw = dict(band_words=4, domain_mode="gap", domain_min_bp=0)
     ref, _ = BatchAligner(device="cpu", **kw).cost_with_stats(pairs)
     for limit, labels in ((10**6, ("cuda-banded-pp", "cuda-banded-ck-pp")),
-                          (1, ("cuda-ring-pp", "cuda-pinned-pp-ck"))):
+                          (1, ("cuda-ring-pp", "cuda-ring-pp-ck"))):
         monkeypatch.setattr(runner, "PINNED_PP_MIN_SW", limit)
         costs, stats = BatchAligner(device=gpu, **kw).cost_with_stats(pairs)
         assert list(costs) == list(ref) == [oracle.levenshtein(a, b) for a, b in pairs]

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from astarpa_tpu import generate, native, oracle
-from astarpa_tpu.ops.pinned import pinned_cost_pp_tpu
+from astarpa_tpu.ops.pinned import pinned_ck_pp_tpu, pinned_cost_pp_tpu
 from astarpa_tpu.parallel.runner import BatchAligner as RefAligner
 from astarpa_tpu_torch import BatchAligner
 from astarpa_tpu_torch.ops import banded, banded_kernel, pinned, striped
@@ -306,3 +306,158 @@ def test_wrappers_take_one_design_argument():
     assert banded_kernel.route(torch.device("cuda"), "ring_ck") == "cuda-ring-ck"
     assert banded_kernel.route(torch.device("cuda"), "ring_cost_pp") == "cuda-ring-pp"
     assert banded_kernel.route(torch.device("cpu"), "ring_ck") == "torch-ref"
+
+
+def _ck_cursor(ckw0, ent, ab, p: int, RW: int, SW: int, CB: int, n_ck: int):
+    """Ring K10's checkpoint row cursor as each thread of the ring walks
+    it (``ck_seek``/``ck_take`` in ``csrc/pinned.cu``): ``(thread, step,
+    k, word)`` of every row the ring takes, thread by thread in cursor
+    order.  Thread ``tid`` holds the words ``tid*8 + q % 8 + (q // 8)*RW``."""
+    out = []
+    for tid in range(RW // 8):
+        w0 = tid * 8
+
+        def seek(d):
+            dd = d - w0
+            lap = dd // RW if dd > 0 else 0
+            r = dd - lap * RW if dd > 0 else 0
+            q = lap * 8 + r if r < 8 else (lap + 1) * 8
+            return q, w0 + q % 8 + (q // 8) * RW
+
+        for k in range(1, n_ck):
+            top = int(ckw0[k, p])
+            q, w = seek(top)
+            while w < top + SW:
+                out.append((tid, k * CB - 1 + w, k, w))
+                q += 1
+                w = w0 + q % 8 + (q // 8) * RW
+    return out
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_ring_ck_pp_host_side(seed):
+    """Ring K10 on random per-pair schedules (Q 1 and 8, ragged n, CB = SW
+    and CB > SW, rings at their size and forced to 256 words): the ring
+    span at ``n_lim = n_max`` against a brute force and the event table
+    against the plan; every checkpoint row taken once, by its word's own
+    thread in step order, at step ``k*CB - 1 + w`` while the word is live
+    and its slot not yet taken by word ``w + RW``, into row ``w -
+    lo_p(k*CB - 1)``; no two rows taken at one step (checkpoint k's last
+    before k+1's first); every word above a window top absorbed before the
+    top is taken and none at or below it (the top values the threads
+    add)."""
+    rng = np.random.default_rng(500 + seed)
+    for q in (1, 8):
+        for cb_extra in (0, 37):
+            n_max = int(rng.integers(300, 900))
+            B = int(rng.integers(1, 6))
+            S = int(rng.integers(300, 600))
+            SW = int(rng.integers(8, 257)) // q * q  # CB = SW at a whole quantum
+            sched = _random_pp_schedule(rng, n_max, B, q, float(rng.uniform(0.05, 0.8)))
+            n = rng.integers(0, n_max + 1, B)
+            CB, n_ck = pinned.ck_layout_pp(SW + cb_extra, n_max, q, SW)
+            plan = pinned.plan_pp(sched, n, SW, "cpu")
+            span = pinned.ring_span_pp(plan, torch.full((B,), n_max), SW).tolist()
+            lo = plan["lo"].numpy()
+            for ring_words in (None, 256):
+                _, ev, threads = banded_kernel.ring_pp_events(sched, n, SW, "cpu", ring_words,
+                                                              n_lim=n_max)
+                RW = threads * 8
+                ckw0 = pinned.ck_tops(plan["lo"], CB, n_ck).numpy()
+                for p in range(B):
+                    ent, ab = plan["ent_t"][p].numpy(), plan["abs_t"][p].numpy()
+                    assert span[p] == _brute_span(ent, ab, lo[p], n_max, SW) <= RW <= max(SW, 256)
+                    for row, key in enumerate(("ent_t", "top_t", "abs_t")):
+                        nw = plan[key].shape[1]
+                        assert np.array_equal(ev[p, row, :nw].numpy(), plan[key][p].numpy())
+                        assert (ev[p, row, nw:] == striped.NEVER).all()
+                    nwl = int(plan["nwl"][p])
+                    ent_x = np.full(nwl + RW, striped.NEVER, np.int64)
+                    ent_x[:nwl] = ent[:nwl]
+                    end = np.minimum(np.where(ab < striped.NEVER, ab + 1, striped.NEVER).astype(
+                        np.int64), n_max + np.arange(len(ab)))
+                    taken = _ck_cursor(ckw0, ent, ab, p, RW, SW, CB, n_ck)
+                    want = {(k, w) for k in range(1, n_ck)
+                            for w in range(int(ckw0[k, p]), int(ckw0[k, p]) + SW)}
+                    assert sorted((k, w) for _, _, k, w in taken) == sorted(want)
+                    steps = [t for _, t, _, _ in taken]
+                    assert len(set(steps)) == len(steps)
+                    by_step = sorted(taken, key=lambda x: x[1])
+                    assert [k for _, _, k, _ in by_step] == sorted(k for _, _, k, _ in by_step)
+                    for tid in range(threads):
+                        mine = [t for i, t, _, _ in taken if i == tid]
+                        assert mine == sorted(mine)
+                    for tid, t, k, w in taken:
+                        assert w // 8 % threads == tid
+                        assert ent[w] <= t < end[w], (q, p, k, w)
+                        assert ent_x[w + RW] >= end[w], (q, p, k, w)
+                        assert 0 <= w - int(lo[p, k * CB - 1]) < SW
+                    fin = ab[ab < striped.NEVER]
+                    assert (np.diff(fin) > 0).all()
+                    for k in range(1, n_ck):
+                        top, t_top = int(ckw0[k, p]), k * CB - 1 + int(ckw0[k, p])
+                        assert top == 0 or ab[top - 1] < t_top
+                        assert ab[top] > t_top
+
+
+@needs_native
+@pytest.mark.parametrize("ring", [True, False])
+def test_runner_routes_domain_ck_rounds_between_ring_and_stripes(monkeypatch, ring):
+    """direct_dt=False on the gap-domain pairs with the routing constant at
+    1: every checkpoint round runs K10, labelled ring K10 where the ring
+    holds the band and the stripe kernel where it does not (its capacity
+    patched below the first round).  Costs, BatchStats (but ``kernel``)
+    and verified CIGARs equal the reference's, whose rounds run
+    ``pinned_ck_pp_tpu`` in interpret mode."""
+    pairs = _gap_pairs()
+    kw = dict(band_words=4, lane_multiple=128, domain_mode="gap", domain_min_bp=0,
+              direct_dt=False)
+
+    def ref_round(self, a0, a1, pb0, pb1, n, m, sw, sched_arr, quantum, want_ck):
+        assert want_ck
+        CB = self._cb(sw, a0.shape[0])
+        CB = max(quantum, CB // quantum * quantum)
+        return pinned_ck_pp_tpu(a0, a1, pb0, pb1, n, m, band_words=sw, schedule=sched_arr,
+                                col_block=CB, time_block=256, interpret=True)
+
+    monkeypatch.setattr(RefAligner, "_domain_kernel", ref_round)
+    monkeypatch.setattr(runner, "PINNED_PP_MIN_SW", 1)
+    monkeypatch.setattr(runner, "route", _label_route)
+    if not ring:
+        monkeypatch.setattr(banded_kernel, "RING_MAX_WORDS", 2)
+    labels = []
+    orig = runner.BatchAligner._domain_kernel
+
+    def spy(self, *args):
+        got, name = orig(self, *args)
+        labels.append(name)
+        return got, name
+
+    monkeypatch.setattr(runner.BatchAligner, "_domain_kernel", spy)
+    ref_res, ref_stats = RefAligner(pallas_interpret=True, **kw).align_with_stats(pairs)
+    res, stats = BatchAligner(device="cpu", **kw).align_with_stats(pairs)
+    assert [c for c, _ in res] == [c for c, _ in ref_res]
+    for f in STATS:
+        assert getattr(stats, f) == getattr(ref_stats, f), f
+    assert labels and set(labels) == {"ring_ck_pp" if ring else "pinned_ck_pp"}
+    assert stats.kernel == ("cuda-ring-pp-ck" if ring else "cuda-pinned-pp-ck")
+    for (a, b), (c, cig) in zip(pairs, res):
+        assert cig.verify(a, b) == c == oracle.levenshtein(a, b)
+
+
+def test_pinned_ck_pp_takes_one_design_argument():
+    """``pinned_ck_pp`` takes ``stripe_words`` or ``ring_words`` as the
+    other ring wrappers do: both at once raise on both routes; either
+    leaves the plain results alone."""
+    pairs = [generate.uniform_seeded(300, 0.1, 80 + s) for s in range(3)]
+    args, _ = pack_batch_staggered(pairs, 1, device="cpu")
+    n_max, B = args[0].shape
+    sched = np.zeros((n_max, B), np.uint8)
+    sched[8::8] = 1
+    with pytest.raises(ValueError, match="at most one"):
+        banded_kernel.pinned_ck_pp(*args, sched, 8, 16, 1, 256, 256)
+    want = pinned.pinned_ck_pp_ref(*args, sched, 8, 16, 8)
+    for kw in ({}, {"stripe_words": 256}, {"ring_words": 256}):
+        got = banded_kernel.pinned_ck_pp(*args, sched, 8, 16, 8, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), kw
+    assert banded_kernel.route(torch.device("cuda"), "ring_ck_pp") == "cuda-ring-pp-ck"
