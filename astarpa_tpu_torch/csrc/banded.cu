@@ -1,14 +1,22 @@
 // Banded batched Myers edit distance: the sliding-window kernels of the
 // batch runtime, one template over (schedule, emit).
 //
-//   K1 banded_cost     shared schedule, costs (the old K1: since the ring
-//                      kernel of csrc/pinned.cu took K1's launches, only
-//                      the internal launch that chip_smoke.py times runs it)
+//   K1 banded_cost     shared schedule, costs
 //   K2 banded_ck       shared schedule, costs + window checkpoints
 //   K3 banded_fill     shared schedule, costs + every column's window
 //   K3 banded_fill_pp  per-pair schedules, costs + every column's window
 //   K4 banded_cost_pp  per-pair schedules, costs
 //   K4 banded_ck_pp    per-pair schedules, costs + window checkpoints
+//
+// On a path: K2 (ck rungs below 64 words) and banded_fill_pp (no caller
+// yet; the wrapper banded_fill_pp runs it).  Timing only: the old K1, the
+// old shared K3 and the old K4 cost entry, whose launches the ring kernels
+// of csrc/pinned.cu took (banded_ring_kernel, banded_ring_fill_kernel,
+// banded_ring_pp_kernel); ops/banded_kernel.py's internal _launch runs
+// them, as chip_smoke.py does to time them beside the rings.  The old K4
+// ck entry runs only for a Q-rounded checkpoint interval below SW with
+// more than one checkpoint, which K4's checkpoint ring refuses (a test on
+// the host before the launch; the runner's intervals are at least SW + 8).
 //
 // They replace the TPU kernel astarpa_tpu/ops/pallas_banded.py::_banded_call
 // (state machine _columns): K1 is _kernel_shared in EMIT_COST mode (entry

@@ -1,12 +1,15 @@
 // Resident-ring pinned-word Myers edit distance: pinned_ring_kernel<kCk,
 // kPP>, ring K6 (costs + 8-aligned-top checkpoints on the shared schedule,
 // <true, false>) and ring K9 (costs on per-pair schedules, <false, true>);
-// and one leaner step, ring_body<kS, kMode>, in three kernels:
+// and one leaner step, ring_body<kS, kMode>, in six kernels:
 // ring_cost_kernel<kS>, costs on the shared schedule (K7, kS = 0, 8
 // register slots a thread; the wide ring, kS = 8 or 24 further slots a
 // thread in shared memory), ring_ck_pp_kernel, ring K10 (costs + K4's
-// checkpoint rows on per-pair schedules), and banded_ring_kernel, K1
-// (the shared schedule's costs under K1's result rule, small bands).
+// checkpoint rows on per-pair schedules), banded_ring_kernel, K1 (the
+// shared schedule's costs under K1's result rule, small bands),
+// banded_ring_pp_kernel and banded_ring_ck_pp_kernel, K4 (K1's rings on
+// per-pair schedules: costs, and costs + K4's checkpoints) and
+// banded_ring_fill_kernel, K3 (K1's rings storing every column's window).
 //
 // They replace the TPU kernels astarpa_tpu/ops/pinned.py::_pinned_shared_call
 // (K7, entry pinned_cost_tpu, running _pinned_kernel / _pinned_body),
@@ -16,13 +19,19 @@
 // astarpa_tpu/ops/pinned.py::_pinned_pp_call (K9, entry pinned_cost_pp_tpu,
 // running _pinned_pp_body), _pinned_pp_ck_call (K10, entry
 // pinned_ck_pp_tpu) and astarpa_tpu/ops/pallas_banded.py::_banded_call in
-// EMIT_COST mode on the shared schedule (K1, entry banded_cost_tpu).  K7's function is K5's (csrc/striped.cu, the
+// EMIT_COST mode on the shared schedule (K1, entry banded_cost_tpu), in
+// _kernel_perpair's cost and ck modes (K4, banded_cost_tpu and
+// banded_ck_tpu with schedule=) and in EMIT_FILL mode on the shared
+// schedule (K3, banded_fill_tpu).  K7's function is K5's (csrc/striped.cu, the
 // reference holds pinned_cost_tpu == striped_cost_tpu), so its plain torch
 // twin is astarpa_tpu_torch/ops/striped.py::pinned_cost_ref, the striped
 // sweep; ring K6's is striped.py::striped_ck_ref, ring K9's
 // astarpa_tpu_torch/ops/pinned.py::pinned_cost_pp_ref, ring K10's
-// pinned.py::pinned_ck_pp_ref and K1's ops/banded.py::banded_cost_ref
-// (its staggered twin: striped.py::banded_cost_staggered_ref).  The results
+// pinned.py::pinned_ck_pp_ref, K1's ops/banded.py::banded_cost_ref (its
+// staggered twin: striped.py::banded_cost_staggered_ref), K4's
+// banded.py::banded_cost_pp_ref and banded_ck_pp_ref (staggered twins:
+// pinned.py::banded_cost_pp_staggered_ref, banded_ck_pp_staggered_ref) and
+// K3's banded.py::banded_fill_ref (striped.py::banded_fill_staggered_ref).  The results
 // must match them bit for bit, and match the stripe kernels of
 // csrc/striped.cu (striped_kernel<false>, <true>, <false, true> and <true,
 // true, true>), which take the bands past the rings.  The per-word event steps come from the same host plans
@@ -181,7 +190,45 @@
 // own last column, and they step to the warp's last capture.  Bands of 256
 // live words or more take a block a pair, as K7.  On the same card it
 // runs the 4096 x 10 kbp pack at SW = 32 in ~4-7 ms against the old
-// one-thread-a-pair K1's 27 ms (its bound 1.1 ms).
+// one-thread-a-pair K1's 27 ms (its bound 1.1 ms).  A shared schedule
+// shifted at column 0 (a diagonal steeper than a word a column from the
+// start) absorbs word 0 at its entry: word 0 is never the top, so slot 0
+// reads the column codes from step 0 for the band top below it.  K7's and
+// the wide ring's builds leave that start out (see ROADMAP.md's faults), so
+// their wrapper (ops/banded_kernel.py::pinned_cost) refuses such a schedule
+// before the launch; the runner's buckets reach one only when every a
+// holds one character.
+//
+// K4 (banded_ring_pp_kernel, banded_ring_ck_pp_kernel) is K1's ring on
+// each pair's own event rows, as ring K10 reads them, with K1's result rule
+// (K9's staggered DP computes K4's function: each word's profile row is
+// clamped at S - 1 as K4 clamps its entering word, and no word runs below
+// the band bottom).  The rings of a warp no longer share event steps, so
+// their event work diverges within the warp; it stays out of line, one
+// compare a step.  Each pair's words stop after its own last column
+// (n_lim = n), and the warp steps to its last pair's capture.  Checkpoints
+// at or before the pair's end (k*CB <= n) take ring K10's cursor; K4's
+// checkpoints past the end hold the window after column n - 1, slid down
+// the schedule (no word steps a column >= n): a word of it below the
+// capture window's bottom (loend + SW) has its state after column n - 1,
+// which its capture writes into each such checkpoint's row, and a word
+// entering later is all-ones, written at the start.  Their top values are
+// n plus every value absorbed above the window top, past the end too: the
+// threads' absorbed sums (as ring K10's), 32 for each word above the top
+// that entered after the end (at the start), and each captured word's
+// value above the top (an atomic at its capture).  So the ring sweeps no
+// pair past its last capture and holds the live words of that sweep
+// (ring_span_pp at each pair's n).  A schedule may shift at column 0.
+//
+// K3 (banded_ring_fill_kernel) is K1's ring storing, each step, each
+// register slot's word state after its column c into row c, position
+// word - lo(c) of the planes, while the word is in the window and c is
+// below the pair's n: pair-major planes (B, n_max, SW), at offset word +
+// R(c) from the pair's base (p * n_max * SW, in 64 bits), R(c) = c * SW -
+// lo(c) from a table.  A slot's word and its last stored step are set at
+// its entry.  Rows past a pair's end are its row n -
+// 1 slid down the schedule (words entering later all-ones), copied after
+// the sweep by the ring's threads.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -506,10 +553,20 @@ __device__ __forceinline__ uint32_t bit_mask(uint32_t x, int k) {
 // What a ring_body instance computes (see the header): K7 and the wide
 // ring (kRingCost: the shared schedule's costs, a ring a block), ring K10
 // (kRingCkPP: per-pair schedules, a ring a block, checkpoints under K4's
-// row contract) or K1 (kRingBanded: the shared schedule's costs under K1's
-// result rule, a ring of `ring` threads: a block, or `ring` lanes of a
-// warp beside the rings of 32 / ring - 1 other pairs).
-enum RingMode { kRingCost = 0, kRingCkPP = 1, kRingBanded = 2 };
+// row contract) or, in rings of `ring` threads (a block, or `ring` lanes
+// of a warp beside the rings of 32 / ring - 1 other pairs) under K1's
+// result rule: K1 (kRingBanded: the shared schedule's costs), K4
+// (kRingBandedPP: per-pair costs; kRingBandedCkPP: per-pair costs and
+// checkpoints, K4's rows past a pair's end) and K3 (kRingFill: the shared
+// schedule's costs and every column's window planes).
+enum RingMode {
+  kRingCost = 0,
+  kRingCkPP = 1,
+  kRingBanded = 2,
+  kRingBandedPP = 3,
+  kRingBandedCkPP = 4,
+  kRingFill = 5
+};
 
 // The ring's step and events; see the header.  A thread holds kT = 8 + kS
 // consecutive slots: 8 in registers, then kS in shared memory, laid out
@@ -525,13 +582,19 @@ __device__ __forceinline__ void ring_body(
     int32_t* __restrict__ ck_tv, const int32_t* __restrict__ ckw0, int n_max,
     int B, int S, int SW, int nw_pad, int n_lim, int CB, int n_ck, int ring) {
   constexpr int kT = kK + kS;  // slots a thread, a power of two
-  constexpr bool kCk = kMode == kRingCkPP;
-  constexpr bool kK1 = kMode == kRingBanded;
+  constexpr bool kK4Ck = kMode == kRingBandedCkPP;
+  constexpr bool kCk = kMode == kRingCkPP || kK4Ck;
+  constexpr bool kFill = kMode == kRingFill;
+  // Each pair's own event rows (ring K10, K4).
+  constexpr bool kPPev = kMode == kRingCkPP || kMode == kRingBandedPP || kK4Ck;
+  // K1's layout and result rule (K1, K4, K3).
+  constexpr bool kK1 = kMode >= kRingBanded;
   const int NT = kK1 ? ring : blockDim.x;  // the ring's threads
   // K1's rings below a warp: 32 / NT pairs a warp (one-warp blocks).
   const bool sub = kK1 && NT < 32;
   const int pair = sub ? blockIdx.x * (32 / NT) + threadIdx.x / NT : blockIdx.x;
   const int p = kK1 ? min(pair, B - 1) : pair;  // a tail ring repeats pair B-1
+  const bool own = !kK1 || pair < B;            // and writes nothing
   const int tid = sub ? threadIdx.x & (NT - 1) : threadIdx.x;
   // Lane and warp from tid where the ring is the block: taken from
   // threadIdx.x there, the wide ring's build spilled (8 bytes at 128
@@ -545,7 +608,15 @@ __device__ __forceinline__ void ring_body(
   const int np = n[p];
   const int mp = m[p];
   const int le = loend[p];
-  if constexpr (kCk) ev += (size_t)p * 3 * nw_pad;  // the pair's own event rows
+  if constexpr (kPPev) ev += (size_t)p * 3 * nw_pad;  // the pair's own event rows
+  // K4's words stop after the pair's own last column.
+  if constexpr (kMode == kRingBandedPP || kK4Ck) n_lim = max(np, 1);
+  // K4's checkpoints from k1 on (k*CB > n) lie past the pair's end: the
+  // window after column n-1, slid down the schedule, whose words below fb
+  // hold their state after column n-1 (written at their capture) and the
+  // rest, entered after the end, all-ones.  The cursor takes the others.
+  const int k1 = kK4Ck ? np / CB + 1 : n_ck;
+  const int fb = np > 0 ? le + SW : 0;
   const int32_t* ent_t = ev;
   const int32_t* top_t = ev + nw_pad;
   const int32_t* abs_t = ev + 2 * nw_pad;
@@ -567,14 +638,31 @@ __device__ __forceinline__ void ring_body(
     s_link[0][threadIdx.x] = make_uint4(0u, 0u, 0u, 0u);
     s_link[1][threadIdx.x] = make_uint4(0u, 0u, 0u, 0u);
   }
-  if constexpr (kCk) {
+  if (kCk && own) {
     // Checkpoint 0 is the all-ones state.  Top values start at k * CB; the
     // threads add the values absorbed above each window top (tv_acc below).
+    // Past a pair's end (K4, k >= k1) they start at n plus 32 for each word
+    // above the window top that entered after the end, and each captured
+    // word above it adds its value at its capture.
     for (int i = tid; i < SW; i += NT) {
       ck_vp[(size_t)i * B + p] = ~0u;
       ck_vm[(size_t)i * B + p] = 0u;
     }
-    for (int k = tid; k < n_ck; k += NT) ck_tv[(size_t)k * B + p] = k * CB;
+    for (int k = tid; k < n_ck; k += NT) {
+      ck_tv[(size_t)k * B + p] =
+          k < k1 ? k * CB : np + kW * max(0, ckw0[(size_t)k * B + p] - fb);
+    }
+    if constexpr (kK4Ck) {
+      for (int i = tid; i < (n_ck - k1) * SW; i += NT) {
+        const int k = k1 + i / SW;
+        const int row = i - (i / SW) * SW;
+        if (ckw0[(size_t)k * B + p] + row >= fb) {
+          const size_t o = ((size_t)k * SW + row) * B + p;
+          ck_vp[o] = ~0u;
+          ck_vm[o] = 0u;
+        }
+      }
+    }
   }
 
   const int w0 = tid * kT;  // this thread's first slot (and lap-0 word)
@@ -652,9 +740,13 @@ __device__ __forceinline__ void ring_body(
   // within its registers.
   int ck_k = 1, ck_q = 0, ck_w = 0, ck_next = kNever, tv_k = 1, tv_acc = 0;
   auto ck_top = [&](int k) { return ckw0[(size_t)k * B + p]; };
+  // The windows the cursor takes (K4: those at or before the pair's end),
+  // and the top values a thread adds to (none for a tail ring).
+  const int n_cur = !own ? 1 : kK4Ck ? min(n_ck, k1) : n_ck;
+  const int n_tv = own ? n_ck : 1;
   // From window ck_k on, the first window the thread holds a word of.
   auto ck_seek = [&]() {
-    for (; ck_k < n_ck; ++ck_k) {
+    for (; ck_k < n_cur; ++ck_k) {
       const int top = ck_top(ck_k);
       seek(top, ck_q, ck_w);
       if (ck_w < top + SW) {
@@ -683,6 +775,18 @@ __device__ __forceinline__ void ring_body(
   int mm_end = kNever, rearm = kNever, ev_next = 0, top_end = 0, ts = 0;
   uint32_t tc = 0u;
   const uint8_t* tptr = cp;
+  if constexpr (kK1) {
+    if (w0 == 0 && abs_t[0] == 0) {
+      // A schedule shifted at column 0: word 0 is absorbed at its entry and
+      // is never the top, so slot 0 reads the column codes from step 0 for
+      // the words below it (word 1 is the top from step 1, in slot 1).
+      // Ring K10's schedules do not shift there; K7's and the wide ring's
+      // builds leave this out (see the header).
+      mm = true;
+      tc = *tptr;
+      mm_end = n_lim;
+    }
+  }
 
   // The values of slot j (before this step's compute).
   auto read_slot = [&](int j, uint32_t& xv, uint32_t& xm) {
@@ -742,8 +846,46 @@ __device__ __forceinline__ void ring_body(
     }
   };
 
+  // The capture of word cap_w, its state after column np - 1 (K4's
+  // checkpoints past the pair's end take it too: its row in each window
+  // that holds it, its value in each top value above it).
+  auto capture = [&]() {
+    int full = mp - cap_w * kW;
+    full = full < 0 ? 0 : (full > kW ? kW : full);
+    const uint32_t mask = full >= kW ? ~0u : (1u << full) - 1u;
+    uint32_t xv, xm;
+    read_slot(cap_q & (kT - 1), xv, xm);
+    acc += __popc(xv & mask) - __popc(xm & mask);
+    if constexpr (kK4Ck) {
+      if (own) {
+        const int cv = __popc(xv) - __popc(xm);
+        for (int k = k1; k < n_ck; ++k) {
+          const int top = ck_top(k);
+          if (cap_w < top) {
+            atomicAdd(&ck_tv[(size_t)k * B + p], cv);
+          } else {
+            const size_t o = ((size_t)k * SW + (cap_w - top)) * B + p;
+            ck_vp[o] = xv;
+            ck_vm[o] = xm;
+          }
+        }
+      }
+    }
+    ++cap_q;
+    cap_w = next_of(cap_w, cap_q);
+    cap_next = cap_w < le + SW ? cap_w + np - 1 : kNever;
+  };
+  // K3: the word each register slot holds and the step its stores stop
+  // (its absorb, or its column reaching the pair's end); set at its entry.
+  int fw[kK], fhi[kK];
+  const int n_st = min(np, n_max);
+  uint32_t* const f_vp = kFill ? ck_vp + (size_t)p * n_max * SW : nullptr;
+  uint32_t* const f_vm = kFill ? ck_vm + (size_t)p * n_max * SW : nullptr;
+#pragma unroll
+  for (int j = 0; j < kK; ++j) fw[j] = fhi[j] = 0;
+
   int t_end = np > 0 ? np + le + SW - 1 : 0;
-  if constexpr (kCk) {
+  if constexpr (kCk && !kK4Ck) {
     // Checkpoint rows are defined up to n_max: the last window's last word.
     if (n_ck > 1) t_end = max(t_end, (n_ck - 1) * CB - 1 + ckw0[(size_t)(n_ck - 1) * B + p] + SW);
   }
@@ -786,17 +928,7 @@ __device__ __forceinline__ void ring_body(
       if (tt >= ev_next) {
         if (!(slow && tt < top_end)) {
           // A capture due at step tt - 1, after its compute.
-          if (tt - 1 == cap_next) {
-            int full = mp - cap_w * kW;
-            full = full < 0 ? 0 : (full > kW ? kW : full);
-            const uint32_t mask = full >= kW ? ~0u : (1u << full) - 1u;
-            uint32_t xv, xm;
-            read_slot(cap_q & (kT - 1), xv, xm);
-            acc += __popc(xv & mask) - __popc(xm & mask);
-            ++cap_q;
-            cap_w = next_of(cap_w, cap_q);
-            cap_next = cap_w < le + SW ? cap_w + np - 1 : kNever;
-          }
+          if (tt - 1 == cap_next) capture();
           if constexpr (kCk) {
             if (tt - 1 == ck_next) ck_take();
           }
@@ -804,6 +936,16 @@ __device__ __forceinline__ void ring_body(
             const int j = e & (kT - 1);
             const bool later_lap = e >= kT;
             set_slot(j, ~0u, 0u, later_lap);
+            if constexpr (kFill) {
+              const int hi = own ? min(abs_t[ent_w], n_st + ent_w) : 0;
+#pragma unroll
+              for (int jj = 0; jj < kK; ++jj) {
+                if (jj == j) {
+                  fw[jj] = ent_w;
+                  fhi[jj] = hi;
+                }
+              }
+            }
             if (j == 0 && later_lap) mm = top0 = false;  // slot 0 reads the link
             ++e;
             ent_w = next_of(ent_w, e);
@@ -823,7 +965,7 @@ __device__ __forceinline__ void ring_body(
             read_slot(j, xv, xm);
             if (tt - abs_w <= np - 1) acc += __popc(xv) - __popc(xm);
             if constexpr (kCk) {
-              for (; tv_k < n_ck && abs_w >= ck_top(tv_k); ++tv_k) {
+              for (; tv_k < n_tv && abs_w >= ck_top(tv_k); ++tv_k) {
                 if (tv_acc) atomicAdd(&ck_tv[(size_t)tv_k * B + p], tv_acc);
               }
               if (tt - abs_w <= np - 1) tv_acc += __popc(xv) - __popc(xm);
@@ -958,6 +1100,19 @@ __device__ __forceinline__ void ring_body(
                   j ? xhp[j - 1] : in_hp, j ? xhm[j - 1] : in_hm, vp[j], vm[j],
                   xhp[j], xhm[j]);
       }
+      if constexpr (kFill) {
+        // Each slot's word stores its state after its column tt - fw into
+        // row tt - fw, position fw - lo(tt - fw): at offset fw + R(tt - fw)
+        // of the pair's planes, R(c) = c * SW - lo(c) (ckw0[n_max + c]).
+#pragma unroll
+        for (int j = 0; j < kK; ++j) {
+          if (tt < fhi[j]) {
+            const int o = fw[j] + ckw0[n_max + tt - fw[j]];
+            f_vp[o] = vp[j];
+            f_vm[o] = vm[j];
+          }
+        }
+      }
       if (multi) {
         if (lane == 31) {
           s_link[u & 1][warp] =
@@ -970,18 +1125,30 @@ __device__ __forceinline__ void ring_body(
     }
   }
   // The capture of the last computed step, if due.
-  if (t - 1 == cap_next) {
-    int full = mp - cap_w * kW;
-    full = full < 0 ? 0 : (full > kW ? kW : full);
-    const uint32_t mask = full >= kW ? ~0u : (1u << full) - 1u;
-    uint32_t xv, xm;
-    read_slot(cap_q & (kT - 1), xv, xm);
-    acc += __popc(xv & mask) - __popc(xm & mask);
-  }
+  if (t - 1 == cap_next) capture();
   if constexpr (kCk) {
     if (t - 1 == ck_next) ck_take();
     if (tv_acc) {
-      for (; tv_k < n_ck; ++tv_k) atomicAdd(&ck_tv[(size_t)tv_k * B + p], tv_acc);
+      for (; tv_k < n_tv; ++tv_k) atomicAdd(&ck_tv[(size_t)tv_k * B + p], tv_acc);
+    }
+  }
+  if constexpr (kFill) {
+    // Rows past the pair's end: row n_st - 1 slid down the schedule
+    // (lo(c), ckw0[c]), the words entering after the end all-ones.
+    __syncthreads();  // row n_st - 1 is written
+    if (own) {
+      for (int i = n_st * SW + tid; i < n_max * SW; i += NT) {
+        const int c = i / SW;
+        const int w = ckw0[c] + i - c * SW;
+        uint32_t xv = ~0u, xm = 0u;
+        if (np > 0 && w < le + SW) {
+          const int o = (n_st - 1) * SW + w - le;
+          xv = f_vp[o];
+          xm = f_vm[o];
+        }
+        f_vp[i] = xv;
+        f_vm[i] = xm;
+      }
     }
   }
   if constexpr (kK1) {
@@ -1037,6 +1204,49 @@ __global__ void __launch_bounds__(kMaxThreads) banded_ring_kernel(
     int B, int S, int SW, int nw_pad, int n_lim, int ring) {
   ring_body<0, kRingBanded>(code, pb0, pb1, n, m, loend, ev, out, nullptr, nullptr,
                             nullptr, nullptr, n_max, B, S, SW, nw_pad, n_lim, 0, 0, ring);
+}
+
+// The largest ring of K4's and K3's ring kernels: 256 threads, so that the
+// fill's slot registers fit (a block ring above a warp needs bands of 256
+// live words, which their paths never send).
+constexpr int kMaxRingThreads = 256;
+
+// K4: per-pair costs under K1's rule, rings of `ring` threads.
+__global__ void __launch_bounds__(kMaxRingThreads, 1) banded_ring_pp_kernel(
+    const uint8_t* __restrict__ code, const uint32_t* __restrict__ pb0,
+    const uint32_t* __restrict__ pb1, const int32_t* __restrict__ n,
+    const int32_t* __restrict__ m, const int32_t* __restrict__ loend,
+    const int32_t* __restrict__ ev, int32_t* __restrict__ out, int n_max,
+    int B, int S, int SW, int nw_pad, int ring) {
+  ring_body<0, kRingBandedPP>(code, pb0, pb1, n, m, loend, ev, out, nullptr, nullptr,
+                              nullptr, nullptr, n_max, B, S, SW, nw_pad, 1, 0, 0, ring);
+}
+
+// K4: per-pair costs and checkpoints (K4's rows), rings of `ring` threads.
+__global__ void __launch_bounds__(kMaxRingThreads, 1) banded_ring_ck_pp_kernel(
+    const uint8_t* __restrict__ code, const uint32_t* __restrict__ pb0,
+    const uint32_t* __restrict__ pb1, const int32_t* __restrict__ n,
+    const int32_t* __restrict__ m, const int32_t* __restrict__ loend,
+    const int32_t* __restrict__ ev, int32_t* __restrict__ out,
+    uint32_t* __restrict__ ck_vp, uint32_t* __restrict__ ck_vm,
+    int32_t* __restrict__ ck_tv, const int32_t* __restrict__ ckw0, int n_max,
+    int B, int S, int SW, int nw_pad, int CB, int n_ck, int ring) {
+  ring_body<0, kRingBandedCkPP>(code, pb0, pb1, n, m, loend, ev, out, ck_vp, ck_vm,
+                                ck_tv, ckw0, n_max, B, S, SW, nw_pad, 1, CB, n_ck, ring);
+}
+
+// K3: the shared schedule's costs and every column's window planes,
+// pair-major (B, n_max, SW); tab holds lo(c) and R(c) = c * SW - lo(c).
+__global__ void __launch_bounds__(kMaxRingThreads, 1) banded_ring_fill_kernel(
+    const uint8_t* __restrict__ code, const uint32_t* __restrict__ pb0,
+    const uint32_t* __restrict__ pb1, const int32_t* __restrict__ n,
+    const int32_t* __restrict__ m, const int32_t* __restrict__ loend,
+    const int32_t* __restrict__ ev, int32_t* __restrict__ out,
+    uint32_t* __restrict__ vp_cols, uint32_t* __restrict__ vm_cols,
+    const int32_t* __restrict__ tab, int n_max, int B, int S, int SW, int nw_pad,
+    int n_lim, int ring) {
+  ring_body<0, kRingFill>(code, pb0, pb1, n, m, loend, ev, out, vp_cols, vm_cols,
+                          nullptr, tab, n_max, B, S, SW, nw_pad, n_lim, 0, 0, ring);
 }
 
 template <int kS>
@@ -1106,6 +1316,79 @@ int launch_banded_ring(const void* code, const void* pb0, const void* pb1,
   return (int)cudaGetLastError();
 }
 
+// A ring of `ring` threads: a power of two of lanes below a warp, 32 / ring
+// pairs a one-warp block; or a block of whole warps up to `most`, a pair a
+// block.  Returns the grid and block, or false.
+bool ring_grid(int ring, int most, int nw_pad, int B, dim3& grid, dim3& block) {
+  const bool sub = ring < 32;
+  if (ring < 1 || ring > most || (sub ? (ring & (ring - 1)) != 0 : ring % 32 != 0) ||
+      nw_pad % (ring * kK)) {
+    return false;
+  }
+  const int per = sub ? 32 / ring : 1;
+  grid = dim3((B + per - 1) / per);
+  block = dim3(sub ? 32 : ring);
+  return true;
+}
+
+int launch_banded_ring_pp(const void* code, const void* pb0, const void* pb1,
+                          const void* n, const void* m, const void* loend,
+                          const void* ev, void* out, int n_max, int B, int S,
+                          int SW, int nw_pad, int ring, void* stream) {
+  dim3 grid, block;
+  if (!ring_grid(ring, kMaxRingThreads, nw_pad, B, grid, block) || n_max < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B > 0) {
+    banded_ring_pp_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)code, (const uint32_t*)pb0, (const uint32_t*)pb1,
+        (const int32_t*)n, (const int32_t*)m, (const int32_t*)loend,
+        (const int32_t*)ev, (int32_t*)out, n_max, B, S, SW, nw_pad, ring);
+  }
+  return (int)cudaGetLastError();
+}
+
+int launch_banded_ring_ck_pp(const void* code, const void* pb0, const void* pb1,
+                             const void* n, const void* m, const void* loend,
+                             const void* ev, void* out, void* ck_vp, void* ck_vm,
+                             void* ck_tv, const void* ckw0, int n_max, int B, int S,
+                             int SW, int nw_pad, int ring, int CB, int n_ck,
+                             void* stream) {
+  dim3 grid, block;
+  if (!ring_grid(ring, kMaxRingThreads, nw_pad, B, grid, block) || n_max < 1 ||
+      CB < 1 || n_ck < 1 || (CB < SW && n_ck > 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B > 0) {
+    banded_ring_ck_pp_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)code, (const uint32_t*)pb0, (const uint32_t*)pb1,
+        (const int32_t*)n, (const int32_t*)m, (const int32_t*)loend,
+        (const int32_t*)ev, (int32_t*)out, (uint32_t*)ck_vp, (uint32_t*)ck_vm,
+        (int32_t*)ck_tv, (const int32_t*)ckw0, n_max, B, S, SW, nw_pad, CB, n_ck, ring);
+  }
+  return (int)cudaGetLastError();
+}
+
+int launch_banded_ring_fill(const void* code, const void* pb0, const void* pb1,
+                            const void* n, const void* m, const void* loend,
+                            const void* ev, void* out, void* vp_cols, void* vm_cols,
+                            const void* tab, int n_max, int B, int S, int SW,
+                            int nw_pad, int n_lim, int ring, void* stream) {
+  dim3 grid, block;
+  if (!ring_grid(ring, kMaxRingThreads, nw_pad, B, grid, block) || n_lim < 1 ||
+      n_max < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B > 0) {
+    banded_ring_fill_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)code, (const uint32_t*)pb0, (const uint32_t*)pb1,
+        (const int32_t*)n, (const int32_t*)m, (const int32_t*)loend,
+        (const int32_t*)ev, (int32_t*)out, (uint32_t*)vp_cols, (uint32_t*)vm_cols,
+        (const int32_t*)tab, n_max, B, S, SW, nw_pad, n_lim, ring);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <bool kCk, bool kPP>
 int launch(const void* code, const void* pb0, const void* pb1, const void* n,
            const void* m, const void* loend, const void* ev, void* out,
@@ -1144,8 +1427,11 @@ int launch(const void* code, const void* pb0, const void* pb1, const void* n,
 // for ring K9 and ring K10, every pair's ops/pinned.py::ring_span_pp (at
 // n_max for ring K10).  K1's entry takes `ring`, the lanes a pair (a power
 // of two below 32, or a warp multiple up to 512), whose ring must cover
-// ring_span(plan, n_lim); the code buffer is padded past the last pair
-// (ops/banded_kernel.py::CODE_PAD), as K7's.  Each launches on `stream`
+// ring_span(plan, n_lim); K4's take `ring` too, on per-pair ev as ring
+// K10's (banded_ring_ck_pp writing ring K10's outputs under K4's rows), and
+// K3's writes vp_cols/vm_cols (B, n_max, SW) pair-major from tab (2 * n_max,)
+// lo(c) then c * SW - lo(c) (n_max * SW < 2^31).  The code buffer is padded
+// past the last pair (ops/banded_kernel.py::CODE_PAD), as K7's.  Each launches on `stream`
 // without synchronising and returns cudaGetLastError() (0 on success).
 extern "C" {
 
@@ -1191,6 +1477,34 @@ int astarpa_banded_ring(const void* code, const void* pb0, const void* pb1,
                         int SW, int nw_pad, int n_lim, int ring, void* stream) {
   return launch_banded_ring(code, pb0, pb1, n, m, loend, ev, out, n_max, B, S,
                             SW, nw_pad, n_lim, ring, stream);
+}
+
+int astarpa_banded_ring_pp(const void* code, const void* pb0, const void* pb1,
+                           const void* n, const void* m, const void* loend,
+                           const void* ev, void* out, int n_max, int B, int S,
+                           int SW, int nw_pad, int ring, void* stream) {
+  return launch_banded_ring_pp(code, pb0, pb1, n, m, loend, ev, out, n_max, B, S, SW,
+                               nw_pad, ring, stream);
+}
+
+int astarpa_banded_ring_ck_pp(const void* code, const void* pb0, const void* pb1,
+                              const void* n, const void* m, const void* loend,
+                              const void* ev, void* out, void* ck_vp, void* ck_vm,
+                              void* ck_tv, const void* ckw0, int n_max, int B, int S,
+                              int SW, int nw_pad, int ring, int CB, int n_ck,
+                              void* stream) {
+  return launch_banded_ring_ck_pp(code, pb0, pb1, n, m, loend, ev, out, ck_vp, ck_vm,
+                                  ck_tv, ckw0, n_max, B, S, SW, nw_pad, ring, CB, n_ck,
+                                  stream);
+}
+
+int astarpa_banded_ring_fill(const void* code, const void* pb0, const void* pb1,
+                             const void* n, const void* m, const void* loend,
+                             const void* ev, void* out, void* vp_cols, void* vm_cols,
+                             const void* tab, int n_max, int B, int S, int SW,
+                             int nw_pad, int n_lim, int ring, void* stream) {
+  return launch_banded_ring_fill(code, pb0, pb1, n, m, loend, ev, out, vp_cols, vm_cols,
+                                 tab, n_max, B, S, SW, nw_pad, n_lim, ring, stream);
 }
 
 int astarpa_ring_ck(const void* code, const void* pb0, const void* pb1,

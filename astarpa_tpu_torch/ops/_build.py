@@ -114,6 +114,9 @@ ENTRIES = {
     "astarpa_ring_cost_wide": (8, 8),
     "astarpa_ring_ck_pp": (12, 8),
     "astarpa_banded_ring": (8, 7),
+    "astarpa_banded_ring_pp": (8, 6),
+    "astarpa_banded_ring_ck_pp": (12, 8),
+    "astarpa_banded_ring_fill": (11, 7),
     "astarpa_nw_right_edge": (8, 2),
 }
 

@@ -12,10 +12,15 @@ and of ``astarpa_tpu/ops/pinned.py::pinned_cost_tpu``, ``pinned_ck_tpu``,
   resident words (8 register slots a lane, a few lanes a pair below 256
   live words, up to :data:`RING_MAX_WORDS`);
 - :func:`banded_ck` — K2, shared schedule, costs and checkpoints;
-- :func:`banded_fill` — K3, shared schedule, costs and every column's planes;
-- :func:`banded_fill_pp` — K3, per-pair schedules, the same;
-- :func:`banded_cost_pp` — K4, per-pair schedules, costs;
-- :func:`banded_ck_pp` — K4, per-pair schedules, costs and checkpoints;
+- :func:`banded_fill` — K3, shared schedule, costs and every column's
+  planes: on the card K1's ring storing each word's state after each
+  column, in pair-major storage;
+- :func:`banded_fill_pp` — K3, per-pair schedules, the same (the old
+  one-thread-a-pair kernel);
+- :func:`banded_cost_pp` — K4, per-pair schedules, costs: on the card K1's
+  ring on per-pair event rows (:func:`banded_ring_pp_tables`);
+- :func:`banded_ck_pp` — K4, per-pair schedules, costs and checkpoints: the
+  same ring writing K4's checkpoint rows;
 - :func:`striped_cost` — K5, shared schedule, any band height, costs: the
   ring kernels of :func:`pinned_cost` up to :data:`RING_COST_MAX_WORDS`
   live words, the stripe kernel past them;
@@ -54,12 +59,16 @@ from .words import lengths, to_tensor
 #: ``nw_right_edge`` is K11's, whose wrapper is in :mod:`.nw_kernel`;
 #: ``banded_cost`` counts the old one-thread-a-pair K1, which only the
 #: internal ``_launch("banded_cost", ...)`` runs (:func:`banded_cost` runs
-#: ``banded_ring``).
+#: ``banded_ring``); ``banded_fill`` the old K3 (:func:`banded_fill` runs
+#: ``banded_ring_fill``); ``banded_cost_pp`` and ``banded_ck_pp`` the old
+#: K4, which only :func:`banded_ck_pp` runs, for an interval its ring
+#: refuses (:func:`k4_kernel`).
 LAUNCHES = {"banded_cost": 0, "banded_ck": 0, "banded_fill": 0,
             "banded_fill_pp": 0, "banded_cost_pp": 0, "banded_ck_pp": 0, "striped_cost": 0, "striped_ck": 0,
             "pinned_cost": 0, "pinned_ck": 0, "pinned_cost_pp": 0,
             "pinned_ck_pp": 0, "ring_ck": 0, "ring_cost_pp": 0,
             "ring_cost_wide": 0, "banded_ring": 0, "ring_ck_pp": 0,
+            "banded_ring_pp": 0, "banded_ring_ck_pp": 0, "banded_ring_fill": 0,
             "nw_right_edge": 0}
 
 
@@ -76,7 +85,9 @@ _LABELS = {"banded_cost": "cuda-banded", "banded_ck": "cuda-banded-ck",
            "pinned_cost_pp": "cuda-pinned-pp", "pinned_ck_pp": "cuda-pinned-pp-ck",
            "ring_ck": "cuda-ring-ck", "ring_cost_pp": "cuda-ring-pp",
            "ring_cost_wide": "cuda-ring-wide", "banded_ring": "cuda-banded-ring",
-           "ring_ck_pp": "cuda-ring-pp-ck", "nw_right_edge": "cuda-nw"}
+           "ring_ck_pp": "cuda-ring-pp-ck", "banded_ring_pp": "cuda-banded-ring-pp",
+           "banded_ring_ck_pp": "cuda-banded-ring-ck-pp",
+           "banded_ring_fill": "cuda-banded-ring-fill", "nw_right_edge": "cuda-nw"}
 
 
 def route(device: torch.device, kernel: str = "banded_cost") -> str:
@@ -119,12 +130,21 @@ def banded_fill(a0, a1, pb0, pb1, n, m, band_words: int,
     """Costs plus every column's window planes on the shared schedule:
     ``(costs, vp_cols, vm_cols)`` with (n_max, SW, B) planes, as
     :func:`.banded.banded_fill_ref`.  The planes are checked on both
-    routes."""
+    routes.
+
+    On the card K1's ring (``banded_ring_fill_kernel``,
+    :func:`banded_ring_fill_tables`) stores each word's state after each
+    column; it raises ``ValueError`` past :data:`RING_K4_MAX_WORDS` live
+    words.  The planes are stored (B, n_max, SW) and returned as an
+    (n_max, SW, B) view of that storage, so that ``planes.permute(2, 0,
+    1)`` (the trace route's pair-major readback) is contiguous: with that
+    transpose counted, pair-major storage beat pair-minor on the route's
+    pack (``PERF.md`` §6).  Raises ``ValueError`` when one pair's plane
+    holds 2^31 words (:func:`fill_plane_check`)."""
     if _plain(a0):
         _check("banded_fill", a0, a1, pb0, pb1, band_words)
         return banded.banded_fill_ref(a0, a1, pb0, pb1, n, m, band_words, diag)
-    return _launch("banded_fill", a0, a1, pb0, pb1, n, m, band_words, diag=diag,
-                   fill=True)
+    return _launch_banded_ring_fill(a0, a1, pb0, pb1, n, m, band_words, diag)
 
 
 def banded_fill_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
@@ -142,23 +162,47 @@ def banded_fill_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
 def banded_cost_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
                    quantum: int = banded.SCHEDULE_Q) -> torch.Tensor:
     """Upper bounds with per-pair schedules, as
-    :func:`.banded.banded_cost_pp_ref`."""
+    :func:`.banded.banded_cost_pp_ref`.
+
+    On the card K1's ring on per-pair event rows
+    (``banded_ring_pp_kernel``; :func:`banded_ring_pp_tables`; it raises
+    ``ValueError`` past :data:`RING_K4_MAX_WORDS` live words)."""
     if _plain(a0):
         return banded.banded_cost_pp_ref(a0, a1, pb0, pb1, n, m, schedule,
                                          band_words, quantum)
-    return _launch("banded_cost_pp", a0, a1, pb0, pb1, n, m, band_words,
-                   schedule=schedule, quantum=quantum)
+    return _launch_banded_ring_pp(a0, a1, pb0, pb1, n, m, schedule, band_words, quantum)
 
 
 def banded_ck_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
                  col_block: int, quantum: int = banded.SCHEDULE_Q):
     """Per-pair costs plus checkpoints, as :func:`.banded.banded_ck_pp_ref`
-    (the interval rounded to whole quantum groups)."""
+    (the interval rounded to whole quantum groups).  On the card K1's ring
+    writing K4's checkpoint rows (``banded_ring_ck_pp_kernel``), or the
+    old K4 for an interval the ring refuses (:func:`k4_kernel`)."""
     if _plain(a0):
         return banded.banded_ck_pp_ref(a0, a1, pb0, pb1, n, m, schedule,
                                        band_words, col_block, quantum)
-    return _launch("banded_ck_pp", a0, a1, pb0, pb1, n, m, band_words,
-                   schedule=schedule, quantum=quantum, col_block=col_block)
+    SW = min(band_words, pb0.shape[0])
+    if k4_kernel(a0.shape[0], SW, col_block, quantum) == "banded_ck_pp":
+        return _launch("banded_ck_pp", a0, a1, pb0, pb1, n, m, band_words,
+                       schedule=schedule, quantum=quantum, col_block=col_block)
+    return _launch_banded_ring_pp(a0, a1, pb0, pb1, n, m, schedule, band_words, quantum,
+                                  col_block)
+
+
+def k4_kernel(n_max: int, SW: int, col_block: int | None = None,
+              quantum: int = banded.SCHEDULE_Q) -> str:
+    """The :data:`LAUNCHES` key of what :func:`banded_cost_pp` (or, with
+    ``col_block``, :func:`banded_ck_pp`) runs on the card: K4's ring
+    (``banded_ring_pp``, ``banded_ring_ck_pp``), or, for checkpoints at a
+    Q-rounded interval below SW with more than one checkpoint, which the
+    ring refuses (:func:`.pinned.k4_ring_takes`), the old K4
+    (``banded_ck_pp``), a test on the host made before the launch."""
+    if col_block is None:
+        return "banded_ring_pp"
+    if pinned.k4_ring_takes(n_max, SW, col_block, quantum):
+        return "banded_ring_ck_pp"
+    return "banded_ck_pp"
 
 
 def striped_cost(a0, a1, pb0, pb1, n, m, band_words: int,
@@ -172,7 +216,8 @@ def striped_cost(a0, a1, pb0, pb1, n, m, band_words: int,
     live words never outnumber the band) runs :func:`pinned_cost`'s ring
     kernels, a taller one the stripe kernel K5.  ``stripe_words`` picks the
     stripe kernel at that stripe height (see :func:`striped_threads`).  The
-    results do not depend on either."""
+    results do not depend on either.  On the card the ring refuses a
+    schedule shifted at column 0, as :func:`pinned_cost` does."""
     if _plain(a0):
         return striped.striped_cost_ref(a0, a1, pb0, pb1, n, m, band_words, diag)
     if stripe_words is None and pinned_cost_takes(min(band_words, pb0.shape[0])):
@@ -220,7 +265,12 @@ def pinned_cost(a0, a1, pb0, pb1, n, m, band_words: int,
     to 16384; ``ring_words`` and ``thread_words`` force a size and a
     design (the results do not depend on them).  Raises ``ValueError`` on
     both routes when the ring would need more than 16384 words, or the
-    forced ring cannot hold the live words."""
+    forced ring cannot hold the live words, and on the card, before the
+    launch, on a schedule shifted at column 0 (``lo(0) = 1``), which these
+    rings mis-compute (only K1's layout starts slot 0 from the codes;
+    ``csrc/pinned.cu``'s header).  The runner never sends one: it needs a
+    bucket whose longest a is one character, whose b then fits K1's
+    ring."""
     SW = _check("pinned_cost", a0, a1, pb0, pb1, band_words)
     n_max, S = a0.shape[0], pb0.shape[0]
     plan = striped.plan_striped(n_max, S, SW, diag)
@@ -228,6 +278,8 @@ def pinned_cost(a0, a1, pb0, pb1, n, m, band_words: int,
                                       ring_words, thread_words)
     if _plain(a0):
         return striped.pinned_cost_ref(a0, a1, pb0, pb1, n, m, band_words, diag)
+    if plan["lo"][0] > 0:
+        raise ValueError("pinned_cost: the cost rings refuse a schedule shifted at column 0")
     return _launch_ring_cost(a0, a1, pb0, pb1, n, m, SW, plan, threads, words)
 
 
@@ -625,6 +677,18 @@ def _launch_ring_cost(a0, a1, pb0, pb1, n, m, SW, plan, threads, thread_words):
     return out
 
 
+def _pp_event_rows(plan: dict, ring_words: int, dev) -> torch.Tensor:
+    """(B, 3, nw_pad) int32 per-pair event rows of a ring of ``ring_words``
+    slots: each pair's ``ent_t``, ``top_t`` and ``abs_t``, then ``NEVER``
+    up to one ring past the longest pair's live words."""
+    B, nw = plan["ent_t"].shape
+    ev = torch.full((B, 3, (-(-nw // ring_words) + 1) * ring_words), striped.NEVER,
+                    dtype=torch.int32, device=dev)
+    for row, key in enumerate(("ent_t", "top_t", "abs_t")):
+        ev[:, row, :nw] = plan[key]
+    return ev
+
+
 def ring_pp_events(sched: np.ndarray, n, SW: int, dev, ring_words: int | None = None,
                    n_lim: int | None = None):
     """Device-side event table of a ring K9 or ring K10 launch, built on
@@ -642,13 +706,7 @@ def ring_pp_events(sched: np.ndarray, n, SW: int, dev, ring_words: int | None = 
                             else np.full(len(n), n_lim, np.int64), device=dev)
     span = int(pinned.ring_span_pp(plan, n_lim, SW).max())
     threads = ring_threads(span, ring_words)
-    rw = threads * STRIPED_WORDS_PER_THREAD
-    B, nw = plan["ent_t"].shape
-    ev = torch.full((B, 3, (-(-nw // rw) + 1) * rw), striped.NEVER, dtype=torch.int32,
-                    device=dev)
-    for row, key in enumerate(("ent_t", "top_t", "abs_t")):
-        ev[:, row, :nw] = plan[key]
-    return plan, ev, threads
+    return plan, _pp_event_rows(plan, threads * STRIPED_WORDS_PER_THREAD, dev), threads
 
 
 def _launch_ring_pp(a0, a1, pb0, pb1, n, m, schedule, SW, quantum, ring_words=None):
@@ -707,7 +765,8 @@ def _launch_ring_ck_pp(a0, a1, pb0, pb1, n, m, schedule, band_words, col_block, 
     return (out,) + outs
 
 
-def banded_ring_layout(span: int, B: int, lanes: int | None = None) -> dict:
+def banded_ring_layout(span: int, B: int, lanes: int | None = None,
+                       max_words: int | None = None) -> dict:
     """Launch layout of K1's ring kernel for ``B`` pairs whose band keeps
     ``span`` words live (:func:`.striped.ring_span`): ``lanes`` a pair (the
     ring's threads, 8 register slots each), ``pairs`` a block, ``threads``
@@ -717,7 +776,12 @@ def banded_ring_layout(span: int, B: int, lanes: int | None = None) -> dict:
     pair and write nothing); a larger one takes the least warp multiple
     (:func:`ring_threads`), a pair a block.  ``lanes`` forces a ring size
     (a power of two below 32 or a warp multiple) that holds the span.
-    Raises ``ValueError`` past :data:`RING_MAX_WORDS` live words."""
+    Raises ``ValueError`` past ``max_words`` live words (default
+    :data:`RING_MAX_WORDS`, K1's; K4's and K3's rings take
+    :data:`RING_K4_MAX_WORDS`)."""
+    most = RING_MAX_WORDS if max_words is None else max_words
+    if span > most:
+        raise ValueError(f"ring kernel: {span} live words exceed the ring's {most}")
     if lanes is None:
         # One slot to spare: a ring below a warp whose slots the live run
         # fills keeps its top on the slow path (a word of the next lap in
@@ -728,10 +792,12 @@ def banded_ring_layout(span: int, B: int, lanes: int | None = None) -> dict:
             lanes *= 2
         if lanes * STRIPED_WORDS_PER_THREAD <= span:
             lanes = ring_threads(span)
-    elif not (0 < lanes <= 512 and (lanes & (lanes - 1) == 0 if lanes < 32 else lanes % 32 == 0)
+    elif not (0 < lanes <= most // STRIPED_WORDS_PER_THREAD
+              and (lanes & (lanes - 1) == 0 if lanes < 32 else lanes % 32 == 0)
               and span <= lanes * STRIPED_WORDS_PER_THREAD):
         raise ValueError(f"lanes must be a power of two below 32 or a warp multiple up to "
-                         f"512 whose 8 slots each hold the {span} live words, got {lanes}")
+                         f"{most // STRIPED_WORDS_PER_THREAD} whose 8 slots each hold the "
+                         f"{span} live words, got {lanes}")
     pairs = 32 // lanes if lanes < 32 else 1
     return dict(lanes=lanes, pairs=pairs, threads=max(lanes, 32), blocks=-(-B // pairs))
 
@@ -762,6 +828,139 @@ def _launch_banded_ring(a0, a1, pb0, pb1, n, m, band_words, diag, lanes=None):
         raise RuntimeError(f"banded_ring kernel launch failed: cudaError {rc}")
     LAUNCHES["banded_ring"] += 1
     return out
+
+
+#: Largest ring of K4's and K3's ring kernels (``kMaxRingThreads * kK`` in
+#: ``csrc/pinned.cu``): 256 threads of 8 register slots.
+RING_K4_MAX_WORDS = 256 * STRIPED_WORDS_PER_THREAD
+
+def banded_ring_pp_tables(a0, a1, n, schedule, SW: int, quantum: int,
+                          col_block: int | None = None, lanes: int | None = None) -> dict:
+    """What K4's ring launch reads besides the planes, built on the card
+    from the uploaded schedule: ``plan`` (:func:`.pinned.plan_pp`), ``ev``
+    (B, 3, nw_pad) per-pair event rows (:func:`ring_pp_events`'s), ``lay``
+    (:func:`banded_ring_layout` of the most live words of any pair up to
+    its own last capture, :func:`.pinned.ring_span_pp` at each pair's n,
+    read back once), the pairs' char codes (:func:`_ring_codes`) and, with
+    ``col_block``, ``CB``, ``n_ck`` and the window tops ``ckw0`` (n_ck, B).
+    The ring stops each pair at its own last capture in ck mode too: K4's
+    checkpoints past a pair's end hold its last window, which the capture
+    writes.  Checks the schedule (:func:`.pinned.check_pp_schedule`; a
+    shift at column 0 is taken) and, with ``col_block``, the interval
+    (:func:`.pinned.k4_ring_takes`)."""
+    dev = a0.device
+    n_max, B = a0.shape
+    sched = pinned.check_pp_schedule(schedule, n_max, B, quantum, column0=True)
+    tab = {}
+    if col_block is not None:
+        if not pinned.k4_ring_takes(n_max, SW, col_block, quantum):
+            raise ValueError(f"K4 ring: col_block {col_block} < band_words {SW}")
+        CB = banded.ck_col_block(col_block, n_max, quantum)
+        tab.update(CB=CB, n_ck=-(-n_max // CB))
+    n_host = np.asarray(torch.as_tensor(n).cpu(), np.int64)
+    plan = pinned.plan_pp(sched, n_host, SW, dev)
+    span = int(pinned.ring_span_pp(plan, np.maximum(n_host, 1), SW).max())
+    lay = banded_ring_layout(span, B, lanes, RING_K4_MAX_WORDS)
+    tab.update(plan=plan, lay=lay, code=_ring_codes(a0, a1),
+               ev=_pp_event_rows(plan, lay["lanes"] * STRIPED_WORDS_PER_THREAD, dev))
+    if col_block is not None:
+        tab["ckw0"] = pinned.ck_tops(plan["lo"], tab["CB"], tab["n_ck"])
+    return tab
+
+
+def _launch_banded_ring_pp(a0, a1, pb0, pb1, n, m, schedule, band_words, quantum,
+                           col_block=None, lanes=None, tables=None):
+    """K4 on the card: per-pair costs (and, with ``col_block``, K4's
+    checkpoints) from one pass over rings of resident words, K1's layout on
+    per-pair event rows.  ``tables`` (from :func:`banded_ring_pp_tables`)
+    skips building them; ``lanes`` forces the ring's lanes."""
+    from ._build import load
+
+    dev = a0.device
+    n_max, B = a0.shape
+    S = pb0.shape[0]
+    ck = col_block is not None
+    key = "banded_ring_ck_pp" if ck else "banded_ring_pp"
+    SW = _check(key, a0, a1, pb0, pb1, band_words)
+    tab = tables or banded_ring_pp_tables(a0, a1, n, schedule, SW, quantum, col_block, lanes)
+    n_t, m_t = lengths(n, B, dev), lengths(m, B, dev)
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    head = [tab["code"], pb0, pb1, n_t, m_t, tab["plan"]["loend"], tab["ev"], out]
+    ints = [n_max, B, S, SW, tab["ev"].shape[2], tab["lay"]["lanes"]]
+    outs = ()
+    if ck:
+        n_ck = tab["n_ck"]
+        outs = (torch.empty((n_ck, SW, B), dtype=torch.int32, device=dev),
+                torch.empty((n_ck, SW, B), dtype=torch.int32, device=dev),
+                torch.empty((n_ck, B), dtype=torch.int32, device=dev))
+        head += list(outs) + [tab["ckw0"]]
+        ints += [tab["CB"], n_ck]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(load(), f"astarpa_{key}")(*(t.data_ptr() for t in head), *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
+    LAUNCHES[key] += 1
+    return (out,) + outs if ck else out
+
+
+def banded_ring_fill_tables(a0, a1, n, S: int, SW: int, diag,
+                            lanes: int | None = None) -> dict:
+    """What K3's ring launch reads besides the planes: ``plan``
+    (:func:`.striped.plan_striped`), ``ev`` (:func:`ring_events`), ``lay``
+    (:func:`banded_ring_layout` of :func:`.striped.ring_span` at the
+    longest pair's n, as K1's), the char codes and ``tab`` (2 * n_max,)
+    int32: ``lo(c)`` then ``R(c) = c * SW - lo(c)`` (word W's row after
+    column c sits at ``W + R(c)`` in its pair's (n_max, SW) planes).
+    Raises ``ValueError`` via :func:`fill_plane_check`."""
+    n_max, B = a0.shape
+    fill_plane_check(n_max, SW)
+    plan = striped.plan_striped(n_max, S, SW, diag)
+    n_lim = _cost_n_lim(n, n_max)
+    lay = banded_ring_layout(striped.ring_span(plan, n_lim), B, lanes, RING_K4_MAX_WORDS)
+    lo = plan["lo"].astype(np.int64)
+    tab = np.concatenate([lo, np.arange(n_max, dtype=np.int64) * SW - lo]).astype(np.int32)
+    return dict(plan=plan, lay=lay, n_lim=n_lim, code=_ring_codes(a0, a1),
+                ev=to_tensor(ring_events(plan, lay["lanes"] * STRIPED_WORDS_PER_THREAD),
+                             a0.device),
+                tab=to_tensor(tab, a0.device))
+
+
+def fill_plane_check(n_max: int, SW: int) -> None:
+    """K3's ring indexes a pair's (n_max, SW) planes in 32 bits from a
+    64-bit pair base: raises ``ValueError`` when one pair's plane holds
+    2^31 words or more (the batch's planes may hold any number)."""
+    if n_max * SW >= 1 << 31:
+        raise ValueError(f"banded_fill: a pair's plane of {n_max * SW} words exceeds 2^31")
+
+
+def _launch_banded_ring_fill(a0, a1, pb0, pb1, n, m, band_words, diag, lanes=None,
+                             tables=None):
+    """K3 on the card: K1's ring storing each live word's state after each
+    column below its pair's end, then each pair's rows past its end from
+    its row n - 1 (``tables`` as :func:`banded_ring_fill_tables`), into
+    pair-major (B, n_max, SW) storage, returned as (n_max, SW, B) views."""
+    from ._build import load
+
+    dev = a0.device
+    n_max, B = a0.shape
+    S = pb0.shape[0]
+    SW = _check("banded_ring_fill", a0, a1, pb0, pb1, band_words)
+    tab = tables or banded_ring_fill_tables(a0, a1, n, S, SW, diag, lanes)
+    n_t, m_t = lengths(n, B, dev), lengths(m, B, dev)
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    planes = (torch.empty((B, n_max, SW), dtype=torch.int32, device=dev),
+              torch.empty((B, n_max, SW), dtype=torch.int32, device=dev))
+    head = [tab["code"], pb0, pb1, n_t, m_t, _loend(tab["plan"], n, n_t, n_max, dev),
+            tab["ev"], out, *planes, tab["tab"]]
+    ints = [n_max, B, S, SW, tab["ev"].shape[1], tab["n_lim"], tab["lay"]["lanes"]]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = load().astarpa_banded_ring_fill(*(t.data_ptr() for t in head), *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"banded_ring_fill kernel launch failed: cudaError {rc}")
+    LAUNCHES["banded_ring_fill"] += 1
+    return (out,) + tuple(x.permute(1, 2, 0) for x in planes)
 
 
 def pinned_pp_events(sched: np.ndarray, n, SW: int, threads: int, n_lim, dev):

@@ -42,13 +42,16 @@ from .striped import NEVER
 from .words import ONES, myers_word, popcount, prefix_mask, to_tensor
 
 
-def check_pp_schedule(schedule, n_max: int, B: int, quantum: int) -> np.ndarray:
+def check_pp_schedule(schedule, n_max: int, B: int, quantum: int,
+                      column0: bool = False) -> np.ndarray:
     """:func:`.banded.check_schedule` (0/1, shape, shifts only at multiples
     of ``quantum``, so at most one shift per column) plus the pinned
     kernels' own condition: column 0 unshifted (every band starts at word
-    0).  Returns the schedule as contiguous uint8."""
+    0), unless ``column0`` (K4's ring, whose step starts the band top's
+    codes at step 0 when word 0 leaves at once).  Returns the schedule as
+    contiguous uint8."""
     sched = check_schedule(schedule, n_max, B, quantum)
-    if sched[:1].any():
+    if not column0 and sched[:1].any():
         raise ValueError("pinned per-pair schedule: column 0 must be unshifted")
     return sched
 
@@ -126,14 +129,23 @@ def ck_tops(lo: torch.Tensor, CB: int, n_ck: int) -> torch.Tensor:
 
 
 def _sweep_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int, quantum: int,
-              col_block=None):
-    """The staggered loop both plain versions share; returns ``(costs,
-    ck)`` with ``ck = (ck_vp, ck_vm, ck_tv)`` when ``col_block`` is set."""
+              col_block=None, freeze: bool = False):
+    """The staggered loop the plain versions share; returns ``(costs,
+    ck)`` with ``ck = (ck_vp, ck_vm, ck_tv)`` when ``col_block`` is set.
+
+    ``freeze``: K4's contract past a pair's end instead of K10's.  A word
+    steps no column ``>= n_p`` (its state stays the one after column ``n_p
+    - 1``; a word entering later stays all-ones), so a checkpoint past the
+    end holds the finished window, slid; its top value is ``min(k*CB,
+    n_p)`` plus every value absorbed above its window top, past the end
+    too (K4's ``top_val``).  Costs do not change.  It also takes a schedule
+    shifted at column 0 (word 0 enters and leaves at step 0, as K4 absorbs
+    its all-ones top word before column 0)."""
     n_max, B = a0.shape
     S = pb0.shape[0]
     SW = min(band_words, S)
     dev = a0.device
-    sched = check_pp_schedule(schedule, n_max, B, quantum)
+    sched = check_pp_schedule(schedule, n_max, B, quantum, column0=freeze)
     n_host = np.asarray(torch.as_tensor(n).cpu(), np.int64)
     m_host = np.asarray(torch.as_tensor(m).cpu(), np.int64)
     if col_block is not None:
@@ -156,6 +168,7 @@ def _sweep_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int, quantum: int,
     hp_out = torch.zeros((nw, B), dtype=torch.int32, device=dev)
     hm_out = torch.zeros((nw, B), dtype=torch.int32, device=dev)
     acc = torch.zeros(B, dtype=torch.int32, device=dev)
+    acc_all = torch.zeros(B, dtype=torch.int32, device=dev)  # past the end too
     cap = torch.zeros(B, dtype=torch.int32, device=dev)
     A = torch.zeros(B, dtype=torch.long, device=dev)  # next word to absorb
     E = torch.zeros(B, dtype=torch.long, device=dev)  # next word to enter
@@ -197,12 +210,15 @@ def _sweep_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int, quantum: int,
             alive = t - A <= n_t - 1
             val = popcount(vp[rows, pair]) - popcount(vm[rows, pair])
             acc += torch.where(a_sel & alive, val, 0)
+            acc_all += torch.where(a_sel, val, 0)
             A += a_sel
         lo_w, hi_w = int(A.min()), int(E.max())
         if lo_w >= hi_w:
             continue
         ws = w_all[lo_w:hi_w]
         live = (ws[:, None] >= A[None, :]) & (ws[:, None] < E[None, :])
+        if freeze:
+            live &= (t - ws)[:, None] < n_t[None, :]
         cols = (t - ws).clamp(0, n_max - 1)
         prow = ws.clamp(max=S - 1)
         eq = (a0[cols] ^ pb0[prow]) & (a1[cols] ^ pb1[prow])
@@ -235,7 +251,8 @@ def _sweep_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int, quantum: int,
                 r, p = row[ok].long(), pair[ok]
                 ck[0][k, r, p] = vp[w, p]
                 ck[1][k, r, p] = vm[w, p]
-                ck[2][k] = torch.where(row == 0, acc + k * CB, ck[2][k])
+                tv = acc_all + n_t.clamp(max=k * CB) if freeze else acc + k * CB
+                ck[2][k] = torch.where(row == 0, tv, ck[2][k])
     covered = (m_t - loend * W) <= SW * W
     costs = torch.where(covered, acc + cap + n_t, INF)
     return costs, ck
@@ -266,3 +283,55 @@ def pinned_ck_pp_ref(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
     costs, ck = _sweep_pp(a0, a1, pb0, pb1, n, m, schedule, band_words, quantum,
                           col_block)
     return (costs,) + ck
+
+
+def k4_ring_takes(n_max: int, SW: int, col_block: int, quantum: int) -> bool:
+    """Whether K4's checkpoint ring (``banded_ring_ck_pp_kernel`` in
+    ``csrc/pinned.cu``, whose plain twin is
+    :func:`banded_ck_pp_staggered_ref`) takes this interval: not a
+    Q-rounded one below SW with more than one checkpoint, whose windows
+    overlap (K4 allows it, ring K10's row cursor does not).  The domain
+    ladder's intervals are at least SW + 8 unless n_max clamps them; the
+    wrapper sends what the ring refuses to the old K4, a test on the host
+    made before the launch.  K4's cost ring takes every schedule."""
+    CB = ck_col_block(col_block, n_max, quantum)
+    return CB >= SW or -(-n_max // CB) == 1
+
+
+def banded_cost_pp_staggered_ref(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
+                                 quantum: int = 32) -> torch.Tensor:
+    """K4's costs (:func:`.banded.banded_cost_pp_ref`) from the staggered
+    sweep on the per-pair plan (:func:`plan_pp`): the plain twin of K4's
+    ring kernel, bit for bit K4's plain version.  The staggered DP is K9's
+    (``<=`` K4's in the reference, equal in the port: every word's profile
+    row is clamped at ``S - 1`` as K4 clamps its entering word, and no word
+    below the band bottom runs); K4's rule differs from K9's only at ``n
+    == 0`` (cost ``m``, where K9 gives 0).  Row m above the window at
+    column n-1 gives the absorbed sum plus n (K4's ``top_val``), below it
+    ``INF``.  A schedule shifted at column 0 is taken, as K4 takes it
+    (K9 and K10 refuse it)."""
+    costs = _sweep_pp(a0, a1, pb0, pb1, n, m, schedule, band_words, quantum,
+                      freeze=True)[0]
+    return _k1_rule(costs, n, m)
+
+
+def banded_ck_pp_staggered_ref(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
+                               col_block: int, quantum: int = 32):
+    """K4's costs and checkpoints (:func:`.banded.banded_ck_pp_ref`) from
+    the staggered sweep, the plain twin of K4's checkpoint ring: K10's rows
+    (word w of checkpoint k taken at step ``k*CB - 1 + w``) with K4's
+    contract past a pair's end (``freeze``: no word steps a column ``>=
+    n_p``, the top value counts every absorbed word and ``min(k*CB,
+    n_p)``).  Raises when the Q-rounded interval is below SW
+    (:func:`ck_layout_pp`; :func:`k4_ring_takes`)."""
+    costs, ck = _sweep_pp(a0, a1, pb0, pb1, n, m, schedule, band_words, quantum,
+                          col_block, freeze=True)
+    return (_k1_rule(costs, n, m),) + ck
+
+
+def _k1_rule(costs: torch.Tensor, n, m) -> torch.Tensor:
+    """K1's and K4's cost of a pair with no column: m (the staggered sweep
+    gives 0)."""
+    n_t = torch.as_tensor(np.asarray(torch.as_tensor(n).cpu(), np.int64), device=costs.device)
+    m_t = torch.as_tensor(np.asarray(torch.as_tensor(m).cpu(), np.int64), device=costs.device)
+    return torch.where(n_t == 0, m_t.to(torch.int32), costs)

@@ -16,8 +16,10 @@ loop's own overhead included.  The last line is that summary.
 
 With ``--ring`` it splits the step loop of each matching ring kernel
 (``pinned_ring_kernel``, and the kernels of ``ring_body``:
-``ring_cost_kernel``, ring K10's ``ring_ck_pp_kernel`` and K1's
-``banded_ring_kernel``; :func:`step_split`): the largest loop closed by a
+``ring_cost_kernel``, ring K10's ``ring_ck_pp_kernel``, K1's
+``banded_ring_kernel``, K4's ``banded_ring_pp_kernel`` and
+``banded_ring_ck_pp_kernel`` and K3's ``banded_ring_fill_kernel``;
+:func:`step_split`): the largest loop closed by a
 conditional branch, whose body runs ``--steps`` steps (1 for
 ``pinned_ring_kernel``, 8 for ``ring_body``'s, unrolled by 8).  It prints one JSON line per kernel instance with
 the instructions per thread-step by class (word-step ALU, moves, hand-off,
@@ -49,7 +51,8 @@ CONTROL = {"BRA", "BRX", "JMP", "JMX", "EXIT", "RET", "CALL", "BSSY", "BSYNC", "
 STEP_CLASSES = ("word_alu", "moves", "handoff", "tests", "memory", "control", "uniform", "other")
 #: The kernels of ``csrc/pinned.cu``'s ``ring_body``, whose step loop is
 #: unrolled by 8.
-RING_BODY = ("ring_cost_kernel", "ring_ck_pp_kernel", "banded_ring_kernel")
+RING_BODY = ("ring_cost_kernel", "ring_ck_pp_kernel", "banded_ring_kernel",
+             "banded_ring_pp_kernel", "banded_ring_ck_pp_kernel", "banded_ring_fill_kernel")
 #: Least int32 instructions of one Myers word step on sm_90 (``chip_smoke.py``).
 OPS_PER_WORD_STEP = 14
 _HANDOFF = {"SHFL", "LDS", "STS", "BAR", "WARPSYNC", "LDSM"}

@@ -145,11 +145,15 @@ def pinned_ck_layout(n_max: int, SW: int, col_block: int, lo: np.ndarray):
 
 
 def _sweep(a0, a1, pb0, pb1, n, m, band_words: int, diag, col_block=None,
-           exact_top: bool = False):
+           exact_top: bool = False, fill: bool = False):
     """The staggered loop the plain versions share; returns ``(costs,
     ck)`` with ``ck = (ck_vp, ck_vm, ck_tv)`` when ``col_block`` is set:
     K6's 8-aligned-top rows, or K8's rows from the true top when
-    ``exact_top``."""
+    ``exact_top``; with ``fill``, ``ck = (vp_cols, vm_cols)``, K3's (n_max,
+    SW, B) planes: word w's state after column c (at step c + w) in row c,
+    position ``w - lo(c)``, and no word steps a column ``>= n_p``, so a
+    finished pair's rows hold its last window, slid, and words entering
+    after its end stay all-ones (K3's contract past a pair's end)."""
     n_max, B = a0.shape
     S = pb0.shape[0]
     SW = min(band_words, S)
@@ -181,6 +185,10 @@ def _sweep(a0, a1, pb0, pb1, n, m, band_words: int, diag, col_block=None,
     cap_hi = int((n_host - 1 + loend_host + SW)[valid].max()) if valid.any() else 0
 
     ck = ck_at = None
+    if fill:
+        ck = (torch.empty((n_max, SW, B), dtype=torch.int32, device=dev),
+              torch.empty((n_max, SW, B), dtype=torch.int32, device=dev))
+        lo_t = torch.tensor(plan["lo"], device=dev)
     if col_block is not None:
         layout = pinned_ck_layout if exact_top else ck_layout
         CB, n_ck, ckw0 = layout(n_max, SW, col_block, plan["lo"])
@@ -216,8 +224,17 @@ def _sweep(a0, a1, pb0, pb1, n, m, band_words: int, diag, col_block=None,
         else:  # the first live word is the top: +1 carry
             hp_in = torch.cat([one, hp_out[A:E - 1]])
             hm_in = torch.cat([zero, hm_out[A:E - 1]])
-        vp[A:E], vm[A:E], hp_out[A:E], hm_out[A:E] = myers_word(
-            eq, vp[A:E], vm[A:E], hp_in, hm_in)
+        got = myers_word(eq, vp[A:E], vm[A:E], hp_in, hm_in)
+        if fill:
+            keep = (t - ws)[:, None] < n_t[None, :]  # no column past the pair's end
+            got = [torch.where(keep, g, x[A:E]) for g, x in zip(got, (vp, vm, hp_out, hm_out))]
+        vp[A:E], vm[A:E], hp_out[A:E], hm_out[A:E] = got
+        if fill:
+            c = t - ws
+            ok = c < n_max
+            c, w = c[ok], ws[ok]
+            pos = w - lo_t[c]
+            ck[0][c, pos], ck[1][c, pos] = vp[w], vm[w]
         if cap_lo <= t < cap_hi:
             wc = t + 1 - n_t
             sel = (n_t > 0) & (wc >= loend) & (wc < loend + SW)
@@ -273,6 +290,24 @@ def banded_cost_staggered_ref(a0, a1, pb0, pb1, n, m, band_words: int,
     n_t = torch.as_tensor(np.asarray(torch.as_tensor(n).cpu(), np.int64), device=costs.device)
     m_t = torch.as_tensor(np.asarray(torch.as_tensor(m).cpu(), np.int64), device=costs.device)
     return torch.where(n_t == 0, m_t.to(torch.int32), costs)
+
+
+def banded_fill_staggered_ref(a0, a1, pb0, pb1, n, m, band_words: int,
+                              diag: tuple | None = None):
+    """K3's costs and planes (:func:`.banded.banded_fill_ref`) from the
+    staggered sweep: the plain twin of K3's ring kernel
+    (``banded_ring_fill_kernel`` in ``csrc/pinned.cu``), bit for bit K3's
+    plain version.  Row i, position W - lo(i), is word W's state after
+    column i, stored at step i + W; a word steps no column ``>= n_p``, so
+    past a pair's end each row is its last window slid down the schedule,
+    words entering after the end all-ones, as K3 writes them (the kernel
+    copies those rows from row ``n_p - 1`` instead).  Costs under K1's rule
+    (:func:`banded_cost_staggered_ref`).  Returns ``(costs, vp_cols,
+    vm_cols)``, planes (n_max, SW, B)."""
+    costs, cols = _sweep(a0, a1, pb0, pb1, n, m, band_words, diag, fill=True)
+    n_t = torch.as_tensor(np.asarray(torch.as_tensor(n).cpu(), np.int64), device=costs.device)
+    m_t = torch.as_tensor(np.asarray(torch.as_tensor(m).cpu(), np.int64), device=costs.device)
+    return (torch.where(n_t == 0, m_t.to(torch.int32), costs),) + cols
 
 
 def ring_span(plan: dict, n_lim: int) -> int:

@@ -30,7 +30,8 @@ pairs retry at the band their banded upper bound predicts.
   round of at least :data:`PINNED_PP_MIN_SW` words runs the pinned
   per-pair kernels (K9 for costs, ring K9 up to the ring's 4096 words;
   K10 for checkpoint traces, ring K10 up to the ring's 4096 words), a
-  smaller one K4 (cost mode, or ck mode).
+  smaller one K4 (cost mode, or ck mode; on the card K1's ring on
+  per-pair event rows, the old K4 for an interval the ring refuses).
 
 CIGARs take one of two routes, chosen by :attr:`BatchAligner.combined`
 (the reference chooses by backend, ``runner.py:962-985``):
@@ -45,7 +46,9 @@ CIGARs take one of two routes, chosen by :attr:`BatchAligner.combined`
   of more than 64 words the host arm (native A* at moderate divergence, the
   block aligner :mod:`..aligners.astarpa2` above it); else the fill arm, K3
   (:func:`..ops.banded_kernel.banded_fill`: every column's window planes)
-  and a native ``trace_banded`` per pair.  The reference's checkpoint arm
+  and a native ``trace_banded`` per pair (on the card K3 is K1's ring
+  storing every column's window, pair-major, so the planes are read back
+  without a transpose).  The reference's checkpoint arm
   of ``_trace_bucket`` is not ported: it runs only on the reference's TPU
   backend (or in interpret mode), where the port's combined route serves.
 
@@ -86,7 +89,7 @@ from ..device import resolve_device
 from ..domain import domain_schedule, gap_domain
 from ..ops import banded, striped
 from ..ops.banded_kernel import (banded_ck, banded_ck_pp, banded_cost,
-                                 banded_cost_pp, banded_fill, pinned_ck,
+                                 banded_cost_pp, banded_fill, k4_kernel, pinned_ck,
                                  pinned_ck_pp, pinned_cost, pinned_cost_kernel,
                                  pinned_cost_pp, pinned_cost_takes, ring_takes, route,
                                  striped_ck, striped_cost)
@@ -129,8 +132,9 @@ class BatchStats:
     # "cuda-banded-fill", "cuda-banded-fill-pp", "cuda-banded-pp",
     # "cuda-banded-ck-pp", "cuda-striped", "cuda-striped-ck", "cuda-pinned",
     # "cuda-pinned-ck", "cuda-pinned-pp", "cuda-pinned-pp-ck", "cuda-ring-ck",
-    # "cuda-ring-pp", "cuda-banded-ring", "cuda-ring-pp-ck", or "torch-ref"
-    # on the CPU), set at dispatch.
+    # "cuda-ring-pp", "cuda-banded-ring", "cuda-ring-pp-ck",
+    # "cuda-banded-ring-pp", "cuda-banded-ring-ck-pp", "cuda-banded-ring-fill",
+    # or "torch-ref" on the CPU), set at dispatch.
     kernel: str | None = None
 
 
@@ -743,7 +747,8 @@ class BatchAligner:
         at least :data:`PINNED_PP_MIN_SW` words run K9 (ring K9 up to the
         ring's 4096 words, the stripe kernel past it) or K10 (ring K10 up
         to the ring's 4096 words, the stripe kernel past it), smaller ones
-        K4."""
+        K4 (its ring, or the old K4 for an interval the ring refuses:
+        :func:`..ops.banded_kernel.k4_kernel`)."""
         pinned = sw >= PINNED_PP_MIN_SW
         if want_ck:
             CB = self._cb(sw, args[0].shape[0])
@@ -751,12 +756,13 @@ class BatchAligner:
                 # The wrapper runs ring K10 where the ring holds the band.
                 return (pinned_ck_pp(*args, sched_arr, sw, CB, quantum),
                         "ring_ck_pp" if ring_takes(sw) else "pinned_ck_pp")
-            return banded_ck_pp(*args, sched_arr, sw, CB, quantum), "banded_ck_pp"
+            return (banded_ck_pp(*args, sched_arr, sw, CB, quantum),
+                    k4_kernel(args[0].shape[0], sw, CB, quantum))
         if pinned:
             # The wrapper runs ring K9 where the ring holds the band.
             return (pinned_cost_pp(*args, sched_arr, sw, quantum),
                     "ring_cost_pp" if ring_takes(sw) else "pinned_cost_pp")
-        return banded_cost_pp(*args, sched_arr, sw, quantum), "banded_cost_pp"
+        return banded_cost_pp(*args, sched_arr, sw, quantum), k4_kernel(args[0].shape[0], sw)
 
     # -- CIGAR path ------------------------------------------------------------
 
@@ -963,9 +969,10 @@ class BatchAligner:
             return
         shift = banded.shift_at_array(n_max, S, sw, diag)
         _, vp_cols, vm_cols = banded_fill(*args, sw, diag)
-        stats.kernel = route(self.device, "banded_fill")
+        stats.kernel = route(self.device, "banded_ring_fill")
         # The real lanes only, pair-major so that each pair's planes are
-        # one contiguous block, into pinned host memory in one copy.
+        # one contiguous block, into pinned host memory in one copy (the
+        # card's fill stores them so: no transpose there).
         vp_h, vm_h = (x.view(np.uint32) for x in _Readback(*(
             x[:, :, :B0].permute(2, 0, 1).contiguous() for x in (vp_cols, vm_cols)
         )).numpy())

@@ -20,9 +20,9 @@ Phases, one output line each (any failure exits non-zero):
    4096-pair cost pack at SW=32, a 512-pair align pack at its ladder's
    SW, each with the main path's diagonal, cut to their first 1024
    columns), bit for bit, and timed (CUDA events; the kernel also on the
-   whole cost pack; turns plain, kernel, kernel, plain on 500 bp pairs);
-6. the checkpoint and per-pair kernels (K2, K4 cost, K4 ck) against their
-   plain versions on a grid (B 33/1024, n <= 300, SW 1 to full
+   whole cost pack; twice on 500 bp pairs, timing only);
+6. the checkpoint and per-pair kernels (K2, K4 cost, K4 ck: K4's rings)
+   against their plain versions on a grid (B 33/1024, n <= 300, SW 1 to full
    height, CB 64/512, Q 32/8/1, gap, gcsh and random schedules), bit for
    bit on costs and every checkpoint plane;
 7. main path, config #4: ``BatchAligner(device="cuda")`` at its default
@@ -32,16 +32,17 @@ Phases, one output line each (any failure exits non-zero):
    with direct traces and with ``direct_dt=False`` (ck rounds), every
    CIGAR verified; f-rounds, SW and kernel ms per round, gcsh build
    seconds, Mbp/s; then 128 pairs of 40 kbp at e=5%, whose gcsh rounds
-   stay below that band (K4 cost and ck): cost, 4 costs against the
-   oracle, align with ``direct_dt=False``, every CIGAR verified;
+   stay below that band (K4 cost and ck, on K4's rings; the old K4 must
+   not run): cost, 4 costs against the oracle, align with
+   ``direct_dt=False``, every CIGAR verified;
 8. main path, checkpoint rungs: ``align_with_stats(direct_dt=False)`` on
    512 pairs of 10 kbp at e=5% (K2), every CIGAR verified;
-9. K2 and K4 against their plain versions at the main path's own shapes
-   (K4 and K4 ck on the pack and gcsh schedules of K4's last main-path
-   round cut to the first 256 columns; K4 on K1's shared schedule against
-   K1 at that round's full shape; K2 on phase 8's pack cut to 1024
-   columns), bit for bit, and timed in turns (plain, kernel, kernel,
-   plain) on 500 bp packs;
+9. K2 and K4 (its rings and the old K4) against their plain versions at
+   the main path's own shapes (K4 and K4 ck on the pack and gcsh schedules
+   of K4's last main-path round cut to the first 256 columns; K4's ring on
+   K1's shared schedule against K1 at that round's full shape; K2 on phase
+   8's pack cut to 1024 columns), bit for bit, and timed in turns on a
+   500 bp pack (timing only: K4's rings held to the old K4);
 
 10. the striped kernels K5 and K6 against their plain versions on a grid
     (B 33/160, n <= 1500, SW 8 to full height, bands taller than one
@@ -61,7 +62,7 @@ Phases, one output line each (any failure exits non-zero):
     SWs, K7/wide ring/K6 ms per rung, peak device memory, Mbp/s;
 12. K5's stripes, K7 and K6 (ring and stripe) against their plain versions at config #5's own shapes
     (its pack cut to the first 4096 columns, at the ladder's SW), timed in
-    turns (plain, kernels, kernels, plain); K5's stripes against K1 on that cut at SW
+    turns (plain, kernels, kernels); K5's stripes against K1 on that cut at SW
     64 to 2048 (the crossover behind ``runner.STRIPED_MIN_SW``);
 13. the pinned per-pair kernels K9 and K10 (their stripe kernels; phases 27
     and 32 hold the rings against the same plain results) against their plain versions on
@@ -95,7 +96,7 @@ Phases, one output line each (any failure exits non-zero):
     then the same pairs through ``BatchAligner(device="cuda").cost`` (K1
     ladder), its costs equal to K11's;
 18. K11 against its plain version on phase 17's pack cut to its first 512
-    pairs, timed in turns (plain, kernel, kernel, plain); K11 alone over
+    pairs, timed in turns (plain, kernel, kernel); K11 alone over
     chained launches on the whole pack and on it with one word more (S =
     33, a partial second stripe);
 19. the shared-schedule checkpoint kernel K8 against its plain version on
@@ -126,17 +127,20 @@ Phases, one output line each (any failure exits non-zero):
     rung, each beside its bound, their costs equal; the band sweep, the
     cost ring against K5's stripes on whole rungs in turns (K5, ring, ring,
     K5): config #4's pack (phase 20's) at SW 64 to 2048 and its full height
-    3149, config #5's at SW 3072, 4096 and 8192 (the wide ring), the bands
-    behind the runner's routing;
+    3149 (config #5's points were cut to keep the run short; phase 30
+    times the wide ring at 8192), the bands behind the runner's routing;
 24. the banded fill kernel K3 against its plain versions in both schedule
     modes on a grid (B 1/37/128, n <= 100 with n == 0 and m == 0 lanes, SW 1,
     8, 28, 32, 64 and a full height of 72 words, a diagonal whose only
-    shift is at column 0, per-pair schedules with Q 32/8/1 shifting at
-    column 0 and at the last column), bit for bit on costs and both planes;
+    shift is at column 0, the shared mode on K3's ring; per-pair schedules
+    with Q 32/8/1 shifting at column 0
+    and at the last column on the old K3), bit for bit on costs and both
+    planes;
 25. main path, the cost-then-trace align route on phase 8's 512 pairs of
     10 kbp at e=5%: ``BatchAligner(device="cuda", combined=False,
-    direct_dt=False).align_with_stats`` (K1 cost rungs, one K3 fill, the
-    planes read back once, a native ``trace_banded`` per pair), costs equal
+    direct_dt=False).align_with_stats`` (K1 cost rungs, one K3 fill on K3's
+    ring, the planes read back once, a native ``trace_banded`` per pair;
+    the old K3 must not run), costs equal
     to phase 8's, all 512 CIGARs verified, split by layer, peak device
     memory; the same pairs with ``direct_dt=True`` (the direct arm);
     ``align_iter`` over three of phase 4's batches; then K3 alone on the
@@ -174,9 +178,9 @@ Phases, one output line each (any failure exits non-zero):
     ring, timed against plain), bit for bit, and the refusal, without a
     launch, of more than 16384 live words;
 30. the cost ring against K5's stripes on whole main-path rungs, in turns
-    over chained launches, each beside its bound: K7 on config #5's SW =
-    2048 rung and config #4's full-height rung, the wide ring on config
-    #5's SW = 8192 rung;
+    over chained launches, each beside its bound: K7 on config #4's
+    full-height rung, the wide ring on config #5's SW = 8192 rung (config
+    #5's SW = 2048 rung: phase 23);
 31. K1's ring kernel (the main path's K1 since the redesign) against its
     plain version on a grid (SW 1, 2, 31, 32, 33 and 63 with and without a
     diagonal, pairs covered by the window, above and below it and n == 0,
@@ -192,6 +196,21 @@ Phases, one output line each (any failure exits non-zero):
     without a launch, of more than 4096 live words; then ring K10 against
     the stripe K10 in turns on config #5 default's and config #4's whole
     checkpoint rounds (phases 14 and 7);
+33. K4's rings (cost and checkpoints, the main path's K4)
+    against K4's plain versions on a grid (44 pairs of up to 200 bp beside
+    b of up to 500 bp, most far shorter than n_max so that checkpoints lie
+    past their end, n == 0, row m covered, above and below the window;
+    random per-pair schedules at Q 1 and 8 shifting at column 0 and sliding
+    past the last word, the pairs' gcsh schedules; SW 1, 4, 16 and full
+    height, CB = max(SW, 24); the runner's layout and 64-lane rings), bit
+    for bit on costs, every checkpoint row and top value; an interval below
+    SW on the old K4; K1's and K3's rings on a shared schedule shifted at
+    column 0, which the cost rings (K7, the wide ring) refuse without a
+    launch; then K4's rings against the old K4 in turns on phase 7's whole
+    40 kbp cost and checkpoint rounds (the kernel alone, its event tables
+    and codes alone, both in the wrapper's call), and K3's ring (alone and
+    with the trace route's transpose) against the old K3 on phase 25's
+    whole pack and its 1024-column cut;
 
 then the host seconds of each phase, the kernels' JSON line (each
 kernel's time, its plain version's, its bound from this run's inputs, its
@@ -204,8 +223,10 @@ are generated and the CIGARs verified on one pool of the host's cores,
 started once for the whole run, to keep the run short.  Launch counts are
 reset just before each main-path phase (3-4, 7, 8, 11, 14, 17, both calls
 of 20, 25) and read just after it; phases 3-4 and 25 launch K1's ring
-kernel (the old K1 none), phases 7 and 14 ring K9 for their cost rounds
-and ring K10 for their checkpoint rounds (the stripe K10 none), phase 11
+kernel (the old K1 none), phase 25 K3's ring (the old K3 none), phase 7
+K4's rings for its 40 kbp rounds (the old K4 none), phases 7 and 14 ring
+K9 for their cost rounds and ring K10 for their checkpoint rounds (the
+stripe K10 none), phase 11
 ring K6 for its 2048-word checkpoint rungs and the wide ring for its cost
 call from 8192 words.  Imports nothing of JAX and nothing of the
 JAX package.  Exits 1 without a usable GPU.
@@ -263,7 +284,7 @@ K8_LONG_N = 3600  # phase 19: several capture windows at full height (1188)
 K8_CHAINED = 3
 K7_CHAINED = 2
 K7_SWEEP_SW = (64, 128, 256, 512, 1024, 2048)  # phase 23, config #4's pack
-K7_SWEEP_C5_SW = (3072, 4096, 8192)  # phase 23, config #5's pack (8192: the wide ring)
+K7_SWEEP_C5_SW = ()  # phase 23, config #5's pack (none, to keep the run short)
 K7_GRID_LONG_N, K7_GRID_TALL_M = 2000, 38_000  # phases 22, 29: ~1188 words, 4.6 rings of 256
 K3_GRID_PAIRS, K3_GRID_N, K3_COL0_SW = 128, 100, 8  # phase 24
 K3_CHAINED = 2
@@ -271,7 +292,7 @@ K3_STREAM_BATCHES = 3  # phase 25's align_iter, over phase 4's batches
 K3_BLOCK_N, K3_BLOCK_ERRS = 2000, (0.05, 0.15, 0.1)  # phase 26's torch block DP
 RING_LONG_N, RING_TALL_M = 3500, 38_000  # phase 27: S = 1188, 256-word rings wrap
 RING_BIG_N, RING_BIG_M = 3000, 70_000  # phase 27: S = 2188, SW 2048
-RING_CHAINED = 2
+RING_CHAINED = 1
 WIDE_GRID_N, WIDE_GRID_TALL_M = 4200, 160_000  # phase 29: S = 5000, 4200 > 4096 live words
 C5_WIDE_CUT = 2048  # phase 29: config #5's pack cut for the wide ring at SW 8192
 WIDE_LOW_N, WIDE_LOW_TALL_M = 500, 150_000  # phase 29: S = 4688, forced wide rings wrap
@@ -656,24 +677,15 @@ def phase5_time(spy: LayerSpy) -> tuple[dict, tuple]:
     pairs1k = _generate(PAIRS, TURN_LENGTH, ERR, SEED + 1)
     args1k, _ = pack_batch_staggered(pairs1k, 32, device="cuda")
 
-    def run(plain):
-        f = banded.banded_cost_ref if plain else banded_kernel.banded_cost
-        return lambda: f(*args1k, TIMED_SW)
-
-    times, outs = {True: [], False: []}, {}
-    for plain in (True, False, False, True):
-        ms, outs[plain] = _event_ms(run(plain))
-        times[plain].append(ms)
-    err_t = int((outs[True].long() - outs[False].long()).abs().max())
-    if err_t:
-        fail("timed kernel != plain")
-    ms, plain_ms = float(np.mean(times[False])), float(np.mean(times[True]))
-    say(f"[5 time] turns on {TURN_LENGTH} bp pairs: B={PAIRS} n_max={args1k[0].shape[0]} "
-        f"SW={TIMED_SW}: kernel {times[False][0]:.3f}/{times[False][1]:.3f} ms, plain "
-        f"{times[True][0]:.1f}/{times[True][1]:.1f} ms (CUDA events), "
-        f"speed-up {plain_ms / ms:.1f}x, max_abs_err {err_t}")
+    # Timing only: the kernel is held to plain on the main path's shapes
+    # above.
+    times = [_event_ms(lambda: banded_kernel.banded_cost(*args1k, TIMED_SW))[0]
+             for _ in range(2)]
+    ms = float(np.mean(times))
+    say(f"[5 time] on {TURN_LENGTH} bp pairs: B={PAIRS} n_max={args1k[0].shape[0]} "
+        f"SW={TIMED_SW}: kernel {times[0]:.3f}/{times[1]:.3f} ms (CUDA events)")
     return {
-        "max_abs_err": max(err_c, err_a, err_t),
+        "max_abs_err": max(err_c, err_a),
         # The main path's cost pack cut to CUT_COLS columns: the kernel's
         # mean of two runs, plain's one run, the bound of the same inputs.
         "ms": float(np.mean(k10)), "plain_ms": plain10,
@@ -684,8 +696,8 @@ def phase5_time(spy: LayerSpy) -> tuple[dict, tuple]:
         "full_ms": float(np.mean(full_ms)),
         "full_bound_ms": plane_bound(args10k, TIMED_SW, [])["bound_ms"],
         "full_shape": {"B": PAIRS, "n_max": n_max10, "S": S10, "SW": TIMED_SW},
-        # The turns (plain, kernel, kernel, plain): means of two runs each.
-        "turns_ms": ms, "turns_plain_ms": plain_ms,
+        # 500 bp pairs: the kernel's mean of two runs.
+        "turns_ms": ms,
         "turns_shape": {"B": PAIRS, "n_max": args1k[0].shape[0],
                         "S": args1k[2].shape[0], "SW": min(TIMED_SW, args1k[2].shape[0])},
     }, (args10k, cost_l["diag"], plain10)
@@ -804,7 +816,8 @@ class RoundSpy:
     keeps each kernel's last inputs for the timing phases.  The event
     tables of K9/K10 are also timed on the card (CUDA events), and a K9/K10
     launch's kernel time is taken from the end of its tables to the end of
-    the call.  Each launch is recorded under the kernel that ran (its
+    the call (K4's ring from the end of its tables and codes).  Each
+    launch is recorded under the kernel that ran (its
     launch key: ``ring_ck`` for a ``striped_ck`` call the ring took), and
     ``last`` keeps each kernel's last inputs (and a wrapper's whose name is
     no launch key).  The launch counts stay with the wrappers."""
@@ -817,6 +830,7 @@ class RoundSpy:
             ("schedule", runner, "domain_schedule"),
             ("event tables", banded_kernel, "pinned_pp_events"),
             ("event tables", banded_kernel, "ring_pp_events"),
+            ("event tables", banded_kernel, "banded_ring_pp_tables"),
             ("readback wait", runner._Readback, "numpy"),
             ("traces", runner.BatchAligner, "_flush_traces"))
 
@@ -923,11 +937,11 @@ def _verify(pairs, results, costs=None) -> None:
 
 def _pp_route(sw: int, ck: bool) -> str:
     """The kernel the runner sends a domain round of ``sw`` words to (its
-    launch key): K4 below ``PINNED_PP_MIN_SW``, else ring K10 (checkpoints)
-    or ring K9 (costs) where the ring holds the band, the stripe K10 or K9
-    past it."""
+    launch key): K4's ring below ``PINNED_PP_MIN_SW`` (the runner's
+    intervals are at least SW + 8), else ring K10 (checkpoints) or ring K9
+    (costs) where the ring holds the band, the stripe K10 or K9 past it."""
     if sw < runner.PINNED_PP_MIN_SW:
-        return f"banded_{'ck' if ck else 'cost'}_pp"
+        return "banded_ring_ck_pp" if ck else "banded_ring_pp"
     if ck:
         return "ring_ck_pp" if banded_kernel.ring_takes(sw) else "pinned_ck_pp"
     return "ring_cost_pp" if banded_kernel.ring_takes(sw) else "pinned_cost_pp"
@@ -935,8 +949,8 @@ def _pp_route(sw: int, ck: bool) -> str:
 
 def _last_round(spy: RoundSpy, ck: bool) -> tuple[str, tuple]:
     """(kernel, arguments) of the last domain round since the spy's reset."""
-    names = (("ring_ck_pp", "pinned_ck_pp", "banded_ck_pp") if ck
-             else ("ring_cost_pp", "pinned_cost_pp", "banded_cost_pp"))
+    names = (("ring_ck_pp", "pinned_ck_pp", "banded_ring_ck_pp", "banded_ck_pp") if ck
+             else ("ring_cost_pp", "pinned_cost_pp", "banded_ring_pp", "banded_cost_pp"))
     calls = [c for c in spy.calls if c[0] in names]
     if not calls:
         fail(f"no domain round ({' or '.join(names)}) was launched")
@@ -1051,9 +1065,12 @@ def phase7_config4(spy: RoundSpy) -> tuple[dict, tuple, tuple, tuple]:
         f"direct_dt=False {dta:.4f} s, {C40_PAIRS} CIGARs verified, f-rounds "
         f"[{', '.join(rounds_a)}], kernel {sta.kernel}")
     launches = dict(banded_kernel.LAUNCHES)
-    for name in routes | {"banded_cost_pp", "banded_ck_pp"}:
+    for name in routes | {"banded_ring_pp", "banded_ring_ck_pp"}:
         if not launches[name]:
             fail(f"phase 7 never launched {name}")
+    if launches["banded_cost_pp"] or launches["banded_ck_pp"]:
+        fail(f"phase 7 launched the old K4 {launches['banded_cost_pp']} + "
+             f"{launches['banded_ck_pp']} times")
     if launches["pinned_ck_pp"] and "pinned_ck_pp" not in routes:
         fail(f"phase 7 launched the stripe K10 {launches['pinned_ck_pp']} times")
     return launches, c4_round, (pairs, c4_costs, c4_oracle), c4_ck_round
@@ -1083,10 +1100,11 @@ def phase8_ck(spy: RoundSpy) -> tuple[dict, tuple]:
 
 
 def _turns(plain, kernels):
-    """Plain, each kernel, each kernel again, plain (CUDA events); returns
-    (plain ms list, {kernel: ms list}, max_abs_err)."""
+    """Plain, each kernel, each kernel again (CUDA events); returns (plain
+    ms list, {kernel: ms list}, max_abs_err).  The plain version runs once:
+    its time only sets the scale of the kernels' speed-up."""
     plain_ms, kernel_ms, outs = [], {k: [] for k in kernels}, {}
-    for turn in ("plain", "kernels", "kernels", "plain"):
+    for turn in ("plain", "kernels", "kernels"):
         if turn == "plain":
             ms, ref = _event_ms(plain)
             plain_ms.append(ms)
@@ -1098,16 +1116,26 @@ def _turns(plain, kernels):
     return plain_ms, kernel_ms, err
 
 
+def _old_k4(planes, sched, sw, q, cb=None):
+    """The old one-thread-a-pair K4 (``csrc/banded.cu``), which the wrappers
+    no longer run for these schedules: its internal launch."""
+    if cb is None:
+        return banded_kernel._launch("banded_cost_pp", *planes, sw, schedule=sched, quantum=q)
+    return banded_kernel._launch("banded_ck_pp", *planes, sw, schedule=sched, quantum=q,
+                                 col_block=cb)
+
+
 def phase9_time(spy: RoundSpy) -> dict:
     """K2/K4 == plain at the main path's shapes (K4's last main-path round,
-    the 40 kbp run of phase 7 when config #4 runs K9), and timed; returns
-    each kernel's JSON record (without the launch count)."""
-    for name in ("banded_ck", "banded_cost_pp", "banded_ck_pp"):
+    the 40 kbp run of phase 7 when config #4 runs K9), and timed: K4's
+    rings (the wrappers) and the old K4 (its internal launch); returns each
+    kernel's JSON record (without the launch count)."""
+    for name in ("banded_ck", "banded_ring_pp", "banded_ring_ck_pp"):
         if name not in spy.last:
             fail(f"the main path never launched {name}")
     # K4 cost and ck on the main path's last K4 ck round, cut to its first
     # columns.
-    *planes, sched, sw, cb, q = spy.last["banded_ck_pp"]
+    *planes, sched, sw, cb, q = spy.last["banded_ring_ck_pp"]
     n_max = planes[0].shape[0]
     cut = min(CUT_COLS // 4, n_max)
     n_c = np.minimum(planes[4], cut).astype(np.int32)
@@ -1116,35 +1144,39 @@ def phase9_time(spy: RoundSpy) -> dict:
     csched = np.ascontiguousarray(sched[:cut])
     cb = min(cb, cut // 4)  # a few checkpoints inside the cut
     plain_ms, ref = _event_ms(lambda: banded.banded_ck_pp_ref(*cplanes, csched, sw, cb, q))
-    ck_ms, cost_ms, err_pp = [], [], 0
+    fns = {"banded_ring_ck_pp": lambda: banded_kernel.banded_ck_pp(*cplanes, csched, sw, cb, q),
+           "banded_ring_pp": lambda: banded_kernel.banded_cost_pp(*cplanes, csched, sw, q),
+           "banded_ck_pp": lambda: _old_k4(cplanes, csched, sw, q, cb),
+           "banded_cost_pp": lambda: _old_k4(cplanes, csched, sw, q)}
+    cut_ms, err_pp = {k: [] for k in fns}, 0
     for _ in range(2):
-        ms, got = _event_ms(lambda: banded_kernel.banded_ck_pp(*cplanes, csched, sw, cb, q))
-        ck_ms.append(ms)
-        err_pp = max(err_pp, _max_err(got, ref))
-        ms, got = _event_ms(lambda: banded_kernel.banded_cost_pp(*cplanes, csched, sw, q))
-        cost_ms.append(ms)
-        err_pp = max(err_pp, _max_err(got, ref[0]))
+        for name, fn in fns.items():
+            ms, got = _event_ms(fn)
+            cut_ms[name].append(ms)
+            err_pp = max(err_pp, _max_err(got, ref if name.endswith("ck_pp") else ref[0]))
     if err_pp:
-        fail("K4 != plain on its main-path round's cut pack")
+        fail("K4 (ring or old) != plain on its main-path round's cut pack")
     cshape = {"B": planes[0].shape[1], "n_max": cut, "S": planes[2].shape[0], "SW": sw,
               "Q": q, "CB": banded.ck_col_block(cb, cut, q)}
     say(f"[9 K4 cut] K4 == plain on its last main-path round's pack and gcsh schedules, first "
-        f"{cut} of {n_max} columns ({cshape}): K4 ck {ck_ms[0]:.3f}/{ck_ms[1]:.3f} ms, "
-        f"K4 cost {cost_ms[0]:.3f}/{cost_ms[1]:.3f} ms, plain {plain_ms:.1f} ms; "
-        f"max_abs_err {err_pp} (CUDA events)")
+        f"{cut} of {n_max} columns ({cshape}): " + ", ".join(
+            f"{k} {v[0]:.3f}/{v[1]:.3f} ms" for k, v in cut_ms.items())
+        + f" (ring keys: K4's ring, the wrapper's call; the others the old K4), plain "
+        f"{plain_ms:.1f} ms; max_abs_err {err_pp} (CUDA events)")
     # K4 on K1's shared schedule, every pair, against K1 at the full shape.
-    *planes, _, sw_c, _ = spy.last["banded_cost_pp"]
+    *planes, _, sw_c, _ = spy.last["banded_ring_pp"]
     n_max, S, B = planes[0].shape[0], planes[2].shape[0], planes[0].shape[1]
     shared = np.broadcast_to(banded.shift_at_array(n_max, S, sw_c)[:, None], (n_max, B))
     k1_ms, k1 = _event_ms(lambda: banded_kernel.banded_cost(*planes, sw_c))
     k4_ms, k4 = _event_ms(lambda: banded_kernel.banded_cost_pp(*planes, shared, sw_c, 1))
     err_full = _max_err(k4, k1)
     if err_full:
-        fail("K4 on the shared schedule != K1 at its round's full shape")
+        fail("K4's ring on the shared schedule != K1 at its round's full shape")
     full_shape = {"B": B, "n_max": n_max, "S": S, "SW": sw_c}
     full_bound = plane_bound(planes, sw_c, [k4], n_max * B)["bound_ms"]
-    say(f"[9 K4 full] K4 with K1's schedule == K1 at {full_shape}: K4 "
-        f"{k4_ms:.3f} ms, K1 {k1_ms:.3f} ms, max_abs_err {err_full} (CUDA events)")
+    say(f"[9 K4 full] K4's ring with K1's schedule == K1 at {full_shape}: K4 "
+        f"{k4_ms:.3f} ms (tables included), K1 {k1_ms:.3f} ms, max_abs_err {err_full} "
+        f"(CUDA events)")
     # K2 on phase 8's pack, cut to its first columns.
     *planes, sw_k2, cb_k2, _ = spy.last["banded_ck"]
     planes = _cut(planes, CUT_COLS)
@@ -1164,46 +1196,49 @@ def phase9_time(spy: RoundSpy) -> dict:
         f"diag={diag_k2}: K2 "
         f"{k2_ms[0]:.3f}/{k2_ms[1]:.3f} ms, plain {k2_plain_ms:.1f} ms, max_abs_err "
         f"{err_k2} (CUDA events)")
-    # Turns on short-pair packs: K2 against plain ck; K4 cost and ck against the
-    # plain per-pair ck sweep (whose costs are the plain cost version's).
+    # Turns on a short-pair pack, timing only (K2 and K4 are held to plain
+    # above and in phase 33): K2, and K4's rings against the old K4.
     pairs2k = _generate(PAIRS, TURN_LENGTH, ERR, SEED + 1)
     args2k, _ = pack_batch_staggered(pairs2k, 32, device="cuda")
     n2, S2 = args2k[0].shape[0], args2k[2].shape[0]
     gap2k = banded.pair_gap_schedule(args2k[4], args2k[5], TIMED_SW, n2, S2)[0]
     turns_shape = {"B": PAIRS, "n_max": n2, "S": S2, "SW": min(TIMED_SW, S2), "CB": 256}
-    p2, k2t, e2 = _turns(lambda: banded.banded_ck_ref(*args2k, TIMED_SW, 256), {
-        "banded_ck": (lambda: banded_kernel.banded_ck(*args2k, TIMED_SW, 256), lambda r: r)})
-    p4, k4t, e4 = _turns(lambda: banded.banded_ck_pp_ref(*args2k, gap2k, TIMED_SW, 256), {
-        "banded_cost_pp": (lambda: banded_kernel.banded_cost_pp(*args2k, gap2k, TIMED_SW),
-                           lambda r: r[0]),
-        "banded_ck_pp": (lambda: banded_kernel.banded_ck_pp(*args2k, gap2k, TIMED_SW, 256),
-                         lambda r: r)})
-    if e2 or e4:
-        fail("timed kernel != plain on the 2 kbp pack")
-    turns = {"banded_ck": (k2t["banded_ck"], p2), "banded_cost_pp": (k4t["banded_cost_pp"], p4),
-             "banded_ck_pp": (k4t["banded_ck_pp"], p4)}
+    fns = {"banded_ck": lambda: banded_kernel.banded_ck(*args2k, TIMED_SW, 256),
+           "banded_ring_pp": lambda: banded_kernel.banded_cost_pp(*args2k, gap2k, TIMED_SW),
+           "banded_ring_ck_pp": lambda: banded_kernel.banded_ck_pp(*args2k, gap2k, TIMED_SW,
+                                                                   256),
+           "banded_cost_pp": lambda: _old_k4(args2k, gap2k, TIMED_SW, 32),
+           "banded_ck_pp": lambda: _old_k4(args2k, gap2k, TIMED_SW, 32, 256)}
+    turns, outs = _in_turns(fns, tuple(fns) * 2)
+    e4 = max(_max_err(outs["banded_ring_pp"], outs["banded_cost_pp"]),
+             _max_err(outs["banded_ring_ck_pp"], outs["banded_ck_pp"]))
+    if e4:
+        fail("K4's rings != the old K4 on the 500 bp pack")
     say(f"[9 turns] {TURN_LENGTH} bp pack {turns_shape} (gap schedules, Q=32, for K4): " + "; ".join(
-        f"{k} {ms[0]:.3f}/{ms[1]:.3f} ms vs plain {pl[0]:.1f}/{pl[1]:.1f} ms "
-        f"({np.mean(pl) / np.mean(ms):.0f}x)" for k, (ms, pl) in turns.items())
-        + f"; max_abs_err {max(e2, e4)} (CUDA events)")
+        f"{k} {ms[0]:.3f}/{ms[1]:.3f} ms" for k, ms in turns.items())
+        + f"; K4's rings == the old K4, max_abs_err {e4} (CUDA events)")
 
     def record(name, ms, plain, shape, err, bnd, **extra):
-        k_ms, p_ms = turns[name]
         return {"max_abs_err": err, "ms": float(np.mean(ms)), "plain_ms": plain,
                 **bnd, "library_ms": None, "shape": shape, **extra,
-                "turns_ms": float(np.mean(k_ms)), "turns_plain_ms": float(np.mean(p_ms)),
-                "turns_shape": turns_shape}
+                "turns_ms": float(np.mean(turns[name])), "turns_shape": turns_shape}
 
     sched_bytes = csched.size
+    cost_bnd = plane_bound(cplanes, sw, ref[:1], sched_bytes)
+    ck_bnd = plane_bound(cplanes, sw, ref, sched_bytes)
     return {
-        "banded_ck": record("banded_ck", k2_ms, k2_plain_ms, k2_shape, max(err_k2, e2),
+        "banded_ck": record("banded_ck", k2_ms, k2_plain_ms, k2_shape, err_k2,
                             plane_bound(planes, sw_k2, k2_ref)),
-        "banded_cost_pp": record("banded_cost_pp", cost_ms, plain_ms, cshape, max(err_pp, e4),
-                                 plane_bound(cplanes, sw, ref[:1], sched_bytes),
-                                 full_ms=k4_ms, full_shape=full_shape, full_k1_ms=k1_ms,
+        "banded_ring_pp": record("banded_ring_pp", cut_ms["banded_ring_pp"], plain_ms, cshape,
+                                 max(err_pp, e4), cost_bnd, full_ms=k4_ms,
+                                 full_shape=full_shape, full_k1_ms=k1_ms,
                                  full_bound_ms=full_bound),
-        "banded_ck_pp": record("banded_ck_pp", ck_ms, plain_ms, cshape, max(err_pp, e4),
-                               plane_bound(cplanes, sw, ref, sched_bytes)),
+        "banded_ring_ck_pp": record("banded_ring_ck_pp", cut_ms["banded_ring_ck_pp"], plain_ms,
+                                    cshape, max(err_pp, e4), ck_bnd),
+        "banded_cost_pp": record("banded_cost_pp", cut_ms["banded_cost_pp"], plain_ms, cshape,
+                                 max(err_pp, e4), cost_bnd),
+        "banded_ck_pp": record("banded_ck_pp", cut_ms["banded_ck_pp"], plain_ms, cshape,
+                               max(err_pp, e4), ck_bnd),
     }
 
 
@@ -1493,12 +1528,12 @@ def phase12_time(spy: RoundSpy) -> dict:
         fail("K5/K7/K6 != plain on config #5's cut pack")
     ck_shape = {"B": cut_ck[0].shape[1], "n_max": cut_ck[0].shape[0],
                 "S": cut_ck[2].shape[0], "SW": sw_ck, "CB": cb}
-    say(f"[12 config5 cut] first {C5_CUT} columns, turns plain, kernels, kernels, plain: "
+    say(f"[12 config5 cut] first {C5_CUT} columns, turns plain, kernels, kernels: "
         f"K5 {shape} {k5['striped_cost'][0]:.3f}/{k5['striped_cost'][1]:.3f} ms, K7 "
         f"{k5['pinned_cost'][0]:.3f}/{k5['pinned_cost'][1]:.3f} ms vs plain "
-        f"{p5[0]:.1f}/{p5[1]:.1f} ms; K6 {ck_shape} ring {k6['ring_ck'][0]:.3f}/"
+        f"{p5[0]:.1f} ms; K6 {ck_shape} ring {k6['ring_ck'][0]:.3f}/"
         f"{k6['ring_ck'][1]:.3f} ms, stripes {k6['striped_ck'][0]:.3f}/"
-        f"{k6['striped_ck'][1]:.3f} ms vs plain {p6[0]:.1f}/{p6[1]:.1f} ms; max_abs_err "
+        f"{k6['striped_ck'][1]:.3f} ms vs plain {p6[0]:.1f} ms; max_abs_err "
         f"{max(e5, e6)} (CUDA events)")
     rows, wins = [], []
     for s_ in CROSSOVER_SW:
@@ -1677,8 +1712,8 @@ def phase14_config5_default(p7, costs_off, oracle: dict) -> tuple[dict, RoundSpy
         f"(torch.cuda.max_memory_allocated over the two calls)")
     spy.remove()
     launches = dict(banded_kernel.LAUNCHES)
-    if any(launches[k] for k in ("banded_cost_pp", "banded_ck_pp", "pinned_cost_pp",
-                                 "pinned_ck_pp")):
+    if any(launches[k] for k in ("banded_cost_pp", "banded_ck_pp", "banded_ring_pp",
+                                 "banded_ring_ck_pp", "pinned_cost_pp", "pinned_ck_pp")):
         fail(f"config #5 default launched K4 or a stripe kernel: {launches}")
     for name in ("ring_cost_pp", "ring_ck_pp"):
         if not launches[name]:
@@ -1726,12 +1761,12 @@ def phase15_time(spy: RoundSpy, c4_round) -> dict:
     shape = {"B": cut[0].shape[1], "n_max": cut[0].shape[0], "S": cut[2].shape[0],
              "SW": sw, "Q": q, "CB": banded.ck_col_block(cb, cut[0].shape[0], q)}
     say(f"[15 config5 cut] first {C5_CUT} columns of the default path's last K9 round "
-        f"{shape}, turns plain, kernels, kernels, plain: K9 ring "
+        f"{shape}, turns plain, kernels, kernels: K9 ring "
         f"{k['ring_cost_pp'][0]:.3f}/{k['ring_cost_pp'][1]:.3f} ms, stripes "
         f"{k['pinned_cost_pp'][0]:.3f}/{k['pinned_cost_pp'][1]:.3f} ms, K10 ring "
         f"{k['ring_ck_pp'][0]:.3f}/{k['ring_ck_pp'][1]:.3f} ms, stripes "
         f"{k['pinned_ck_pp'][0]:.3f}/{k['pinned_ck_pp'][1]:.3f} ms (event tables "
-        f"included) vs plain {p[0]:.1f}/{p[1]:.1f} ms; max_abs_err {err} (CUDA events)")
+        f"included) vs plain {p[0]:.1f} ms; max_abs_err {err} (CUDA events)")
 
     rows, wins = [], {}
     for label, round_args in (("config #4", c4_round), ("config #5", full["ring_cost_pp"])):
@@ -1962,7 +1997,7 @@ def phase17_config1(pairs) -> tuple[int, dict, tuple]:
 
 def phase18_time(args, full: dict) -> dict:
     """K11 == plain on phase 17's pack cut to its first NW_CUT_PAIRS pairs,
-    timed in turns (plain, kernel, kernel, plain); returns K11's JSON
+    timed in turns (plain, kernel, kernel); returns K11's JSON
     record (without the launch count)."""
     cut = tuple(x[:, :NW_CUT_PAIRS].contiguous() for x in args[:4]) + (args[4][:NW_CUT_PAIRS],)
     p, k, err = _turns(lambda: myers.nw_right_edge_ref(*cut),
@@ -1985,8 +2020,8 @@ def phase18_time(args, full: dict) -> dict:
            **plane_bound(cut, cut[2].shape[0], [cut[2], cut[3]]),
            "library_ms": None, "shape": shape, **full, **partial}
     say(f"[18 nw cut] config #1's pack cut to its first {NW_CUT_PAIRS} pairs {shape}, turns "
-        f"plain, kernel, kernel, plain: K11 {k['nw_right_edge'][0]:.3f}/"
-        f"{k['nw_right_edge'][1]:.3f} ms vs plain {p[0]:.1f}/{p[1]:.1f} ms (CUDA events); "
+        f"plain, kernel, kernel: K11 {k['nw_right_edge'][0]:.3f}/"
+        f"{k['nw_right_edge'][1]:.3f} ms vs plain {p[0]:.1f} ms (CUDA events); "
         f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); main path's whole pack, K11 "
         f"alone over 3 chained launches: {partial['alone_ms']:.3f} ms a launch vs bound "
         f"{full['full_bound_ms']:.4f} ms ({partial['alone_ms'] / full['full_bound_ms']:.2f}x); "
@@ -2438,9 +2473,10 @@ def phase24_grid() -> int:
     """K3 == plain in both schedule modes on a grid: B 1/37/128 (the first
     lanes of one 128-lane pack, so one plain sweep serves all three), SW 1,
     8, 28, 32, 64 and a full height of 72 words, a diagonal whose only shift
-    is at column 0, per-pair schedules (Q 32/8/1) shifting at column 0 and
-    at the last column; costs and both planes on every row.  Returns the
-    max abs difference."""
+    is at column 0 (the shared mode, K3's ring), per-pair schedules (Q
+    32/8/1; the old K3)
+    shifting at column 0 and at the last column; costs and both planes on
+    every row.  Returns the max abs difference."""
     rng = np.random.default_rng(24)
     args = _fill_pack(rng, K3_GRID_PAIRS)
     n_max, S, B = args[0].shape[0], args[2].shape[0], args[0].shape[1]
@@ -2456,10 +2492,10 @@ def phase24_grid() -> int:
         ref = banded.banded_fill_ref(*args, sw, diag)
         for planes in packs:
             k = planes[0].shape[1]
-            err = _max_err(banded_kernel.banded_fill(*planes, sw, diag),
-                           (ref[0][:k], ref[1][:, :, :k], ref[2][:, :, :k]))
+            got = banded_kernel.banded_fill(*planes, sw, diag)
+            err = _max_err(got, (ref[0][:k], ref[1][:, :, :k], ref[2][:, :, :k]))
             if err:
-                fail(f"K3 != plain at B={k} SW={sw} diag={diag}")
+                fail(f"K3's ring != plain at B={k} SW={sw} diag={diag}")
             worst, cases = max(worst, err), cases + 1
     for sw, q in ((8, 32), (28, 8), (64, 1)):
         sched = _fill_schedules(rng, n_max, B, sw, S, q, args)
@@ -2473,7 +2509,8 @@ def phase24_grid() -> int:
                 fail(f"K3 per-pair != plain at B={k} SW={sw} Q={q}")
             worst, cases = max(worst, err), cases + 1
     say(f"[24 K3=plain] {cases}/{cases} cases equal (B 1/37/{B}, n_max {n_max}, S {S}, shared "
-        f"SW 1/8/28/32/64/{S} and a column-0 shift, per-pair Q 32/8/1 shifting at column 0 "
+        f"SW 1/8/28/32/64/{S} and a column-0 shift on K3's ring, "
+        f"per-pair Q 32/8/1 shifting at column 0 "
         f"and the last column, n == 0 and m == 0 lanes), costs and both planes on every "
         f"row, max_abs_err {worst}, {time.perf_counter() - t0:.1f} s")
     return worst
@@ -2658,11 +2695,12 @@ def phase25_route(p8, batches) -> tuple[dict, FillSpy, dict]:
     peak = torch.cuda.max_memory_allocated() / 2**30
     spy.remove()
     for res, st, _, split in calls:
-        if split["k3_launches"] != 1 or st.kernel != "cuda-banded-fill" or st.direct_traces:
+        if split["k3_launches"] != 1 or st.kernel != "cuda-banded-ring-fill" or st.direct_traces:
             fail(f"trace route: K3 launches {split['k3_launches']}, kernel {st.kernel!r}, "
                  f"direct traces {st.direct_traces}")
-    if launches["banded_fill"] != 2:
-        fail(f"trace route: {launches['banded_fill']} K3 launches in two calls")
+    if launches["banded_ring_fill"] != 2 or launches["banded_fill"]:
+        fail(f"trace route: {launches['banded_ring_fill']} launches of K3's ring and "
+             f"{launches['banded_fill']} of the old K3 in two calls")
     if not launches["banded_ring"] or launches["banded_cost"]:
         fail(f"trace route: K1's cost rungs ran the ring {launches['banded_ring']} times and "
              f"the old K1 {launches['banded_cost']} times")
@@ -2679,7 +2717,8 @@ def phase25_route(p8, batches) -> tuple[dict, FillSpy, dict]:
             f"B {B}, kernel {st.kernel}; costs == phase 8's {len(pairs)}/{len(pairs)}")
         _say_split(f"25 split call {k + 1}", split, dt, _plane_gib(route_args))
     say(f"[25 route] launches over both calls {launches['banded_ring']} K1, "
-        f"{launches['banded_fill']} K3; {n_ok} CIGARs verified at their cost")
+        f"{launches['banded_ring_fill']} K3 (its ring; the old K3 {launches['banded_fill']}); "
+        f"{n_ok} CIGARs verified at their cost")
     say(f"[25 memory] peak device memory {peak:.3f} GiB, {peak - held:.3f} GiB above the "
         f"{held:.3f} GiB that earlier phases still held")
 
@@ -2688,7 +2727,7 @@ def phase25_route(p8, batches) -> tuple[dict, FillSpy, dict]:
     t0 = time.perf_counter()
     res_d, st_d = bd.align_with_stats(pairs)
     dt_d = time.perf_counter() - t0
-    if banded_kernel.LAUNCHES["banded_fill"]:
+    if banded_kernel.LAUNCHES["banded_ring_fill"] or banded_kernel.LAUNCHES["banded_fill"]:
         fail("the direct arm launched K3")
     n_d = _verify_all(pairs, res_d, costs8, "direct arm")
     say(f"[25 direct] the same pairs with direct_dt=True (the direct arm, no fill): "
@@ -2710,7 +2749,7 @@ def phase25_route(p8, batches) -> tuple[dict, FillSpy, dict]:
     n_s = 0
     cost_ba = BatchAligner(device="cuda")
     for batch, (r, st_s) in zip(stream, got):
-        if st_s.kernel != "cuda-banded-fill":
+        if st_s.kernel != "cuda-banded-ring-fill":
             fail(f"align_iter batch ran {st_s.kernel!r}")
         n_s += _verify_all(batch, r, cost_ba.cost(batch), "align_iter trace route")
     say(f"[25 align_iter] combined=False, direct_dt=False over {len(stream)} x "
@@ -2726,11 +2765,13 @@ def phase25_route(p8, batches) -> tuple[dict, FillSpy, dict]:
 
 
 def phase25_time(spy: FillSpy, split: dict) -> tuple[dict, dict]:
-    """K3 alone on phase 25's whole pack over chained launches against its
-    bound (bytes: both planes written once, the inputs read once); K3
-    against its plain version on that pack cut to its first CUT_COLS
-    columns (the plain once, then the kernel twice, as phase 5), and K3's
-    per-pair mode on the cut with the pairs' gap schedules.  Returns the two JSON records (without launches)."""
+    """K3 (its ring, the wrapper) alone on phase 25's whole pack over
+    chained launches against its bound (bytes: both planes written once,
+    the inputs read once); K3 against its plain version on that pack cut to
+    its first CUT_COLS columns (the plain once, then the kernel twice, as
+    phase 5), and K3's per-pair mode (the old kernel) on the cut with the
+    pairs' gap schedules.  Returns the two JSON records (without
+    launches)."""
     torch.cuda.synchronize()
     *planes, sw, diag = spy.last
     outs = banded_kernel.banded_fill(*planes, sw, diag)
@@ -2815,8 +2856,9 @@ def phase26_host() -> dict:
     finally:
         runner.native.astarpa_native, astarpa2.AstarPa2.align = orig
     dt = time.perf_counter() - t0
-    if sorted(calls) != ["block aligner", "native A*"] or banded_kernel.LAUNCHES["banded_fill"]:
-        fail(f"host arm ran {calls} (K3 launches {banded_kernel.LAUNCHES['banded_fill']})")
+    k3 = banded_kernel.LAUNCHES["banded_fill"] + banded_kernel.LAUNCHES["banded_ring_fill"]
+    if sorted(calls) != ["block aligner", "native A*"] or k3:
+        fail(f"host arm ran {calls} (K3 launches {k3})")
     _verify(pairs, res, want)
     say(f"[26 host arm] combined=False on {[(len(a), len(b)) for a, b in pairs]} bp pairs, "
         f"costs {want} (bands past 64 words): {calls} in {dt:.3f} s, costs == "
@@ -3113,7 +3155,7 @@ def phase29_grid(wide, narrow, c5_spy: RoundSpy) -> tuple[int, dict]:
     words: the wide ring by default, wrapping); 33 pairs of up to 500 bp
     beside a 500 x 150 kbp pair (S = 4688) at SW 4352 with a wide ring
     forced to 1024 words, which wraps at least 3 times; config #5's
-    pack cut to its first 2048 columns at SW 8192 on the wide ring, timed
+    pack cut to its first 1024 columns at SW 8192 on the wide ring, timed
     against plain (CUDA events); and the refusal, without a launch, of a
     band of more than 16384 live words.
     Returns (max abs difference, the wide ring's JSON record without its
@@ -3205,19 +3247,19 @@ def phase29_grid(wide, narrow, c5_spy: RoundSpy) -> tuple[int, dict]:
 def phase30_time(c5_spy: RoundSpy, c4_spy: RoundSpy) -> dict:
     """The cost ring against K5's stripes on whole main-path rungs, in
     turns (stripes, ring, ring, stripes), each over chained launches behind
-    an untimed one, with its bound, their costs equal: K7 on config #5's
-    SW = 2048 rung and on config #4's full-height rung (SW = 3149), the
-    wide ring on config #5's SW = 8192 rung.  Returns the records phase 30
+    an untimed one, with its bound, their costs equal: K7 on config #4's
+    full-height rung (SW = 3149), the wide ring on config #5's SW = 8192
+    rung.  Returns the records phase 30
     adds to K7's, the wide ring's and K5's."""
     torch.cuda.synchronize()
     rows, recs = [], {"pinned_cost": {}, "ring_cost_wide": {}, "striped_cost": {}}
     # The earlier designs' times on these rungs (PERF.md): K7 in
     # pinned_ring_kernel, K5's stripes in the path's call.
-    before = {"config #5 SW=2048": "K7 in pinned_ring_kernel 249.8 ms",
-              "config #4 full height": "K7 in pinned_ring_kernel 79.6 ms in the path",
+    before = {"config #4 full height": "K7 in pinned_ring_kernel 79.6 ms in the path",
               "config #5 SW=8192": "K5's stripes 973.5 ms in the path"}
-    for label, key, args in (("config #5 SW=2048", "c5", c5_spy.last["pinned_cost"]),
-                             ("config #4 full height", "c4", c4_spy.last["pinned_cost"]),
+    # Config #5's SW=2048 rung: K7 and K5's stripes alone over chained
+    # launches in phase 23.
+    for label, key, args in (("config #4 full height", "c4", c4_spy.last["pinned_cost"]),
                              ("config #5 SW=8192", "c5_wide", c5_spy.last["ring_cost_wide"])):
         *pl, sw, dg = args
         fns = {"stripes": lambda: _stripes(pl, sw, dg),
@@ -3489,6 +3531,207 @@ def phase32_ring_k10(saved_ck, bargs, c4_ck_round, c5d_spy: RoundSpy) -> tuple[i
     return worst, recs
 
 
+K33_GRID_N, K33_GRID_M = 200, 500  # phase 33's grid: S ~ 16 words, n_max ~ 200
+K33_GRID_SW = (1, 4, 16)  # phase 33, with the full height beside them
+
+
+def _k4_grid_pack(rng):
+    """Phase 33's grid: similar pairs of up to K33_GRID_N bp (most shorter
+    than n_max by far), random pairs beside b of up to K33_GRID_M bp, an n
+    == 0 pair, a short a against a long b (row m below the window) and a
+    long a against a short b (row m above it)."""
+    pairs = [att.generate.uniform_seeded(int(rng.integers(1, K33_GRID_N)),
+                                         float(rng.uniform(0, 0.3)), 3300 + s) for s in range(36)]
+    pairs += _random_pairs(rng, 4, K33_GRID_N // 2, K33_GRID_M)
+    pairs += [(b"ACG", b"ACGT" * 120), (b"ACGT" * 48, b"ACGTAC")]
+    return pairs, pack_batch_staggered(pairs, 1, device="cuda")[0]
+
+
+def _in_turns(fns: dict, order) -> tuple[dict, dict]:
+    """Each named call in ``order`` (CUDA events around it); returns ({name:
+    ms list}, {name: last result})."""
+    times, outs = {k: [] for k in fns}, {}
+    for name in order:
+        ms, outs[name] = _event_ms(fns[name])
+        times[name].append(ms)
+    return times, outs
+
+
+def phase33_k4_k3(rspy: RoundSpy, fspy: FillSpy) -> tuple[int, dict]:
+    """K4's rings (cost and checkpoints) and K3's ring against their plain
+    versions and the old kernels.  Grid (K4 == plain bit for bit on costs,
+    every checkpoint row and top value): 44 pairs of up to 200 bp beside b
+    of up to 500 bp (pairs far shorter than n_max, so checkpoints lie past
+    their end; n == 0; row m covered, above and below the window), random
+    per-pair schedules at Q 1 and 8 shifting at column 0 on every third
+    lane and at every quantum column on every fifth (the window slides past
+    the last word, the entering word clamped at S - 1), the pairs' gcsh
+    schedules, SW 1, 4, 16 and full height, CB = max(SW, 24), at the
+    runner's layout and rings forced to 64 lanes; an interval below SW runs
+    the old K4; K1's and K3's rings on a shared schedule shifted at column
+    0.  Then in turns on phase 7's whole 40 kbp rounds (old, tables,
+    kernel, both, both, kernel, tables, old: the old K4, K4's tables and
+    codes alone, its kernel alone on them, the wrapper's call), and K3 on
+    phase 25's whole pack and its 1024-column cut (the old K3 and K3's
+    ring, each alone and with the trace route's transpose to pair-major,
+    forward then backward).  Returns the
+    max abs difference and the fields phase 33 adds to the records."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(33)
+    pairs, grid = _k4_grid_pack(rng)
+    n_max, S, B = grid[0].shape[0], grid[2].shape[0], grid[0].shape[1]
+    gc, sw_g, q_g = _gcsh_schedules(pairs, B, n_max, 1.25)
+    cases = []
+    for q in (1, 8):
+        for sw in K33_GRID_SW + (S,):
+            sched = _random_schedule(rng, n_max, B, q)
+            sched[0, ::3] = 1
+            cases.append((f"random Q={q}", sched, sw, q))
+    cases.append(("gcsh 1.25 h0", gc, min(sw_g, S), q_g))
+    before = dict(banded_kernel.LAUNCHES)
+    worst, labels, runs, past_end = 0, [], 0, 0
+    n_h, m_h = np.asarray(grid[4], np.int64), np.asarray(grid[5], np.int64)
+    kinds = set()
+    for label, sched, sw, q in cases:
+        cb = -(-max(min(sw, S), 24) // q) * q  # CB >= SW after Q rounding
+        want = banded.banded_ck_pp_ref(*grid, sched, sw, cb, q)
+        for lanes in (None, 64):
+            got = (banded_kernel._launch_banded_ring_pp(*grid, sched, sw, q, lanes=lanes),
+                   banded_kernel._launch_banded_ring_pp(*grid, sched, sw, q, cb, lanes=lanes))
+            err = max(_max_err(got[0], want[0]), _max_err(got[1], want))
+            if err:
+                fail(f"K4's ring != plain on {label} SW={sw} CB={cb} lanes {lanes}")
+            worst, runs = max(worst, err), runs + 1
+        CB = banded.ck_col_block(cb, n_max, q)
+        past_end += int(((np.arange(-(-n_max // CB))[:, None] * CB) > n_h[None, :]).sum())
+        lo_end = np.cumsum(sched, 0)[np.clip(n_h - 1, 0, n_max - 1), np.arange(B)]
+        rows = m_h - lo_end * 32
+        kinds |= {"n == 0" if n == 0 else "above" if r < 0 else "below" if r > min(sw, S) * 32
+                  else "covered" for n, r in zip(n_h, rows)}
+        labels.append(f"{label} SW={min(sw, S)} CB={CB}")
+    if kinds != {"n == 0", "above", "below", "covered"}:
+        fail(f"phase 33's grid holds only {sorted(kinds)}")
+    ran = {k: banded_kernel.LAUNCHES[k] - before[k] for k in
+           ("banded_ring_pp", "banded_ring_ck_pp", "banded_cost_pp", "banded_ck_pp")}
+    if ran != {"banded_ring_pp": runs, "banded_ring_ck_pp": runs, "banded_cost_pp": 0,
+               "banded_ck_pp": 0}:
+        fail(f"phase 33's grid launched {ran}")
+    # An interval below SW with several checkpoints: the old K4, by the
+    # host's test.
+    flat = np.zeros((n_max, B), np.uint8)
+    if banded_kernel.k4_kernel(n_max, 8, 4, 4) != "banded_ck_pp":
+        fail("k4_kernel sends CB = 4 < SW = 8 to the ring")
+    err = _max_err(banded_kernel.banded_ck_pp(*grid, flat, 8, 4, 4),
+                   banded.banded_ck_pp_ref(*grid, flat, 8, 4, 4))
+    if err or banded_kernel.LAUNCHES["banded_ck_pp"] != before["banded_ck_pp"] + 1:
+        fail("CB < SW did not run the old K4 to the plain result")
+    # K1's and K3's rings on a shared schedule shifted at column 0.
+    col0 = (1, (8 * 32 // 2 + 32) * 2)
+    if banded.shift_at_array(n_max, S, 8, col0)[:2].tolist() != [1, 0]:
+        fail("phase 33: the column-0 diagonal does not shift at column 0 only")
+    err = max(_max_err(banded_kernel.banded_cost(*grid, 8, col0),
+                       banded.banded_cost_ref(*grid, 8, col0)),
+              _max_err(banded_kernel.banded_fill(*grid, 8, col0),
+                       banded.banded_fill_ref(*grid, 8, col0)))
+    if err:
+        fail("K1's or K3's ring != plain on a schedule shifted at column 0")
+    seen = dict(banded_kernel.LAUNCHES)
+    for tw in (None, 16):
+        try:
+            banded_kernel.pinned_cost(*grid, 8, col0, None, tw)
+            fail("the cost rings took a schedule shifted at column 0")
+        except ValueError:
+            pass
+    if banded_kernel.LAUNCHES != seen:
+        fail("the cost rings' refusal of a column-0 shift launched a kernel")
+    say(f"[33 K4 rings=plain] {len(cases)} schedules x cost and ck x 2 layouts (B {B}, n_max "
+        f"{n_max}, S {S}: {'; '.join(labels)}), pairs {sorted(kinds)}, {past_end} checkpoints "
+        f"past a pair's end; costs, every checkpoint row and top value equal, max_abs_err "
+        f"{worst}; CB < SW on the old K4 == plain; K1's and K3's rings == plain on a shift at "
+        f"column 0, refused by the cost rings without a launch; {time.perf_counter() - t0:.1f} s")
+
+    recs = {k: {} for k in ("banded_ring_pp", "banded_ring_ck_pp", "banded_cost_pp",
+                            "banded_ck_pp", "banded_ring_fill", "banded_fill")}
+    for ck in (False, True):
+        key = "banded_ring_ck_pp" if ck else "banded_ring_pp"
+        args = rspy.last[key]
+        pl, sched, sw = args[:6], args[6], args[7]
+        cb, q = (args[8] if ck else None), args[-1]
+        sw_ = min(sw, pl[2].shape[0])
+
+        def tables():
+            return banded_kernel.banded_ring_pp_tables(pl[0], pl[1], pl[4], sched, sw_, q, cb)
+
+        tab = tables()
+        wrapper = banded_kernel.banded_ck_pp if ck else banded_kernel.banded_cost_pp
+        fns = {"old": lambda: _old_k4(pl, sched, sw, q, cb), "tables": tables,
+               "kernel": lambda: banded_kernel._launch_banded_ring_pp(*pl, sched, sw, q, cb,
+                                                                      tables=tab),
+               "both": lambda: wrapper(*pl, sched, sw, *((cb,) if ck else ()), q)}
+        times, outs = _in_turns(fns, ("old", "tables", "kernel", "both", "both", "kernel",
+                                      "tables", "old"))
+        err = max(_max_err(outs["kernel"], outs["old"]), _max_err(outs["both"], outs["old"]))
+        if err:
+            fail(f"K4's ring != the old K4 on phase 7's 40 kbp {'ck' if ck else 'cost'} round")
+        bnd = plane_bound(pl, sw_, outs["old"] if ck else [outs["old"]], sched.size)
+        shape = {"B": pl[0].shape[1], "n_max": pl[0].shape[0], "S": pl[2].shape[0], "SW": sw_,
+                 "Q": q, "lanes": tab["lay"]["lanes"], "pairs a warp": tab["lay"]["pairs"]}
+        if ck:
+            shape["CB"] = tab["CB"]
+        k, o = min(times["kernel"]), min(times["old"])
+        say(f"[33 K4 {'ck' if ck else 'cost'} round] phase 7's 40 kbp round {shape}, turns old, "
+            f"tables, kernel, both, both, kernel, tables, old: K4's ring kernel "
+            f"{times['kernel'][0]:.3f}/{times['kernel'][1]:.3f} ms ({k / bnd['bound_ms']:.1f}x), "
+            f"its tables and codes {times['tables'][0]:.3f}/{times['tables'][1]:.3f} ms, both "
+            f"(the wrapper's call) {times['both'][0]:.3f}/{times['both'][1]:.3f} ms; the old K4 "
+            f"{times['old'][0]:.3f}/{times['old'][1]:.3f} ms ({o / bnd['bound_ms']:.1f}x) vs "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); old/kernel {o / k:.1f}; equal "
+            f"on all lanes{', every checkpoint row and top value' if ck else ''} (CUDA events)")
+        old_key = "banded_ck_pp" if ck else "banded_cost_pp"
+        recs[key].update(round_kernel_ms=times["kernel"], round_tables_ms=times["tables"],
+                         round_call_ms=times["both"], round_old_ms=times["old"],
+                         round_bound_ms=bnd["bound_ms"], round_shape=shape)
+        recs[old_key].update(round_ms=times["old"], round_bound_ms=bnd["bound_ms"],
+                             round_shape=shape)
+
+    *planes, sw, diag = fspy.last
+    for label, pl, dg in (("whole", planes, diag),
+                          ("cut", _cut(planes, CUT_COLS), _cut_diag(_cut(planes, CUT_COLS)))):
+        def t(fn):  # the trace route's transpose of the planes to pair-major
+            def call():
+                out = fn()
+                return (out[0],) + tuple(x.permute(2, 0, 1).contiguous() for x in out[1:])
+            return call
+
+        old = lambda: banded_kernel._launch("banded_fill", *pl, sw, diag=dg, fill=True)  # noqa: E731
+        ring = lambda: banded_kernel.banded_fill(*pl, sw, dg)  # noqa: E731
+        fns = {"old": old, "old+T": t(old), "ring": ring, "ring+T": t(ring)}
+        order = ("old", "old+T", "ring", "ring+T")
+        times, outs = _in_turns(fns, order + order[::-1])
+        err = max(_max_err(outs["ring+T"], outs["old+T"]), _max_err(outs["ring"], outs["old"]))
+        if err:
+            fail(f"K3's ring != the old K3 on phase 25's {label} pack")
+        bnd = plane_bound(pl, sw, outs["old"])
+        del outs
+        shape = {"B": pl[0].shape[1], "n_max": pl[0].shape[0], "S": pl[2].shape[0], "SW": sw}
+        say(f"[33 K3 {label}] phase 25's {label} pack {shape}, turns forward then backward "
+            f"(+T: with the trace route's transpose to pair-major): " + ", ".join(
+                f"{k} {v[0]:.3f}/{v[1]:.3f} ms" for k, v in times.items())
+            + f" (ring: K3's ring, storing pair-major; old: the old K3) vs bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); old+T/ring+T "
+            f"{min(times['old+T']) / min(times['ring+T']):.2f}; all equal (CUDA events)")
+        recs["banded_ring_fill"][f"{label}_turns_ms"] = times
+        recs["banded_ring_fill"][f"{label}_bound_ms"] = bnd["bound_ms"]
+        recs["banded_ring_fill"][f"{label}_shape"] = shape
+        if label == "whole":
+            recs["banded_fill"].update(ms=float(np.mean(times["old"])), **bnd, shape=shape,
+                                       with_transpose_ms=times["old+T"])
+        else:
+            recs["banded_fill"].update(cut_ms=float(np.mean(times["old"])),
+                                       cut_bound_ms=bnd["bound_ms"], cut_shape=shape)
+    return worst, recs
+
+
 def main() -> None:
     global _POOL
     if not torch.cuda.is_available():
@@ -3594,7 +3837,8 @@ def run() -> None:
     k3_grid_err = phase24_grid()
     lap("24")
     k3_counts, fill_spy, fill_split = phase25_route(p8, batches)
-    say(f"[main path] launches: trace route {{'banded_fill': {k3_counts['banded_fill']}, "
+    say(f"[main path] launches: trace route {{'banded_ring_fill': "
+        f"{k3_counts['banded_ring_fill']}, 'banded_fill': {k3_counts['banded_fill']}, "
         f"'banded_fill_pp': {k3_counts['banded_fill_pp']}}}")
     fill_record, fill_pp_record = phase25_time(fill_spy, fill_split)
     for rec in (fill_record, fill_pp_record):
@@ -3615,6 +3859,8 @@ def run() -> None:
     lap("31")
     k10_err, k10_records = phase32_ring_k10(k10_saved, refused_band, c4_ck_round, c5d_spy)
     lap("32")
+    k4k3_err, k4k3 = phase33_k4_k3(rounds, fill_spy)
+    lap("33")
     c5_records["ring_ck"].update(ring_records["ring_ck"])
     c5_records["ring_ck"]["max_abs_err"] = max(c5_records["ring_ck"]["max_abs_err"], ring_k6_err)
     pp_records["ring_cost_pp"].update(ring_records["ring_cost_pp"])
@@ -3639,6 +3885,9 @@ def run() -> None:
         "banded_ck": "astarpa_tpu/ops/pallas_banded.py:828",
         "banded_cost_pp": "astarpa_tpu/ops/pallas_banded.py:447",
         "banded_ck_pp": "astarpa_tpu/ops/pallas_banded.py:447",
+        "banded_ring_pp": "astarpa_tpu/ops/pallas_banded.py:447",
+        "banded_ring_ck_pp": "astarpa_tpu/ops/pallas_banded.py:447",
+        "banded_ring_fill": "astarpa_tpu/ops/pallas_banded.py:811",
         "striped_cost": "astarpa_tpu/ops/striped.py:522",
         "striped_ck": "astarpa_tpu/ops/striped.py:576",
         "pinned_cost": "astarpa_tpu/ops/pinned.py:474",
@@ -3665,10 +3914,16 @@ def run() -> None:
                {"name": "banded_cost", "route": "cuda", "source": banded_src,
                 "replaces": replaces["banded_cost"], "launches": old_k1_launches,
                 **k1_records["banded_cost"]}]
-    for name in ("banded_ck", "banded_cost_pp", "banded_ck_pp"):
+    # K4's main path (phase 7's 40 kbp rounds) runs its rings; the old K4
+    # ran no launch there (phases 9 and 33 time it beside them).
+    for name in ("banded_ck", "banded_cost_pp", "banded_ck_pp", "banded_ring_pp",
+                 "banded_ring_ck_pp"):
         rec = records[name]
-        rec["max_abs_err"] = max(rec["max_abs_err"], new_grid_err)
-        kernels.append({"name": name, "route": "cuda", "source": banded_src,
+        rec.update(k4k3.get(name, {}))
+        rec["max_abs_err"] = max(rec["max_abs_err"], new_grid_err,
+                                 k4k3_err if name.startswith("banded_ring") else 0)
+        src = pinned_src if name.startswith("banded_ring") else banded_src
+        kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces[name], "launches": counts[name], **rec})
     # K7's main path: config #5's cost rungs (phase 11) and phase 20's
     # full-height cost rung; the wide ring's: phase 11's cost past K7's
@@ -3696,10 +3951,17 @@ def run() -> None:
     kernels.append({"name": "pinned_ck", "route": "cuda", "source": striped_src,
                     "replaces": replaces["pinned_ck"], "launches": k8_launches, **k8_record})
     # K3's main path is the cost-then-trace route's fill (phase 25, one a
-    # call); its per-pair mode has no caller there (the grid of phase 24
-    # holds it), so its count from that run is expected to be 0.
-    for name, rec in (("banded_fill", fill_record), ("banded_fill_pp", fill_pp_record)):
-        kernels.append({"name": name, "route": "cuda", "source": banded_src,
+    # call), on its ring; the old K3 ran no launch there (phase
+    # 33 times it), and the per-pair mode has no caller there (the grid of
+    # phase 24 holds it), so their counts from that run are expected to be
+    # 0.
+    fill_record.update(k4k3["banded_ring_fill"])
+    old_fill = {"max_abs_err": 0, "plain_ms": fill_record["plain_ms"], "library_ms": None,
+                **k4k3["banded_fill"]}
+    for name, rec, src in (("banded_ring_fill", fill_record, pinned_src),
+                           ("banded_fill", old_fill, banded_src),
+                           ("banded_fill_pp", fill_pp_record, banded_src)):
+        kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces[name], "launches": k3_counts[name], **rec})
     say(f"[timing] host seconds by phase: {', '.join(lap.laps)}")
     say(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")

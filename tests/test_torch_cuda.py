@@ -85,6 +85,7 @@ def test_perpair_kernels_match_plain(gpu, quantum):
     n_max, S, B = a0.shape[0], pb0.shape[0], a0.shape[1]
     rng = np.random.default_rng(quantum)
     rows = np.arange(0, n_max, quantum)
+    before = dict(banded_kernel.LAUNCHES)
     for sw in (2, 4, 9):
         scheds = [banded.pair_gap_schedule(n, m, sw, n_max, S)[0]] if quantum == 32 else []
         rand = np.zeros((n_max, B), np.uint8)
@@ -98,6 +99,12 @@ def test_perpair_kernels_match_plain(gpu, quantum):
                 got = banded_kernel.banded_ck_pp(*args, sched, sw, cb, quantum)
                 want = banded.banded_ck_pp_ref(*args, sched, sw, cb, quantum)
                 _assert_same(got, want, (sw, cb, quantum))
+    # K4 runs its rings (column-0 shifts included); the old K4 none.
+    runs = 3 + 3 * (quantum == 32)
+    assert banded_kernel.LAUNCHES["banded_ring_pp"] == before["banded_ring_pp"] + runs
+    assert banded_kernel.LAUNCHES["banded_ring_ck_pp"] == before["banded_ring_ck_pp"] + 2 * runs
+    assert banded_kernel.LAUNCHES["banded_cost_pp"] == before["banded_cost_pp"]
+    assert banded_kernel.LAUNCHES["banded_ck_pp"] == before["banded_ck_pp"]
     bad = np.zeros((n_max, B), np.uint8)
     bad[1, 0] = 1
     with pytest.raises(ValueError, match="quantum"):
@@ -535,6 +542,89 @@ def test_ring_ck_pp_kernel_matches_plain(gpu, quantum):
     assert banded_kernel.LAUNCHES["ring_ck_pp"] == before["ring_ck_pp"] + runs
 
 
+def _k4_ring_pack(gpu):
+    """Pairs of up to 400 bp beside b of up to 900 bp, some shorter than
+    n_max by far, an n == 0 pair, a short a against a long b and a long a
+    against a short b (row m below and above the window)."""
+    rng = np.random.default_rng(12)
+
+    def seq(k):
+        return bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), k).tolist())
+
+    pairs = [generate.uniform_seeded(int(rng.integers(1, 400)), float(rng.uniform(0, 0.3)),
+                                     700 + s) for s in range(37)]
+    pairs += [(seq(int(rng.integers(1, 200))), seq(int(rng.integers(200, 900))))
+              for _ in range(4)]
+    pairs += [(b"", seq(90)), (b"ACG", seq(700)), (seq(390), b"ACGTAC")]
+    return pack_batch_staggered(pairs, 1, device=gpu)[0]
+
+
+@pytest.mark.parametrize("quantum", [1, 8])
+def test_banded_ring_pp_kernels_match_plain(gpu, quantum):
+    """K4's rings (cost and checkpoints) against K4's plain versions, bit
+    for bit on costs, every checkpoint row and top value: random schedules
+    shifting at column 0 on some lanes and sliding past the last word on
+    others (the entering word clamped at S - 1), the pairs' gap schedules,
+    bands of 1 word to full height, CB = SW and larger, at the runner's
+    layout and with rings forced to 32 and 64 lanes; an interval below SW
+    runs the old K4."""
+    args = _k4_ring_pack(gpu)
+    a0, _, pb0, _, n, m = args
+    n_max, S, B = a0.shape[0], pb0.shape[0], a0.shape[1]
+    rng = np.random.default_rng(quantum)
+    rows = np.arange(0, n_max, quantum)
+    before = dict(banded_kernel.LAUNCHES)
+    runs = 0
+    for sw in (1, 4, 16, S):
+        rand = np.zeros((n_max, B), np.uint8)
+        rand[rows] = rng.random((len(rows), B)) < 0.3
+        rand[0, ::3] = 1
+        rand[rows, ::7] = 1
+        gap = banded.pair_gap_schedule(n, m, sw, n_max, S)[0]
+        gap[np.arange(n_max) % quantum != 0] = 0
+        cb = -(-max(min(sw, S), 24) // quantum) * quantum  # CB >= SW after Q rounding
+        for sched in (rand, gap):
+            want = banded.banded_ck_pp_ref(*args, sched, sw, cb, quantum)
+            cost = banded.banded_cost_pp_ref(*args, sched, sw, quantum)
+            assert torch.equal(cost, want[0])
+            for lanes in (None, 32, 64):
+                got = banded_kernel._launch_banded_ring_pp(*args, sched, sw, quantum,
+                                                           lanes=lanes)
+                assert torch.equal(got, cost), (sw, lanes)
+                got = banded_kernel._launch_banded_ring_pp(*args, sched, sw, quantum, cb,
+                                                           lanes=lanes)
+                _assert_same(got, want, (sw, lanes))
+                runs += 1
+    assert banded_kernel.LAUNCHES["banded_ring_pp"] == before["banded_ring_pp"] + runs
+    assert banded_kernel.LAUNCHES["banded_ring_ck_pp"] == before["banded_ring_ck_pp"] + runs
+    small = np.zeros((n_max, B), np.uint8)
+    assert banded_kernel.k4_kernel(n_max, 16, quantum, quantum) == "banded_ck_pp"
+    got = banded_kernel.banded_ck_pp(*args, small, 16, quantum, quantum)
+    _assert_same(got, banded.banded_ck_pp_ref(*args, small, 16, quantum, quantum), "CB < SW")
+    assert banded_kernel.LAUNCHES["banded_ck_pp"] == before["banded_ck_pp"] + 1
+
+
+def test_rings_take_a_shared_shift_at_column_0(gpu):
+    """K1's and K3's rings on a shared schedule shifted at column 0 (a
+    diagonal steeper than a word a column at the start), bit for bit
+    their plain versions; the cost rings (K7, the wide ring) refuse it
+    before the launch."""
+    pairs = _random_pairs(31, 37, 120, 1300)
+    args, _ = pack_batch_staggered(pairs, 1, device=gpu)
+    n_max, S = args[0].shape[0], args[2].shape[0]
+    col0 = (1, (8 * 32 // 2 + 32) * 2)
+    assert banded.shift_at_array(n_max, S, 8, col0)[:2].tolist() == [1, 0]
+    assert torch.equal(banded_kernel.banded_cost(*args, 8, col0),
+                       banded.banded_cost_ref(*args, 8, col0))
+    _assert_same(banded_kernel.banded_fill(*args, 8, col0),
+                 banded.banded_fill_ref(*args, 8, col0), "fill")
+    before = dict(banded_kernel.LAUNCHES)
+    for tw in (None, 16):
+        with pytest.raises(ValueError, match="column 0"):
+            banded_kernel.pinned_cost(*args, 8, col0, None, tw)
+    assert banded_kernel.LAUNCHES == before
+
+
 def test_runner_config5_shaped_rung_on_k7(gpu):
     """Config #5's shape at a fifth of its length: 8 pairs of 100 kbp at
     e=15%, ``band_words=2048``, ``domain_mode="off"``.  The rung (K5 would
@@ -620,7 +710,7 @@ def test_runner_routes_domain_rounds_on_gpu(gpu, monkeypatch):
     pairs = [generate.uniform_seeded(2000 + 97 * s, 0.1, 60 + s) for s in range(6)]
     kw = dict(band_words=4, domain_mode="gap", domain_min_bp=0)
     ref, _ = BatchAligner(device="cpu", **kw).cost_with_stats(pairs)
-    for limit, labels in ((10**6, ("cuda-banded-pp", "cuda-banded-ck-pp")),
+    for limit, labels in ((10**6, ("cuda-banded-ring-pp", "cuda-banded-ring-ck-pp")),
                           (1, ("cuda-ring-pp", "cuda-ring-pp-ck"))):
         monkeypatch.setattr(runner, "PINNED_PP_MIN_SW", limit)
         costs, stats = BatchAligner(device=gpu, **kw).cost_with_stats(pairs)
@@ -662,7 +752,8 @@ def test_nw_kernel_matches_plain(gpu, count):
 def test_fill_kernels_match_plain(gpu, count):
     """K3 in both schedule modes against its plain versions: costs and both
     planes on every row, an n == 0 lane, bands of 1 word to full height and
-    a schedule shifting at column 0 and at the last column."""
+    a schedule shifting at column 0 and at the last column; the shared mode
+    (K3's ring) with its planes stored pair-major."""
     pairs = _random_pairs(300 + count, count, 300, 1300)
     args, _ = pack_batch_staggered(pairs, 1, device=gpu)
     n_max, S, B = args[0].shape[0], args[2].shape[0], args[0].shape[1]
@@ -670,6 +761,7 @@ def test_fill_kernels_match_plain(gpu, count):
     for sw, diag in ((1, None), (8, None), (28, (n_max, S * 32 - 40)), (S, None)):
         got = banded_kernel.banded_fill(*args, sw, diag)
         assert got[1].shape == (n_max, min(sw, S), B)
+        assert got[1].permute(2, 0, 1).is_contiguous()
         _assert_same(got, banded.banded_fill_ref(*args, sw, diag), (sw, diag))
     rng = np.random.default_rng(count)
     for sw, q in ((4, 32), (8, 1)):
@@ -679,7 +771,8 @@ def test_fill_kernels_match_plain(gpu, count):
         sched[0], sched[n_max - 1 - (n_max - 1) % q] = 1, 1
         got = banded_kernel.banded_fill_pp(*args, sched, sw, q)
         _assert_same(got, banded.banded_fill_pp_ref(*args, sched, sw, q), (sw, q))
-    assert banded_kernel.LAUNCHES["banded_fill"] == before["banded_fill"] + 4
+    assert banded_kernel.LAUNCHES["banded_ring_fill"] == before["banded_ring_fill"] + 4
+    assert banded_kernel.LAUNCHES["banded_fill"] == before["banded_fill"]
     assert banded_kernel.LAUNCHES["banded_fill_pp"] == before["banded_fill_pp"] + 2
 
 
@@ -688,10 +781,11 @@ def test_runner_trace_route_on_gpu(gpu):
     (K3) for every bucket, CIGARs equal to the CPU route's."""
     pairs = [generate.uniform_seeded(900 + 37 * s, 0.08, 700 + s) for s in range(40)]
     kw = dict(band_words=8, direct_dt=False, combined=False)
-    before = banded_kernel.LAUNCHES["banded_fill"]
+    before = dict(banded_kernel.LAUNCHES)
     res, st = BatchAligner(device=gpu, **kw).align_with_stats(pairs)
-    assert banded_kernel.LAUNCHES["banded_fill"] > before
-    assert st.kernel == "cuda-banded-fill"
+    assert banded_kernel.LAUNCHES["banded_ring_fill"] > before["banded_ring_fill"]
+    assert banded_kernel.LAUNCHES["banded_fill"] == before["banded_fill"]
+    assert st.kernel == "cuda-banded-ring-fill"
     want = BatchAligner(device="cpu", **kw).align(pairs)
     assert [c.to_string() for _, c in res] == [c.to_string() for _, c in want]
     for (a, b), (c, cig) in zip(pairs, res):
