@@ -8,15 +8,19 @@
 //   K4 banded_cost_pp  per-pair schedules, costs
 //   K4 banded_ck_pp    per-pair schedules, costs + window checkpoints
 //
-// On a path: K2 (ck rungs below 64 words) and banded_fill_pp (no caller
-// yet; the wrapper banded_fill_pp runs it).  Timing only: the old K1, the
-// old shared K3 and the old K4 cost entry, whose launches the ring kernels
-// of csrc/pinned.cu took (banded_ring_kernel, banded_ring_fill_kernel,
-// banded_ring_pp_kernel); ops/banded_kernel.py's internal _launch runs
-// them, as chip_smoke.py does to time them beside the rings.  The old K4
-// ck entry runs only for a Q-rounded checkpoint interval below SW with
-// more than one checkpoint, which K4's checkpoint ring refuses (a test on
-// the host before the launch; the runner's intervals are at least SW + 8).
+// On a path: banded_fill_pp (no caller yet; the wrapper banded_fill_pp
+// runs it).  Timing only: the old K1, the old shared K3 and the old K4
+// cost entry, whose launches the ring kernels of csrc/pinned.cu took
+// (banded_ring_kernel, banded_ring_fill_kernel, banded_ring_pp_kernel);
+// ops/banded_kernel.py's internal _launch runs them, as chip_smoke.py does
+// to time them beside the rings.  The old K4 ck entry runs only for a
+// Q-rounded checkpoint interval below SW with more than one checkpoint,
+// which K4's checkpoint ring refuses, and the old K2 only for an interval
+// below SW with more than one capture window or a band of more than 2048
+// words, which K2's ring (banded_ring_ck_kernel) refuses (tests on the
+// host before the launch, ops/banded_kernel.py::k4_kernel and k2_kernel;
+// the runner's intervals are at least SW + 8 unless n_max clamps them to
+// one checkpoint, and its K2 bands are below 64 words).
 //
 // They replace the TPU kernel astarpa_tpu/ops/pallas_banded.py::_banded_call
 // (state machine _columns): K1 is _kernel_shared in EMIT_COST mode (entry

@@ -1,15 +1,18 @@
 // Resident-ring pinned-word Myers edit distance: pinned_ring_kernel<kCk,
 // kPP>, ring K6 (costs + 8-aligned-top checkpoints on the shared schedule,
 // <true, false>) and ring K9 (costs on per-pair schedules, <false, true>);
-// and one leaner step, ring_body<kS, kMode>, in six kernels:
+// and one leaner step, ring_body<kS, kMode>, in eight kernels:
 // ring_cost_kernel<kS>, costs on the shared schedule (K7, kS = 0, 8
 // register slots a thread; the wide ring, kS = 8 or 24 further slots a
 // thread in shared memory), ring_ck_pp_kernel, ring K10 (costs + K4's
-// checkpoint rows on per-pair schedules), banded_ring_kernel, K1 (the
-// shared schedule's costs under K1's result rule, small bands),
-// banded_ring_pp_kernel and banded_ring_ck_pp_kernel, K4 (K1's rings on
-// per-pair schedules: costs, and costs + K4's checkpoints) and
-// banded_ring_fill_kernel, K3 (K1's rings storing every column's window).
+// checkpoint rows on per-pair schedules), ring_ck_exact_kernel, ring K8
+// (ring K10 on the shared schedule: costs + K2's checkpoint rows from the
+// true window top), banded_ring_kernel, K1 (the shared schedule's costs
+// under K1's result rule, small bands), banded_ring_pp_kernel and
+// banded_ring_ck_pp_kernel, K4 (K1's rings on per-pair schedules: costs,
+// and costs + K4's checkpoints), banded_ring_ck_kernel, K2 (K4's
+// checkpoint ring on the shared schedule) and banded_ring_fill_kernel, K3
+// (K1's rings storing every column's window).
 //
 // They replace the TPU kernels astarpa_tpu/ops/pinned.py::_pinned_shared_call
 // (K7, entry pinned_cost_tpu, running _pinned_kernel / _pinned_body),
@@ -18,27 +21,33 @@
 // (K6, entry striped_ck_tpu, running _striped_body),
 // astarpa_tpu/ops/pinned.py::_pinned_pp_call (K9, entry pinned_cost_pp_tpu,
 // running _pinned_pp_body), _pinned_pp_ck_call (K10, entry
-// pinned_ck_pp_tpu) and astarpa_tpu/ops/pallas_banded.py::_banded_call in
-// EMIT_COST mode on the shared schedule (K1, entry banded_cost_tpu), in
-// _kernel_perpair's cost and ck modes (K4, banded_cost_tpu and
+// pinned_ck_pp_tpu), _pinned_ck_call (K8, entry pinned_ck_tpu, on the
+// bands the register ring holds) and
+// astarpa_tpu/ops/pallas_banded.py::_banded_call in EMIT_COST mode on the
+// shared schedule (K1, entry banded_cost_tpu), in EMIT_CK mode on the
+// shared schedule (K2, banded_ck_tpu), in _kernel_perpair's cost and ck modes (K4, banded_cost_tpu and
 // banded_ck_tpu with schedule=) and in EMIT_FILL mode on the shared
 // schedule (K3, banded_fill_tpu).  K7's function is K5's (csrc/striped.cu, the
 // reference holds pinned_cost_tpu == striped_cost_tpu), so its plain torch
 // twin is astarpa_tpu_torch/ops/striped.py::pinned_cost_ref, the striped
 // sweep; ring K6's is striped.py::striped_ck_ref, ring K9's
 // astarpa_tpu_torch/ops/pinned.py::pinned_cost_pp_ref, ring K10's
-// pinned.py::pinned_ck_pp_ref, K1's ops/banded.py::banded_cost_ref (its
+// pinned.py::pinned_ck_pp_ref, ring K8's striped.py::pinned_ck_ref, K2's
+// banded.py::banded_ck_ref, K1's ops/banded.py::banded_cost_ref (its
 // staggered twin: striped.py::banded_cost_staggered_ref), K4's
 // banded.py::banded_cost_pp_ref and banded_ck_pp_ref (staggered twins:
 // pinned.py::banded_cost_pp_staggered_ref, banded_ck_pp_staggered_ref) and
 // K3's banded.py::banded_fill_ref (striped.py::banded_fill_staggered_ref).  The results
 // must match them bit for bit, and match the stripe kernels of
-// csrc/striped.cu (striped_kernel<false>, <true>, <false, true> and <true,
-// true, true>), which take the bands past the rings.  The per-word event steps come from the same host plans
+// csrc/striped.cu (striped_kernel<false>, <true>, <false, true>, <true,
+// true, true> and <true, false, true>), which take the bands past the
+// rings.  The per-word event steps come from the same host plans
 // (ops/striped.py::plan_striped, ops/pinned.py::plan_pp).
 //
-// Which bands each serves (ops/banded_kernel.py): ring K6, ring K9 and
-// ring K10 up to 4096 live words (ring_takes), K7 every shared cost rung of
+// Which bands each serves (ops/banded_kernel.py): ring K6, ring K8, ring K9
+// and ring K10 up to 4096 live words (ring_takes), K2's ring every
+// interval its row cursor takes (CB >= SW, or one capture window) on bands
+// of up to 2048 words (k2_kernel), K7 every shared cost rung of
 // up to 4096 live words and the wide ring those of 4097 to 16384
 // (pinned_cost_takes, ring_cost_layout: 16 slots a thread up to 8192, 32
 // up to 16384), K1 every shared cost rung below 64 words (the runner's
@@ -193,10 +202,15 @@
 // one-thread-a-pair K1's 27 ms (its bound 1.1 ms).  A shared schedule
 // shifted at column 0 (a diagonal steeper than a word a column from the
 // start) absorbs word 0 at its entry: word 0 is never the top, so slot 0
-// reads the column codes from step 0 for the band top below it.  K7's and
-// the wide ring's builds leave that start out (see ROADMAP.md's faults), so
-// their wrapper (ops/banded_kernel.py::pinned_cost) refuses such a schedule
-// before the launch; the runner's buckets reach one only when every a
+// reads the column codes from step 0 for the band top below it.  K1's
+// layout (K1, K2, K3, K4) and ring K8 start so.  Built into K7 and the
+// wide ring, that start spilled 8 bytes in both wide rings (ptxas -v on the
+// H100, PERF.md), so their builds leave it out and their wrapper
+// (ops/banded_kernel.py::_launch_ring_cost) runs such a schedule on the
+// band one word down: word 0 is absorbed at step 0, column 0, so words 1..
+// at steps 1.. are words 0.. at steps 0.. of the band on rows 32.. (the
+// same columns), and each pair with a column adds word 0's all-ones value,
+// 32, back.  The runner's buckets reach such a schedule only when every a
 // holds one character.
 //
 // K4 (banded_ring_pp_kernel, banded_ring_ck_pp_kernel) is K1's ring on
@@ -229,6 +243,34 @@
 // its entry.  Rows past a pair's end are its row n -
 // 1 slid down the schedule (words entering later all-ones), copied after
 // the sweep by the ring's threads.
+//
+// Ring K8 (ring_ck_exact_kernel) is ring K10 on the shared schedule's event
+// rows and window tops (one (3, nw_pad) table and one (n_ck,) row of tops
+// for every block): the same cursor, top values and sweep to n_lim =
+// n_max, K5's costs, checkpoints under K2's rows from the true window top,
+// n_ck = n_max / CB + 1.  Its ring is sized as ring K6's
+// (ops/striped.py::ring_span at n_max).  CB >= SW keeps the windows'
+// steps apart; a single capture window (n_ck <= 2) needs nothing of CB,
+// as in a skewed bucket where n_max clamps CB below SW.  It replaces the
+// stripe K8 (csrc/striped.cu) on every band the register ring holds: config
+// #4's full height (SW = S = 3149, off the 8-grain, where ring K6 cannot
+// go) runs one pass of 3149 live words in 416 threads.  There the windows
+// cover SW of every CB columns' steps (77% at CB = 4096), and each step of
+// a window sends one thread through the event code; ring K10's cursor
+// alone took ~80 ms on that rung against K7's ~56 ms.  So ring K8 keeps
+// the next event step but the cursor's (ev_rest, one register: 128, no
+// spills) and a step whose only due event is a row take runs ck_take
+// alone (~62 ms; PERF.md).
+//
+// K2 (banded_ring_ck_kernel) is K4's checkpoint ring on the shared
+// schedule: K1's rings (several pairs a warp, each on the same event rows)
+// writing K4's rows, which are K2's: checkpoint k is the window after
+// column k*CB - 1, ceil(n_max / CB) of them; at or before a pair's end the
+// row cursor writes them, past it each captured word's state and value
+// and the all-ones words entering after the end (K2 slides a finished
+// lane's frozen window, as K4 does).  Each pair stops after its own last
+// capture, as K4's.  One capture window below SW (n_ck <= 2) is taken;
+// several are refused (the old K2 in csrc/banded.cu takes them).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -558,14 +600,18 @@ __device__ __forceinline__ uint32_t bit_mask(uint32_t x, int k) {
 // result rule: K1 (kRingBanded: the shared schedule's costs), K4
 // (kRingBandedPP: per-pair costs; kRingBandedCkPP: per-pair costs and
 // checkpoints, K4's rows past a pair's end) and K3 (kRingFill: the shared
-// schedule's costs and every column's window planes).
+// schedule's costs and every column's window planes); ring K8 (kRingCk:
+// ring K10 on the shared schedule, a ring a block) and ring K2
+// (kRingBandedCk: K4's checkpoint ring on the shared schedule, K1's rings).
 enum RingMode {
   kRingCost = 0,
   kRingCkPP = 1,
   kRingBanded = 2,
   kRingBandedPP = 3,
   kRingBandedCkPP = 4,
-  kRingFill = 5
+  kRingFill = 5,
+  kRingCk = 6,
+  kRingBandedCk = 7
 };
 
 // The ring's step and events; see the header.  A thread holds kT = 8 + kS
@@ -582,13 +628,16 @@ __device__ __forceinline__ void ring_body(
     int32_t* __restrict__ ck_tv, const int32_t* __restrict__ ckw0, int n_max,
     int B, int S, int SW, int nw_pad, int n_lim, int CB, int n_ck, int ring) {
   constexpr int kT = kK + kS;  // slots a thread, a power of two
-  constexpr bool kK4Ck = kMode == kRingBandedCkPP;
-  constexpr bool kCk = kMode == kRingCkPP || kK4Ck;
+  // K4's checkpoint rows past a pair's end (K4, and K2 on the shared
+  // schedule).
+  constexpr bool kK4Ck = kMode == kRingBandedCkPP || kMode == kRingBandedCk;
+  constexpr bool kCk = kMode == kRingCkPP || kMode == kRingCk || kK4Ck;
   constexpr bool kFill = kMode == kRingFill;
-  // Each pair's own event rows (ring K10, K4).
-  constexpr bool kPPev = kMode == kRingCkPP || kMode == kRingBandedPP || kK4Ck;
-  // K1's layout and result rule (K1, K4, K3).
-  constexpr bool kK1 = kMode >= kRingBanded;
+  // Each pair's own event rows and window tops (ring K10, K4).
+  constexpr bool kPPev =
+      kMode == kRingCkPP || kMode == kRingBandedPP || kMode == kRingBandedCkPP;
+  // K1's layout and result rule (K1, K4, K3, K2).
+  constexpr bool kK1 = kMode >= kRingBanded && kMode != kRingCk;
   const int NT = kK1 ? ring : blockDim.x;  // the ring's threads
   // K1's rings below a warp: 32 / NT pairs a warp (one-warp blocks).
   const bool sub = kK1 && NT < 32;
@@ -617,6 +666,9 @@ __device__ __forceinline__ void ring_body(
   // rest, entered after the end, all-ones.  The cursor takes the others.
   const int k1 = kK4Ck ? np / CB + 1 : n_ck;
   const int fb = np > 0 ? le + SW : 0;
+  // Checkpoint k's window top, lo(k * CB - 1): each pair's (ring K10, K4)
+  // or the shared schedule's (ring K8, K2).
+  auto ck_top = [&](int k) { return kPPev ? ckw0[(size_t)k * B + p] : ckw0[k]; };
   const int32_t* ent_t = ev;
   const int32_t* top_t = ev + nw_pad;
   const int32_t* abs_t = ev + 2 * nw_pad;
@@ -650,13 +702,13 @@ __device__ __forceinline__ void ring_body(
     }
     for (int k = tid; k < n_ck; k += NT) {
       ck_tv[(size_t)k * B + p] =
-          k < k1 ? k * CB : np + kW * max(0, ckw0[(size_t)k * B + p] - fb);
+          k < k1 ? k * CB : np + kW * max(0, ck_top(k) - fb);
     }
     if constexpr (kK4Ck) {
       for (int i = tid; i < (n_ck - k1) * SW; i += NT) {
         const int k = k1 + i / SW;
         const int row = i - (i / SW) * SW;
-        if (ckw0[(size_t)k * B + p] + row >= fb) {
+        if (ck_top(k) + row >= fb) {
           const size_t o = ((size_t)k * SW + row) * B + p;
           ck_vp[o] = ~0u;
           ck_vm[o] = 0u;
@@ -739,7 +791,6 @@ __device__ __forceinline__ void ring_body(
   // are read again where used (out of line), which keeps the step loop
   // within its registers.
   int ck_k = 1, ck_q = 0, ck_w = 0, ck_next = kNever, tv_k = 1, tv_acc = 0;
-  auto ck_top = [&](int k) { return ckw0[(size_t)k * B + p]; };
   // The windows the cursor takes (K4: those at or before the pair's end),
   // and the top values a thread adds to (none for a tail ring).
   const int n_cur = !own ? 1 : kK4Ck ? min(n_ck, k1) : n_ck;
@@ -773,9 +824,11 @@ __device__ __forceinline__ void ring_body(
   // directly each step (slow, steps before top_end with no other event).
   bool mm = false, top0 = false, slow = false;
   int mm_end = kNever, rearm = kNever, ev_next = 0, top_end = 0, ts = 0;
+  // Ring K8: the next event step but the row cursor's (its fast path).
+  int ev_rest = 0;
   uint32_t tc = 0u;
   const uint8_t* tptr = cp;
-  if constexpr (kK1) {
+  if constexpr (kK1 || kMode == kRingCk) {
     if (w0 == 0 && abs_t[0] == 0) {
       // A schedule shifted at column 0: word 0 is absorbed at its entry and
       // is never the top, so slot 0 reads the column codes from step 0 for
@@ -887,7 +940,7 @@ __device__ __forceinline__ void ring_body(
   int t_end = np > 0 ? np + le + SW - 1 : 0;
   if constexpr (kCk && !kK4Ck) {
     // Checkpoint rows are defined up to n_max: the last window's last word.
-    if (n_ck > 1) t_end = max(t_end, (n_ck - 1) * CB - 1 + ckw0[(size_t)(n_ck - 1) * B + p] + SW);
+    if (n_ck > 1) t_end = max(t_end, (n_ck - 1) * CB - 1 + ck_top(n_ck - 1) + SW);
   }
   // The rings of a warp step together (a full-warp shuffle links them).
   if constexpr (kK1) t_end = __reduce_max_sync(kFull, t_end);
@@ -926,7 +979,13 @@ __device__ __forceinline__ void ring_body(
         }
       }
       if (tt >= ev_next) {
-        if (!(slow && tt < top_end)) {
+        if (kMode == kRingCk && tt - 1 == ck_next && tt < ev_rest) {
+          // Ring K8: only the row cursor is due.  Its windows cover most
+          // steps of a full-height rung (SW of every CB columns), so the
+          // rest of the event code stays out of them.
+          ck_take();
+          ev_next = min(ev_rest, ck_next + 1);
+        } else if (!(slow && tt < top_end)) {
           // A capture due at step tt - 1, after its compute.
           if (tt - 1 == cap_next) capture();
           if constexpr (kCk) {
@@ -1013,6 +1072,7 @@ __device__ __forceinline__ void ring_body(
                           abs_w + n_lim);
             if constexpr (kCk) top_end = min(top_end, ck_next + 1);
             ev_next = tt;
+            if constexpr (kMode == kRingCk) ev_rest = tt;
           } else {
             const int top_start = (straddle_now || (a & (kT - 1)) == 0) && top_next > tt &&
                                           top_next - abs_w < n_lim
@@ -1020,6 +1080,7 @@ __device__ __forceinline__ void ring_body(
                                       : kNever;
             ev_next = min(min(min(ent_next, abs_next), min(top_start, cap_next + 1)),
                           min(rearm, mm_end));
+            if constexpr (kMode == kRingCk) ev_rest = ev_next;
             if constexpr (kCk) ev_next = min(ev_next, ck_next + 1);
           }
         }
@@ -1389,6 +1450,81 @@ int launch_banded_ring_fill(const void* code, const void* pb0, const void* pb1,
   return (int)cudaGetLastError();
 }
 
+// Ring K8: the shared schedule's costs and checkpoints under K2's rows
+// (from the true window top), a ring a block, swept to n_max.
+__global__ void __launch_bounds__(kMaxThreads) ring_ck_exact_kernel(
+    const uint8_t* __restrict__ code, const uint32_t* __restrict__ pb0,
+    const uint32_t* __restrict__ pb1, const int32_t* __restrict__ n,
+    const int32_t* __restrict__ m, const int32_t* __restrict__ loend,
+    const int32_t* __restrict__ ev, int32_t* __restrict__ out,
+    uint32_t* __restrict__ ck_vp, uint32_t* __restrict__ ck_vm,
+    int32_t* __restrict__ ck_tv, const int32_t* __restrict__ ckw0, int n_max,
+    int B, int S, int SW, int nw_pad, int CB, int n_ck) {
+  ring_body<0, kRingCk>(code, pb0, pb1, n, m, loend, ev, out, ck_vp, ck_vm, ck_tv,
+                        ckw0, n_max, B, S, SW, nw_pad, n_max, CB, n_ck, 0);
+}
+
+// K2: the shared schedule's costs and checkpoints (K4's rows past a
+// pair's end) under K1's rule, rings of `ring` threads.
+__global__ void __launch_bounds__(kMaxRingThreads, 1) banded_ring_ck_kernel(
+    const uint8_t* __restrict__ code, const uint32_t* __restrict__ pb0,
+    const uint32_t* __restrict__ pb1, const int32_t* __restrict__ n,
+    const int32_t* __restrict__ m, const int32_t* __restrict__ loend,
+    const int32_t* __restrict__ ev, int32_t* __restrict__ out,
+    uint32_t* __restrict__ ck_vp, uint32_t* __restrict__ ck_vm,
+    int32_t* __restrict__ ck_tv, const int32_t* __restrict__ ckw0, int n_max,
+    int B, int S, int SW, int nw_pad, int CB, int n_ck, int ring) {
+  ring_body<0, kRingBandedCk>(code, pb0, pb1, n, m, loend, ev, out, ck_vp, ck_vm,
+                              ck_tv, ckw0, n_max, B, S, SW, nw_pad, 1, CB, n_ck, ring);
+}
+
+// Ring K8's and K2's row cursors take windows of CB >= SW columns apart,
+// or one window (checkpoint 1) whatever CB.
+bool ck_interval_ok(int CB, int SW, int n_ck) {
+  return CB >= 1 && n_ck >= 1 && (CB >= SW || n_ck <= 2);
+}
+
+int launch_ring_ck_exact(const void* code, const void* pb0, const void* pb1,
+                         const void* n, const void* m, const void* loend,
+                         const void* ev, void* out, void* ck_vp, void* ck_vm,
+                         void* ck_tv, const void* ckw0, int n_max, int B, int S,
+                         int SW, int nw_pad, int threads, int CB, int n_ck,
+                         void* stream) {
+  if (threads < 32 || threads > kMaxThreads || threads % 32 ||
+      nw_pad % (threads * kK) || n_max < 1 || !ck_interval_ok(CB, SW, n_ck)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B > 0) {
+    ring_ck_exact_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)code, (const uint32_t*)pb0, (const uint32_t*)pb1,
+        (const int32_t*)n, (const int32_t*)m, (const int32_t*)loend,
+        (const int32_t*)ev, (int32_t*)out, (uint32_t*)ck_vp, (uint32_t*)ck_vm,
+        (int32_t*)ck_tv, (const int32_t*)ckw0, n_max, B, S, SW, nw_pad, CB, n_ck);
+  }
+  return (int)cudaGetLastError();
+}
+
+int launch_banded_ring_ck(const void* code, const void* pb0, const void* pb1,
+                          const void* n, const void* m, const void* loend,
+                          const void* ev, void* out, void* ck_vp, void* ck_vm,
+                          void* ck_tv, const void* ckw0, int n_max, int B, int S,
+                          int SW, int nw_pad, int ring, int CB, int n_ck,
+                          void* stream) {
+  dim3 grid, block;
+  if (!ring_grid(ring, kMaxRingThreads, nw_pad, B, grid, block) || n_max < 1 ||
+      !ck_interval_ok(CB, SW, n_ck)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B > 0) {
+    banded_ring_ck_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)code, (const uint32_t*)pb0, (const uint32_t*)pb1,
+        (const int32_t*)n, (const int32_t*)m, (const int32_t*)loend,
+        (const int32_t*)ev, (int32_t*)out, (uint32_t*)ck_vp, (uint32_t*)ck_vm,
+        (int32_t*)ck_tv, (const int32_t*)ckw0, n_max, B, S, SW, nw_pad, CB, n_ck, ring);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <bool kCk, bool kPP>
 int launch(const void* code, const void* pb0, const void* pb1, const void* n,
            const void* m, const void* loend, const void* ev, void* out,
@@ -1430,7 +1566,10 @@ int launch(const void* code, const void* pb0, const void* pb1, const void* n,
 // ring_span(plan, n_lim); K4's take `ring` too, on per-pair ev as ring
 // K10's (banded_ring_ck_pp writing ring K10's outputs under K4's rows), and
 // K3's writes vp_cols/vm_cols (B, n_max, SW) pair-major from tab (2 * n_max,)
-// lo(c) then c * SW - lo(c) (n_max * SW < 2^31).  The code buffer is padded
+// lo(c) then c * SW - lo(c) (n_max * SW < 2^31).  Ring K8's entry takes
+// ring K10's arguments on shared ev (3, nw_pad) and ckw0 (n_ck,), writing
+// (n_ck, SW, B) planes (CB >= SW, or n_ck <= 2); K2's takes K4's on the
+// same shared tables, n_ck = ceil(n_max / CB).  The code buffer is padded
 // past the last pair (ops/banded_kernel.py::CODE_PAD), as K7's.  Each launches on `stream`
 // without synchronising and returns cudaGetLastError() (0 on success).
 extern "C" {
@@ -1505,6 +1644,28 @@ int astarpa_banded_ring_fill(const void* code, const void* pb0, const void* pb1,
                              int nw_pad, int n_lim, int ring, void* stream) {
   return launch_banded_ring_fill(code, pb0, pb1, n, m, loend, ev, out, vp_cols, vm_cols,
                                  tab, n_max, B, S, SW, nw_pad, n_lim, ring, stream);
+}
+
+int astarpa_ring_ck_exact(const void* code, const void* pb0, const void* pb1,
+                          const void* n, const void* m, const void* loend,
+                          const void* ev, void* out, void* ck_vp, void* ck_vm,
+                          void* ck_tv, const void* ckw0, int n_max, int B, int S,
+                          int SW, int nw_pad, int threads, int CB, int n_ck,
+                          void* stream) {
+  return launch_ring_ck_exact(code, pb0, pb1, n, m, loend, ev, out, ck_vp, ck_vm,
+                              ck_tv, ckw0, n_max, B, S, SW, nw_pad, threads, CB,
+                              n_ck, stream);
+}
+
+int astarpa_banded_ring_ck(const void* code, const void* pb0, const void* pb1,
+                           const void* n, const void* m, const void* loend,
+                           const void* ev, void* out, void* ck_vp, void* ck_vm,
+                           void* ck_tv, const void* ckw0, int n_max, int B, int S,
+                           int SW, int nw_pad, int ring, int CB, int n_ck,
+                           void* stream) {
+  return launch_banded_ring_ck(code, pb0, pb1, n, m, loend, ev, out, ck_vp, ck_vm,
+                               ck_tv, ckw0, n_max, B, S, SW, nw_pad, ring, CB, n_ck,
+                               stream);
 }
 
 int astarpa_ring_ck(const void* code, const void* pb0, const void* pb1,

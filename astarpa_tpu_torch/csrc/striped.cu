@@ -8,10 +8,11 @@
 // true, true>.  kExact, the third flag, picks the checkpoint rows: from the
 // true window top (K8, K10) or from the 8-aligned one (K6).
 //
-// Which bands each instance serves: K8 takes every band it is routed; K6,
-// K9 and K10 take only bands of more live words than the resident rings of
-// csrc/pinned.cu hold (4096: ring K6, ring K9 and ring K10 take the
-// shorter ones, ops/banded_kernel.py::ring_takes), and K5 only bands of more than
+// Which bands each instance serves: K6, K8, K9 and K10 take only bands of
+// more live words than the resident rings of csrc/pinned.cu hold (4096:
+// ring K6, ring K8, ring K9 and ring K10 take the shorter ones,
+// ops/banded_kernel.py::ring_takes; config #5's pairs at full height, S =
+// 15742, are such a band for K8), and K5 only bands of more than
 // 16384 live words, which no configuration reaches: K7 and the wide ring
 // there take the shorter ones (pinned_cost_takes).  Each ring computes the
 // same function without the stripe ramps.

@@ -117,6 +117,8 @@ ENTRIES = {
     "astarpa_banded_ring_pp": (8, 6),
     "astarpa_banded_ring_ck_pp": (12, 8),
     "astarpa_banded_ring_fill": (11, 7),
+    "astarpa_ring_ck_exact": (12, 8),
+    "astarpa_banded_ring_ck": (12, 8),
     "astarpa_nw_right_edge": (8, 2),
 }
 

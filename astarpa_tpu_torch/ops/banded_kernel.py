@@ -11,7 +11,10 @@ and of ``astarpa_tpu/ops/pinned.py::pinned_cost_tpu``, ``pinned_ck_tpu``,
 - :func:`banded_cost` — K1, shared schedule, costs: on the card a ring of
   resident words (8 register slots a lane, a few lanes a pair below 256
   live words, up to :data:`RING_MAX_WORDS`);
-- :func:`banded_ck` — K2, shared schedule, costs and checkpoints;
+- :func:`banded_ck` — K2, shared schedule, costs and checkpoints: on the
+  card K1's ring writing K4's checkpoint rows on the shared schedule
+  (``banded_ring_ck_kernel``), the old one-thread-a-pair kernel for an
+  interval or band the ring refuses (:func:`k2_kernel`);
 - :func:`banded_fill` — K3, shared schedule, costs and every column's
   planes: on the card K1's ring storing each word's state after each
   column, in pair-major storage;
@@ -31,7 +34,9 @@ and of ``astarpa_tpu/ops/pinned.py::pinned_cost_tpu``, ``pinned_ck_tpu``,
   registers (up to :data:`RING_MAX_WORDS`), and past it the wide ring,
   whose further slots are in shared memory (up to
   :data:`RING_COST_MAX_WORDS`);
-- :func:`pinned_ck` — K8, K5 plus checkpoints under K2's contract, any SW;
+- :func:`pinned_ck` — K8, K5 plus checkpoints under K2's contract, any SW:
+  the ring kernel (ring K8, ring K10's row cursor on the shared schedule)
+  up to :data:`RING_MAX_WORDS` live words, the stripe kernel past them;
 - :func:`pinned_cost_pp` — K9, K5's DP on per-pair schedules, costs: the
   ring kernel (ring K9) up to :data:`RING_MAX_WORDS` live words, the
   stripe kernel past them;
@@ -52,6 +57,7 @@ import numpy as np
 import torch
 
 from . import banded, pinned, striped
+from .bitpack import W
 from .words import lengths, to_tensor
 
 #: Launches of each CUDA kernel in this process, by wrapper name (callers
@@ -62,14 +68,16 @@ from .words import lengths, to_tensor
 #: ``banded_ring``); ``banded_fill`` the old K3 (:func:`banded_fill` runs
 #: ``banded_ring_fill``); ``banded_cost_pp`` and ``banded_ck_pp`` the old
 #: K4, which only :func:`banded_ck_pp` runs, for an interval its ring
-#: refuses (:func:`k4_kernel`).
+#: refuses (:func:`k4_kernel`); ``banded_ck`` the old K2, which only
+#: :func:`banded_ck` runs, for an interval or band its ring refuses
+#: (:func:`k2_kernel`); ``pinned_ck`` the stripe K8 (:func:`pinned_ck_kernel`).
 LAUNCHES = {"banded_cost": 0, "banded_ck": 0, "banded_fill": 0,
             "banded_fill_pp": 0, "banded_cost_pp": 0, "banded_ck_pp": 0, "striped_cost": 0, "striped_ck": 0,
             "pinned_cost": 0, "pinned_ck": 0, "pinned_cost_pp": 0,
             "pinned_ck_pp": 0, "ring_ck": 0, "ring_cost_pp": 0,
             "ring_cost_wide": 0, "banded_ring": 0, "ring_ck_pp": 0,
             "banded_ring_pp": 0, "banded_ring_ck_pp": 0, "banded_ring_fill": 0,
-            "nw_right_edge": 0}
+            "ring_ck_exact": 0, "banded_ring_ck": 0, "nw_right_edge": 0}
 
 
 def reset_launches() -> None:
@@ -87,7 +95,8 @@ _LABELS = {"banded_cost": "cuda-banded", "banded_ck": "cuda-banded-ck",
            "ring_cost_wide": "cuda-ring-wide", "banded_ring": "cuda-banded-ring",
            "ring_ck_pp": "cuda-ring-pp-ck", "banded_ring_pp": "cuda-banded-ring-pp",
            "banded_ring_ck_pp": "cuda-banded-ring-ck-pp",
-           "banded_ring_fill": "cuda-banded-ring-fill", "nw_right_edge": "cuda-nw"}
+           "banded_ring_fill": "cuda-banded-ring-fill", "ring_ck_exact": "cuda-ring-ck-exact",
+           "banded_ring_ck": "cuda-banded-ring-ck", "nw_right_edge": "cuda-nw"}
 
 
 def route(device: torch.device, kernel: str = "banded_cost") -> str:
@@ -117,12 +126,33 @@ def banded_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
               diag: tuple | None = None):
     """Costs plus checkpoints every ``min(col_block, n_max)`` columns on the
     shared schedule: ``(costs, ck_vp, ck_vm, ck_tv)`` as
-    :func:`.banded.banded_ck_ref`."""
+    :func:`.banded.banded_ck_ref`.
+
+    On the card K1's ring writing K4's checkpoint rows on the shared
+    schedule (``banded_ring_ck_kernel``, :func:`_launch_banded_ring_ck`);
+    an interval or band it refuses runs the old K2 (:func:`k2_kernel`,
+    a test on the host made before the launch)."""
     if _plain(a0):
         return banded.banded_ck_ref(a0, a1, pb0, pb1, n, m, band_words,
                                     col_block, diag)
-    return _launch("banded_ck", a0, a1, pb0, pb1, n, m, band_words, diag=diag,
-                   col_block=col_block)
+    if k2_kernel(a0.shape[0], min(band_words, pb0.shape[0]), col_block) == "banded_ck":
+        return _launch("banded_ck", a0, a1, pb0, pb1, n, m, band_words, diag=diag,
+                       col_block=col_block)
+    return _launch_banded_ring_ck(a0, a1, pb0, pb1, n, m, band_words, col_block, diag)
+
+
+def k2_kernel(n_max: int, SW: int, col_block: int) -> str:
+    """The :data:`LAUNCHES` key of what :func:`banded_ck` runs on the card:
+    K2's ring (``banded_ring_ck``) where its row cursor takes the interval
+    (``CB = min(col_block, n_max) >= SW``, or at most one capture window:
+    ``ceil(n_max / CB) <= 2``) and its ring the band (``SW <=``
+    :data:`RING_K4_MAX_WORDS`; the live words never outnumber it), else
+    the old K2 (``banded_ck``).  The runner's intervals are at least SW + 8
+    unless n_max clamps them to one checkpoint, and its K2 bands are below
+    ``STRIPED_MIN_SW``, so it always runs the ring."""
+    CB = banded.ck_col_block(col_block, n_max)
+    takes = CB >= SW or -(-n_max // CB) <= 2
+    return "banded_ring_ck" if takes and SW <= RING_K4_MAX_WORDS else "banded_ck"
 
 
 def banded_fill(a0, a1, pb0, pb1, n, m, band_words: int,
@@ -216,8 +246,7 @@ def striped_cost(a0, a1, pb0, pb1, n, m, band_words: int,
     live words never outnumber the band) runs :func:`pinned_cost`'s ring
     kernels, a taller one the stripe kernel K5.  ``stripe_words`` picks the
     stripe kernel at that stripe height (see :func:`striped_threads`).  The
-    results do not depend on either.  On the card the ring refuses a
-    schedule shifted at column 0, as :func:`pinned_cost` does."""
+    results do not depend on either."""
     if _plain(a0):
         return striped.striped_cost_ref(a0, a1, pb0, pb1, n, m, band_words, diag)
     if stripe_words is None and pinned_cost_takes(min(band_words, pb0.shape[0])):
@@ -265,12 +294,9 @@ def pinned_cost(a0, a1, pb0, pb1, n, m, band_words: int,
     to 16384; ``ring_words`` and ``thread_words`` force a size and a
     design (the results do not depend on them).  Raises ``ValueError`` on
     both routes when the ring would need more than 16384 words, or the
-    forced ring cannot hold the live words, and on the card, before the
-    launch, on a schedule shifted at column 0 (``lo(0) = 1``), which these
-    rings mis-compute (only K1's layout starts slot 0 from the codes;
-    ``csrc/pinned.cu``'s header).  The runner never sends one: it needs a
-    bucket whose longest a is one character, whose b then fits K1's
-    ring."""
+    forced ring cannot hold the live words.  A schedule shifted at column 0
+    (``lo(0) = 1``) is taken: on the card the ring runs the band one word
+    down (:func:`_launch_ring_cost`)."""
     SW = _check("pinned_cost", a0, a1, pb0, pb1, band_words)
     n_max, S = a0.shape[0], pb0.shape[0]
     plan = striped.plan_striped(n_max, S, SW, diag)
@@ -278,22 +304,40 @@ def pinned_cost(a0, a1, pb0, pb1, n, m, band_words: int,
                                       ring_words, thread_words)
     if _plain(a0):
         return striped.pinned_cost_ref(a0, a1, pb0, pb1, n, m, band_words, diag)
-    if plan["lo"][0] > 0:
-        raise ValueError("pinned_cost: the cost rings refuse a schedule shifted at column 0")
     return _launch_ring_cost(a0, a1, pb0, pb1, n, m, SW, plan, threads, words)
 
 
 def pinned_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
-              diag: tuple | None = None):
+              diag: tuple | None = None, stripe_words: int | None = None,
+              ring_words: int | None = None):
     """K5 plus checkpoints under K2's row contract: ``(costs, ck_vp, ck_vm,
     ck_tv)`` with (n_ck, SW, B) planes as :func:`.striped.pinned_ck_ref`,
     any SW.  Raises on both routes when ``min(col_block, n_max) < SW`` with
-    more than one capture window (:func:`.striped.pinned_ck_layout`)."""
+    more than one capture window (:func:`.striped.pinned_ck_layout`).
+
+    On the card a band the ring holds (:func:`ring_takes`; its live words up
+    to column n_max, :func:`.striped.ring_span`, never outnumber it) runs
+    ring K8 (``ring_ck_exact_kernel``: ring K10's row cursor and top values
+    on the shared schedule's events), a taller one the stripe kernel;
+    ``stripe_words`` and ``ring_words`` pick one as in :func:`striped_ck`.
+    The results do not depend on either."""
+    ring = _takes_ring(min(band_words, pb0.shape[0]), stripe_words, ring_words)
     if _plain(a0):
         return striped.pinned_ck_ref(a0, a1, pb0, pb1, n, m, band_words,
                                      col_block, diag)
-    return _launch_striped("pinned_ck", a0, a1, pb0, pb1, n, m, band_words,
-                           diag, col_block)
+    if not ring:
+        return _launch_striped("pinned_ck", a0, a1, pb0, pb1, n, m, band_words,
+                               diag, col_block, stripe_words)
+    return _launch_ring_ck_exact(a0, a1, pb0, pb1, n, m, band_words, col_block, diag,
+                                 ring_words)
+
+
+def pinned_ck_kernel(band_words: int) -> str:
+    """The :data:`LAUNCHES` key of what :func:`pinned_ck` runs on the card
+    for a band of ``band_words`` words (at most the full height) by
+    default: ring K8 (``ring_ck_exact``) where :func:`ring_takes`, else the
+    stripe K8 (``pinned_ck``)."""
+    return "ring_ck_exact" if ring_takes(band_words) else "pinned_ck"
 
 
 def pinned_cost_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
@@ -600,6 +644,39 @@ def ring_events(plan: dict, ring_words: int) -> np.ndarray:
     return ev
 
 
+def _launch_ring_ck_exact(a0, a1, pb0, pb1, n, m, band_words, col_block, diag,
+                          ring_words=None):
+    """Ring K8: the shared schedule's costs and checkpoints under K2's rows
+    from one pass over a ring of resident words, swept to column n_max
+    (``ring_words`` forces the ring's size, as :func:`ring_threads`)."""
+    from ._build import load
+
+    dev = a0.device
+    n_max, B = a0.shape
+    S = pb0.shape[0]
+    SW = _check("ring_ck_exact", a0, a1, pb0, pb1, band_words)
+    plan = striped.plan_striped(n_max, S, SW, diag)
+    CB, n_ck, ckw0 = striped.pinned_ck_layout(n_max, SW, col_block, plan["lo"])  # raises first
+    # Checkpoints are defined (and compared) up to n_max.
+    threads = ring_threads(striped.ring_span(plan, n_max), ring_words)
+    n_t, m_t = lengths(n, B, dev), lengths(m, B, dev)
+    ev = ring_events(plan, threads * STRIPED_WORDS_PER_THREAD)
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    outs = (torch.empty((n_ck, SW, B), dtype=torch.int32, device=dev),
+            torch.empty((n_ck, SW, B), dtype=torch.int32, device=dev),
+            torch.empty((n_ck, B), dtype=torch.int32, device=dev))
+    head = [_ring_codes(a0, a1), pb0, pb1, n_t, m_t, _loend(plan, n, n_t, n_max, dev),
+            to_tensor(ev, dev), out, *outs, to_tensor(ckw0, dev)]
+    ints = [n_max, B, S, SW, ev.shape[1], threads, CB, n_ck]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = load().astarpa_ring_ck_exact(*(t.data_ptr() for t in head), *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"ring_ck_exact kernel launch failed: cudaError {rc}")
+    LAUNCHES["ring_ck_exact"] += 1
+    return (out,) + outs
+
+
 def _launch_pinned(a0, a1, pb0, pb1, n, m, SW, plan, threads, col_block):
     """Ring K6: the shared schedule's checkpoint ring launch."""
     from ._build import load
@@ -649,7 +726,16 @@ def _ring_codes(a0, a1) -> torch.Tensor:
 
 
 def _launch_ring_cost(a0, a1, pb0, pb1, n, m, SW, plan, threads, thread_words):
-    """K7 (8 slots a thread) or the wide ring: the shared cost ring launch."""
+    """K7 (8 slots a thread) or the wide ring: the shared cost ring launch.
+
+    Their builds leave out the start a schedule shifted at column 0 needs
+    (slot 0 reading the column codes from step 0; with it both wide rings
+    spilled, ``csrc/pinned.cu``'s header).  Such a schedule absorbs word 0
+    at its entry, step 0, column 0, so the ring runs the band one word down,
+    a test on the host before the launch: words 1.. at steps 1.. are words
+    0.. at steps 0.. on the profile rows from 32 (the same columns, so the
+    same band), with m and each pair's last band top one word less, and
+    each pair with a column gets word 0's all-ones value, 32, back."""
     from ._build import load
 
     dev = a0.device
@@ -658,6 +744,12 @@ def _launch_ring_cost(a0, a1, pb0, pb1, n, m, SW, plan, threads, thread_words):
     n_t, m_t = lengths(n, B, dev), lengths(m, B, dev)
     loend = _loend(plan, n, n_t, n_max, dev)
     ev = ring_events(plan, threads * thread_words)
+    col0 = plan["lo"][0] > 0
+    if col0:
+        ev = np.concatenate([np.where(ev[:, 1:] < striped.NEVER, ev[:, 1:] - 1, striped.NEVER),
+                             np.full((3, 1), striped.NEVER, np.int32)], 1).astype(np.int32)
+        pb0, pb1, S = pb0[1:], pb1[1:], S - 1
+        m_t, loend = m_t - W, loend - 1
     code = _ring_codes(a0, a1)
     out = torch.empty(B, dtype=torch.int32, device=dev)
     head = [code, pb0, pb1, n_t, m_t, loend, to_tensor(ev, dev), out]
@@ -674,6 +766,8 @@ def _launch_ring_cost(a0, a1, pb0, pb1, n, m, SW, plan, threads, thread_words):
     if rc != 0:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
     LAUNCHES[key] += 1
+    if col0:
+        return torch.where((n_t > 0) & (out < banded.INF), out + W, out)
     return out
 
 
@@ -902,6 +996,48 @@ def _launch_banded_ring_pp(a0, a1, pb0, pb1, n, m, schedule, band_words, quantum
         raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
     LAUNCHES[key] += 1
     return (out,) + outs if ck else out
+
+
+def _launch_banded_ring_ck(a0, a1, pb0, pb1, n, m, band_words, col_block, diag,
+                           lanes=None):
+    """K2 on the card: the shared schedule's costs and checkpoints from one
+    pass over rings of resident words, K1's layout (:func:`banded_ring_layout`
+    of :func:`.striped.ring_span` at the longest pair's n, each pair stopped
+    at its own last capture) writing K4's checkpoint rows: the row cursor
+    for the checkpoints at or before a pair's end, each captured word's
+    state and value into those past it.  ``lanes`` forces the ring's
+    lanes.  Raises ``ValueError`` where :func:`k2_kernel` refuses the
+    interval, or past :data:`RING_K4_MAX_WORDS` live words."""
+    from ._build import load
+
+    dev = a0.device
+    n_max, B = a0.shape
+    S = pb0.shape[0]
+    SW = _check("banded_ring_ck", a0, a1, pb0, pb1, band_words)
+    CB = banded.ck_col_block(col_block, n_max)
+    n_ck = -(-n_max // CB)
+    if CB < SW and n_ck > 2:
+        raise ValueError(f"K2 ring: col_block {CB} < band_words {SW} with "
+                         f"{n_ck - 1} capture windows")
+    plan = striped.plan_striped(n_max, S, SW, diag)
+    lay = banded_ring_layout(striped.ring_span(plan, _cost_n_lim(n, n_max)), B, lanes,
+                             RING_K4_MAX_WORDS)
+    n_t, m_t = lengths(n, B, dev), lengths(m, B, dev)
+    ev = ring_events(plan, lay["lanes"] * STRIPED_WORDS_PER_THREAD)
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    outs = (torch.empty((n_ck, SW, B), dtype=torch.int32, device=dev),
+            torch.empty((n_ck, SW, B), dtype=torch.int32, device=dev),
+            torch.empty((n_ck, B), dtype=torch.int32, device=dev))
+    head = [_ring_codes(a0, a1), pb0, pb1, n_t, m_t, _loend(plan, n, n_t, n_max, dev),
+            to_tensor(ev, dev), out, *outs, to_tensor(striped.ck_tops(plan["lo"], CB, n_ck), dev)]
+    ints = [n_max, B, S, SW, ev.shape[1], lay["lanes"], CB, n_ck]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = load().astarpa_banded_ring_ck(*(t.data_ptr() for t in head), *ints, stream)
+    if rc != 0:
+        raise RuntimeError(f"banded_ring_ck kernel launch failed: cudaError {rc}")
+    LAUNCHES["banded_ring_ck"] += 1
+    return (out,) + outs
 
 
 def banded_ring_fill_tables(a0, a1, n, S: int, SW: int, diag,

@@ -93,7 +93,8 @@ _SYNC = "    if (solo) { __syncwarp(); } else { __syncthreads(); }\n"
 _OLD_KEEP = """#pragma unroll
   for (int j = 0; j < kK; ++j) cap += __popc(vp[j]) - __popc(vm[j]) + (int)(xa0[j] & 1) + (int)xhp[j];
 """
-_NEW_CHECK = "      if (tt >= ev_next) {\n        if (!(slow && tt < top_end)) {"
+_NEW_CHECK = ("      if (tt >= ev_next) {\n"
+              "        if (kMode == kRingCk && tt - 1 == ck_next && tt < ev_rest) {")
 _NEW_TOP = "          const bool top = tt >= top_next && tt < abs_next && tt - abs_w < n_lim;"
 _NEW_MULTI = "  const bool multi = NT > 32;  // a one-warp ring wraps by shuffle alone"
 _NEW_TAIL = "  // The capture of the last computed step, if due."
@@ -142,7 +143,7 @@ def variants(src: str) -> dict[str, str]:
                                        + slots_nomove + "    last_aux = pack_aux(in_a0, in_a1, "
                                        "xhp[kK - 1], xhm[kK - 1]);\n"),
     }
-    nohandler = _sub(_sub(src, _NEW_CHECK, "      if (false) {\n        if (!(slow && tt < top_end)) {"),
+    nohandler = _sub(_sub(src, _NEW_CHECK, _NEW_CHECK.replace("(tt >= ev_next)", "(false)")),
                      _NEW_TAIL, _NEW_KEEP + _NEW_TAIL)
     new = {
         "ring_cost": src,

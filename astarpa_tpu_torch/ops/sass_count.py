@@ -18,7 +18,8 @@ With ``--ring`` it splits the step loop of each matching ring kernel
 (``pinned_ring_kernel``, and the kernels of ``ring_body``:
 ``ring_cost_kernel``, ring K10's ``ring_ck_pp_kernel``, K1's
 ``banded_ring_kernel``, K4's ``banded_ring_pp_kernel`` and
-``banded_ring_ck_pp_kernel`` and K3's ``banded_ring_fill_kernel``;
+``banded_ring_ck_pp_kernel``, K3's ``banded_ring_fill_kernel``, ring K8's
+``ring_ck_exact_kernel`` and K2's ``banded_ring_ck_kernel``;
 :func:`step_split`): the largest loop closed by a
 conditional branch, whose body runs ``--steps`` steps (1 for
 ``pinned_ring_kernel``, 8 for ``ring_body``'s, unrolled by 8).  It prints one JSON line per kernel instance with
@@ -52,7 +53,8 @@ STEP_CLASSES = ("word_alu", "moves", "handoff", "tests", "memory", "control", "u
 #: The kernels of ``csrc/pinned.cu``'s ``ring_body``, whose step loop is
 #: unrolled by 8.
 RING_BODY = ("ring_cost_kernel", "ring_ck_pp_kernel", "banded_ring_kernel",
-             "banded_ring_pp_kernel", "banded_ring_ck_pp_kernel", "banded_ring_fill_kernel")
+             "banded_ring_pp_kernel", "banded_ring_ck_pp_kernel", "banded_ring_fill_kernel",
+             "ring_ck_exact_kernel", "banded_ring_ck_kernel")
 #: Least int32 instructions of one Myers word step on sm_90 (``chip_smoke.py``).
 OPS_PER_WORD_STEP = 14
 _HANDOFF = {"SHFL", "LDS", "STS", "BAR", "WARPSYNC", "LDSM"}

@@ -95,7 +95,7 @@ def loend_of(lo: np.ndarray, n) -> np.ndarray:
     return lo[np.clip(n - 1, 0, len(lo) - 1)].astype(np.int32)
 
 
-def _ck_tops(lo: np.ndarray, CB: int, n_ck: int) -> np.ndarray:
+def ck_tops(lo: np.ndarray, CB: int, n_ck: int) -> np.ndarray:
     """(n_ck,) int32 true window tops ``lo[k*CB - 1]``, 0 for checkpoint 0."""
     ckw0 = np.zeros(n_ck, np.int32)
     ckw0[1:] = lo[np.arange(1, n_ck) * CB - 1]
@@ -116,7 +116,7 @@ def ck_layout(n_max: int, SW: int, col_block: int, lo: np.ndarray):
         raise ValueError(f"striped ck: col_block {col_block} < band_words + 8 = {SW + 8}")
     CB = min(col_block, max(n_max, 1))
     n_ck = n_max // CB + 1
-    return CB, n_ck, _ck_tops(lo, CB, n_ck)
+    return CB, n_ck, ck_tops(lo, CB, n_ck)
 
 
 def pinned_ck_fits(n_max: int, SW: int, CB: int) -> bool:
@@ -141,7 +141,7 @@ def pinned_ck_layout(n_max: int, SW: int, col_block: int, lo: np.ndarray):
     if not pinned_ck_fits(n_max, SW, CB):
         raise ValueError(f"pinned ck: col_block {CB} < band_words {SW} with "
                          f"{n_ck - 1} capture windows")
-    return CB, n_ck, _ck_tops(lo, CB, n_ck)
+    return CB, n_ck, ck_tops(lo, CB, n_ck)
 
 
 def _sweep(a0, a1, pb0, pb1, n, m, band_words: int, diag, col_block=None,

@@ -9,8 +9,9 @@ pairs retry at the band their banded upper bound predicts.
   with ``domain_mode="off"``): K1 for costs (on the card a ring of
   resident words, a few lanes a pair); on the align path K1 when
   every cost a rung can certify fits the native direct-trace budget
-  (CIGARs by direct whole-pair DT traces), else K2, whose window
-  checkpoints feed the native ``trace_banded_ck``.  Bands of at least
+  (CIGARs by direct whole-pair DT traces), else K2 (on the card K1's
+  ring writing K2's checkpoint rows), whose window checkpoints feed the
+  native ``trace_banded_ck``.  Bands of at least
   :data:`STRIPED_MIN_SW` words run the big-band kernels instead.  For
   costs (and the direct-trace align rungs) that is one pass over a ring
   of resident words up to the ring's 16384 words
@@ -24,7 +25,8 @@ pairs retry at the band their banded upper bound predicts.
   native trace reads as they are; ring K6 up to the ring's 4096 words,
   the stripe kernel past them), else K8, K5's DP writing K2's plane
   contract at any SW (a full height S off the 8-grain; a skewed bucket's
-  ``CB = n_max < SW``).
+  ``CB = n_max < SW``; ring K8 up to the ring's 4096 words, the stripe
+  kernel past them).
 - Per-pair domain ladder (``domain_mode`` resolving to "gap"/"gcsh"): an f
   ladder over per-pair schedules that follow each pair's domain hull.  A
   round of at least :data:`PINNED_PP_MIN_SW` words runs the pinned
@@ -89,8 +91,9 @@ from ..device import resolve_device
 from ..domain import domain_schedule, gap_domain
 from ..ops import banded, striped
 from ..ops.banded_kernel import (banded_ck, banded_ck_pp, banded_cost,
-                                 banded_cost_pp, banded_fill, k4_kernel, pinned_ck,
-                                 pinned_ck_pp, pinned_cost, pinned_cost_kernel,
+                                 banded_cost_pp, banded_fill, k2_kernel, k4_kernel,
+                                 pinned_ck, pinned_ck_kernel, pinned_ck_pp, pinned_cost,
+                                 pinned_cost_kernel,
                                  pinned_cost_pp, pinned_cost_takes, ring_takes, route,
                                  striped_ck, striped_cost)
 from ..ops.bitpack import W, n_words
@@ -506,11 +509,13 @@ class BatchAligner:
                     stats.kernel = route(self.device,
                                          "ring_ck" if ring_takes(sw) else "striped_ck")
                 elif sw >= STRIPED_MIN_SW and striped.pinned_ck_fits(n_max, sw, CB):
+                    # The wrapper runs ring K8 where the ring holds the band.
                     got, *ck = pinned_ck(*args, sw, CB, diag)
-                    stats.kernel = route(self.device, "pinned_ck")
+                    stats.kernel = route(self.device, pinned_ck_kernel(sw))
                 else:
+                    # The wrapper runs K2's ring where its cursor takes CB.
                     got, *ck = banded_ck(*args, sw, CB, diag)
-                    stats.kernel = route(self.device, "banded_ck")
+                    stats.kernel = route(self.device, k2_kernel(n_max, sw, CB))
                 costs = _Readback(got)
                 if _ck_bytes(ck) * len(members) <= _OPT_READBACK_BYTES:
                     opt_chunks = _stage_ck_chunks(*ck, len(members))

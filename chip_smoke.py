@@ -21,10 +21,11 @@ Phases, one output line each (any failure exits non-zero):
    SW, each with the main path's diagonal, cut to their first 1024
    columns), bit for bit, and timed (CUDA events; the kernel also on the
    whole cost pack; twice on 500 bp pairs, timing only);
-6. the checkpoint and per-pair kernels (K2, K4 cost, K4 ck: K4's rings)
-   against their plain versions on a grid (B 33/1024, n <= 300, SW 1 to full
-   height, CB 64/512, Q 32/8/1, gap, gcsh and random schedules), bit for
-   bit on costs and every checkpoint plane;
+6. the checkpoint and per-pair kernels (K2: K2's ring at its layout and
+   as a 64-lane ring, one capture window below SW, the old K2 once; K4
+   cost, K4 ck: K4's rings) against their plain versions on a grid (B
+   33/1024, n <= 300, SW 1 to full height, CB 64/512, Q 32/8/1, gap, gcsh
+   and random schedules), bit for bit on costs and every checkpoint plane;
 7. main path, config #4: ``BatchAligner(device="cuda")`` at its default
    settings on 128 pairs of 100 kbp at e=10% (gcsh domain ladder; rounds
    of at least ``runner.PINNED_PP_MIN_SW`` words run K9/K10, smaller ones
@@ -36,13 +37,16 @@ Phases, one output line each (any failure exits non-zero):
    not run): cost, 4 costs against the oracle, align with
    ``direct_dt=False``, every CIGAR verified;
 8. main path, checkpoint rungs: ``align_with_stats(direct_dt=False)`` on
-   512 pairs of 10 kbp at e=5% (K2), every CIGAR verified;
+   512 pairs of 10 kbp at e=5% (K2's ring; the old K2 must not run), every
+   CIGAR verified;
 9. K2 and K4 (its rings and the old K4) against their plain versions at
    the main path's own shapes (K4 and K4 ck on the pack and gcsh schedules
    of K4's last main-path round cut to the first 256 columns; K4's ring on
-   K1's shared schedule against K1 at that round's full shape; K2 on phase
-   8's pack cut to 1024 columns), bit for bit, and timed in turns on a
-   500 bp pack (timing only: K4's rings held to the old K4);
+   K1's shared schedule against K1 at that round's full shape; K2's ring
+   and the old K2 on phase 8's pack cut to 1024 columns, in turns), bit
+   for bit; K2's ring against the old K2 in turns on phase 8's whole pack
+   at its path's SW and CB; and timed in turns on a 500 bp pack (timing
+   only: K4's and K2's rings held to the old kernels);
 
 10. the striped kernels K5 and K6 against their plain versions on a grid
     (B 33/160, n <= 1500, SW 8 to full height, bands taller than one
@@ -99,24 +103,28 @@ Phases, one output line each (any failure exits non-zero):
     pairs, timed in turns (plain, kernel, kernel); K11 alone over
     chained launches on the whole pack and on it with one word more (S =
     33, a partial second stripe);
-19. the shared-schedule checkpoint kernel K8 against its plain version on
-    a grid (B 1/37/128, n <= 1500 with n == 0 and m == 0 lanes, SW 8, 13,
-    64, 67, 1152 and a full height S = 1188 off the 8-grain, CB = SW, SW +
-    3, 4096 and n_max, a skewed bucket's single capture window, and four
-    windows at SW 1188 on pairs of up to 3.6 kbp), bit for bit on costs, every checkpoint row and top value, and against K2 on
-    every checkpoint a trace reads;
+19. the shared-schedule checkpoint kernel K8 (ring K8 and the stripe K8)
+    against its plain version on a grid (B 1/37/128, n <= 1500 with n == 0
+    and m == 0 lanes, SW 8, 13, 64, 67, 1152 and a full height S = 1188 off
+    the 8-grain, CB = SW, SW + 3, 4096 and n_max, a skewed bucket's single
+    capture window, four windows at SW 1188 on pairs of up to 3.6 kbp, and
+    ring K8 forced to 256 words wrapping >= 3 times at SW 64), bit for bit
+    on costs, every checkpoint row and top value, and against K2 on every
+    checkpoint a trace reads;
 20. main path, the exact full-height rungs on config #4's pairs of phase
     7: ``BatchAligner(device="cuda", domain_mode="off",
     max_band_doublings=0)`` first ``.cost_with_stats`` (one cost rung at SW
     = S = 3149 words on K7), costs equal to phase 7's; then
-    ``.align_with_stats`` (one ck rung, CB = 4096, K8), costs equal to
+    ``.align_with_stats`` (one ck rung, CB = 4096, ring K8; the stripe K8
+    must not run), costs equal to
     phase 7's and its 8 ``levenshtein_myers`` costs, all 128 CIGARs
     verified on a process pool, the call split by layer, peak device
     memory;
-21. K8 alone on phase 20's whole rung over chained launches; K8 against its
-    plain version and against K2 on that rung cut to its first 1024
-    columns; K8 against K6 on config #5's cut (4096 columns, SW = 2048, CB
-    = 2056), each beside its bound;
+21. ring K8 and the stripe K8 in turns on phase 20's whole rung, each over
+    chained launches; both against their plain version and against K2 on
+    that rung cut to its first 1024 columns, in turns; ring K8 against ring
+    K6 on config #5's cut (4096 columns, SW = 2048, CB = 2056), each beside
+    its bound;
 22. the resident-ring cost kernel K7 against its plain version on a grid
     (B 1/33/160, n <= 1500 with n == 0 and m == 0 lanes, SW 8, 13, 64, 67,
     256 and a full height S ~ 280 off the 8-grain, a skewed bucket, rings
@@ -204,9 +212,8 @@ Phases, one output line each (any failure exits non-zero):
     past the last word, the pairs' gcsh schedules; SW 1, 4, 16 and full
     height, CB = max(SW, 24); the runner's layout and 64-lane rings), bit
     for bit on costs, every checkpoint row and top value; an interval below
-    SW on the old K4; K1's and K3's rings on a shared schedule shifted at
-    column 0, which the cost rings (K7, the wide ring) refuse without a
-    launch; then K4's rings against the old K4 in turns on phase 7's whole
+    SW on the old K4; K1's, K3's and K2's rings, ring K8 and the cost rings
+    (K7, the wide ring) on a shared schedule shifted at column 0; then K4's rings against the old K4 in turns on phase 7's whole
     40 kbp cost and checkpoint rounds (the kernel alone, its event tables
     and codes alone, both in the wrapper's call), and K3's ring (alone and
     with the trace route's transpose) against the old K3 on phase 25's
@@ -223,7 +230,8 @@ are generated and the CIGARs verified on one pool of the host's cores,
 started once for the whole run, to keep the run short.  Launch counts are
 reset just before each main-path phase (3-4, 7, 8, 11, 14, 17, both calls
 of 20, 25) and read just after it; phases 3-4 and 25 launch K1's ring
-kernel (the old K1 none), phase 25 K3's ring (the old K3 none), phase 7
+kernel (the old K1 none), phase 8 K2's ring (the old K2 none), phase 20
+ring K8 (the stripe K8 none), phase 25 K3's ring (the old K3 none), phase 7
 K4's rings for its 40 kbp rounds (the old K4 none), phases 7 and 14 ring
 K9 for their cost rounds and ring K10 for their checkpoint rounds (the
 stripe K10 none), phase 11
@@ -769,13 +777,29 @@ def phase6_grid() -> int:
     n_max, S = rand[0].shape[0], rand[2].shape[0]
     diag = (n_max, S * 32 - 50)
     worst, k2_cases = 0, 0
-    for planes, sw, cb, dg in ((rand, 1, 64, None), (_lanes(rand, 33), 72, 512, diag),
-                               (rand, S, 64, None)):
-        got = banded_kernel.banded_ck(*planes, sw, cb, dg)
+    before = dict(banded_kernel.LAUNCHES)
+    # K2's ring (the wrapper's) at its default layout and as a two-warp
+    # ring; one capture window below SW at full height on the pack cut to 60
+    # columns; the old K2 (its internal launch) on one case.
+    cut60 = _cut(rand, 60)
+    k2 = [(rand, 1, 64, None, None), (_lanes(rand, 33), 72, 512, diag, None),
+          (rand, S, 64, None, None), (rand, 16, 64, diag, 64), (cut60, S, 31, None, None),
+          (rand, 16, 64, diag, "old")]
+    for planes, sw, cb, dg, lanes in k2:
+        if lanes == "old":
+            got = banded_kernel._launch("banded_ck", *planes, sw, diag=dg, col_block=cb)
+        elif lanes:
+            got = banded_kernel._launch_banded_ring_ck(*planes, sw, cb, dg, lanes)
+        else:
+            got = banded_kernel.banded_ck(*planes, sw, cb, dg)
         err = _max_err(got, banded.banded_ck_ref(*planes, sw, cb, dg))
         if err:
-            fail(f"K2 != plain at B={planes[0].shape[1]} SW={sw} CB={cb} diag={dg}")
+            fail(f"K2 ({lanes or 'ring'}) != plain at B={planes[0].shape[1]} SW={sw} CB={cb} "
+                 f"diag={dg}")
         worst, k2_cases = max(worst, err), k2_cases + 1
+    ran = {k: banded_kernel.LAUNCHES[k] - before[k] for k in ("banded_ring_ck", "banded_ck")}
+    if ran != {"banded_ring_ck": len(k2) - 1, "banded_ck": 1}:
+        fail(f"phase 6's K2 cases launched {ran}")
 
     def gap(planes, sw):
         return banded.pair_gap_schedule(planes[4], planes[5], sw, planes[0].shape[0],
@@ -802,7 +826,8 @@ def phase6_grid() -> int:
         labels.append(f"{label} B={planes[0].shape[1]} SW={sw} Q={q} CB={cb}")
     torch.cuda.synchronize()
     say(f"[6 ck/pp=plain] K2 {k2_cases}/{k2_cases} cases (B 33/{GRID_PAIRS}, n_max {n_max}, "
-        f"S {S}, SW 1..{S}, CB 64/512, diag None/set); K4 cost and ck "
+        f"S {S}, SW 1..{S}, CB 64/512, diag None/set; K2's ring at its layout and 64 lanes, "
+        f"CB 31 < SW {S} on {cut60[0].shape[0]} columns, the old K2 once); K4 cost and ck "
         f"{len(k4)}/{len(k4)} cases ({'; '.join(labels)}); max_abs_err {worst}, "
         f"{time.perf_counter() - t0:.1f} s")
     return worst
@@ -1077,8 +1102,9 @@ def phase7_config4(spy: RoundSpy) -> tuple[dict, tuple, tuple, tuple]:
 
 
 def phase8_ck(spy: RoundSpy) -> tuple[dict, tuple]:
-    """K2 on the main path: one 512-pair 10 kbp align with direct_dt=False;
-    returns the launch counts of its run, and its pairs and costs."""
+    """K2 on the main path: one 512-pair 10 kbp align with direct_dt=False
+    (K2's ring; the old K2 must not run); returns the launch counts of its
+    run, and its pairs and costs."""
     pairs = _generate(CK_PAIRS, LENGTH, ERR, SEED + 200)
     ba = BatchAligner(device="cuda", direct_dt=False)
     banded_kernel.reset_launches()
@@ -1088,14 +1114,16 @@ def phase8_ck(spy: RoundSpy) -> tuple[dict, tuple]:
     dt = time.perf_counter() - t0
     launches = dict(banded_kernel.LAUNCHES)
     rounds = spy.rounds()
-    if not launches["banded_ck"] or st.direct_traces or st.kernel != "cuda-banded-ck":
-        fail(f"ck align: K2 launches {launches['banded_ck']}, direct traces "
-             f"{st.direct_traces}, kernel {st.kernel!r}")
+    if (not launches["banded_ring_ck"] or launches["banded_ck"] or st.direct_traces
+            or st.kernel != "cuda-banded-ring-ck"):
+        fail(f"ck align: K2's ring launches {launches['banded_ring_ck']}, the old K2's "
+             f"{launches['banded_ck']}, direct traces {st.direct_traces}, kernel {st.kernel!r}")
     costs = BatchAligner(device="cuda").cost(pairs)
     _verify(pairs, res, costs)
     say(f"[8 ck align] {CK_PAIRS} x {LENGTH} bp e={ERR}, direct_dt=False: {dt:.4f} s "
         f"({dt / CK_PAIRS * 1e3:.4f} ms/pair), {CK_PAIRS} CIGARs verified at the K1 "
-        f"costs; rungs [{', '.join(rounds)}], retries {st.band_retries}")
+        f"costs; rungs [{', '.join(rounds)}], retries {st.band_retries}, kernel {st.kernel}; "
+        f"launches K2's ring {launches['banded_ring_ck']}, the old K2 {launches['banded_ck']}")
     return launches, (pairs, costs)
 
 
@@ -1130,7 +1158,7 @@ def phase9_time(spy: RoundSpy) -> dict:
     the 40 kbp run of phase 7 when config #4 runs K9), and timed: K4's
     rings (the wrappers) and the old K4 (its internal launch); returns each
     kernel's JSON record (without the launch count)."""
-    for name in ("banded_ck", "banded_ring_pp", "banded_ring_ck_pp"):
+    for name in ("banded_ring_ck", "banded_ring_pp", "banded_ring_ck_pp"):
         if name not in spy.last:
             fail(f"the main path never launched {name}")
     # K4 cost and ck on the main path's last K4 ck round, cut to its first
@@ -1177,33 +1205,64 @@ def phase9_time(spy: RoundSpy) -> dict:
     say(f"[9 K4 full] K4's ring with K1's schedule == K1 at {full_shape}: K4 "
         f"{k4_ms:.3f} ms (tables included), K1 {k1_ms:.3f} ms, max_abs_err {err_full} "
         f"(CUDA events)")
-    # K2 on phase 8's pack, cut to its first columns.
-    *planes, sw_k2, cb_k2, _ = spy.last["banded_ck"]
-    planes = _cut(planes, CUT_COLS)
+    # K2 on phase 8's pack, cut to its first columns: K2's ring (the
+    # wrapper's call) and the old K2 (its internal launch) in turns.
+    *whole, sw_k2, cb_path, diag_path = spy.last["banded_ring_ck"]
+    planes = _cut(whole, CUT_COLS)
     diag_k2 = _cut_diag(planes)
-    cb_k2 = min(cb_k2, CUT_COLS // 4)  # a few checkpoints inside the cut
+    cb_k2 = min(cb_path, CUT_COLS // 4)  # a few checkpoints inside the cut
     k2_plain_ms, k2_ref = _event_ms(lambda: banded.banded_ck_ref(*planes, sw_k2, cb_k2, diag_k2))
-    k2_ms, err_k2 = [], 0
-    for _ in range(2):
-        ms, got = _event_ms(lambda: banded_kernel.banded_ck(*planes, sw_k2, cb_k2, diag_k2))
-        k2_ms.append(ms)
-        err_k2 = max(err_k2, _max_err(got, k2_ref))
+
+    def k2_fns(pl, cb, dg):
+        return {"banded_ck": lambda: banded_kernel._launch("banded_ck", *pl, sw_k2, diag=dg,
+                                                           col_block=cb),
+                "banded_ring_ck": lambda: banded_kernel.banded_ck(*pl, sw_k2, cb, dg)}
+
+    k2_cut, outs = _in_turns(k2_fns(planes, cb_k2, diag_k2),
+                             ("banded_ck", "banded_ring_ck", "banded_ring_ck", "banded_ck"))
+    err_k2 = max(_max_err(outs[k], k2_ref) for k in outs)
     if err_k2:
-        fail("K2 != plain on the ck align pack")
+        fail("K2 (ring or old) != plain on the ck align pack")
     k2_shape = {"B": planes[0].shape[1], "n_max": planes[0].shape[0],
                 "S": planes[2].shape[0], "SW": sw_k2, "CB": cb_k2}
     say(f"[9 ck pack] K2 == plain on phase 8's pack cut to {CUT_COLS} columns {k2_shape} "
-        f"diag={diag_k2}: K2 "
-        f"{k2_ms[0]:.3f}/{k2_ms[1]:.3f} ms, plain {k2_plain_ms:.1f} ms, max_abs_err "
-        f"{err_k2} (CUDA events)")
+        f"diag={diag_k2}, turns old, ring, ring, old: K2's ring "
+        f"{k2_cut['banded_ring_ck'][0]:.3f}/{k2_cut['banded_ring_ck'][1]:.3f} ms, the old K2 "
+        f"{k2_cut['banded_ck'][0]:.3f}/{k2_cut['banded_ck'][1]:.3f} ms, plain "
+        f"{k2_plain_ms:.1f} ms, max_abs_err {err_k2} (CUDA events)")
+    # The whole pack, at the path's CB and diagonal: K2's ring against the
+    # old K2 in turns.
+    k2_whole, outs = _in_turns(k2_fns(whole, cb_path, diag_path),
+                               ("banded_ck", "banded_ring_ck", "banded_ring_ck", "banded_ck"))
+    err_whole = _max_err(outs["banded_ring_ck"], outs["banded_ck"])
+    if err_whole:
+        fail("K2's ring != the old K2 on phase 8's whole pack")
+    whole_shape = {"B": whole[0].shape[1], "n_max": whole[0].shape[0], "S": whole[2].shape[0],
+                   "SW": sw_k2, "CB": banded.ck_col_block(cb_path, whole[0].shape[0])}
+    whole_bound = plane_bound(whole, sw_k2, outs["banded_ck"])
+    lay = banded_kernel.banded_ring_layout(
+        striped.ring_span(striped.plan_striped(whole[0].shape[0], whole[2].shape[0], sw_k2,
+                                               diag_path), int(np.max(whole[4]))),
+        whole[0].shape[1], max_words=banded_kernel.RING_K4_MAX_WORDS)
+    say(f"[9 ck whole] phase 8's whole pack {whole_shape} (K2's ring: {lay['lanes']} lanes a "
+        f"pair, {lay['pairs']} pairs a warp), turns old, ring, ring, old: K2's ring "
+        f"{k2_whole['banded_ring_ck'][0]:.3f}/{k2_whole['banded_ring_ck'][1]:.3f} ms "
+        f"({min(k2_whole['banded_ring_ck']) / whole_bound['bound_ms']:.1f}x), the old K2 "
+        f"{k2_whole['banded_ck'][0]:.3f}/{k2_whole['banded_ck'][1]:.3f} ms "
+        f"({min(k2_whole['banded_ck']) / whole_bound['bound_ms']:.1f}x) vs bound "
+        f"{whole_bound['bound_ms']:.4f} ms ({whole_bound['bound_by']}); equal on costs, every "
+        f"checkpoint row and top value (CUDA events)")
     # Turns on a short-pair pack, timing only (K2 and K4 are held to plain
-    # above and in phase 33): K2, and K4's rings against the old K4.
+    # above and in phases 6 and 33): K2's ring against the old K2, and K4's
+    # rings against the old K4.
     pairs2k = _generate(PAIRS, TURN_LENGTH, ERR, SEED + 1)
     args2k, _ = pack_batch_staggered(pairs2k, 32, device="cuda")
     n2, S2 = args2k[0].shape[0], args2k[2].shape[0]
     gap2k = banded.pair_gap_schedule(args2k[4], args2k[5], TIMED_SW, n2, S2)[0]
     turns_shape = {"B": PAIRS, "n_max": n2, "S": S2, "SW": min(TIMED_SW, S2), "CB": 256}
-    fns = {"banded_ck": lambda: banded_kernel.banded_ck(*args2k, TIMED_SW, 256),
+    fns = {"banded_ring_ck": lambda: banded_kernel.banded_ck(*args2k, TIMED_SW, 256),
+           "banded_ck": lambda: banded_kernel._launch("banded_ck", *args2k, TIMED_SW,
+                                                      col_block=256),
            "banded_ring_pp": lambda: banded_kernel.banded_cost_pp(*args2k, gap2k, TIMED_SW),
            "banded_ring_ck_pp": lambda: banded_kernel.banded_ck_pp(*args2k, gap2k, TIMED_SW,
                                                                    256),
@@ -1211,12 +1270,13 @@ def phase9_time(spy: RoundSpy) -> dict:
            "banded_ck_pp": lambda: _old_k4(args2k, gap2k, TIMED_SW, 32, 256)}
     turns, outs = _in_turns(fns, tuple(fns) * 2)
     e4 = max(_max_err(outs["banded_ring_pp"], outs["banded_cost_pp"]),
-             _max_err(outs["banded_ring_ck_pp"], outs["banded_ck_pp"]))
+             _max_err(outs["banded_ring_ck_pp"], outs["banded_ck_pp"]),
+             _max_err(outs["banded_ring_ck"], outs["banded_ck"]))
     if e4:
-        fail("K4's rings != the old K4 on the 500 bp pack")
+        fail("K4's or K2's rings != the old kernels on the 500 bp pack")
     say(f"[9 turns] {TURN_LENGTH} bp pack {turns_shape} (gap schedules, Q=32, for K4): " + "; ".join(
         f"{k} {ms[0]:.3f}/{ms[1]:.3f} ms" for k, ms in turns.items())
-        + f"; K4's rings == the old K4, max_abs_err {e4} (CUDA events)")
+        + f"; K4's and K2's rings == the old kernels, max_abs_err {e4} (CUDA events)")
 
     def record(name, ms, plain, shape, err, bnd, **extra):
         return {"max_abs_err": err, "ms": float(np.mean(ms)), "plain_ms": plain,
@@ -1226,9 +1286,15 @@ def phase9_time(spy: RoundSpy) -> dict:
     sched_bytes = csched.size
     cost_bnd = plane_bound(cplanes, sw, ref[:1], sched_bytes)
     ck_bnd = plane_bound(cplanes, sw, ref, sched_bytes)
+    k2_bnd = plane_bound(planes, sw_k2, k2_ref)
     return {
-        "banded_ck": record("banded_ck", k2_ms, k2_plain_ms, k2_shape, err_k2,
-                            plane_bound(planes, sw_k2, k2_ref)),
+        "banded_ck": record("banded_ck", k2_cut["banded_ck"], k2_plain_ms, k2_shape,
+                            max(err_k2, err_whole, e4), k2_bnd, whole_ms=k2_whole["banded_ck"],
+                            whole_shape=whole_shape, whole_bound_ms=whole_bound["bound_ms"]),
+        "banded_ring_ck": record("banded_ring_ck", k2_cut["banded_ring_ck"], k2_plain_ms,
+                                 k2_shape, max(err_k2, err_whole, e4), k2_bnd,
+                                 whole_ms=k2_whole["banded_ring_ck"], whole_shape=whole_shape,
+                                 whole_bound_ms=whole_bound["bound_ms"], lanes=lay["lanes"]),
         "banded_ring_pp": record("banded_ring_pp", cut_ms["banded_ring_pp"], plain_ms, cshape,
                                  max(err_pp, e4), cost_bnd, full_ms=k4_ms,
                                  full_shape=full_shape, full_k1_ms=k1_ms,
@@ -1443,7 +1509,8 @@ def phase11_config5() -> tuple[dict, RoundSpy, tuple]:
     rungs_a, split_a = spy.rounds(), spy.split(wall)
     if len(results) != len(stream):
         fail("config #5 align_iter lost a batch")
-    CK_KEYS = ("ring_ck", "striped_ck", "pinned_ck", "banded_ck")
+    CK_KEYS = ("ring_ck", "striped_ck", "pinned_ck", "banded_ck", "ring_ck_exact",
+               "banded_ring_ck")
     ck_ran = {c[0] for c in spy.calls if c[0] in CK_KEYS}
     if ck_ran != {"ring_ck"} or {st_a.kernel for _, st_a in results} != {"cuda-ring-ck"}:
         fail(f"config #5 align_iter ran {ck_ran} (stats {results[-1][1].kernel!r}), "
@@ -2100,22 +2167,41 @@ def phase19_grid() -> int:
              (one, "B=1", S, S, None), (skewed, "skewed B=37", Ss, 4096, None),
              (long_, "long B=37", Sl, Sl + 3, diag_l)]
     worst, worst_k2, labels = 0, 0, []
+    before = dict(banded_kernel.LAUNCHES)
     for planes, label, sw, cb, dg in cases:
+        # Ring K8 (the wrapper's default up to 4096 live words) and the
+        # stripe K8 (forced), each against the plain version.
         got = banded_kernel.pinned_ck(*planes, sw, cb, dg)
-        err = _max_err(got, striped.pinned_ck_ref(*planes, sw, cb, dg))
+        stripe = 8 * banded_kernel.striped_threads(min(sw, planes[2].shape[0]))
+        err = max(_max_err(got, striped.pinned_ck_ref(*planes, sw, cb, dg)),
+                  _max_err(banded_kernel.pinned_ck(*planes, sw, cb, dg, stripe), got))
         CB = min(cb, planes[0].shape[0])
         e2 = _k8_vs_k2(got, banded_kernel.banded_ck(*planes, sw, cb, dg), planes[4], CB)
         label = (f"{label} SW={min(sw, planes[2].shape[0])}"
                  f"{' (full)' if sw >= planes[2].shape[0] else ''} CB={CB} "
                  f"n_ck={got[1].shape[0]} diag={'set' if dg else 'None'}")
         if err or e2:
-            fail(f"K8 != plain ({err}) or K2 ({e2}) at {label}")
+            fail(f"K8 (ring or stripe) != plain ({err}) or K2 ({e2}) at {label}")
         worst, worst_k2 = max(worst, err), max(worst_k2, e2)
         labels.append(label)
+    # Ring K8 forced to 256 words on the long pack at SW 64, which wraps the
+    # ring at least 3 times.
+    plan = striped.plan_striped(long_[0].shape[0], Sl, 64, diag_l)
+    if plan["n_words_live"] < 3 * 256:
+        fail(f"phase 19's 256-word ring holds {plan['n_words_live']} words in under 3 laps")
+    got = banded_kernel.pinned_ck(*long_, 64, 64, diag_l, ring_words=256)
+    err = _max_err(got, striped.pinned_ck_ref(*long_, 64, 64, diag_l))
+    if err:
+        fail("ring K8 forced to 256 words != plain on phase 19's long pack")
+    worst = max(worst, err)
+    labels.append(f"long B=37 SW=64 CB=64 ring 256 words ({plan['n_words_live']} live)")
+    ran = {k: banded_kernel.LAUNCHES[k] - before[k] for k in ("ring_ck_exact", "pinned_ck")}
+    if ran != {"ring_ck_exact": len(cases) + 1, "pinned_ck": len(cases)}:
+        fail(f"phase 19 launched {ran}")
     torch.cuda.synchronize()
     say(f"[19 pinned ck=plain] {len(cases)}/{len(cases)} cases (n_max {n_max}, S {S}; "
         f"skewed n_max {skewed[0].shape[0]}, S {Ss}; long n_max {long_[0].shape[0]}, "
-        f"S {Sl}: {'; '.join(labels)}); max_abs_err "
+        f"S {Sl}: {'; '.join(labels)}); ring K8 and the stripe K8, max_abs_err "
         f"{worst}; K8 == K2's kernel on every readable checkpoint, max_abs_err {worst_k2}; "
         f"{time.perf_counter() - t0:.1f} s")
     return max(worst, worst_k2)
@@ -2125,10 +2211,11 @@ def phase20_full_height(c4) -> tuple[int, RoundSpy, int, dict]:
     """The exact full-height rungs on config #4's pairs, ``BatchAligner(
     device="cuda", domain_mode="off", max_band_doublings=0)``: first
     ``.cost_with_stats``, one cost rung at SW = S on K7; then
-    ``.align_with_stats``, one ck rung at SW = S off the 8-grain on K8.
-    Returns K8's launches in the align call, the spy holding both
-    kernels' inputs, K7's launches in the cost call and K7's rung record
-    (its time in the call, bound and shape)."""
+    ``.align_with_stats``, one ck rung at SW = S off the 8-grain on ring
+    K8 (the stripe K8 must not run).  Returns the align call's launches
+    (ring K8's and the stripe K8's), the spy holding both kernels' inputs,
+    K7's launches in the cost call and K7's rung record (its time in the
+    call, bound and shape)."""
     pairs, costs7, oracle = c4
     bp = sum(len(a) for a, _ in pairs)
     ba = BatchAligner(device="cuda", domain_mode="off", max_band_doublings=0)
@@ -2169,9 +2256,10 @@ def phase20_full_height(c4) -> tuple[int, RoundSpy, int, dict]:
     spy.remove()
     launches = dict(banded_kernel.LAUNCHES)
     names = [c[0] for c in spy.calls]
-    if names != ["pinned_ck"] or st.kernel != "cuda-pinned-ck" or launches["pinned_ck"] != 1:
+    if (names != ["ring_ck_exact"] or st.kernel != "cuda-ring-ck-exact"
+            or launches["ring_ck_exact"] != 1 or launches["pinned_ck"]):
         fail(f"full-height ck path ran {names} (stats {st.kernel!r}, launches {launches})")
-    args = spy.last["pinned_ck"]
+    args = spy.last["ring_ck_exact"]
     n_max, S, sw, cb = args[0].shape[0], args[2].shape[0], args[6], args[7]
     if sw != S or S % 8 == 0:
         fail(f"the full-height rung ran SW={sw} of S={S}: not full height off the 8-grain")
@@ -2196,53 +2284,73 @@ def phase20_full_height(c4) -> tuple[int, RoundSpy, int, dict]:
     say(f"[20 memory] peak device memory {peak:.3f} GiB, {peak - held:.3f} GiB above the "
         f"{held:.3f} GiB that earlier phases still held (torch.cuda.max_memory_allocated over "
         f"the align call)")
-    return launches["pinned_ck"], spy, k7_launches, k7_rung
+    return ({k: launches[k] for k in ("ring_ck_exact", "pinned_ck")}, spy, k7_launches,
+            k7_rung)
 
 
 def phase21_time(spy20: RoundSpy, c5_spy: RoundSpy) -> dict:
-    """K8 alone on phase 20's whole rung over chained launches; K8 against
-    its plain version and against K2 on that rung cut to CUT_COLS columns;
-    K8 against K6 on config #5's cut.  Returns K8's JSON record (without
-    the launch count)."""
+    """Ring K8 and the stripe K8 in turns (stripe, ring, ring, stripe), each
+    over chained launches, on phase 20's whole rung; both against their
+    plain version and against K2 on that rung cut to CUT_COLS columns, in
+    turns; ring K8 against K6 on config #5's cut.  Returns ring K8's and
+    the stripe K8's JSON records (without the launch counts)."""
     torch.cuda.synchronize()
     path_ms = RoundSpy.kernel_ms(spy20.calls[-1])
-    *planes, sw, cb_path, dg = spy20.last["pinned_ck"]
-    full = {"rung_alone_ms": _chained_ms(
-                lambda: banded_kernel.pinned_ck(*planes, sw, cb_path, dg), K8_CHAINED),
-            "rung_path_ms": path_ms,
-            "rung_bound_ms": plane_bound(planes, sw, [])["bound_ms"],
-            "rung_shape": {"B": planes[0].shape[1], "n_max": planes[0].shape[0],
-                           "S": planes[2].shape[0], "SW": sw, "CB": cb_path}}
-    say(f"[21 rung] K8 alone on phase 20's whole rung {full['rung_shape']}, "
-        f"{K8_CHAINED} chained launches behind an untimed one: {full['rung_alone_ms']:.3f} ms "
-        f"a launch vs bound {full['rung_bound_ms']:.4f} ms "
-        f"({full['rung_alone_ms'] / full['rung_bound_ms']:.2f}x); in the path's call "
-        f"{path_ms:.3f} ms (CUDA events around the wrapper)")
+    *planes, sw, cb_path, dg = spy20.last["ring_ck_exact"]
+    stripe = 8 * banded_kernel.striped_threads(sw)
+    k8 = {"ring_ck_exact": lambda pl, cb, d: banded_kernel.pinned_ck(*pl, sw, cb, d),
+          "pinned_ck": lambda pl, cb, d: banded_kernel.pinned_ck(*pl, sw, cb, d, stripe)}
+    rung_ms, outs = {k: [] for k in k8}, {}
+    for name in ("pinned_ck", "ring_ck_exact", "ring_ck_exact", "pinned_ck"):
+        rung_ms[name].append(_chained_ms(lambda: k8[name](planes, cb_path, dg), K8_CHAINED))
+        outs[name] = k8[name](planes, cb_path, dg)
+    err_rung = _max_err(outs["ring_ck_exact"], outs["pinned_ck"])
+    if err_rung:
+        fail("ring K8 != the stripe K8 on phase 20's whole rung")
+    del outs
+    rung_bound = plane_bound(planes, sw, [])["bound_ms"]
+    rung_shape = {"B": planes[0].shape[1], "n_max": planes[0].shape[0],
+                  "S": planes[2].shape[0], "SW": sw, "CB": cb_path,
+                  "ring threads": banded_kernel.ring_threads(striped.ring_span(
+                      striped.plan_striped(planes[0].shape[0], planes[2].shape[0], sw, dg),
+                      planes[0].shape[0]))}
+    full = {name: {"rung_alone_ms": float(np.mean(ms)), "rung_turns_ms": ms,
+                   "rung_bound_ms": rung_bound, "rung_shape": rung_shape}
+            for name, ms in rung_ms.items()}
+    full["ring_ck_exact"]["rung_path_ms"] = path_ms
+    r, o = rung_ms["ring_ck_exact"], rung_ms["pinned_ck"]
+    say(f"[21 rung] phase 20's whole rung {rung_shape}, turns stripe, ring, ring, stripe, each "
+        f"over {K8_CHAINED} chained launches behind an untimed one: ring K8 {r[0]:.3f}/{r[1]:.3f} "
+        f"ms a launch ({np.mean(r) / rung_bound:.2f}x), the stripe K8 {o[0]:.3f}/{o[1]:.3f} ms "
+        f"({np.mean(o) / rung_bound:.2f}x) vs bound {rung_bound:.4f} ms; stripe/ring "
+        f"{np.mean(o) / np.mean(r):.3f}; equal on costs, every checkpoint row and top value; "
+        f"ring K8 in the path's call {path_ms:.3f} ms (CUDA events around the wrapper)")
     # The rung cut to its first columns, one capture window inside the cut
     # for both kernels.
     cut = _cut(planes, CUT_COLS)
     dg_c = _cut_diag(cut)
     cb = K8_CUT_CB
     plain_ms, ref = _event_ms(lambda: striped.pinned_ck_ref(*cut, sw, cb, dg_c))
-    k8_ms, k2_ms, err, err_k2 = [], [], 0, 0
-    for _ in range(2):
-        ms, got8 = _event_ms(lambda: banded_kernel.pinned_ck(*cut, sw, cb, dg_c))
-        k8_ms.append(ms)
-        ms, got2 = _event_ms(lambda: banded_kernel.banded_ck(*cut, sw, cb, dg_c))
-        k2_ms.append(ms)
-        err = max(err, _max_err(got8, ref))
-        err_k2 = max(err_k2, _k8_vs_k2(got8, got2, cut[4], cb))
+    fns = {**{k: (lambda f=f: f(cut, cb, dg_c)) for k, f in k8.items()},
+           "banded_ck": lambda: banded_kernel.banded_ck(*cut, sw, cb, dg_c)}
+    cut_ms, got = _in_turns(fns, ("pinned_ck", "ring_ck_exact", "banded_ck", "banded_ck",
+                                  "ring_ck_exact", "pinned_ck"))
+    err = max(_max_err(got["ring_ck_exact"], ref), _max_err(got["pinned_ck"], ref))
+    err_k2 = _k8_vs_k2(got["ring_ck_exact"], got["banded_ck"], cut[4], cb)
     if err or err_k2:
         fail(f"K8 != plain ({err}) or K2 ({err_k2}) on the full-height rung's cut")
     shape = {"B": cut[0].shape[1], "n_max": cut[0].shape[0], "S": cut[2].shape[0],
              "SW": sw, "CB": cb}
     bnd = plane_bound(cut, sw, ref)
-    k2_bnd = plane_bound(cut, sw, got2)["bound_ms"]
-    say(f"[21 cut] phase 20's rung cut to its first {CUT_COLS} columns {shape}: K8 "
-        f"{k8_ms[0]:.3f}/{k8_ms[1]:.3f} ms vs bound {bnd['bound_ms']:.4f} ms "
-        f"({np.mean(k8_ms) / bnd['bound_ms']:.2f}x), K2 {k2_ms[0]:.3f}/{k2_ms[1]:.3f} ms vs "
-        f"bound {k2_bnd:.4f} ms ({np.mean(k2_ms) / k2_bnd:.1f}x), K2/K8 "
-        f"{np.mean(k2_ms) / np.mean(k8_ms):.1f}x; plain K8 {plain_ms:.1f} ms; K8 == plain, "
+    k2_bnd = plane_bound(cut, sw, got["banded_ck"])["bound_ms"]
+    k2_key = banded_kernel.k2_kernel(cut[0].shape[0], sw, cb)
+    k8r, k8s, k2_ms = cut_ms["ring_ck_exact"], cut_ms["pinned_ck"], cut_ms["banded_ck"]
+    say(f"[21 cut] phase 20's rung cut to its first {CUT_COLS} columns {shape}, turns stripe, "
+        f"ring, K2, K2, ring, stripe: ring K8 {k8r[0]:.3f}/{k8r[1]:.3f} ms, the stripe K8 "
+        f"{k8s[0]:.3f}/{k8s[1]:.3f} ms vs bound {bnd['bound_ms']:.4f} ms "
+        f"({np.mean(k8r) / bnd['bound_ms']:.2f}x, {np.mean(k8s) / bnd['bound_ms']:.2f}x), K2 "
+        f"({k2_key}) {k2_ms[0]:.3f}/{k2_ms[1]:.3f} ms vs bound {k2_bnd:.4f} ms "
+        f"({np.mean(k2_ms) / k2_bnd:.1f}x); plain K8 {plain_ms:.1f} ms; both K8 == plain, "
         f"K8 == K2 on every readable checkpoint, max_abs_err {max(err, err_k2)} (CUDA events)")
     # K8 against K6 on config #5's cut, where both take the band: the cost
     # of rows from the true window top.
@@ -2252,7 +2360,7 @@ def phase21_time(spy20: RoundSpy, c5_spy: RoundSpy) -> dict:
     cb6 = sw6 + 8
     times, outs = {"striped_ck": [], "pinned_ck": []}, {}
     for name in ("striped_ck", "pinned_ck", "pinned_ck", "striped_ck"):
-        fn = getattr(banded_kernel, name)
+        fn = getattr(banded_kernel, name)  # ring K6 and ring K8 by default
         ms, outs[name] = _event_ms(lambda: fn(*cut5, sw6, cb6, dg5))
         times[name].append(ms)
     k6, k8 = outs["striped_ck"], outs["pinned_ck"]
@@ -2264,20 +2372,23 @@ def phase21_time(spy20: RoundSpy, c5_spy: RoundSpy) -> dict:
             err6 = max(err6, _max_err(g[k], w[k, pad:pad + sw6]))
     err6 = max(err6, _max_err(k8[3], k6[3]))
     if err6:
-        fail("K8 != K6's true-window rows on config #5's cut")
+        fail("ring K8 != ring K6's true-window rows on config #5's cut")
     shape5 = {"B": cut5[0].shape[1], "n_max": cut5[0].shape[0], "S": cut5[2].shape[0],
               "SW": sw6, "CB": cb6}
     bnd5 = plane_bound(cut5, sw6, k8)["bound_ms"]
     k6_ms, k8c_ms = times["striped_ck"], times["pinned_ck"]
-    say(f"[21 vs K6] config #5's cut {shape5}, turns K6, K8, K8, K6: K8 "
-        f"{k8c_ms[0]:.3f}/{k8c_ms[1]:.3f} ms, K6 {k6_ms[0]:.3f}/{k6_ms[1]:.3f} ms "
+    say(f"[21 vs K6] config #5's cut {shape5}, turns ring K6, ring K8, ring K8, ring K6: "
+        f"ring K8 {k8c_ms[0]:.3f}/{k8c_ms[1]:.3f} ms, ring K6 {k6_ms[0]:.3f}/{k6_ms[1]:.3f} ms "
         f"(K8/K6 {np.mean(k8c_ms) / np.mean(k6_ms):.3f}) vs bound {bnd5:.4f} ms; K8 == K6 on "
         f"costs, top values and K6's true-window rows, max_abs_err {err6} (CUDA events)")
-    return {"max_abs_err": max(err, err_k2, err6), "ms": float(np.mean(k8_ms)),
-            "plain_ms": plain_ms, **bnd, "library_ms": None, "shape": shape, **full,
-            "k2_ms": float(np.mean(k2_ms)), "k2_bound_ms": k2_bnd,
-            "c5_cut_ms": float(np.mean(k8c_ms)), "c5_cut_k6_ms": float(np.mean(k6_ms)),
-            "c5_cut_bound_ms": bnd5, "c5_cut_shape": shape5}
+    common = {"max_abs_err": max(err, err_k2, err6, err_rung), "plain_ms": plain_ms, **bnd,
+              "library_ms": None, "shape": shape, "k2_ms": float(np.mean(k2_ms)),
+              "k2_kernel": k2_key, "k2_bound_ms": k2_bnd}
+    return {"ring_ck_exact": {**common, "ms": float(np.mean(k8r)), **full["ring_ck_exact"],
+                              "c5_cut_ms": float(np.mean(k8c_ms)),
+                              "c5_cut_k6_ms": float(np.mean(k6_ms)),
+                              "c5_cut_bound_ms": bnd5, "c5_cut_shape": shape5},
+            "pinned_ck": {**common, "ms": float(np.mean(k8s)), **full["pinned_ck"]}}
 
 
 def phase22_grid(wide, narrow) -> tuple[int, int]:
@@ -3568,8 +3679,8 @@ def phase33_k4_k3(rspy: RoundSpy, fspy: FillSpy) -> tuple[int, dict]:
     the last word, the entering word clamped at S - 1), the pairs' gcsh
     schedules, SW 1, 4, 16 and full height, CB = max(SW, 24), at the
     runner's layout and rings forced to 64 lanes; an interval below SW runs
-    the old K4; K1's and K3's rings on a shared schedule shifted at column
-    0.  Then in turns on phase 7's whole 40 kbp rounds (old, tables,
+    the old K4; K1's, K3's and K2's rings, ring K8, K7 and the wide ring on
+    a shared schedule shifted at column 0.  Then in turns on phase 7's whole 40 kbp rounds (old, tables,
     kernel, both, both, kernel, tables, old: the old K4, K4's tables and
     codes alone, its kernel alone on them, the wrapper's call), and K3 on
     phase 25's whole pack and its 1024-column cut (the old K3 and K3's
@@ -3625,30 +3736,40 @@ def phase33_k4_k3(rspy: RoundSpy, fspy: FillSpy) -> tuple[int, dict]:
                    banded.banded_ck_pp_ref(*grid, flat, 8, 4, 4))
     if err or banded_kernel.LAUNCHES["banded_ck_pp"] != before["banded_ck_pp"] + 1:
         fail("CB < SW did not run the old K4 to the plain result")
-    # K1's and K3's rings on a shared schedule shifted at column 0.
+    # K1's, K3's and K2's rings, ring K8 and the cost rings (K7, the wide
+    # ring, and striped_cost through them) on a shared schedule shifted at
+    # column 0.
     col0 = (1, (8 * 32 // 2 + 32) * 2)
     if banded.shift_at_array(n_max, S, 8, col0)[:2].tolist() != [1, 0]:
         fail("phase 33: the column-0 diagonal does not shift at column 0 only")
-    err = max(_max_err(banded_kernel.banded_cost(*grid, 8, col0),
-                       banded.banded_cost_ref(*grid, 8, col0)),
-              _max_err(banded_kernel.banded_fill(*grid, 8, col0),
-                       banded.banded_fill_ref(*grid, 8, col0)))
-    if err:
-        fail("K1's or K3's ring != plain on a schedule shifted at column 0")
     seen = dict(banded_kernel.LAUNCHES)
-    for tw in (None, 16):
-        try:
-            banded_kernel.pinned_cost(*grid, 8, col0, None, tw)
-            fail("the cost rings took a schedule shifted at column 0")
-        except ValueError:
-            pass
-    if banded_kernel.LAUNCHES != seen:
-        fail("the cost rings' refusal of a column-0 shift launched a kernel")
+    cost_ref = striped.pinned_cost_ref(*grid, 8, col0)
+    col0_err = {
+        "K1": _max_err(banded_kernel.banded_cost(*grid, 8, col0),
+                       banded.banded_cost_ref(*grid, 8, col0)),
+        "K3": _max_err(banded_kernel.banded_fill(*grid, 8, col0),
+                       banded.banded_fill_ref(*grid, 8, col0)),
+        "K2": _max_err(banded_kernel.banded_ck(*grid, 8, 24, col0),
+                       banded.banded_ck_ref(*grid, 8, 24, col0)),
+        "K8": _max_err(banded_kernel.pinned_ck(*grid, 8, 24, col0),
+                       striped.pinned_ck_ref(*grid, 8, 24, col0)),
+        "K7": _max_err(banded_kernel.pinned_cost(*grid, 8, col0), cost_ref),
+        "wide": _max_err(banded_kernel.pinned_cost(*grid, 8, col0, None, 16), cost_ref),
+        "striped_cost": _max_err(banded_kernel.striped_cost(*grid, 8, col0), cost_ref)}
+    if any(col0_err.values()):
+        fail(f"a ring != plain on a schedule shifted at column 0: {col0_err}")
+    ran = {k: banded_kernel.LAUNCHES[k] - seen[k] for k in
+           ("banded_ring", "banded_ring_fill", "banded_ring_ck", "ring_ck_exact", "pinned_cost",
+            "ring_cost_wide")}
+    if ran != {"banded_ring": 1, "banded_ring_fill": 1, "banded_ring_ck": 1, "ring_ck_exact": 1,
+               "pinned_cost": 2, "ring_cost_wide": 1}:
+        fail(f"phase 33's column-0 cases launched {ran}")
     say(f"[33 K4 rings=plain] {len(cases)} schedules x cost and ck x 2 layouts (B {B}, n_max "
         f"{n_max}, S {S}: {'; '.join(labels)}), pairs {sorted(kinds)}, {past_end} checkpoints "
         f"past a pair's end; costs, every checkpoint row and top value equal, max_abs_err "
-        f"{worst}; CB < SW on the old K4 == plain; K1's and K3's rings == plain on a shift at "
-        f"column 0, refused by the cost rings without a launch; {time.perf_counter() - t0:.1f} s")
+        f"{worst}; CB < SW on the old K4 == plain; K1's, K3's and K2's rings, ring K8, K7, the "
+        f"wide ring and striped_cost == plain on a shift at column 0 ({ran}); "
+        f"{time.perf_counter() - t0:.1f} s")
 
     recs = {k: {} for k in ("banded_ring_pp", "banded_ring_ck_pp", "banded_cost_pp",
                             "banded_ck_pp", "banded_ring_fill", "banded_fill")}
@@ -3784,8 +3905,9 @@ def run() -> None:
     ck, p8 = phase8_ck(rounds)
     rounds.remove()
     counts = {k: c4[k] + ck[k] for k in c4}
-    if not ck["banded_ck"]:
-        fail("the main path never launched banded_ck")
+    if not ck["banded_ring_ck"] or ck["banded_ck"]:
+        fail(f"the main path launched K2's ring {ck['banded_ring_ck']} times and the old K2 "
+             f"{ck['banded_ck']} times")
     say(f"[main path] launches: config #4 {c4}; ck align {ck}")
     lap("8")
     records = phase9_time(rounds)
@@ -3824,9 +3946,10 @@ def run() -> None:
     k8_launches, k8_spy, k7_launches, k7_fh_rung = phase20_full_height(c4_batch)
     lap("20")
     say(f"[main path] launches: full-height cost path {{'pinned_cost': {k7_launches}}}; "
-        f"full-height ck path {{'pinned_ck': {k8_launches}}}")
-    k8_record = phase21_time(k8_spy, c5_spy)
-    k8_record["max_abs_err"] = max(k8_record["max_abs_err"], k8_grid_err)
+        f"full-height ck path {k8_launches}")
+    k8_records = phase21_time(k8_spy, c5_spy)
+    for rec in k8_records.values():
+        rec["max_abs_err"] = max(rec["max_abs_err"], k8_grid_err)
     lap("21")
 
     k7_grid_err, _ = phase22_grid(grid_wide, grid_narrow)
@@ -3883,6 +4006,7 @@ def run() -> None:
         "banded_cost": "astarpa_tpu/ops/pallas_banded.py:533",
         "banded_ring": "astarpa_tpu/ops/pallas_banded.py:533",
         "banded_ck": "astarpa_tpu/ops/pallas_banded.py:828",
+        "banded_ring_ck": "astarpa_tpu/ops/pallas_banded.py:828",
         "banded_cost_pp": "astarpa_tpu/ops/pallas_banded.py:447",
         "banded_ck_pp": "astarpa_tpu/ops/pallas_banded.py:447",
         "banded_ring_pp": "astarpa_tpu/ops/pallas_banded.py:447",
@@ -3892,6 +4016,7 @@ def run() -> None:
         "striped_ck": "astarpa_tpu/ops/striped.py:576",
         "pinned_cost": "astarpa_tpu/ops/pinned.py:474",
         "pinned_ck": "astarpa_tpu/ops/pinned.py:1157",
+        "ring_ck_exact": "astarpa_tpu/ops/pinned.py:1157",
         "pinned_cost_pp": "astarpa_tpu/ops/pinned.py:944",
         "ring_ck": "astarpa_tpu/ops/striped.py:576",
         "ring_cost_pp": "astarpa_tpu/ops/pinned.py:944",
@@ -3916,8 +4041,8 @@ def run() -> None:
                 **k1_records["banded_cost"]}]
     # K4's main path (phase 7's 40 kbp rounds) runs its rings; the old K4
     # ran no launch there (phases 9 and 33 time it beside them).
-    for name in ("banded_ck", "banded_cost_pp", "banded_ck_pp", "banded_ring_pp",
-                 "banded_ring_ck_pp"):
+    for name in ("banded_ck", "banded_ring_ck", "banded_cost_pp", "banded_ck_pp",
+                 "banded_ring_pp", "banded_ring_ck_pp"):
         rec = records[name]
         rec.update(k4k3.get(name, {}))
         rec["max_abs_err"] = max(rec["max_abs_err"], new_grid_err,
@@ -3948,8 +4073,12 @@ def run() -> None:
     kernels.append({"name": "nw_right_edge", "route": "cuda",
                     "source": "astarpa_tpu_torch/csrc/nw.cu",
                     "replaces": replaces["nw_right_edge"], "launches": c1_launches, **nw_record})
-    kernels.append({"name": "pinned_ck", "route": "cuda", "source": striped_src,
-                    "replaces": replaces["pinned_ck"], "launches": k8_launches, **k8_record})
+    # K8's main path (phase 20's full-height ck rung) runs ring K8; the
+    # stripe K8 ran no launch there (phases 19 and 21 hold and time it).
+    for name, src in (("ring_ck_exact", pinned_src), ("pinned_ck", striped_src)):
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces[name], "launches": k8_launches[name],
+                        **k8_records[name]})
     # K3's main path is the cost-then-trace route's fill (phase 25, one a
     # call), on its ring; the old K3 ran no launch there (phase
     # 33 times it), and the per-pair mode has no caller there (the grid of

@@ -66,14 +66,20 @@ def test_ck_kernel_matches_plain(gpu, count):
     pairs = _random_pairs(100 + count, count, 300, 1300)
     args, _ = pack_batch_staggered(pairs, 1, device=gpu)
     n_max, S = args[0].shape[0], args[2].shape[0]
-    before = banded_kernel.LAUNCHES["banded_ck"]
+    before = dict(banded_kernel.LAUNCHES)
     for sw, cb, diag in ((1, 64, None), (5, 64, None), (33, 512, None),
                          (8, 100, (n_max, S * 32 - 40)), (S, 64, None)):
         got = banded_kernel.banded_ck(*args, sw, cb, diag)
         want = banded.banded_ck_ref(*args, sw, cb, diag)
         assert got[1].shape == (-(-n_max // min(cb, n_max)), min(sw, S), args[0].shape[1])
         _assert_same(got, want, (sw, cb, diag))
-    assert banded_kernel.LAUNCHES["banded_ck"] == before + 5
+    # K2's ring takes these intervals; one below SW with several capture
+    # windows runs the old K2.
+    assert banded_kernel.LAUNCHES["banded_ring_ck"] == before["banded_ring_ck"] + 5
+    assert banded_kernel.k2_kernel(n_max, 33, 20) == "banded_ck"
+    _assert_same(banded_kernel.banded_ck(*args, 33, 20),
+                 banded.banded_ck_ref(*args, 33, 20), "CB < SW")
+    assert banded_kernel.LAUNCHES["banded_ck"] == before["banded_ck"] + 1
 
 
 @pytest.mark.parametrize("quantum", [32, 8, 1])
@@ -605,10 +611,10 @@ def test_banded_ring_pp_kernels_match_plain(gpu, quantum):
 
 
 def test_rings_take_a_shared_shift_at_column_0(gpu):
-    """K1's and K3's rings on a shared schedule shifted at column 0 (a
-    diagonal steeper than a word a column at the start), bit for bit
-    their plain versions; the cost rings (K7, the wide ring) refuse it
-    before the launch."""
+    """K1's, K3's and K2's rings, ring K8 and the cost rings (K7, the wide
+    ring) on a shared schedule shifted at column 0 (a diagonal steeper
+    than a word a column at the start), bit for bit their plain
+    versions."""
     pairs = _random_pairs(31, 37, 120, 1300)
     args, _ = pack_batch_staggered(pairs, 1, device=gpu)
     n_max, S = args[0].shape[0], args[2].shape[0]
@@ -619,10 +625,67 @@ def test_rings_take_a_shared_shift_at_column_0(gpu):
     _assert_same(banded_kernel.banded_fill(*args, 8, col0),
                  banded.banded_fill_ref(*args, 8, col0), "fill")
     before = dict(banded_kernel.LAUNCHES)
+    want = striped.pinned_cost_ref(*args, 8, col0)
     for tw in (None, 16):
-        with pytest.raises(ValueError, match="column 0"):
-            banded_kernel.pinned_cost(*args, 8, col0, None, tw)
-    assert banded_kernel.LAUNCHES == before
+        assert torch.equal(banded_kernel.pinned_cost(*args, 8, col0, None, tw), want), tw
+    _assert_same(banded_kernel.banded_ck(*args, 8, 24, col0),
+                 banded.banded_ck_ref(*args, 8, 24, col0), "K2")
+    _assert_same(banded_kernel.pinned_ck(*args, 8, 24, col0),
+                 striped.pinned_ck_ref(*args, 8, 24, col0), "K8")
+    for key in ("pinned_cost", "ring_cost_wide", "banded_ring_ck", "ring_ck_exact"):
+        assert banded_kernel.LAUNCHES[key] == before[key] + 1, key
+
+
+@pytest.mark.parametrize("which", ["wide", "long"])
+def test_ring_ck_exact_kernel_matches_plain(gpu, which):
+    """Ring K8 against its plain version and the stripe K8, bit for bit on
+    costs, every checkpoint row (past each pair's end too) and top value:
+    SW 8, 13, 67, 1152 and a full height off the 8-grain, CB = SW and
+    larger, with and without a diagonal, rings forced to 256 words (on the
+    long pack they wrap at least 3 times) and to two warps."""
+    wide, _, long_, diag_l = _ring_packs(gpu, 3300)
+    args = {"wide": wide, "long": long_}[which]
+    n_max, S = args[0].shape[0], args[2].shape[0]
+    assert S % 8
+    diag = diag_l if which == "long" else (n_max, int(np.asarray(args[5]).max()))
+    cases = ((8, 8, diag, None), (13, 13, None, 256), (67, 70, diag, 512),
+             (256, 256, diag, 256), (1152, 1152, None, None), (S, S + 3, None, None))
+    before = dict(banded_kernel.LAUNCHES)
+    for sw, cb, dg, rw in cases:
+        want = striped.pinned_ck_ref(*args, sw, cb, dg)
+        got = banded_kernel.pinned_ck(*args, sw, cb, dg, ring_words=rw)
+        _assert_same(got, want, (which, sw, cb, rw))
+        stripe = 8 * banded_kernel.striped_threads(min(sw, S))
+        _assert_same(banded_kernel.pinned_ck(*args, sw, cb, dg, stripe), got,
+                     (which, sw, cb, "stripe"))
+        if which == "long" and rw == 256:
+            plan = striped.plan_striped(n_max, S, min(sw, S), dg)
+            assert plan["n_words_live"] >= 3 * 256, plan["n_words_live"]
+    assert banded_kernel.LAUNCHES["ring_ck_exact"] == before["ring_ck_exact"] + len(cases)
+    assert banded_kernel.LAUNCHES["pinned_ck"] == before["pinned_ck"] + len(cases)
+
+
+@pytest.mark.parametrize("count", [37, 300])
+def test_banded_ring_ck_kernel_matches_plain(gpu, count):
+    """K2's ring against K2's plain version, bit for bit on costs, every
+    checkpoint row and top value (past each pair's end too): rings of 1 to
+    16 lanes a pair (several pairs a warp, a tail warp) and forced to two
+    warps, SW 1 to the full height, CB = SW and larger, a single capture
+    window below SW, with and without a diagonal."""
+    pairs = _random_pairs(500 + count, count, 300, 1300)
+    args, _ = pack_batch_staggered(pairs, 1, device=gpu)
+    n_max, S = args[0].shape[0], args[2].shape[0]
+    diag = (n_max, S * 32 - 40)
+    before = dict(banded_kernel.LAUNCHES)
+    cases = ((1, 64, None, None), (5, 5, diag, None), (13, 24, None, None),
+             (16, 24, diag, 64), (33, 33, None, None), (S, 64, diag, None),
+             (S, n_max // 2 + 1, None, None))
+    for sw, cb, dg, lanes in cases:
+        assert banded_kernel.k2_kernel(n_max, min(sw, S), cb) == "banded_ring_ck"
+        got = banded_kernel._launch_banded_ring_ck(*args, sw, cb, dg, lanes)
+        _assert_same(got, banded.banded_ck_ref(*args, sw, cb, dg), (sw, cb, dg, lanes))
+    assert banded_kernel.LAUNCHES["banded_ring_ck"] == before["banded_ring_ck"] + len(cases)
+    assert banded_kernel.LAUNCHES["banded_ck"] == before["banded_ck"]
 
 
 def test_runner_config5_shaped_rung_on_k7(gpu):
@@ -669,13 +732,15 @@ def test_pinned_ck_kernel_matches_plain(gpu, count):
     args, _ = pack_batch_staggered(pairs, 1, device=gpu)
     n_max, S = args[0].shape[0], args[2].shape[0]
     diag = (n_max, max(len(b) for _, b in pairs[3:]))
-    before = banded_kernel.LAUNCHES["pinned_ck"]
+    before = dict(banded_kernel.LAUNCHES)
     cases = [(8, 64, diag), (13, 13, None), (67, 70, diag), (67, 512, None),
              (S, S, None), (S, 512, None)]
     for sw, cb, dg in cases:
         got = banded_kernel.pinned_ck(*args, sw, cb, dg)
         _assert_same(got, striped.pinned_ck_ref(*args, sw, cb, dg), (sw, cb))
         assert got[1].shape == (n_max // min(cb, n_max) + 1, min(sw, S), len(pairs))
+        stripe = 8 * banded_kernel.striped_threads(min(sw, S))
+        _assert_same(banded_kernel.pinned_ck(*args, sw, cb, dg, stripe), got, (sw, cb, "stripe"))
     skew = [(b"ACGTTGCA" * 5, generate.uniform_seeded(3000, 0.0, 5)[0])]
     sargs, _ = pack_batch_staggered(skew, 1, device=gpu)
     S2 = sargs[2].shape[0]
@@ -684,7 +749,9 @@ def test_pinned_ck_kernel_matches_plain(gpu, count):
     assert int(got[0][0]) == oracle.levenshtein(*skew[0])
     with pytest.raises(ValueError, match="col_block"):
         banded_kernel.pinned_ck(*args, 67, 66)
-    assert banded_kernel.LAUNCHES["pinned_ck"] == before + len(cases) + 1
+    # Ring K8 ran every case, the stripe K8 each forced one.
+    assert banded_kernel.LAUNCHES["ring_ck_exact"] == before["ring_ck_exact"] + len(cases) + 1
+    assert banded_kernel.LAUNCHES["pinned_ck"] == before["pinned_ck"] + len(cases)
 
 
 def test_runner_full_height_ck_rung_on_k8(gpu, monkeypatch):
@@ -695,10 +762,11 @@ def test_runner_full_height_ck_rung_on_k8(gpu, monkeypatch):
              for s in range(6)]
     kw = dict(band_words=8, max_band_doublings=0, domain_mode="off", direct_dt=False)
     ref, _ = BatchAligner(device="cpu", **kw).cost_with_stats(pairs)
-    before = banded_kernel.LAUNCHES["pinned_ck"]
+    before = dict(banded_kernel.LAUNCHES)
     res, stats = BatchAligner(device=gpu, **kw).align_with_stats(pairs)
-    assert stats.kernel == "cuda-pinned-ck"
-    assert banded_kernel.LAUNCHES["pinned_ck"] == before + 1
+    assert stats.kernel == "cuda-ring-ck-exact"
+    assert banded_kernel.LAUNCHES["ring_ck_exact"] == before["ring_ck_exact"] + 1
+    assert banded_kernel.LAUNCHES["pinned_ck"] == before["pinned_ck"]
     for (a, b), (c, cig), want in zip(pairs, res, ref):
         assert cig.verify(a, b) == c == want == oracle.levenshtein(a, b)
 

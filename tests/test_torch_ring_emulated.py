@@ -9,8 +9,13 @@ against the plain versions: K4's rings (``banded_ring_pp_kernel``,
 and sliding past the last word, with pairs far shorter than n_max, at the
 runner's layout and as a 64-thread block ring; K3's ring
 (``banded_ring_fill_kernel``) storing pair-major planes; K1's and K3's
-rings on a shared schedule shifted at column 0, which the cost rings' wrapper
-(K7, the wide ring) refuses before launch.  This models what the
+rings, and the cost rings (K7, the wide ring, whose wrapper runs the band
+one word down), on a shared schedule shifted at column 0; ring K8
+(``ring_ck_exact_kernel``) and K2's ring (``banded_ring_ck_kernel``) on
+costs, every checkpoint row and top value (SW off the 8-grain, full
+heights, pairs far shorter than n_max, n == 0, a single capture window
+below SW, a shift at column 0, sub-warp, one-warp and two-warp rings).
+This models what the
 kernels compute, not the card: ``test_torch_cuda.py`` holds them on the
 card.  Skips without a C++ compiler."""
 
@@ -157,23 +162,117 @@ def test_rings_take_a_shared_shift_at_column_0(on_cpu):
 
 
 def test_cost_rings_refuse_a_shift_at_column_0(on_cpu, monkeypatch):
-    """K7 and the wide ring start slot 0 without the column codes, so on
-    the card ``pinned_cost`` (and ``striped_cost`` through it) refuse a
-    shared schedule shifted at column 0 before any launch; the same pack
-    on an unshifted schedule runs K7 and equals its plain version."""
+    """K7 and the wide ring take a shared schedule shifted at column 0 (on
+    the card's route, ``pinned_cost`` and ``striped_cost`` through it):
+    slot 0 feeds the column codes to the band top from the first step, as
+    in K1's layout, and the costs equal their plain version's; the same
+    pack on an unshifted schedule too."""
     monkeypatch.setattr(bk, "_plain", lambda a0: False)  # the card's route
     args = _pack()
     n_max, S = args[0].shape[0], args[2].shape[0]
     col0 = (1, (8 * 32 // 2 + 32) * 2)
     assert banded.shift_at_array(n_max, S, 8, col0)[:2].tolist() == [1, 0]
     before = dict(bk.LAUNCHES)
+    want = striped.pinned_cost_ref(*args, 8, col0)
     for label, call in (("K7", lambda: bk.pinned_cost(*args, 8, col0)),
                         ("wide", lambda: bk.pinned_cost(*args, 8, col0, None, 16)),
                         ("striped_cost", lambda: bk.striped_cost(*args, 8, col0))):
-        with pytest.raises(ValueError, match="column 0"):
-            call()
-    assert bk.LAUNCHES == before
+        _same(call(), want, label)
+    assert bk.LAUNCHES["pinned_cost"] == before["pinned_cost"] + 2
+    assert bk.LAUNCHES["ring_cost_wide"] == before["ring_cost_wide"] + 1
     diag = (n_max, S * 32 - 50)
     assert banded.shift_at_array(n_max, S, 8, diag)[0] == 0
     _same(bk.pinned_cost(*args, 8, diag), striped.pinned_cost_ref(*args, 8, diag), "K7")
-    assert bk.LAUNCHES["pinned_cost"] == before["pinned_cost"] + 1
+    assert bk.LAUNCHES["pinned_cost"] == before["pinned_cost"] + 3
+
+
+def _tall_pack():
+    """13 pairs of up to 400 bp, most far shorter than n_max, beside b of
+    up to 2600 bp (S = 83 words, off the 8-grain), an n == 0 lane and an
+    m == 0 lane."""
+    rng = np.random.default_rng(5)
+
+    def seq(k):
+        return bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), k).tolist())
+
+    pairs = [generate.uniform_seeded(int(rng.integers(1, 400)), 0.1, 700 + s)
+             for s in range(8)]
+    pairs += [(seq(int(rng.integers(100, 400))), seq(int(rng.integers(400, 2600))))
+              for _ in range(3)]
+    pairs += [(b"", seq(300)), (seq(120), b""), (seq(400), seq(2650))]
+    args = pack_batch_staggered(pairs, 1, device="cpu")[0]
+    assert args[2].shape[0] % 8 and args[2].shape[0] > 67
+    return args
+
+
+def _skewed_pack():
+    """A skewed bucket: a of at most 40 bp against b of up to 3000 bp, so a
+    full height S = 94 > n_max."""
+    pairs = [(generate.uniform_seeded(40 - 7 * s, 0.1, 800 + s)[0],
+              generate.uniform_seeded(3000 - 450 * s, 0.1, 810 + s)[0]) for s in range(5)]
+    return pack_batch_staggered(pairs, 1, device="cpu")[0]
+
+
+_COL0 = (1, (8 * 32 // 2 + 32) * 2)  # a diagonal whose only shift is at column 0
+
+#: Ring K8's cases: (pack, SW, CB, diag, ring_words); "S" is the full
+#: height, ring_words 512 a two-warp ring.
+K8_CASES = [("small", 13, 13, None, None), ("small", 8, 24, _COL0, None),
+            ("small", "S", 40, None, 512), ("tall", 67, 70, "diag", None),
+            ("tall", "S", 100, None, None), ("tall", 13, 4096, "diag", 512),
+            ("skewed", "S", 4096, None, None)]
+
+
+@pytest.mark.parametrize("pack,sw,cb,diag,ring_words", K8_CASES)
+def test_ring_k8_matches_plain(on_cpu, pack, sw, cb, diag, ring_words):
+    """Ring K8 (``ring_ck_exact_kernel``) equals K8's plain version bit for
+    bit on costs, every checkpoint row (past each pair's end too) and top
+    value: SW 8, 13, 67 and full heights of 22 and 83 words off the
+    8-grain, CB = SW and larger, with and without a diagonal, a shift at
+    column 0, a skewed bucket's single capture window (CB = n_max < SW),
+    one- and two-warp rings; through ``pinned_ck``'s launch."""
+    args = {"small": _pack, "tall": _tall_pack, "skewed": _skewed_pack}[pack]()
+    n_max, S = args[0].shape[0], args[2].shape[0]
+    sw = S if sw == "S" else sw
+    diag = (n_max, S * 32 - 70) if diag == "diag" else diag
+    if diag == _COL0:
+        assert banded.shift_at_array(n_max, S, sw, diag)[:2].tolist() == [1, 0]
+    if pack == "skewed":
+        assert min(cb, n_max) < sw and n_max // min(cb, n_max) + 1 == 2
+    before = bk.LAUNCHES["ring_ck_exact"]
+    got = bk._launch_ring_ck_exact(*args, sw, cb, diag, ring_words)
+    _same(got, striped.pinned_ck_ref(*args, sw, cb, diag), (pack, sw, cb))
+    assert bk.LAUNCHES["ring_ck_exact"] == before + 1
+
+
+#: K2's ring cases: (pack, SW, CB, diag, lanes); lanes 64 a two-warp ring.
+K2_CASES = [("small", 5, 24, None, None), ("small", 13, 13, "diag", None),
+            ("small", 16, 24, None, 64), ("small", "S", 64, None, None),
+            ("small", 8, 24, _COL0, None), ("tall", 67, 70, "diag", None),
+            ("small", 16, 15, None, None), ("skewed", "S", 4096, None, None)]
+
+
+@pytest.mark.parametrize("pack,sw,cb,diag,lanes", K2_CASES)
+def test_ring_k2_matches_plain(on_cpu, pack, sw, cb, diag, lanes):
+    """K2's ring (``banded_ring_ck_kernel``) equals K2's plain version bit
+    for bit on costs (K1's rule at n == 0), every checkpoint row and top
+    value, past each pair's end too: sub-warp rings (1-16 lanes a pair,
+    several pairs a warp) and a two-warp ring, SW 5, 13, 67 and a full
+    height of 22 words, CB = SW and larger, one capture window below SW
+    (CB = 15 < SW = 16 on the pack cut to 30 columns), a skewed bucket's single
+    checkpoint (CB = n_max), a shift at column 0; through ``banded_ck``'s
+    launch."""
+    args = {"small": _pack, "tall": _tall_pack, "skewed": _skewed_pack}[pack]()
+    n_max, S = args[0].shape[0], args[2].shape[0]
+    sw = S if sw == "S" else sw
+    diag = (n_max, S * 32 - 70) if diag == "diag" else diag
+    if cb < sw:  # the pack cut to 30 columns: one capture window
+        n_max = 30
+        args = tuple(x[:n_max].contiguous() for x in args[:2]) + args[2:4] + (
+            np.minimum(args[4], n_max), args[5])
+        assert -(-n_max // cb) == 2
+    assert bk.k2_kernel(n_max, min(sw, S), cb) == "banded_ring_ck"
+    before = bk.LAUNCHES["banded_ring_ck"]
+    got = bk._launch_banded_ring_ck(*args, sw, cb, diag, lanes)
+    _same(got, banded.banded_ck_ref(*args, sw, cb, diag), (pack, sw, cb))
+    assert bk.LAUNCHES["banded_ring_ck"] == before + 1
