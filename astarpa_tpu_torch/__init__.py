@@ -5,24 +5,39 @@ The JAX package ``astarpa_tpu`` is the reference this port is held
 against, by the tests only: the port imports torch, never jax, and nothing
 of ``astarpa_tpu``.  It keeps its own copies of the framework-free modules
 it needs (``types``, ``generate``/``chacha``, ``oracle``, ``domain``,
-``ops.bitpack`` and the ``native`` loader, which builds the C++ sources in
-the repository's ``native/``).
+``params``, ``pairs_io``, ``astar/``, ``heuristic/``, ``ops.bitpack`` and
+the ``native`` loader, which builds the C++ sources in the repository's
+``native/``).
 
 Public API:
 
 - :class:`BatchAligner` — exact costs (``cost``, ``cost_iter``) and CIGARs
-  (``align``, ``align_iter``) for many pairs on one device.  It runs on the
-  card and raises without one; ``BatchAligner(device="cpu")`` runs the
-  kernels' plain torch versions instead.
+  (``align``, ``align_iter``) for many pairs on one device, or split over
+  several (``mesh=``).  It runs on the card and raises without one;
+  ``BatchAligner(device="cpu")`` runs the kernels' plain torch versions
+  instead.  ``parallel.multihost.MultiHostRunner`` streams a stripe of the
+  input a process over ``torch.distributed``.
+- :func:`astarpa2_nw`, :func:`astarpa2_simple`, :func:`astarpa2_full` —
+  single-pair block aligners returning ``(cost, Cigar)``; :func:`astarpa`,
+  :func:`astarpa_gcsh` — the A* search on the host.
 - ``ops.nw_kernel.nw_cost_pairs`` and ``aligners.nw.nw_cost_batch`` —
   full-rectangle NW edit distances (cost only, kernel K11), with the same
   device rule.
 - ``generate``, ``oracle``, ``native``, ``domain`` — pair generation, the
   edit-distance oracle, the native C++ runtime, domain hulls to per-pair
-  schedules.
+  schedules; ``params``, ``pairs_io``, ``cli`` and ``fuzz`` as the JAX
+  package's.
 """
 
-__all__ = ["BatchAligner", "BatchStats", "generate", "oracle", "native", "domain"]
+from .generate import ErrorModel, generate_model, uniform_fixed
+from .types import Cigar, CigarElem, CigarOp, Pos
+
+__all__ = ["BatchAligner", "BatchStats", "Cigar", "CigarElem", "CigarOp", "Pos",
+           "ErrorModel", "generate_model", "uniform_fixed", "astarpa", "astarpa_gcsh",
+           "astarpa2_nw", "astarpa2_simple", "astarpa2_full", "generate", "oracle",
+           "native", "domain"]
+
+_API = ("astarpa2_nw", "astarpa2_simple", "astarpa2_full", "astarpa", "astarpa_gcsh")
 
 
 def __getattr__(name):
@@ -31,6 +46,14 @@ def __getattr__(name):
         from .parallel import runner
 
         return getattr(runner, name)
+    if name in _API:
+        from . import api
+
+        return getattr(api, name)
+    if name == "AstarPa":
+        from .astar import AstarPa
+
+        return AstarPa
     if name in ("generate", "oracle", "native", "domain"):
         import importlib
 

@@ -612,12 +612,20 @@ def ring_cost_layout(span: int, ring_words: int | None = None,
     return ring_words // thread_words, thread_words
 
 
+def pinned_cost_words(n_max: int, S: int, band_words: int, diag, n) -> int:
+    """Slots a thread of the ring :func:`pinned_cost` runs for these
+    planes' shape and lengths ``n`` at its default ring: 8 (K7), 16 or 32
+    (the wide ring).  Passed as ``thread_words``, it makes every part of a
+    batch run the design the whole batch would."""
+    plan = striped.plan_striped(n_max, S, min(band_words, S), diag)
+    return ring_cost_layout(striped.ring_span(plan, _cost_n_lim(n, n_max)))[1]
+
+
 def pinned_cost_kernel(n_max: int, S: int, band_words: int, diag, n) -> str:
     """The :data:`LAUNCHES` key of the ring kernel :func:`pinned_cost` runs
     for these planes' shape at its default ring: ``"pinned_cost"`` (K7) or
     ``"ring_cost_wide"``."""
-    plan = striped.plan_striped(n_max, S, min(band_words, S), diag)
-    _, words = ring_cost_layout(striped.ring_span(plan, _cost_n_lim(n, n_max)))
+    words = pinned_cost_words(n_max, S, band_words, diag, n)
     return "pinned_cost" if words == STRIPED_WORDS_PER_THREAD else "ring_cost_wide"
 
 

@@ -29,35 +29,48 @@ def pack_batch_staggered(pairs, lane_multiple: int = 512,
     1/256ths, exactly as the reference does, so a stream of same-sized
     batches shares one geometry.
     """
-    B0 = len(pairs)
-    B = max(lane_multiple, -(-B0 // lane_multiple) * lane_multiple)
-    ns = np.array([len(a) for a, _ in pairs] + [1] * (B - B0), dtype=np.int32)
-    ms = np.array([len(b) for _, b in pairs] + [1] * (B - B0), dtype=np.int32)
-    n_max = max(8, int(ns.max()))
-    S = max(1, bitpack.n_words(int(ms.max())))
-    if shape_quantum:
-        n_q = -(-n_max // shape_quantum) * shape_quantum
-        ratio = -(-(S * bitpack.W * 256) // n_max)  # ceil, 1/256ths
-        n_max = n_q
-        S = max(S, -(-(n_q * ratio) // (256 * bitpack.W)))
+    host = HostPack(pairs, lane_multiple, shape_quantum)
+    return host.planes(0, host.B, device) + (host.ns, host.ms), len(pairs)
 
-    if native.available():
-        a4, pb0pm, pb1pm = native.pack_batch_planes(pairs, B, n_max, S)
-        a0, a1, pb0, pb1 = unpack_planes(
-            to_tensor(a4, device), to_tensor(pb0pm, device),
-            to_tensor(pb1pm, device), n_max,
-        )
-        return (a0, a1, pb0, pb1, ns, ms), B0
 
-    acodes = np.zeros((B, n_max), dtype=np.uint8)
-    bcodes = np.full((B, S * bitpack.W), 0xFF, dtype=np.uint8)  # pad char
-    for idx, (a, b) in enumerate(pairs):
-        acodes[idx, : len(a)] = np.frombuffer(a, np.uint8)
-        bcodes[idx, : len(b)] = np.frombuffer(b, np.uint8)
-    a0, a1, pb0, pb1 = pack_planes(
-        to_tensor(acodes, device), to_tensor(bcodes, device), S
-    )
-    return (a0, a1, pb0, pb1, ns, ms), B0
+class HostPack:
+    """The host half of a pack: the native library's pair-major buffers
+    (2-bit a codes 4 per byte, negated b bit planes), or the raw byte codes
+    without it, and the lengths and geometry.  :meth:`planes` uploads a
+    contiguous range of lanes and unpacks it on a device, so a batch split
+    over devices is packed once."""
+
+    def __init__(self, pairs, lane_multiple: int, shape_quantum: int | None):
+        B0 = len(pairs)
+        B = max(lane_multiple, -(-B0 // lane_multiple) * lane_multiple)
+        self.ns = np.array([len(a) for a, _ in pairs] + [1] * (B - B0), dtype=np.int32)
+        self.ms = np.array([len(b) for _, b in pairs] + [1] * (B - B0), dtype=np.int32)
+        n_max = max(8, int(self.ns.max()))
+        S = max(1, bitpack.n_words(int(self.ms.max())))
+        if shape_quantum:
+            n_q = -(-n_max // shape_quantum) * shape_quantum
+            ratio = -(-(S * bitpack.W * 256) // n_max)  # ceil, 1/256ths
+            n_max = n_q
+            S = max(S, -(-(n_q * ratio) // (256 * bitpack.W)))
+        self.B, self.n_max, self.S = B, n_max, S
+        self.native = native.available()
+        if self.native:
+            self.bufs = native.pack_batch_planes(pairs, B, n_max, S)
+        else:
+            acodes = np.zeros((B, n_max), dtype=np.uint8)
+            bcodes = np.full((B, S * bitpack.W), 0xFF, dtype=np.uint8)  # pad char
+            for idx, (a, b) in enumerate(pairs):
+                acodes[idx, : len(a)] = np.frombuffer(a, np.uint8)
+                bcodes[idx, : len(b)] = np.frombuffer(b, np.uint8)
+            self.bufs = (acodes, bcodes)
+
+    def planes(self, lo: int, hi: int, device) -> tuple:
+        """``(a0, a1, pb0, pb1)`` of lanes ``lo:hi`` on ``device`` (the
+        buffers are pair-major, so the range is one contiguous upload)."""
+        cut = [to_tensor(x[lo:hi], device) for x in self.bufs]
+        if self.native:
+            return unpack_planes(*cut, self.n_max)
+        return pack_planes(*cut, self.S)
 
 
 def unpack_planes(a4: torch.Tensor, pb0pm: torch.Tensor, pb1pm: torch.Tensor,

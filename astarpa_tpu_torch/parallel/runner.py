@@ -73,11 +73,23 @@ card, and K7's ring capacity; a kernel that fails raises, and the domain
 ladder breaks only when its band reaches full height or its rounds run
 out.
 
-Not ported yet: ``mesh`` (raises ``NotImplementedError``).
+Several devices (:attr:`BatchAligner.mesh`, the reference's 1-D ``batch``
+mesh): each bucket is packed once on the host, padded so that every shard
+gets the same whole number of ``lane_multiple`` lanes (pad pairs ``n = m =
+1``), and cut into contiguous lane ranges, one a device, as the
+reference's ``P(None, "batch")`` does.  The shared schedule and the
+diagonal come from the whole bucket, so every shard runs the same rung or
+round through the same wrapper and routing, each on its own CUDA stream;
+per-pair schedules and checkpoints split with their pairs, and the results
+are joined on the pair axis on the host.  The reference's VMEM gates for a
+mesh (``_mesh_ck_kind``, ``_select_pp``'s per-shard batch) are not copied,
+for the reason above.  The fill arm of ``combined=False`` runs on the
+first device, unsharded, as the reference's does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field, replace
@@ -93,11 +105,11 @@ from ..ops import banded, striped
 from ..ops.banded_kernel import (banded_ck, banded_ck_pp, banded_cost,
                                  banded_cost_pp, banded_fill, k2_kernel, k4_kernel,
                                  pinned_ck, pinned_ck_kernel, pinned_ck_pp, pinned_cost,
-                                 pinned_cost_kernel,
+                                 pinned_cost_kernel, pinned_cost_words,
                                  pinned_cost_pp, pinned_cost_takes, ring_takes, route,
                                  striped_ck, striped_cost)
 from ..ops.bitpack import W, n_words
-from ..ops.pack import pack_batch_staggered
+from ..ops.pack import HostPack, pack_batch_staggered
 from ..ops.words import to_tensor
 from ..types import Cigar, CigarOp
 
@@ -117,8 +129,6 @@ STRIPED_MIN_SW = 64
 #: (``PERF.md``); the reference's 512 is fitted to TPU VMEM.  Tests patch
 #: it to drive either arm at small sizes.
 PINNED_PP_MIN_SW = 64
-
-_TODO_MESH = "ROADMAP.md queue 1 item 12 (multi-GPU and multi-host)"
 
 
 @dataclass
@@ -143,12 +153,17 @@ class BatchStats:
 
 @dataclass
 class BatchAligner:
-    """Aligns many pairs data-parallel on one device.
+    """Aligns many pairs data-parallel on one device, or split over the
+    devices of :attr:`mesh`.
 
     Args:
       band_words: first band height in uint32 words (warm hints replace it).
       lane_multiple: batch padding granularity (a warp of pairs).
-      mesh: not supported yet (must be None).
+      mesh: None (one device), or a non-empty sequence of devices
+        (``torch.device`` or strings), all CUDA or all ``"cpu"``; an entry
+        may repeat (two ``"cuda:0"`` split a batch in two on one card, each
+        shard on its own stream).  Every bucket's lanes split evenly over
+        them; ``device`` defaults to the first and must equal it.
       max_band_doublings: rungs before the ladder clamps to full height.
       domain_mode: per-pair domain ladder for buckets of pairs >=
         ``domain_min_bp``: "gap" (the cost-f parallelogram), "gcsh" (the
@@ -171,6 +186,9 @@ class BatchAligner:
       shape_quantum: padded-geometry quantum ("auto" as the reference).
       device: None or "cuda" (the card; raises without one) or "cpu" (the
         kernels' plain torch versions).
+
+    Under a mesh every shard of a rung or round runs the kernel the whole
+    bucket routes to, which ``BatchStats.kernel`` names.
     """
 
     band_words: int = 8
@@ -199,9 +217,37 @@ class BatchAligner:
     _prefetch_ex: object = field(default=None, repr=False)
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(f"mesh: see {_TODO_MESH}")
-        self.device = resolve_device(self.device)
+        # (device, stream) of each shard: one device is a mesh of one that
+        # runs on the device's current stream (stream None).
+        if self.mesh is None:
+            self.device = resolve_device(self.device)
+            self._shards = [(self.device, None)]
+            return
+        devs = _mesh_devices(self.mesh)
+        if self.device is not None:
+            dev = torch.device(self.device)
+            if dev.type != devs[0].type or resolve_device(dev) != devs[0]:
+                raise ValueError(f"device {self.device!r} is not the mesh's first "
+                                 f"device {devs[0]}")
+        self.device = devs[0]
+        self._shards = [(d, torch.cuda.Stream(device=d) if d.type == "cuda" else None)
+                        for d in devs]
+
+    def _pack(self, bucket_pairs) -> tuple["_Packed", int]:
+        """Pack a bucket once on the host and split it into equal lane
+        ranges, each uploaded and unpacked on its shard's device and
+        stream (one range on :attr:`device` without a mesh)."""
+        quantum = self._shape_quantum(bucket_pairs)
+        host = HostPack(bucket_pairs, len(self._shards) * self.lane_multiple, quantum)
+        step = host.B // len(self._shards)
+        parts, shards = [], []
+        for k, (dev, stream) in enumerate(self._shards):
+            shard = _Shard(dev, stream, k * step, (k + 1) * step)
+            with shard.on():
+                parts.append(host.planes(shard.lo, shard.hi, dev)
+                             + (host.ns[shard.lo:shard.hi], host.ms[shard.lo:shard.hi]))
+            shards.append(shard)
+        return _Packed(parts, shards, host.ns, host.ms, host.n_max, host.S), len(bucket_pairs)
 
     @staticmethod
     def _bucket_class(bucket_pairs) -> int:
@@ -449,21 +495,16 @@ class BatchAligner:
 
     def _pack_rung(self, pairs, lad: dict):
         """Repack when the pending set shrank to half the packed batch;
-        returns ``(args, B0, members, n_max, S, diag)``."""
+        returns ``(packed, B0, members, n_max, S, diag)``."""
         if lad["packed"] is None or 2 * len(lad["pending"]) <= len(
             lad["packed"][2]
         ):
-            bucket_pairs = [pairs[i] for i in lad["pending"]]
-            args, B0 = pack_batch_staggered(
-                bucket_pairs, self.lane_multiple,
-                shape_quantum=self._shape_quantum(bucket_pairs),
-                device=self.device,
-            )
-            lad["packed"] = (args, B0, list(lad["pending"]))
-        args, B0, members = lad["packed"]
-        n_max, S = args[0].shape[0], args[2].shape[0]
-        diag = self._diag(args[4], args[5], B0, n_max, S)
-        return args, B0, members, n_max, S, diag
+            packed, B0 = self._pack([pairs[i] for i in lad["pending"]])
+            lad["packed"] = (packed, B0, list(lad["pending"]))
+        packed, B0, members = lad["packed"]
+        n_max, S = packed.n_max, packed.S
+        diag = self._diag(packed.n, packed.m, B0, n_max, S)
+        return packed, B0, members, n_max, S, diag
 
     def _rung_start(self, pairs, lad: dict, stats: BatchStats,
                     trace_jobs: list | None = None) -> dict:
@@ -482,8 +523,8 @@ class BatchAligner:
         or ``CB < sw + 8``, as where n_max clamps CB), whose interval
         contract (:func:`..ops.striped.pinned_ck_fits`) ``_cb`` always
         meets."""
-        args, B0, members, n_max, S, diag = self._pack_rung(pairs, lad)
-        n, m = np.asarray(args[4])[:B0], np.asarray(args[5])[:B0]
+        packed, B0, members, n_max, S, diag = self._pack_rung(pairs, lad)
+        n, m = packed.n[:B0], packed.m[:B0]
         sw = min(lad["band"], S)
         # Skewed buckets (m_max > W * n_max) have no valid <=1-word/column
         # schedule; the last rung clamps to the always-exact full height.
@@ -505,31 +546,35 @@ class BatchAligner:
                 CB = self._cb(sw, n_max)
                 if sw >= STRIPED_MIN_SW and sw % 8 == 0 and CB >= sw + 8:
                     # The wrapper runs ring K6 where the ring holds the band.
-                    got, *ck = striped_ck(*args, sw, CB, diag)
-                    stats.kernel = route(self.device,
-                                         "ring_ck" if ring_takes(sw) else "striped_ck")
+                    kernel = striped_ck
+                    name = "ring_ck" if ring_takes(sw) else "striped_ck"
                 elif sw >= STRIPED_MIN_SW and striped.pinned_ck_fits(n_max, sw, CB):
                     # The wrapper runs ring K8 where the ring holds the band.
-                    got, *ck = pinned_ck(*args, sw, CB, diag)
-                    stats.kernel = route(self.device, pinned_ck_kernel(sw))
+                    kernel, name = pinned_ck, pinned_ck_kernel(sw)
                 else:
                     # The wrapper runs K2's ring where its cursor takes CB.
-                    got, *ck = banded_ck(*args, sw, CB, diag)
-                    stats.kernel = route(self.device, k2_kernel(n_max, sw, CB))
-                costs = _Readback(got)
-                if _ck_bytes(ck) * len(members) <= _OPT_READBACK_BYTES:
-                    opt_chunks = _stage_ck_chunks(*ck, len(members))
+                    kernel, name = banded_ck, k2_kernel(n_max, sw, CB)
+                got = packed.each(lambda args, _: _split_ck(kernel(*args, sw, CB, diag)))
+                stats.kernel = route(self.device, name)
+                costs, ck = _Cat([c for c, _ in got]), [x for _, x in got]
+                if _ck_bytes(ck[0]) * len(members) <= _OPT_READBACK_BYTES:
+                    opt_chunks = packed.stage_lanes(ck, len(members))
         if ck is None:
+            ring = ()
             if run_sw >= STRIPED_MIN_SW and pinned_cost_takes(run_sw):
-                costs = _Readback(pinned_cost(*args, run_sw, diag))
-                stats.kernel = route(self.device, pinned_cost_kernel(
-                    n_max, S, run_sw, diag, args[4]))
+                # Every shard runs the ring design of the whole bucket (K7
+                # or the wide ring), whatever its own pairs' span, so the
+                # label names what ran: (ring_words, thread_words).
+                ring = (None, pinned_cost_words(n_max, S, run_sw, diag, packed.n))
+                kernel = pinned_cost
+                name = pinned_cost_kernel(n_max, S, run_sw, diag, packed.n)
             elif run_sw >= STRIPED_MIN_SW:
-                costs = _Readback(striped_cost(*args, run_sw, diag))
-                stats.kernel = route(self.device, "striped_cost")
+                kernel, name = striped_cost, "striped_cost"
             else:
-                costs = _Readback(banded_cost(*args, run_sw, diag))
-                stats.kernel = route(self.device, "banded_ring")
+                kernel, name = banded_cost, "banded_ring"
+            costs = _Cat(packed.each(
+                lambda args, _: _Readback(kernel(*args, run_sw, diag, *ring))))
+            stats.kernel = route(self.device, name)
         stats.cells_computed += n_max * sw * W * len(members)
         return dict(lad=lad, costs=costs, sw=sw, S=S, thr=thr, diag=diag,
                     trace_jobs=trace_jobs, ck=ck, CB=CB, opt_chunks=opt_chunks)
@@ -539,8 +584,8 @@ class BatchAligner:
         traces on the align path; returns the next in-flight rung (retry at
         a wider band) or None when the bucket is done."""
         lad = rung["lad"]
-        args, B0, members = lad["packed"]
-        n, m = args[4], args[5]
+        packed, B0, members = lad["packed"]
+        n, m = packed.n, packed.m
         sw, S, thr, diag = rung["sw"], rung["S"], rung["thr"], rung["diag"]
         costs = rung["costs"].numpy()[:B0]
         # A full-height window (no threshold) is always exact.
@@ -560,7 +605,7 @@ class BatchAligner:
                 fail_slots.append(slot)
         trace_jobs = rung["trace_jobs"]
         if trace_jobs is not None and ok_slots:
-            shift = banded.shift_at_array(args[0].shape[0], S, sw, diag)
+            shift = banded.shift_at_array(packed.n_max, S, sw, diag)
             if rung["ck"] is None:
                 stats.direct_traces += len(ok_slots)
                 trace_jobs.extend(
@@ -572,9 +617,7 @@ class BatchAligner:
             else:
                 # Without the optimistic copies, gather only the certified
                 # lanes on the device before they cross to the host.
-                chunks = rung["opt_chunks"] or _stage_ck_chunks(
-                    *_gather_lanes(rung["ck"], ok_slots), len(ok_slots)
-                )
+                chunks = rung["opt_chunks"] or packed.stage_slots(rung["ck"], ok_slots)
                 for pos, slot in enumerate(ok_slots):
                     p = slot if rung["opt_chunks"] else pos
                     c0, sl = _chunk_of(chunks, p)
@@ -627,12 +670,8 @@ class BatchAligner:
         else the ck kernel and stages checkpoint traces.  Stragglers finish
         on the shared ladder."""
         bucket_pairs = [pairs[i] for i in idxs]
-        args, B0 = pack_batch_staggered(
-            bucket_pairs, self.lane_multiple,
-            shape_quantum=self._shape_quantum(bucket_pairs), device=self.device,
-        )
-        n_max, S = args[0].shape[0], args[2].shape[0]
-        B = args[0].shape[1]
+        packed, B0 = self._pack(bucket_pairs)
+        n_max, S, B = packed.n_max, packed.S, packed.B
         step = 64 if n_max <= 200_000 else 128
         if mode == "gcsh":
             fut = self._domain_prefetch.pop((id(pairs), tuple(idxs)), None)
@@ -694,11 +733,11 @@ class BatchAligner:
                 if idle.any():
                     sched_arr[: len(fill), idle] = fill[:, None]
                 want_ck = ck_mode and not direct_rnd
-                got, name = self._domain_kernel(args, sw, sched_arr, quantum,
+                got, name = self._domain_kernel(packed, sw, sched_arr, quantum,
                                                 want_ck)
                 stats.kernel = route(self.device, name)
-                costs_t, ck = (got[0], got[1:]) if want_ck else (got, None)
-                costs = _Readback(costs_t).numpy()[:B0]
+                costs = _Cat([c for c, _ in got]).numpy()[:B0]
+                ck = [x for _, x in got]
                 stats.cells_computed += n_max * sw * W * len(pending)
                 done = [
                     slot for slot in pending
@@ -713,7 +752,7 @@ class BatchAligner:
                             s_words=S, sw=sw, cb=0, want=int(costs[slot]),
                         ))
                 elif done and want_ck:
-                    chunks = _stage_ck_chunks(*_gather_lanes(ck, done), len(done))
+                    chunks = packed.stage_slots(ck, done)
                     CB = banded.ck_col_block(self._cb(sw, n_max), n_max, quantum)
                     for pos, slot in enumerate(done):
                         sc = np.ascontiguousarray(scheds[slot].sched, np.int32)
@@ -743,31 +782,46 @@ class BatchAligner:
             for h in handles:
                 h.close()
 
-    def _domain_kernel(self, args, sw: int, sched_arr, quantum: int,
+    def _domain_kernel(self, packed, sw: int, sched_arr, quantum: int,
                        want_ck: bool):
-        """One domain round: ``(costs, name)``, or with ``want_ck`` ``((costs,
-        ck_vp, ck_vm, ck_tv), name)`` with checkpoints every :meth:`_cb`
-        columns rounded to whole quantum groups (K4's contract, which K10
-        keeps); ``name`` is the kernel that ran (its launch key).  Rounds of
+        """One domain round on every shard: ``(got, name)``, ``got`` a
+        ``(costs, ck)`` a shard (the costs' :class:`_Readback`; with
+        ``want_ck`` the shard's ``(ck_vp, ck_vm, ck_tv)`` with checkpoints
+        every :meth:`_cb` columns rounded to whole quantum groups, K4's
+        contract, which K10 keeps, else None); ``name`` is the kernel that
+        ran (its launch key).  Each shard takes its pairs' columns of
+        ``sched_arr``.  Rounds of
         at least :data:`PINNED_PP_MIN_SW` words run K9 (ring K9 up to the
         ring's 4096 words, the stripe kernel past it) or K10 (ring K10 up
         to the ring's 4096 words, the stripe kernel past it), smaller ones
         K4 (its ring, or the old K4 for an interval the ring refuses:
         :func:`..ops.banded_kernel.k4_kernel`)."""
+        n_max = packed.n_max
         pinned = sw >= PINNED_PP_MIN_SW
         if want_ck:
-            CB = self._cb(sw, args[0].shape[0])
+            CB = self._cb(sw, n_max)
+            extra = (sw, CB, quantum)
             if pinned:
                 # The wrapper runs ring K10 where the ring holds the band.
-                return (pinned_ck_pp(*args, sched_arr, sw, CB, quantum),
-                        "ring_ck_pp" if ring_takes(sw) else "pinned_ck_pp")
-            return (banded_ck_pp(*args, sched_arr, sw, CB, quantum),
-                    k4_kernel(args[0].shape[0], sw, CB, quantum))
-        if pinned:
-            # The wrapper runs ring K9 where the ring holds the band.
-            return (pinned_cost_pp(*args, sched_arr, sw, quantum),
-                    "ring_cost_pp" if ring_takes(sw) else "pinned_cost_pp")
-        return banded_cost_pp(*args, sched_arr, sw, quantum), k4_kernel(args[0].shape[0], sw)
+                kernel = pinned_ck_pp
+                name = "ring_ck_pp" if ring_takes(sw) else "pinned_ck_pp"
+            else:
+                kernel, name = banded_ck_pp, k4_kernel(n_max, sw, CB, quantum)
+        else:
+            extra = (sw, quantum)
+            if pinned:
+                # The wrapper runs ring K9 where the ring holds the band.
+                kernel = pinned_cost_pp
+                name = "ring_cost_pp" if ring_takes(sw) else "pinned_cost_pp"
+            else:
+                kernel, name = banded_cost_pp, k4_kernel(n_max, sw)
+
+        def launch(args, shard):
+            got = kernel(*args, np.ascontiguousarray(sched_arr[:, shard.lo:shard.hi]),
+                         *extra)
+            return _split_ck(got) if want_ck else (_Readback(got), None)
+
+        return packed.each(launch), name
 
     # -- CIGAR path ------------------------------------------------------------
 
@@ -1015,6 +1069,114 @@ class BatchAligner:
             _check_trace(cost, c)
             results.append((cost, cigar))
         return results
+
+
+def _mesh_devices(mesh) -> list[torch.device]:
+    """The mesh's devices, checked: a non-empty sequence, all CUDA (each
+    resolved as :func:`..device.resolve_device` does) or all CPU."""
+    try:
+        devs = [torch.device(d) for d in mesh]
+    except (TypeError, RuntimeError) as e:
+        raise ValueError(f"mesh must be a sequence of devices, got {mesh!r}") from e
+    if not devs:
+        raise ValueError("mesh: no devices")
+    kinds = {d.type for d in devs}
+    if len(kinds) != 1 or not kinds <= {"cuda", "cpu"}:
+        raise ValueError(f"mesh devices must be all CUDA or all 'cpu', got {sorted(kinds)}")
+    return [resolve_device(d) for d in devs]
+
+
+@dataclass
+class _Shard:
+    """One device's share of a packed bucket: lanes ``lo:hi`` on ``device``,
+    run on ``stream`` (None: the device's current stream)."""
+
+    device: torch.device
+    stream: object
+    lo: int
+    hi: int
+
+    @contextlib.contextmanager
+    def on(self):
+        """The shard's device and stream as the current ones: uploads,
+        launches and readbacks queue on its stream, and the caching
+        allocator keeps its tensors to that stream."""
+        if self.stream is None:
+            yield
+            return
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            yield
+
+
+@dataclass
+class _Packed:
+    """A packed bucket: host lengths ``n``/``m`` (B,) and the geometry, and
+    the planes as one part a shard, ``parts[k] = (a0, a1, pb0, pb1, n, m)``
+    holding lanes ``shards[k].lo:hi``."""
+
+    parts: list
+    shards: list
+    n: np.ndarray
+    m: np.ndarray
+    n_max: int
+    S: int
+
+    @property
+    def B(self) -> int:
+        return len(self.n)
+
+    def each(self, fn) -> list:
+        """``fn(args, shard)`` on every shard, on its device and stream."""
+        out = []
+        for args, shard in zip(self.parts, self.shards):
+            with shard.on():
+                out.append(fn(args, shard))
+        return out
+
+    def stage_lanes(self, cks, lanes: int) -> list:
+        """:func:`_stage_ck_chunks` of the bucket's first ``lanes`` lanes,
+        each shard's on its stream; chunk ranges are bucket lanes."""
+        chunks = []
+        for ck, shard in zip(cks, self.shards):
+            k = min(shard.hi, lanes) - shard.lo
+            if k > 0:
+                with shard.on():
+                    chunks += [(c0 + shard.lo, c1 + shard.lo, sl)
+                               for c0, c1, sl in _stage_ck_chunks(*ck, k)]
+        return chunks
+
+    def stage_slots(self, cks, slots) -> list:
+        """The checkpoints of lanes ``slots`` (ascending) only, gathered on
+        each shard's device and staged; chunk ranges are positions in
+        ``slots``."""
+        slots = np.asarray(slots, np.int64)
+        chunks, base = [], 0
+        for ck, shard in zip(cks, self.shards):
+            local = slots[(slots >= shard.lo) & (slots < shard.hi)] - shard.lo
+            if len(local):
+                with shard.on():
+                    part = _stage_ck_chunks(*_gather_lanes(ck, local), len(local))
+                chunks += [(c0 + base, c1 + base, sl) for c0, c1, sl in part]
+                base += len(local)
+        return chunks
+
+
+def _split_ck(got) -> tuple:
+    """A ck wrapper's ``(costs, ck_vp, ck_vm, ck_tv)`` as the costs'
+    :class:`_Readback` and the checkpoint set."""
+    return _Readback(got[0]), tuple(got[1:])
+
+
+class _Cat:
+    """One result's shard readbacks, joined on the pair axis (the last)
+    on the host."""
+
+    def __init__(self, parts: list):
+        self.parts = parts
+
+    def numpy(self):
+        arrs = [p.numpy() for p in self.parts]
+        return arrs[0] if len(arrs) == 1 else np.concatenate(arrs, axis=-1)
 
 
 def _check_trace(cost: int, certified) -> None:

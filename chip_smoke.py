@@ -20,7 +20,7 @@ Phases, one output line each (any failure exits non-zero):
    4096-pair cost pack at SW=32, a 512-pair align pack at its ladder's
    SW, each with the main path's diagonal, cut to their first 1024
    columns), bit for bit, and timed (CUDA events; the kernel also on the
-   whole cost pack; twice on 500 bp pairs, timing only);
+   whole cost pack);
 6. the checkpoint and per-pair kernels (K2: K2's ring at its layout and
    as a 64-lane ring, one capture window below SW, the old K2 once; K4
    cost, K4 ck: K4's rings) against their plain versions on a grid (B
@@ -45,8 +45,7 @@ Phases, one output line each (any failure exits non-zero):
    K1's shared schedule against K1 at that round's full shape; K2's ring
    and the old K2 on phase 8's pack cut to 1024 columns, in turns), bit
    for bit; K2's ring against the old K2 in turns on phase 8's whole pack
-   at its path's SW and CB; and timed in turns on a 500 bp pack (timing
-   only: K4's and K2's rings held to the old kernels);
+   at its path's SW and CB;
 
 10. the striped kernels K5 and K6 against their plain versions on a grid
     (B 33/160, n <= 1500, SW 8 to full height, bands taller than one
@@ -66,8 +65,7 @@ Phases, one output line each (any failure exits non-zero):
     SWs, K7/wide ring/K6 ms per rung, peak device memory, Mbp/s;
 12. K5's stripes, K7 and K6 (ring and stripe) against their plain versions at config #5's own shapes
     (its pack cut to the first 4096 columns, at the ladder's SW), timed in
-    turns (plain, kernels, kernels); K5's stripes against K1 on that cut at SW
-    64 to 2048 (the crossover behind ``runner.STRIPED_MIN_SW``);
+    turns (plain, kernels, kernels);
 13. the pinned per-pair kernels K9 and K10 (their stripe kernels; phases 27
     and 32 hold the rings against the same plain results) against their plain versions on
     a grid (B 33/160, n <= 1500, SW 8 to full height, bands taller than one
@@ -84,9 +82,7 @@ Phases, one output line each (any failure exits non-zero):
     K9/K10 ms per round, peak device memory, Mbp/s; K4 and the stripe
     kernels must not run;
 15. K9 and K10 (ring and stripe each) against their plain versions at that path's own shapes (its
-    last round cut to the first 4096 columns), timed in turns; K9 against
-    K4 on config #4's and config #5's cuts at SW 64 to 1088 (the crossover
-    behind ``runner.PINNED_PP_MIN_SW``);
+    last round cut to the first 4096 columns), timed in turns;
 16. the full-rectangle NW kernel K11 against its plain version on a grid
     (B 33/1024, n <= 1500 with n == 0 and m == 0 lanes, S 1 to 47 words
     and 313, ten stripes), bit for bit on both planes and the costs;
@@ -122,9 +118,8 @@ Phases, one output line each (any failure exits non-zero):
     memory;
 21. ring K8 and the stripe K8 in turns on phase 20's whole rung, each over
     chained launches; both against their plain version and against K2 on
-    that rung cut to its first 1024 columns, in turns; ring K8 against ring
-    K6 on config #5's cut (4096 columns, SW = 2048, CB = 2056), each beside
-    its bound;
+    that rung cut to its first 1024 columns, in turns, each beside its
+    bound;
 22. the resident-ring cost kernel K7 against its plain version on a grid
     (B 1/33/160, n <= 1500 with n == 0 and m == 0 lanes, SW 8, 13, 64, 67,
     256 and a full height S ~ 280 off the 8-grain, a skewed bucket, rings
@@ -132,11 +127,7 @@ Phases, one output line each (any failure exits non-zero):
     they wrap at least 3 times), bit for bit, and K7 (forced) refusing a
     band whose live words exceed its 4096-word ring (no launch);
 23. K7 and K5's stripes alone over chained launches on config #5's whole SW = 2048
-    rung, each beside its bound, their costs equal; the band sweep, the
-    cost ring against K5's stripes on whole rungs in turns (K5, ring, ring,
-    K5): config #4's pack (phase 20's) at SW 64 to 2048 and its full height
-    3149 (config #5's points were cut to keep the run short; phase 30
-    times the wide ring at 8192), the bands behind the runner's routing;
+    rung, each beside its bound, their costs equal;
 24. the banded fill kernel K3 against its plain versions in both schedule
     modes on a grid (B 1/37/128, n <= 100 with n == 0 and m == 0 lanes, SW 1,
     8, 28, 32, 64 and a full height of 72 words, a diagonal whose only
@@ -171,11 +162,11 @@ Phases, one output line each (any failure exits non-zero):
     K9 on gap, random, gcsh and broadcast-shared schedules at Q 32, 8, 4
     and 1), bit for bit on costs, every checkpoint row and top value; both
     refusing, without a launch, a ring forced on more than 4096 live words;
-28. ring against stripe kernels on whole main-path shapes, in turns, each
-    beside its bound, their results equal: K6 on config #5's align rung
-    (SW 2048, CB 16384) over chained launches, K9 on config #5 default's
-    round (SW 1152) and config #4's round (SW 192), kernel from the end of
-    its event tables with the tables timed apart; K7 again on its rung;
+28. ring against stripe kernels on whole main-path shapes, once each,
+    each beside its bound, their results equal: K6 on config #5's align
+    rung (SW 2048, CB 16384) over chained launches, K9 on config #5
+    default's round (SW 1152) and config #4's round (SW 192), kernel from
+    the end of its event tables with the tables timed apart;
 29. the redesigned K7 and the wide ring against their plain version and
     K5's stripes on a grid (phase 10's packs with n == 0 and m == 0 lanes
     and rings forced to both designs; 33 pairs of up to 2 kbp beside a
@@ -185,24 +176,23 @@ Phases, one output line each (any failure exits non-zero):
     ring of 1024 words wrapping >= 3 times beside a 500 x 150 kbp pair; config #5's pack cut to 2048 columns at SW 8192 on the wide
     ring, timed against plain), bit for bit, and the refusal, without a
     launch, of more than 16384 live words;
-30. the cost ring against K5's stripes on whole main-path rungs, in turns
-    over chained launches, each beside its bound: K7 on config #4's
+30. the cost ring against K5's stripes on whole main-path rungs, once
+    each over chained launches, each beside its bound: K7 on config #4's
     full-height rung, the wide ring on config #5's SW = 8192 rung (config
     #5's SW = 2048 rung: phase 23);
 31. K1's ring kernel (the main path's K1 since the redesign) against its
     plain version on a grid (SW 1, 2, 31, 32, 33 and 63 with and without a
     diagonal, pairs covered by the window, above and below it and n == 0,
     both layouts: the runner's ring with a spare slot and a full one), bit
-    for bit; against the old K1 in turns (old, ring, ring, old) on phase
-    3's whole pack and its 1024-column cut; a band sweep (SW 8, 16, 32, 48
-    and 63, both layouts) on the whole pack with K7 at SW 64 beside it;
+    for bit; against the old K1 (old, then ring) on phase 3's whole pack
+    and its 1024-column cut;
 32. ring K10 against its plain version and the stripe K10 on a grid
     (phase 13's checkpoint cases at its own ring and a forced 256-word one;
     pairs of up to 0.8 and 4.2 kbp beside a 10 kbp b with random schedules
     at Q 1 and 8, CB = SW and larger, 256-word rings wrapping >= 3 times), bit
     for bit on costs, every checkpoint row and top value, and its refusal,
     without a launch, of more than 4096 live words; then ring K10 against
-    the stripe K10 in turns on config #5 default's and config #4's whole
+    the stripe K10, once each, on config #5 default's and config #4's whole
     checkpoint rounds (phases 14 and 7);
 33. K4's rings (cost and checkpoints, the main path's K4)
     against K4's plain versions on a grid (44 pairs of up to 200 bp beside
@@ -219,17 +209,50 @@ Phases, one output line each (any failure exits non-zero):
     with the trace route's transpose) against the old K3 on phase 25's
     whole pack and its 1024-column cut;
 
+34. main path split over two shards on the one card
+    (``mesh=("cuda:0", "cuda:0")``, each shard on its own stream): phase
+    3's cost (a fresh aligner of each kind called twice, the second call
+    timed beside one device's), phase 4's ``align_iter`` and phase 8's
+    checkpoint rungs (``direct_dt=False``): costs equal phases 3, 4 and 8,
+    CIGARs and ``BatchStats`` equal one device's, every CIGAR verified, and
+    each kernel launched twice as often; a bucket whose first pair alone
+    fits K7's ring and whose second needs the wide ring, both shards
+    launching the wide ring the label names, costs equal one device's and
+    the oracle; ``mesh=("cuda:0",)`` equal to ``mesh=None``;
+    ``parallel.dryrun.dryrun_multichip(2, ["cuda:0"] * 2)``;
+35. multi-host streaming at config #5's shape: phase 11's seed-7 batch
+    written once to a ``.seq`` file (``pairs_io``), two processes on the card
+    joining one gloo group on 127.0.0.1, each running
+    ``MultiHostRunner(BatchAligner(band_words=2048, domain_mode="off"),
+    batch_size=32).run(..., with_cigars=True)`` on its stripe: the shards'
+    union equal to phase 11's costs, every CIGAR verified, the merged counts
+    (128 pairs, the batch's bases) on both, each process's Mbp/s;
+36. the CLI on the card (``python -m astarpa_tpu_torch.cli``): 64 pairs of
+    10 kbp at e=5% through ``--aligner batch --chunk 32``, and 3 pairs of 2
+    kbp through ``astarpa2-full`` and ``astarpa-native``, every line's cost
+    equal to ``levenshtein_myers`` and its CIGAR verified;
+37. the fuzzer on the card (``python -m astarpa_tpu_torch.fuzz``): 50
+    iterations of each batch mode (batch, batch-ck, batch-domain,
+    batch-bigband) at ``--max-n 400`` with a fixed seed, no failure, and the
+    kernels each mode launched; phases 36 and 37 run their seven processes
+    at once, each with a time limit of its own (180 s, as phase 35's);
+
 then the host seconds of each phase, the kernels' JSON line (each
 kernel's time, its plain version's, its bound from this run's inputs, its
 launches on the main path), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
-The plain sweeps of phases 5, 9, 12, 15, 21 and 25 run on their packs'
-first columns, those of phase 27 on packs of at most 3.5 kbp (and reuse
+Timing that no kernel's record needs is left out (the 500 bp turns of
+phases 5 and 9, the band sweeps of phases 12, 15, 23 and 31, ring K8
+against ring K6 in phase 21, K7 again in phase 28); the comparisons of a
+kernel with its replacement on whole shapes run once each.  The plain
+sweeps of phases 5, 9, 12, 15, 21 and 25 run on their packs' first
+columns, those of phase 27 on packs of at most 3.5 kbp (and reuse
 phases 10's and 13's), the grids of phases 2 and 6 hold a few cases each, and the pairs
 are generated and the CIGARs verified on one pool of the host's cores,
 started once for the whole run, to keep the run short.  Launch counts are
 reset just before each main-path phase (3-4, 7, 8, 11, 14, 17, both calls
-of 20, 25) and read just after it; phases 3-4 and 25 launch K1's ring
+of 20, 25, 34) and read just after it, and the workers of phase 35 print
+their own; phases 3-4 and 25 launch K1's ring
 kernel (the old K1 none), phase 8 K2's ring (the old K2 none), phase 20
 ring K8 (the stripe K8 none), phase 25 K3's ring (the old K3 none), phase 7
 K4's rings for its 40 kbp rounds (the old K4 none), phases 7 and 14 ring
@@ -268,7 +291,6 @@ from astarpa_tpu_torch.types import Cigar  # noqa: E402
 PAIRS, LENGTH, ERR, SEED = 4096, 10_000, 0.05, 42
 STREAM_BATCHES, STREAM_PAIRS = 6, 512
 TIMED_SW = 32
-TURN_LENGTH = 500
 C4_PAIRS, C4_LENGTH, C4_ERR, C4_SEED = 128, 100_000, 0.10, 100
 C4_ORACLE = 8
 C40_PAIRS, C40_LENGTH, C40_ERR, C40_SEED = 128, 40_000, 0.05, 400
@@ -280,8 +302,6 @@ C5_PAIRS, C5_LENGTH, C5_ERR, C5_SEEDS = 128, 500_000, 0.15, (7, 8)
 C5_BAND, C5_CB = 2048, 16384
 C5_K5_BAND = 8192  # phase 11: two doublings above C5_BAND, past K7's ring
 C5_CUT = 4096
-CROSSOVER_SW = (64, 128, 256, 512, 1024, 2048)
-PP_CROSSOVER_SW = (64, 128, 192, 256, 512, 1088)
 C1_PAIRS, C1_LENGTH, C1_ERR, C1_SEED = 65_536, 1000, 0.01, 1
 C1_ORACLE, C1_REF_PAIRS, C1_REF_LAUNCHES = 1024, 1024, 8
 NW_GRID_N = 1500  # the K11 grid's longest a and b
@@ -291,8 +311,6 @@ K8_GRID_N, K8_TALL_M, K8_BIG_SW = 1500, 38_000, 1152  # phase 19: S = 1188 words
 K8_LONG_N = 3600  # phase 19: several capture windows at full height (1188)
 K8_CHAINED = 3
 K7_CHAINED = 2
-K7_SWEEP_SW = (64, 128, 256, 512, 1024, 2048)  # phase 23, config #4's pack
-K7_SWEEP_C5_SW = ()  # phase 23, config #5's pack (none, to keep the run short)
 K7_GRID_LONG_N, K7_GRID_TALL_M = 2000, 38_000  # phases 22, 29: ~1188 words, 4.6 rings of 256
 K3_GRID_PAIRS, K3_GRID_N, K3_COL0_SW = 128, 100, 8  # phase 24
 K3_CHAINED = 2
@@ -475,13 +493,13 @@ class LayerSpy:
     """Times the runner's layers inside its own calls and keeps the last
     kernel launch per batch size.
 
-    Wraps the runner module's pack, kernel launch and readback wait: the
-    host clock around each, and CUDA events around each launch for the
-    kernel's time on the card.  The launch count stays with the kernel's
-    wrapper; this only passes calls through."""
+    Wraps the runner's pack (``BatchAligner._pack``), kernel launch and
+    readback wait: the host clock around each, and CUDA events around each
+    launch for the kernel's time on the card.  The launch count stays with
+    the kernel's wrapper; this only passes calls through."""
 
     def __init__(self):
-        self._orig = (runner.pack_batch_staggered, runner.banded_cost,
+        self._orig = (runner.BatchAligner._pack, runner.banded_cost,
                       runner._Readback.numpy)
         self.last: dict[int, dict] = {}
         self.reset()
@@ -520,12 +538,12 @@ class LayerSpy:
             self.wait_s += time.perf_counter() - t0
             return out
 
-        runner.pack_batch_staggered = timed_pack
+        runner.BatchAligner._pack = timed_pack
         runner.banded_cost = timed_launch
         runner._Readback.numpy = timed_wait
 
     def remove(self):
-        (runner.pack_batch_staggered, runner.banded_cost,
+        (runner.BatchAligner._pack, runner.banded_cost,
          runner._Readback.numpy) = self._orig
 
 
@@ -556,6 +574,7 @@ def phase3_cost(ba: BatchAligner, pairs, spy: LayerSpy) -> None:
         f"certify/ladder/other {dt - pack_s - launch_s - wait_s:.4f} s; "
         f"kernel on the card {k_ms:.3f} ms over {k_n} launches (CUDA events)")
     say(f"[3 trace] {_profiled_call(ba, pairs)}")
+    return costs2
 
 
 def _profiled_call(ba: BatchAligner, pairs) -> str:
@@ -588,7 +607,7 @@ def _profiled_call(ba: BatchAligner, pairs) -> str:
             f"{1 - busy / wall:.3f}; K1 (banded_ring_kernel) {k1:.3f} ms in the trace")
 
 
-def phase4_align(ba: BatchAligner, batches) -> float:
+def phase4_align(ba: BatchAligner, batches) -> list:
     marks = [time.perf_counter()]
     got = []
     for results, stats in ba.align_iter(iter(batches)):
@@ -608,7 +627,7 @@ def phase4_align(ba: BatchAligner, batches) -> float:
         f"{ms_pair:.5f} ms/pair (median of periods "
         f"{', '.join(f'{p:.4f}' for p in periods)} s); direct traces "
         f"{sum(s.direct_traces for _, s in got)}")
-    return ms_pair
+    return got
 
 
 def _event_ms(fn):
@@ -619,6 +638,11 @@ def _event_ms(fn):
     end.record()
     end.synchronize()
     return start.elapsed_time(end), out
+
+
+def _ms(times) -> str:
+    """Times in ms, one after another."""
+    return "/".join(f"{t:.3f}" for t in times)
 
 
 def _chained_ms(fn, launches: int) -> float:
@@ -682,16 +706,6 @@ def phase5_time(spy: LayerSpy) -> tuple[dict, tuple]:
         f"{a512[2].shape[0]}, SW={align_l['sw']}: kernel {k512[0]:.3f}/{k512[1]:.3f} ms, "
         f"plain {plain512:.1f} ms; max_abs_err {max(err_c, err_a)} (CUDA events)")
 
-    pairs1k = _generate(PAIRS, TURN_LENGTH, ERR, SEED + 1)
-    args1k, _ = pack_batch_staggered(pairs1k, 32, device="cuda")
-
-    # Timing only: the kernel is held to plain on the main path's shapes
-    # above.
-    times = [_event_ms(lambda: banded_kernel.banded_cost(*args1k, TIMED_SW))[0]
-             for _ in range(2)]
-    ms = float(np.mean(times))
-    say(f"[5 time] on {TURN_LENGTH} bp pairs: B={PAIRS} n_max={args1k[0].shape[0]} "
-        f"SW={TIMED_SW}: kernel {times[0]:.3f}/{times[1]:.3f} ms (CUDA events)")
     return {
         "max_abs_err": max(err_c, err_a),
         # The main path's cost pack cut to CUT_COLS columns: the kernel's
@@ -704,10 +718,6 @@ def phase5_time(spy: LayerSpy) -> tuple[dict, tuple]:
         "full_ms": float(np.mean(full_ms)),
         "full_bound_ms": plane_bound(args10k, TIMED_SW, [])["bound_ms"],
         "full_shape": {"B": PAIRS, "n_max": n_max10, "S": S10, "SW": TIMED_SW},
-        # 500 bp pairs: the kernel's mean of two runs.
-        "turns_ms": ms,
-        "turns_shape": {"B": PAIRS, "n_max": args1k[0].shape[0],
-                        "S": args1k[2].shape[0], "SW": min(TIMED_SW, args1k[2].shape[0])},
     }, (args10k, cost_l["diag"], plain10)
 
 
@@ -849,7 +859,8 @@ class RoundSpy:
 
     NAMES = ("banded_ck", "banded_cost_pp", "banded_ck_pp", "pinned_cost_pp",
              "pinned_ck_pp")
-    HOST = (("pack", runner, "pack_batch_staggered"),
+    HOST = (("pack", runner.BatchAligner, "_pack"),
+            ("pack", runner, "pack_batch_staggered"),
             ("gcsh build", runner.BatchAligner, "_build_gcsh_handles"),
             ("hull sample", att.native.DomainHandle, "sample"),
             ("schedule", runner, "domain_schedule"),
@@ -904,6 +915,10 @@ class RoundSpy:
             a.record()
             out = fn(*args)
             b.record()
+            # The runner passes a cost rung's ring layout after (planes, SW,
+            # diag); on one device it is the default one the timing phases
+            # re-run the rung's inputs at.
+            args = args[:8] if name == "pinned_cost" else args
             ran = next((k for k, v in banded_kernel.LAUNCHES.items() if v > before[k]), name)
             self.calls.append((ran, args, a, b, self._tables))
             self.last[ran] = args
@@ -1252,36 +1267,9 @@ def phase9_time(spy: RoundSpy) -> dict:
         f"({min(k2_whole['banded_ck']) / whole_bound['bound_ms']:.1f}x) vs bound "
         f"{whole_bound['bound_ms']:.4f} ms ({whole_bound['bound_by']}); equal on costs, every "
         f"checkpoint row and top value (CUDA events)")
-    # Turns on a short-pair pack, timing only (K2 and K4 are held to plain
-    # above and in phases 6 and 33): K2's ring against the old K2, and K4's
-    # rings against the old K4.
-    pairs2k = _generate(PAIRS, TURN_LENGTH, ERR, SEED + 1)
-    args2k, _ = pack_batch_staggered(pairs2k, 32, device="cuda")
-    n2, S2 = args2k[0].shape[0], args2k[2].shape[0]
-    gap2k = banded.pair_gap_schedule(args2k[4], args2k[5], TIMED_SW, n2, S2)[0]
-    turns_shape = {"B": PAIRS, "n_max": n2, "S": S2, "SW": min(TIMED_SW, S2), "CB": 256}
-    fns = {"banded_ring_ck": lambda: banded_kernel.banded_ck(*args2k, TIMED_SW, 256),
-           "banded_ck": lambda: banded_kernel._launch("banded_ck", *args2k, TIMED_SW,
-                                                      col_block=256),
-           "banded_ring_pp": lambda: banded_kernel.banded_cost_pp(*args2k, gap2k, TIMED_SW),
-           "banded_ring_ck_pp": lambda: banded_kernel.banded_ck_pp(*args2k, gap2k, TIMED_SW,
-                                                                   256),
-           "banded_cost_pp": lambda: _old_k4(args2k, gap2k, TIMED_SW, 32),
-           "banded_ck_pp": lambda: _old_k4(args2k, gap2k, TIMED_SW, 32, 256)}
-    turns, outs = _in_turns(fns, tuple(fns) * 2)
-    e4 = max(_max_err(outs["banded_ring_pp"], outs["banded_cost_pp"]),
-             _max_err(outs["banded_ring_ck_pp"], outs["banded_ck_pp"]),
-             _max_err(outs["banded_ring_ck"], outs["banded_ck"]))
-    if e4:
-        fail("K4's or K2's rings != the old kernels on the 500 bp pack")
-    say(f"[9 turns] {TURN_LENGTH} bp pack {turns_shape} (gap schedules, Q=32, for K4): " + "; ".join(
-        f"{k} {ms[0]:.3f}/{ms[1]:.3f} ms" for k, ms in turns.items())
-        + f"; K4's and K2's rings == the old kernels, max_abs_err {e4} (CUDA events)")
-
     def record(name, ms, plain, shape, err, bnd, **extra):
         return {"max_abs_err": err, "ms": float(np.mean(ms)), "plain_ms": plain,
-                **bnd, "library_ms": None, "shape": shape, **extra,
-                "turns_ms": float(np.mean(turns[name])), "turns_shape": turns_shape}
+                **bnd, "library_ms": None, "shape": shape, **extra}
 
     sched_bytes = csched.size
     cost_bnd = plane_bound(cplanes, sw, ref[:1], sched_bytes)
@@ -1289,22 +1277,22 @@ def phase9_time(spy: RoundSpy) -> dict:
     k2_bnd = plane_bound(planes, sw_k2, k2_ref)
     return {
         "banded_ck": record("banded_ck", k2_cut["banded_ck"], k2_plain_ms, k2_shape,
-                            max(err_k2, err_whole, e4), k2_bnd, whole_ms=k2_whole["banded_ck"],
+                            max(err_k2, err_whole), k2_bnd, whole_ms=k2_whole["banded_ck"],
                             whole_shape=whole_shape, whole_bound_ms=whole_bound["bound_ms"]),
         "banded_ring_ck": record("banded_ring_ck", k2_cut["banded_ring_ck"], k2_plain_ms,
-                                 k2_shape, max(err_k2, err_whole, e4), k2_bnd,
+                                 k2_shape, max(err_k2, err_whole), k2_bnd,
                                  whole_ms=k2_whole["banded_ring_ck"], whole_shape=whole_shape,
                                  whole_bound_ms=whole_bound["bound_ms"], lanes=lay["lanes"]),
         "banded_ring_pp": record("banded_ring_pp", cut_ms["banded_ring_pp"], plain_ms, cshape,
-                                 max(err_pp, e4), cost_bnd, full_ms=k4_ms,
+                                 err_pp, cost_bnd, full_ms=k4_ms,
                                  full_shape=full_shape, full_k1_ms=k1_ms,
                                  full_bound_ms=full_bound),
         "banded_ring_ck_pp": record("banded_ring_ck_pp", cut_ms["banded_ring_ck_pp"], plain_ms,
-                                    cshape, max(err_pp, e4), ck_bnd),
+                                    cshape, err_pp, ck_bnd),
         "banded_cost_pp": record("banded_cost_pp", cut_ms["banded_cost_pp"], plain_ms, cshape,
-                                 max(err_pp, e4), cost_bnd),
+                                 err_pp, cost_bnd),
         "banded_ck_pp": record("banded_ck_pp", cut_ms["banded_ck_pp"], plain_ms, cshape,
-                               max(err_pp, e4), ck_bnd),
+                               err_pp, ck_bnd),
     }
 
 
@@ -1521,12 +1509,15 @@ def phase11_config5() -> tuple[dict, RoundSpy, tuple]:
             fail("config #5 align_iter costs differ from the cost path, or traced directly")
         jobs.extend((a, b, cig.to_string(), c) for (a, b), (c, cig) in zip(pairs, res))
     t0 = time.perf_counter()
-    ok = _pool(_verify_job, jobs)
+    # The stream repeats its two batches, and a verification is a function
+    # of its job: each distinct (pair, CIGAR, cost) is verified once.
+    distinct = list(dict.fromkeys(jobs))
+    ok = _pool(_verify_job, distinct)
     if not all(ok):
         fail(f"config #5: {len(ok) - sum(ok)} CIGARs do not verify at their cost")
     say(f"[11 align] align_iter ck_col_block={C5_CB}, 5 batches: {len(jobs)} CIGARs "
-        f"verified at the cost path's costs ({time.perf_counter() - t0:.1f} s on "
-        f"{WORKERS} processes); periods {', '.join(f'{x:.4f}' for x in np.diff(marks))} s; "
+        f"verified at the cost path's costs ({len(distinct)} distinct, "
+        f"{time.perf_counter() - t0:.1f} s on {WORKERS} processes); periods {', '.join(f'{x:.4f}' for x in np.diff(marks))} s; "
         f"mid-stream [1:-2] min {periods.min():.4f} s = {bp / periods.min() / 1e6:.3f} Mbp/s, "
         f"median {np.median(periods):.4f} s = {bp / np.median(periods) / 1e6:.3f} Mbp/s "
         f"cost+CIGAR; kernel {results[-1][1].kernel}; rungs [{', '.join(rungs_a)}]")
@@ -1602,22 +1593,6 @@ def phase12_time(spy: RoundSpy) -> dict:
         f"{k6['ring_ck'][1]:.3f} ms, stripes {k6['striped_ck'][0]:.3f}/"
         f"{k6['striped_ck'][1]:.3f} ms vs plain {p6[0]:.1f} ms; max_abs_err "
         f"{max(e5, e6)} (CUDA events)")
-    rows, wins = [], []
-    for s_ in CROSSOVER_SW:
-        t5 = [_event_ms(lambda: _stripes(cut, s_, dg))[0] for _ in range(2)]
-        t1 = [_event_ms(lambda: banded_kernel.banded_cost(*cut, s_, dg))[0] for _ in range(2)]
-        a = _stripes(cut, s_, dg)
-        b = banded_kernel.banded_cost(*cut, s_, dg)
-        cov = a < banded.INF
-        if not (torch.equal(a[cov], b[cov]) and (b[~cov] == banded.INF).all()):
-            fail(f"K5 != K1 on the covered lanes at SW={s_}")
-        rows.append(f"SW={s_} K5 {t5[0]:.3f}/{t5[1]:.3f} ms K1 {t1[0]:.3f}/{t1[1]:.3f} ms")
-        if min(t5) < min(t1):
-            wins.append(s_)
-    say(f"[12 crossover] K5 vs K1 on the cut (CUDA events, two runs each; K5 == K1 on "
-        f"covered lanes): {'; '.join(rows)}; K5 faster at SW {wins}; "
-        f"runner.STRIPED_MIN_SW = {runner.STRIPED_MIN_SW}")
-
     def record(turns_ms, plain_ms, planes_, sw_, outs, shp):
         return {"max_abs_err": max(e5, e6), "ms": float(np.mean(turns_ms)),
                 "plain_ms": float(np.mean(plain_ms)),
@@ -1795,11 +1770,9 @@ def _cut_round(round_args, cols: int):
     return _cut(planes, cols), np.ascontiguousarray(sched[:cols]), sw, q
 
 
-def phase15_time(spy: RoundSpy, c4_round) -> dict:
+def phase15_time(spy: RoundSpy) -> dict:
     """K9 and K10 (ring and stripe kernels each) == plain at config #5's
-    default shapes, timed in turns, and K9 against K4 across bands on config #4's
-    and config #5's cuts (the crossover behind
-    ``runner.PINNED_PP_MIN_SW``); returns both K9 kernels' and both K10
+    default shapes, timed in turns; returns both K9 kernels' and both K10
     kernels' JSON records (without the launch counts)."""
     torch.cuda.synchronize()
     round_ms = {name: [RoundSpy.kernel_ms(c) for c in spy.history + spy.calls
@@ -1834,30 +1807,6 @@ def phase15_time(spy: RoundSpy, c4_round) -> dict:
         f"{k['ring_ck_pp'][0]:.3f}/{k['ring_ck_pp'][1]:.3f} ms, stripes "
         f"{k['pinned_ck_pp'][0]:.3f}/{k['pinned_ck_pp'][1]:.3f} ms (event tables "
         f"included) vs plain {p[0]:.1f} ms; max_abs_err {err} (CUDA events)")
-
-    rows, wins = [], {}
-    for label, round_args in (("config #4", c4_round), ("config #5", full["ring_cost_pp"])):
-        planes, sch, _, qx = _cut_round(round_args, C5_CUT)
-        wins[label] = []
-        for s_ in PP_CROSSOVER_SW:
-            t9 = [_event_ms(lambda: banded_kernel.pinned_cost_pp(*planes, sch, s_, qx))
-                  for _ in range(2)]
-            t4 = [_event_ms(lambda: banded_kernel.banded_cost_pp(*planes, sch, s_, qx))
-                  for _ in range(2)]
-            if not torch.equal(t9[1][1], t4[1][1]):
-                fail(f"K9 != K4 on {label}'s cut at SW={s_}")
-            t9, t4 = [x[0] for x in t9], [x[0] for x in t4]
-            rows.append(f"{label} SW={s_} K9 {t9[0]:.3f}/{t9[1]:.3f} ms K4 "
-                        f"{t4[0]:.3f}/{t4[1]:.3f} ms")
-            if min(t9) < min(t4):
-                wins[label].append(s_)
-    both = [s_ for s_ in PP_CROSSOVER_SW if all(s_ in w for w in wins.values())]
-    lowest = next((s_ for s_ in PP_CROSSOVER_SW
-                   if all(x in both for x in PP_CROSSOVER_SW if x >= s_)), None)
-    say(f"[15 crossover] K9 vs K4 on the cuts to {C5_CUT} columns (CUDA events, two runs "
-        f"each, event tables included; K9 == K4 on every lane): {'; '.join(rows)}; K9 faster "
-        f"at SW {wins}; K9 faster from SW {lowest} up on both; runner.PINNED_PP_MIN_SW = "
-        f"{runner.PINNED_PP_MIN_SW}")
 
     def record(name, outs):
         full_planes, full_sched, full_sw = full[name][:6], full[name][6], full[name][7]
@@ -2288,11 +2237,11 @@ def phase20_full_height(c4) -> tuple[int, RoundSpy, int, dict]:
             k7_rung)
 
 
-def phase21_time(spy20: RoundSpy, c5_spy: RoundSpy) -> dict:
+def phase21_time(spy20: RoundSpy) -> dict:
     """Ring K8 and the stripe K8 in turns (stripe, ring, ring, stripe), each
     over chained launches, on phase 20's whole rung; both against their
     plain version and against K2 on that rung cut to CUT_COLS columns, in
-    turns; ring K8 against K6 on config #5's cut.  Returns ring K8's and
+    turns.  Returns ring K8's and
     the stripe K8's JSON records (without the launch counts)."""
     torch.cuda.synchronize()
     path_ms = RoundSpy.kernel_ms(spy20.calls[-1])
@@ -2352,42 +2301,10 @@ def phase21_time(spy20: RoundSpy, c5_spy: RoundSpy) -> dict:
         f"({k2_key}) {k2_ms[0]:.3f}/{k2_ms[1]:.3f} ms vs bound {k2_bnd:.4f} ms "
         f"({np.mean(k2_ms) / k2_bnd:.1f}x); plain K8 {plain_ms:.1f} ms; both K8 == plain, "
         f"K8 == K2 on every readable checkpoint, max_abs_err {max(err, err_k2)} (CUDA events)")
-    # K8 against K6 on config #5's cut, where both take the band: the cost
-    # of rows from the true window top.
-    *c5_planes, sw6, _, _ = c5_spy.last["ring_ck"]
-    cut5 = _cut(c5_planes, C5_CUT)
-    dg5 = _cut_diag(cut5)
-    cb6 = sw6 + 8
-    times, outs = {"striped_ck": [], "pinned_ck": []}, {}
-    for name in ("striped_ck", "pinned_ck", "pinned_ck", "striped_ck"):
-        fn = getattr(banded_kernel, name)  # ring K6 and ring K8 by default
-        ms, outs[name] = _event_ms(lambda: fn(*cut5, sw6, cb6, dg5))
-        times[name].append(ms)
-    k6, k8 = outs["striped_ck"], outs["pinned_ck"]
-    lo = striped.plan_striped(cut5[0].shape[0], cut5[2].shape[0], sw6, dg5)["lo"]
-    err6 = _max_err(k8[0], k6[0])
-    for k in range(k8[1].shape[0]):  # K6's true window is rows [lo & 7, +SW)
-        pad = int(lo[k * cb6 - 1]) & 7 if k else 0
-        for g, w in zip(k8[1:3], k6[1:3]):
-            err6 = max(err6, _max_err(g[k], w[k, pad:pad + sw6]))
-    err6 = max(err6, _max_err(k8[3], k6[3]))
-    if err6:
-        fail("ring K8 != ring K6's true-window rows on config #5's cut")
-    shape5 = {"B": cut5[0].shape[1], "n_max": cut5[0].shape[0], "S": cut5[2].shape[0],
-              "SW": sw6, "CB": cb6}
-    bnd5 = plane_bound(cut5, sw6, k8)["bound_ms"]
-    k6_ms, k8c_ms = times["striped_ck"], times["pinned_ck"]
-    say(f"[21 vs K6] config #5's cut {shape5}, turns ring K6, ring K8, ring K8, ring K6: "
-        f"ring K8 {k8c_ms[0]:.3f}/{k8c_ms[1]:.3f} ms, ring K6 {k6_ms[0]:.3f}/{k6_ms[1]:.3f} ms "
-        f"(K8/K6 {np.mean(k8c_ms) / np.mean(k6_ms):.3f}) vs bound {bnd5:.4f} ms; K8 == K6 on "
-        f"costs, top values and K6's true-window rows, max_abs_err {err6} (CUDA events)")
-    common = {"max_abs_err": max(err, err_k2, err6, err_rung), "plain_ms": plain_ms, **bnd,
+    common = {"max_abs_err": max(err, err_k2, err_rung), "plain_ms": plain_ms, **bnd,
               "library_ms": None, "shape": shape, "k2_ms": float(np.mean(k2_ms)),
               "k2_kernel": k2_key, "k2_bound_ms": k2_bnd}
-    return {"ring_ck_exact": {**common, "ms": float(np.mean(k8r)), **full["ring_ck_exact"],
-                              "c5_cut_ms": float(np.mean(k8c_ms)),
-                              "c5_cut_k6_ms": float(np.mean(k6_ms)),
-                              "c5_cut_bound_ms": bnd5, "c5_cut_shape": shape5},
+    return {"ring_ck_exact": {**common, "ms": float(np.mean(k8r)), **full["ring_ck_exact"]},
             "pinned_ck": {**common, "ms": float(np.mean(k8s)), **full["pinned_ck"]}}
 
 
@@ -2494,9 +2411,9 @@ def _alone(fn) -> float:
     return _chained_ms(fn, K7_CHAINED)
 
 
-def phase23_time(c5_spy: RoundSpy, c4_spy: RoundSpy) -> dict:
-    """K7 and K5 alone on config #5's whole rung, and the K7/K5 band sweep
-    on whole rungs; returns K7's whole-rung record and K5's."""
+def phase23_time(c5_spy: RoundSpy) -> dict:
+    """K7 and K5 alone on config #5's whole rung; returns K7's whole-rung
+    record and K5's."""
     torch.cuda.synchronize()
     *planes, sw, diag = c5_spy.last["pinned_cost"]
     shape = {"B": planes[0].shape[1], "n_max": planes[0].shape[0], "S": planes[2].shape[0],
@@ -2518,40 +2435,8 @@ def phase23_time(c5_spy: RoundSpy, c4_spy: RoundSpy) -> dict:
         f"{banded_kernel.striped_threads(sw) * 8}; K7 == K5 on all {shape['B']} lanes, "
         f"max_abs_err {err} (CUDA events)")
 
-    *c4_planes, s4, d4 = c4_spy.last["pinned_cost"]
-    sweep, rows = {}, []
-    points = [(c4_planes, d4, "config #4", s_) for s_ in K7_SWEEP_SW + (s4,)]
-    points += [(planes, diag, "config #5", s_) for s_ in K7_SWEEP_C5_SW]
-    for pl_, dg, label, s_ in points:
-        times, outs = {"K5": [], "K7": []}, {}
-        for name in ("K5", "K7", "K7", "K5"):
-            if name == "K5":
-                ms, outs[name] = _event_ms(lambda: _stripes(pl_, s_, dg))
-            else:
-                ms, outs[name] = _event_ms(lambda: banded_kernel.pinned_cost(*pl_, s_, dg))
-            times[name].append(ms)
-        if _max_err(outs["K7"], outs["K5"]):
-            fail(f"K7 != K5 on {label}'s pack at SW={s_}")
-        n_max_, S_ = pl_[0].shape[0], pl_[2].shape[0]
-        stripes = -(-striped.plan_striped(n_max_, S_, min(s_, S_), dg)["n_words_live"]
-                    // (banded_kernel.striped_threads(min(s_, S_)) * 8))
-        b_ = plane_bound(pl_, s_, [])["bound_ms"]
-        k7_min, k5_min = min(times["K7"]), min(times["K5"])
-        sweep[f"{label} SW={min(s_, S_)}"] = {"k7_ms": times["K7"], "k5_ms": times["K5"],
-                                              "bound_ms": b_, "k5_stripes": stripes}
-        ring = banded_kernel.pinned_cost_kernel(n_max_, S_, s_, dg, pl_[4])
-        rows.append(f"{label} SW={min(s_, S_)}{' (full)' if s_ >= S_ else ''} ({stripes} K5 "
-                    f"stripes) {'K7' if ring == 'pinned_cost' else 'the wide ring'} "
-                    f"{times['K7'][0]:.3f}/{times['K7'][1]:.3f} ms K5 "
-                    f"{times['K5'][0]:.3f}/{times['K5'][1]:.3f} ms bound {b_:.4f} ms, "
-                    f"K5/K7 {k5_min / k7_min:.3f}")
-    wins = [k for k, v in sweep.items() if min(v["k7_ms"]) < min(v["k5_ms"])]
-    say(f"[23 sweep] the cost ring (K7, past 4096 live words the wide ring) vs K5 on whole "
-        f"rungs, turns K5, ring, ring, K5 (CUDA events; ring == K5 on every lane): "
-        f"{'; '.join(rows)}; the ring faster at {wins}; the runner sends cost rungs of "
-        f"{runner.STRIPED_MIN_SW} to {banded_kernel.RING_COST_MAX_WORDS} words to the ring")
     return ({"rung_alone_ms": k7_ms, "rung_alone_bound_ms": bnd, "rung_alone_shape": shape,
-             "k5_rung_alone_ms": k5_ms, "sweep": sweep},
+             "k5_rung_alone_ms": k5_ms},
             {"c5_rung_alone_ms": k5_ms, "c5_rung_bound_ms": bnd, "c5_rung_shape": shape})
 
 
@@ -2639,7 +2524,8 @@ class FillSpy:
     summed over the pool's threads); keeps K3's last inputs."""
 
     def __init__(self):
-        self._orig = (runner.pack_batch_staggered, runner.banded_cost, runner.banded_fill,
+        self._orig = (runner.pack_batch_staggered, runner.BatchAligner._pack,
+                      runner.banded_cost, runner.banded_fill,
                       runner._Readback.__init__, runner._pinned_like,
                       runner.native.trace_banded)
         self.reset()
@@ -2654,13 +2540,15 @@ class FillSpy:
         self.lock = threading.Lock()
 
     def install(self):
-        pack, k1, k3, rb_init, pinned, trace = self._orig
+        pack, bucket_pack, k1, k3, rb_init, pinned, trace = self._orig
 
-        def timed_pack(*args, **kw):
-            t0 = time.perf_counter()
-            out = pack(*args, **kw)
-            self.pack_s += time.perf_counter() - t0
-            return out
+        def timed(fn):
+            def call(*args, **kw):
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                self.pack_s += time.perf_counter() - t0
+                return out
+            return call
 
         def evented(fn, store: str, fill=False):
             def call(*args):
@@ -2707,7 +2595,8 @@ class FillSpy:
                 self.trace_span = [t0 if lo is None else min(lo, t0), max(hi or t1, t1)]
             return out
 
-        runner.pack_batch_staggered = timed_pack
+        runner.pack_batch_staggered = timed(pack)
+        runner.BatchAligner._pack = timed(bucket_pack)
         runner.banded_cost = evented(k1, "k1")
         runner.banded_fill = evented(k3, "k3", fill=True)
         runner._Readback.__init__ = rb
@@ -2715,7 +2604,8 @@ class FillSpy:
         runner.native.trace_banded = timed_trace
 
     def remove(self):
-        (runner.pack_batch_staggered, runner.banded_cost, runner.banded_fill,
+        (runner.pack_batch_staggered, runner.BatchAligner._pack,
+         runner.banded_cost, runner.banded_fill,
          runner._Readback.__init__, runner._pinned_like,
          runner.native.trace_banded) = self._orig
 
@@ -3167,12 +3057,12 @@ def _pp_kernel_ms(fn) -> tuple[float, float, torch.Tensor]:
     return t1.elapsed_time(b), t0.elapsed_time(t1), out
 
 
-def phase28_time(c5_spy: RoundSpy, c5d_spy: RoundSpy, c4_round, k7_alone_ms: float) -> dict:
-    """Ring against stripe kernels on whole main-path shapes, in turns
-    (stripes, ring, ring, stripes), each with its bound: K6 on config #5's
-    align rung over chained launches; K9 on config #5 default's round and
-    on config #4's round (kernel from the end of its event tables, tables
-    timed apart); K7 again on config #5's cost rung.  The ring's results
+def phase28_time(c5_spy: RoundSpy, c5d_spy: RoundSpy, c4_round) -> dict:
+    """Ring against stripe kernels on whole main-path shapes, once each
+    (stripes, then ring), each with its bound: K6 on config #5's align rung
+    over chained launches; K9 on config #5 default's round and on config
+    #4's round (kernel from the end of its event tables, tables timed
+    apart).  The ring's results
     equal the stripes' on every lane, plane row and top value.  Returns
     the records phase 28 adds to ring K6's and ring K9's."""
     torch.cuda.synchronize()
@@ -3185,7 +3075,7 @@ def phase28_time(c5_spy: RoundSpy, c5d_spy: RoundSpy, c4_round, k7_alone_ms: flo
     if err6:
         fail("ring K6 != the stripe K6 on config #5's align rung")
     times = {"stripe": [], "ring": []}
-    for name in ("stripe", "ring", "ring", "stripe"):
+    for name in ("stripe", "ring"):
         times[name].append(_chained_ms(fns[name], RING_CHAINED))
     bnd6 = plane_bound(planes, sw, outs["ring"])
     shape6 = {"B": planes[0].shape[1], "n_max": planes[0].shape[0], "S": planes[2].shape[0],
@@ -3194,9 +3084,9 @@ def phase28_time(c5_spy: RoundSpy, c5d_spy: RoundSpy, c4_round, k7_alone_ms: flo
                              shape6["n_max"])
     r6, s6 = min(times["ring"]), min(times["stripe"])
     say(f"[28 K6 rung] config #5's align rung {shape6}, {RING_CHAINED} chained launches behind "
-        f"an untimed one, turns stripes, ring, ring, stripes: ring K6 "
-        f"{times['ring'][0]:.3f}/{times['ring'][1]:.3f} ms ({r6 / bnd6['bound_ms']:.2f}x), "
-        f"stripe K6 {times['stripe'][0]:.3f}/{times['stripe'][1]:.3f} ms "
+        f"an untimed one, stripes then ring: ring K6 "
+        f"{_ms(times['ring'])} ms ({r6 / bnd6['bound_ms']:.2f}x), "
+        f"stripe K6 {_ms(times['stripe'])} ms "
         f"({s6 / bnd6['bound_ms']:.2f}x) vs bound {bnd6['bound_ms']:.4f} ms "
         f"({bnd6['bound_by']}); stripes/ring {s6 / r6:.3f}; ring {span} live words in "
         f"{banded_kernel.ring_threads(span) * 8}, stripes of {stripe}; ring == stripes on "
@@ -3212,7 +3102,7 @@ def phase28_time(c5_spy: RoundSpy, c5d_spy: RoundSpy, c4_round, k7_alone_ms: flo
         fns = {"stripe": lambda: banded_kernel.pinned_cost_pp(*pl, sched, s_, q, stripe),
                "ring": lambda: banded_kernel.pinned_cost_pp(*pl, sched, s_, q)}
         kern, tabs, res = {"stripe": [], "ring": []}, {"stripe": [], "ring": []}, {}
-        for name in ("stripe", "ring", "ring", "stripe"):
+        for name in ("stripe", "ring"):
             ms, tab_ms, res[name] = _pp_kernel_ms(fns[name])
             kern[name].append(ms)
             tabs[name].append(tab_ms)
@@ -3222,25 +3112,19 @@ def phase28_time(c5_spy: RoundSpy, c5d_spy: RoundSpy, c4_round, k7_alone_ms: flo
         shape9 = {"B": pl[0].shape[1], "n_max": pl[0].shape[0], "S": pl[2].shape[0],
                   "SW": s_, "Q": q}
         r9, s9 = min(kern["ring"]), min(kern["stripe"])
-        say(f"[28 K9 {label}] round {shape9}, turns stripes, ring, ring, stripes, kernel "
-            f"from the end of its event tables: ring K9 {kern['ring'][0]:.3f}/"
-            f"{kern['ring'][1]:.3f} ms ({r9 / b9['bound_ms']:.2f}x), stripe K9 "
-            f"{kern['stripe'][0]:.3f}/{kern['stripe'][1]:.3f} ms ({s9 / b9['bound_ms']:.2f}x) "
+        say(f"[28 K9 {label}] round {shape9}, stripes then ring, kernel "
+            f"from the end of its event tables: ring K9 {_ms(kern['ring'])} ms ({r9 / b9['bound_ms']:.2f}x), stripe K9 "
+            f"{_ms(kern['stripe'])} ms ({s9 / b9['bound_ms']:.2f}x) "
             f"vs bound {b9['bound_ms']:.4f} ms; stripes/ring {s9 / r9:.3f}; event tables on "
-            f"the card: ring {tabs['ring'][0]:.3f}/{tabs['ring'][1]:.3f} ms (3 rows, ring "
-            f"sized on the card), stripes {tabs['stripe'][0]:.3f}/{tabs['stripe'][1]:.3f} ms; "
+            f"the card: ring {_ms(tabs['ring'])} ms (3 rows, ring "
+            f"sized on the card), stripes {_ms(tabs['stripe'])} ms; "
             f"ring == stripes on all {shape9['B']} lanes (CUDA events)")
         key = "c5_default" if label.startswith("config #5") else "c4"
         rec9.update({f"{key}_round_ms": kern["ring"], f"{key}_stripe_round_ms": kern["stripe"],
                      f"{key}_tables_ms": tabs["ring"], f"{key}_stripe_tables_ms": tabs["stripe"],
                      f"{key}_round_bound_ms": b9["bound_ms"], f"{key}_round_shape": shape9})
 
-    *pl7, s7, d7 = c5_spy.last["pinned_cost"]
-    k7_ms = _chained_ms(lambda: banded_kernel.pinned_cost(*pl7, s7, d7), K7_CHAINED)
-    say(f"[28 K7 rung] K7 again on config #5's cost rung (SW={s7}), {K7_CHAINED} chained "
-        f"launches: {k7_ms:.3f} ms (phase 23: {k7_alone_ms:.3f} ms in this run) vs bound "
-        f"{plane_bound(pl7, s7, [])['bound_ms']:.4f} ms")
-    return {"ring_ck": rec6, "ring_cost_pp": rec9, "k7_again_ms": k7_ms}
+    return {"ring_ck": rec6, "ring_cost_pp": rec9}
 
 
 def _tall_pack(rng, count: int, n_hi: int, tall: tuple, seed: int):
@@ -3356,8 +3240,8 @@ def phase29_grid(wide, narrow, c5_spy: RoundSpy) -> tuple[int, dict]:
 
 
 def phase30_time(c5_spy: RoundSpy, c4_spy: RoundSpy) -> dict:
-    """The cost ring against K5's stripes on whole main-path rungs, in
-    turns (stripes, ring, ring, stripes), each over chained launches behind
+    """The cost ring against K5's stripes on whole main-path rungs, once
+    each (stripes, then ring), each over chained launches behind
     an untimed one, with its bound, their costs equal: K7 on config #4's
     full-height rung (SW = 3149), the wide ring on config #5's SW = 8192
     rung.  Returns the records phase 30
@@ -3378,7 +3262,7 @@ def phase30_time(c5_spy: RoundSpy, c4_spy: RoundSpy) -> dict:
         if _max_err(fns["ring"](), fns["stripes"]()):
             fail(f"the cost ring != K5's stripes on {label}'s rung")
         times = {"stripes": [], "ring": []}
-        for name in ("stripes", "ring", "ring", "stripes"):
+        for name in ("stripes", "ring"):
             times[name].append(_chained_ms(fns[name], RING_CHAINED))
         b = plane_bound(pl, sw, [])["bound_ms"]
         n_max, S = pl[0].shape[0], pl[2].shape[0]
@@ -3388,9 +3272,8 @@ def phase30_time(c5_spy: RoundSpy, c4_spy: RoundSpy) -> dict:
         kern = "K7" if words == 8 else "the wide ring"
         r, st = min(times["ring"]), min(times["stripes"])
         shape = {"B": pl[0].shape[1], "n_max": n_max, "S": S, "SW": min(sw, S)}
-        rows.append(f"{label} {shape}: {kern} {times['ring'][0]:.3f}/{times['ring'][1]:.3f} ms "
-                    f"({r / b:.2f}x), K5's stripes {times['stripes'][0]:.3f}/"
-                    f"{times['stripes'][1]:.3f} ms ({st / b:.2f}x) vs bound {b:.4f} ms; "
+        rows.append(f"{label} {shape}: {kern} {_ms(times['ring'])} ms "
+                    f"({r / b:.2f}x), K5's stripes {_ms(times['stripes'])} ms ({st / b:.2f}x) vs bound {b:.4f} ms; "
                     f"stripes/ring {st / r:.3f}; {span} live words in {threads} threads of "
                     f"{words} slots ({plan['n_words_live'] / (threads * words):.2f} laps), "
                     f"stripes of {8 * banded_kernel.striped_threads(min(sw, S))}; before: "
@@ -3400,7 +3283,7 @@ def phase30_time(c5_spy: RoundSpy, c4_spy: RoundSpy) -> dict:
         recs["striped_cost"].update({f"{key}_turns_ms": times["stripes"], f"{key}_bound_ms": b,
                                      f"{key}_shape": shape})
     say(f"[30 cost ring vs stripes] {RING_CHAINED} chained launches behind an untimed one, "
-        f"turns stripes, ring, ring, stripes (CUDA events; ring == stripes on every lane): "
+        f"stripes then ring (CUDA events; ring == stripes on every lane): "
         f"{'; '.join(rows)}")
     return recs
 
@@ -3419,7 +3302,6 @@ class Laps:
 
 K1_GRID_SW = (1, 2, 31, 32, 33, 63)  # phase 31
 K10_LONG_N = 4200  # phase 32: at Q 8, SW 256, forced 256-word rings wrap 3+ times
-K1_SWEEP_SW = (8, 16, 32, 48, 63)  # phase 31, on phase 3's pack
 
 
 def _full_ring_lanes(span: int) -> int:
@@ -3485,7 +3367,7 @@ def phase31_k1(k1_pack) -> dict:
         fns = {"old": lambda: banded_kernel._launch("banded_cost", *p_, sw, diag=d_),
                "ring": lambda: banded_kernel.banded_cost(*p_, sw, d_)}
         times, outs = {"old": [], "ring": []}, {}
-        for name in ("old", "ring", "ring", "old"):
+        for name in ("old", "ring"):
             ms, outs[name] = _event_ms(fns[name])
             times[name].append(ms)
         err = _max_err(outs["ring"], outs["old"])
@@ -3494,9 +3376,9 @@ def phase31_k1(k1_pack) -> dict:
         bnd = plane_bound(p_, sw, [outs["ring"]])
         shape = {"B": p_[0].shape[1], "n_max": p_[0].shape[0], "S": p_[2].shape[0], "SW": sw}
         o, r = min(times["old"]), min(times["ring"])
-        say(f"[31 K1 {label}] phase 3's {label} pack {shape}, turns old, ring, ring, old: "
-            f"ring {times['ring'][0]:.3f}/{times['ring'][1]:.3f} ms ({r / bnd['bound_ms']:.2f}x), "
-            f"old K1 {times['old'][0]:.3f}/{times['old'][1]:.3f} ms ({o / bnd['bound_ms']:.2f}x) "
+        say(f"[31 K1 {label}] phase 3's {label} pack {shape}, old then ring: "
+            f"ring {_ms(times['ring'])} ms ({r / bnd['bound_ms']:.2f}x), "
+            f"old K1 {_ms(times['old'])} ms ({o / bnd['bound_ms']:.2f}x) "
             f"vs bound {bnd['bound_ms']:.4f} ms; old/ring {o / r:.2f}; equal on all lanes "
             f"(CUDA events, the wrapper's call)")
         rec[label] = (times, bnd, shape)
@@ -3509,27 +3391,7 @@ def phase31_k1(k1_pack) -> dict:
     ring = {"turns_old_cut_ms": times_c["old"], "turns_ring_cut_ms": times_c["ring"],
             "turns_old_full_ms": times_w["old"], "turns_ring_full_ms": times_w["ring"]}
 
-    n_lim = int(np.max(planes[4]))
-    rows, sweep = [], {}
-    for s_ in K1_SWEEP_SW:
-        span = striped.ring_span(striped.plan_striped(planes[0].shape[0], planes[2].shape[0],
-                                                      s_, diag), n_lim)
-        lay = banded_kernel.banded_ring_layout(span, planes[0].shape[1])["lanes"]
-        row = {}
-        for lanes in sorted({lay, _full_ring_lanes(span)}):
-            row[lanes] = [_event_ms(lambda: banded_kernel._launch_banded_ring(
-                *planes, s_, diag, lanes))[0] for _ in range(2)]
-        bnd = plane_bound(planes, s_, [])["bound_ms"]
-        sweep[s_] = {"span": span, "lanes": lay, "ms": row, "bound_ms": bnd}
-        rows.append(f"SW={s_} span {span}: " + ", ".join(
-            f"{lanes} lanes{' (runner)' if lanes == lay else ''} {t[0]:.3f}/{t[1]:.3f} ms"
-            for lanes, t in row.items()) + f" vs bound {bnd:.4f} ms")
-    k7 = [_event_ms(lambda: banded_kernel.pinned_cost(*planes, 64, diag))[0] for _ in range(2)]
-    say(f"[31 K1 sweep] phase 3's whole pack (CUDA events, two runs each): {'; '.join(rows)}; "
-        f"K7 at SW=64 {k7[0]:.3f}/{k7[1]:.3f} ms vs bound "
-        f"{plane_bound(planes, 64, [])['bound_ms']:.4f} ms "
-        f"(runner.STRIPED_MIN_SW = {runner.STRIPED_MIN_SW})")
-    ring.update({"sweep": sweep, "k7_sw64_ms": k7, "max_abs_err": worst})
+    ring["max_abs_err"] = worst
     return {"banded_cost": old, "banded_ring": ring}
 
 
@@ -3615,7 +3477,7 @@ def phase32_ring_k10(saved_ck, bargs, c4_ck_round, c5d_spy: RoundSpy) -> tuple[i
         fns = {"stripe": lambda: banded_kernel.pinned_ck_pp(*pl, sched, s_, cb_, q, stripe),
                "ring": lambda: banded_kernel.pinned_ck_pp(*pl, sched, s_, cb_, q)}
         kern, tabs, res = {"stripe": [], "ring": []}, {"stripe": [], "ring": []}, {}
-        for name in ("stripe", "ring", "ring", "stripe"):
+        for name in ("stripe", "ring"):
             ms, tab_ms, res[name] = _pp_kernel_ms(fns[name])
             kern[name].append(ms)
             tabs[name].append(tab_ms)
@@ -3625,13 +3487,12 @@ def phase32_ring_k10(saved_ck, bargs, c4_ck_round, c5d_spy: RoundSpy) -> tuple[i
         shape = {"B": pl[0].shape[1], "n_max": pl[0].shape[0], "S": pl[2].shape[0], "SW": s_,
                  "Q": q, "CB": banded.ck_col_block(cb_, pl[0].shape[0], q)}
         r, st = min(kern["ring"]), min(kern["stripe"])
-        say(f"[32 K10 {label}] checkpoint round {shape}, turns stripes, ring, ring, stripes, "
-            f"kernel from the end of its event tables: ring K10 {kern['ring'][0]:.3f}/"
-            f"{kern['ring'][1]:.3f} ms ({r / bnd['bound_ms']:.2f}x), stripe K10 "
-            f"{kern['stripe'][0]:.3f}/{kern['stripe'][1]:.3f} ms ({st / bnd['bound_ms']:.2f}x) "
+        say(f"[32 K10 {label}] checkpoint round {shape}, stripes then ring, "
+            f"kernel from the end of its event tables: ring K10 {_ms(kern['ring'])} ms ({r / bnd['bound_ms']:.2f}x), stripe K10 "
+            f"{_ms(kern['stripe'])} ms ({st / bnd['bound_ms']:.2f}x) "
             f"vs bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); stripes/ring {st / r:.3f}; "
-            f"event tables: ring {tabs['ring'][0]:.3f}/{tabs['ring'][1]:.3f} ms, stripes "
-            f"{tabs['stripe'][0]:.3f}/{tabs['stripe'][1]:.3f} ms; ring == stripes on all "
+            f"event tables: ring {_ms(tabs['ring'])} ms, stripes "
+            f"{_ms(tabs['stripe'])} ms; ring == stripes on all "
             f"{shape['B']} lanes, every plane row and top value (CUDA events)")
         key = "c5_default" if label.startswith("config #5") else "c4"
         for name, which in (("ring_ck_pp", "ring"), ("pinned_ck_pp", "stripe")):
@@ -3853,6 +3714,286 @@ def phase33_k4_k3(rspy: RoundSpy, fspy: FillSpy) -> tuple[int, dict]:
     return worst, recs
 
 
+ROOT = Path(__file__).resolve().parent
+MESH2 = ("cuda:0", "cuda:0")  # phase 34: a batch in two shards on the one card
+MH_BATCH = 32  # phase 35: MultiHostRunner's batch size
+TOOL_TIMEOUT = 180  # seconds, each subprocess of phases 35-37
+CLI_N, CLI_E, CLI_CNT, CLI_CHUNK = 10_000, 0.05, 64, 32  # phase 36's batch run
+CLI_BLOCK_N, CLI_BLOCK_CNT = 2000, 3  # phase 36's single-pair aligners
+FUZZ_MODES = ("batch", "batch-ck", "batch-domain", "batch-bigband")
+FUZZ_ITERS, FUZZ_MAX_N, FUZZ_SEED = 50, 400, 20260
+
+
+def _launched(fn):
+    """``(fn(), the LAUNCHES it added)``, the counts set to 0 just before."""
+    banded_kernel.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in banded_kernel.LAUNCHES.items() if v}
+
+
+def _twice(counts: dict, want: dict, label: str) -> None:
+    """A 2-shard run launches each kernel twice as often as one device."""
+    if counts != {k: 2 * v for k, v in want.items()}:
+        fail(f"{label}: the 2-shard run launched {counts}, one device {want}")
+
+
+def _same_results(got, want, label: str) -> None:
+    if [(c, g.to_string()) for c, g in got] != [(c, g.to_string()) for c, g in want]:
+        fail(f"{label}: the 2-shard results differ from one device's")
+
+
+def phase34_mesh(pairs, costs3, batches, results4, p8, smi: str) -> dict:
+    """The main path split over ``mesh=MESH2``: phase 3's cost (each
+    aligner's second call timed), phase 4's align_iter, phase 8's
+    checkpoint rungs, a one-device mesh and the dry run; returns the
+    launches of the 2-shard runs."""
+    one, two = BatchAligner(device="cuda"), BatchAligner(mesh=MESH2)
+    walls, runs = {}, {}
+    for label, ba in (("one device", one), ("two shards", two)):
+        ba.cost_with_stats(pairs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[label] = _launched(lambda: ba.cost_with_stats(pairs))
+        walls[label] = time.perf_counter() - t0
+    (c1, st1), n1 = runs["one device"]
+    (c2, st2), n2 = runs["two shards"]
+    if list(c2) != list(c1) or list(c2) != list(costs3) or st2 != st1:
+        fail(f"2-shard cost: costs equal one device's {list(c2) == list(c1)}, phase 3's "
+             f"{list(c2) == list(costs3)}; stats {st2} against {st1}")
+    _twice(n2, n1, "cost")
+    total = dict(n2)
+    bp = sum(len(a) for a, _ in pairs)
+    say(f"[34 cost] {len(pairs)} x {LENGTH} bp on mesh={MESH2}, 2nd call: "
+        f"{walls['two shards']:.4f} s = {bp / walls['two shards'] / 1e9:.4f} Gbp/s; one device "
+        f"{walls['one device']:.4f} s = {bp / walls['one device'] / 1e9:.4f} Gbp/s; costs == "
+        f"phase 3's, stats equal ({st2}); launches {n2} (one device {n1}); {smi}")
+
+    got2, n2 = _launched(lambda: list(two.align_iter(iter(batches))))
+    got1, n1 = _launched(lambda: list(one.align_iter(iter(batches))))
+    if len(got2) != len(batches):
+        fail("2-shard align_iter lost a batch")
+    verified = 0
+    for k, (bpairs, (r2, s2), (r1, s1), (r4, _)) in enumerate(zip(batches, got2, got1,
+                                                                    results4)):
+        _same_results(r2, r1, f"align_iter batch {k}")
+        if s2 != s1:
+            fail(f"align_iter batch {k}: stats {s2} against {s1}")
+        verified += _verify_all(bpairs, r2, [c for c, _ in r4], f"2-shard align_iter batch {k}")
+    _twice(n2, n1, "align_iter")
+    for k, v in n2.items():
+        total[k] = total.get(k, 0) + v
+    say(f"[34 align] align_iter {len(batches)} x {STREAM_PAIRS} pairs on two shards: costs "
+        f"== phase 4's, CIGARs and stats == one device's, {verified} CIGARs verified; "
+        f"launches {n2} (one device {n1})")
+
+    pairs8, costs8 = p8
+    ck2 = BatchAligner(mesh=MESH2, direct_dt=False)
+    (r2, s2), n2 = _launched(lambda: ck2.align_with_stats(pairs8))
+    (r1, s1), n1 = _launched(lambda: BatchAligner(device="cuda",
+                                                  direct_dt=False).align_with_stats(pairs8))
+    _same_results(r2, r1, "checkpoint rungs")
+    if s2 != s1 or s2.direct_traces or s2.kernel != "cuda-banded-ring-ck":
+        fail(f"2-shard checkpoint rungs: stats {s2} against {s1}")
+    _twice(n2, n1, "checkpoint rungs")
+    verified = _verify_all(pairs8, r2, costs8, "2-shard checkpoint rungs")
+    for k, v in n2.items():
+        total[k] = total.get(k, 0) + v
+    say(f"[34 ck] phase 8's {len(pairs8)} pairs, direct_dt=False, on two shards: costs == "
+        f"phase 8's, {verified} CIGARs verified, == one device's; retries {s2.band_retries}, "
+        f"kernel {s2.kernel}; launches {n2} (one device {n1})")
+
+    # A bucket whose first pair alone fits K7's ring and whose second needs
+    # the wide ring: both shards run the wide ring the label names.
+    wide = [(att.generate.uniform_seeded(n, 0.0, s)[0],
+             att.generate.uniform_seeded(m, 0.1, s + 1)[0])
+            for n, m, s in ((4000, 120_000, 1), (4500, 140_000, 3))]
+    kw = dict(band_words=8, lane_multiple=1, max_band_doublings=0, domain_mode="off")
+    (cw2, sw2), n2 = _launched(lambda: BatchAligner(mesh=MESH2, **kw).cost_with_stats(wide))
+    (cw1, sw1), n1 = _launched(lambda: BatchAligner(device="cuda", **kw).cost_with_stats(wide))
+    want = [att.oracle.levenshtein_myers(a, b) for a, b in wide]
+    if (list(cw2) != list(cw1) or list(cw2) != want or sw2 != sw1
+            or n2 != {"ring_cost_wide": 2} or sw2.kernel != "cuda-ring-wide"):
+        fail(f"2-shard wide ring: costs {list(cw2)} / {list(cw1)} / oracle {want}, "
+             f"stats {sw2} / {sw1}, launches {n2} / {n1}")
+    for k, v in n2.items():
+        total[k] = total.get(k, 0) + v
+    say(f"[34 wide] a bucket straddling K7's 4096-word ring on two shards: both run the "
+        f"wide ring ({n2}; one device {n1}), costs == one device's and the oracle")
+
+    solo = BatchAligner(mesh=("cuda:0",))
+    (cs, ss), ns = _launched(lambda: solo.cost_with_stats(pairs8))
+    (cw, sw_), nw_ = _launched(lambda: BatchAligner(device="cuda").cost_with_stats(pairs8))
+    if list(cs) != list(cw) or ss != sw_ or ns != nw_:
+        fail(f"mesh=('cuda:0',) differs from mesh=None: {ss} / {sw_}, {ns} / {nw_}")
+    for k, v in ns.items():
+        total[k] = total.get(k, 0) + v
+    from astarpa_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dryrun_multichip(2, devices=list(MESH2))
+    say(f"[34 solo+dryrun] mesh=('cuda:0',) == mesh=None on phase 8's pairs (costs, stats, "
+        f"launches {ns}); dryrun_multichip(2, devices={list(MESH2)}) passed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
+_MH_WORKER = """
+import json, sys, torch
+from astarpa_tpu_torch.ops import banded_kernel
+from astarpa_tpu_torch.pairs_io import read_pairs
+from astarpa_tpu_torch.parallel.multihost import MultiHostRunner, init_distributed
+from astarpa_tpu_torch.parallel.runner import BatchAligner
+port, rank, seq, out, band, batch = sys.argv[1:7]
+rank, size = init_distributed(f"127.0.0.1:{port}", 2, int(rank))
+pairs = list(read_pairs(seq))
+runner = MultiHostRunner(BatchAligner(device="cuda", band_words=int(band), domain_mode="off"),
+                         batch_size=int(batch))
+res = runner.run(pairs, out, with_cigars=True)
+torch.cuda.synchronize()
+print(json.dumps({"rank": rank, "size": size, "local_pairs": res.local_pairs,
+                  "global_pairs": res.global_pairs, "local_bp": res.local_bp,
+                  "global_bp": res.global_bp, "seconds": res.seconds,
+                  "kernel": res.stats.kernel,
+                  "launches": {k: v for k, v in banded_kernel.LAUNCHES.items() if v}}))
+"""
+
+
+def _subprocesses(cmds: dict, timeout: float = TOOL_TIMEOUT) -> dict:
+    """Run each command (a list of arguments after ``python``) at once from
+    the repository's root; returns {name: (rc, stdout, stderr)}.  A command
+    past its ``timeout`` fails the run; every process is stopped before
+    this returns."""
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT))
+    procs = {name: subprocess.Popen([sys.executable, *cmd], cwd=ROOT, env=env, text=True,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for name, cmd in cmds.items()}
+    out, late = {}, []
+    deadline = time.perf_counter() + timeout
+    try:
+        for name, proc in procs.items():
+            try:
+                so, se = proc.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+                out[name] = (proc.returncode, so, se)
+            except subprocess.TimeoutExpired:
+                late.append(name)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if late:
+        fail(f"{late} ran past {timeout} s")
+    return out
+
+
+def _verify_lines(pairs, lines, costs, label: str) -> int:
+    """``{cost},{cigar}`` lines: each cost equal to ``costs``, each CIGAR
+    verified at its cost on the run's processes; returns the count."""
+    if len(lines) != len(pairs):
+        fail(f"{label}: {len(lines)} lines for {len(pairs)} pairs")
+    jobs = []
+    for (a, b), line, want in zip(pairs, lines, costs):
+        cost, cig = line.split(",", 1)
+        if int(cost) != int(want):
+            fail(f"{label}: cost {cost} != {want}")
+        jobs.append((a, b, cig, int(cost)))
+    ok = _pool(_verify_job, jobs)
+    if not all(ok):
+        fail(f"{label}: {len(ok) - sum(ok)} CIGARs do not verify at their cost")
+    return len(ok)
+
+
+def _last_json(name: str, result) -> dict:
+    rc, so, se = result
+    if rc != 0:
+        fail(f"{name} exited {rc}: {se.strip()[-1500:]}")
+    return json.loads(so.strip().splitlines()[-1])
+
+
+def phase35_multihost(p7, costs7) -> dict:
+    """Config #5's seed-7 batch through two processes on the card, each
+    rank of one gloo group streaming its stripe through
+    ``MultiHostRunner`` with CIGARs; returns the workers' launches."""
+    from astarpa_tpu_torch.pairs_io import write_pairs_seq
+    from astarpa_tpu_torch.parallel.multihost import host_stripe
+
+    work = ROOT / "build" / "smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    seq = work / "config5_seed7.seq"
+    write_pairs_seq(str(seq), p7)
+    with __import__("socket").socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    res = _subprocesses({r: ["-c", _MH_WORKER, str(port), str(r), str(seq),
+                             str(work / f"shard{r}.csv"), str(C5_BAND), str(MH_BATCH)]
+                         for r in range(2)})
+    wall = time.perf_counter() - t0
+    reps = [_last_json(f"multi-host rank {r}", res[r]) for r in range(2)]
+    bp = sum(len(a) for a, _ in p7)
+    lines, total = [None] * len(p7), {}
+    for rep in reps:
+        if rep["size"] != 2 or rep["global_pairs"] != len(p7) or rep["global_bp"] != bp:
+            fail(f"multi-host rank {rep['rank']}: {rep}")
+        shard = (work / f"shard{rep['rank']}.csv").read_text().splitlines()
+        stripe = host_stripe(len(p7), rep["rank"], 2)
+        if len(shard) != len(stripe):
+            fail(f"multi-host rank {rep['rank']} wrote {len(shard)} lines for {len(stripe)}")
+        for i, line in zip(stripe, shard):
+            lines[int(i)] = line
+        for k, v in rep["launches"].items():
+            total[k] = total.get(k, 0) + v
+    verified = _verify_lines(p7, lines, costs7, "multi-host shards")
+    rates = ", ".join(f"rank {r['rank']} {r['local_pairs']} pairs {r['local_bp'] / r['seconds'] / 1e6:.3f} "
+                      f"Mbp/s ({r['seconds']:.2f} s, kernel {r['kernel']}, launches "
+                      f"{r['launches']})" for r in reps)
+    say(f"[35 multihost] {len(p7)} x {C5_LENGTH} bp e={C5_ERR} (phase 11's seed 7) in two "
+        f"processes on the card, gloo on 127.0.0.1, MultiHostRunner(BatchAligner("
+        f"band_words={C5_BAND}, domain_mode='off'), batch_size={MH_BATCH}): {rates}; the "
+        f"shards' union == phase 11's costs, {verified} CIGARs verified, global_pairs "
+        f"{len(p7)} and global_bp {bp} on both; {wall:.1f} s with start-up")
+    seq.unlink()
+    return total
+
+
+def phase36_37_tools() -> None:
+    """The CLI and the fuzzer on the card, all their processes at once."""
+    cli = ["-m", "astarpa_tpu_torch.cli"]
+    cmds = {"batch": cli + ["-n", str(CLI_N), "-e", str(CLI_E), "--cnt", str(CLI_CNT),
+                            "--aligner", "batch", "--chunk", str(CLI_CHUNK)],
+            **{name: cli + ["-n", str(CLI_BLOCK_N), "--cnt", str(CLI_BLOCK_CNT), "--aligner",
+                            name] for name in ("astarpa2-full", "astarpa-native")},
+            **{f"fuzz {m}": ["-m", "astarpa_tpu_torch.fuzz", "--aligner", m, "--iters",
+                             str(FUZZ_ITERS), "--max-n", str(FUZZ_MAX_N), "--seed",
+                             str(FUZZ_SEED)] for m in FUZZ_MODES}}
+    t0 = time.perf_counter()
+    res = _subprocesses(cmds)
+    wall = time.perf_counter() - t0
+    rows = []
+    for name, (cnt, n) in (("batch", (CLI_CNT, CLI_N)), ("astarpa2-full", (CLI_BLOCK_CNT, CLI_BLOCK_N)),
+                           ("astarpa-native", (CLI_BLOCK_CNT, CLI_BLOCK_N))):
+        rc, so, se = res[name]
+        if rc != 0:
+            fail(f"the CLI with --aligner {name} exited {rc}: {se.strip()[-1500:]}")
+        pairs = _generate(cnt, n, CLI_E, 31415)  # the CLI's default seed
+        want = [att.oracle.levenshtein_myers(a, b) for a, b in pairs]
+        rows.append(f"{name} {_verify_lines(pairs, so.strip().splitlines(), want, name)} lines")
+    say(f"[36 cli] python -m astarpa_tpu_torch.cli on the card: {', '.join(rows)} verified "
+        f"(costs == levenshtein_myers, CIGARs at their cost); batch with -n {CLI_N} -e {CLI_E} "
+        f"--cnt {CLI_CNT} --chunk {CLI_CHUNK}")
+    rows = []
+    for m in FUZZ_MODES:
+        rc, so, se = res[f"fuzz {m}"]
+        if rc != 0 or "no failures" not in so:
+            fail(f"the fuzzer's {m} mode exited {rc}: {(so + se).strip()[-1500:]}")
+        launches = next(l for l in so.splitlines() if l.startswith("launches: "))
+        rows.append(f"{m} {launches[len('launches: '):]}")
+    say(f"[37 fuzz] python -m astarpa_tpu_torch.fuzz on the card, {FUZZ_ITERS} iterations "
+        f"each at --max-n {FUZZ_MAX_N}, seed {FUZZ_SEED}: no failures; launches by mode: "
+        f"{'; '.join(rows)}; phases 36-37 took {wall:.1f} s with start-up, at once")
+
+
 def main() -> None:
     global _POOL
     if not torch.cuda.is_available():
@@ -3880,8 +4021,8 @@ def run() -> None:
     spy = LayerSpy()
     spy.install()
     banded_kernel.reset_launches()
-    phase3_cost(ba, pairs, spy)
-    phase4_align(ba, batches)
+    costs3 = phase3_cost(ba, pairs, spy)
+    results4 = phase4_align(ba, batches)
     launches = banded_kernel.LAUNCHES["banded_ring"]
     old_k1_launches = banded_kernel.LAUNCHES["banded_cost"]
     spy.remove()
@@ -3925,7 +4066,7 @@ def run() -> None:
     c5d, c5d_spy = phase14_config5_default(*c5_batch)
     say(f"[main path] launches: config #5 default {c5d}")
     lap("14")
-    pp_records = phase15_time(c5d_spy, c4_round)
+    pp_records = phase15_time(c5d_spy)
     lap("15")
 
     nw_grid_err = phase16_grid()
@@ -3947,14 +4088,14 @@ def run() -> None:
     lap("20")
     say(f"[main path] launches: full-height cost path {{'pinned_cost': {k7_launches}}}; "
         f"full-height ck path {k8_launches}")
-    k8_records = phase21_time(k8_spy, c5_spy)
+    k8_records = phase21_time(k8_spy)
     for rec in k8_records.values():
         rec["max_abs_err"] = max(rec["max_abs_err"], k8_grid_err)
     lap("21")
 
     k7_grid_err, _ = phase22_grid(grid_wide, grid_narrow)
     lap("22")
-    k7_rung, k5_c5_rung = phase23_time(c5_spy, k8_spy)
+    k7_rung, k5_c5_rung = phase23_time(c5_spy)
     lap("23")
 
     k3_grid_err = phase24_grid()
@@ -3972,7 +4113,7 @@ def run() -> None:
     ring_k6_err, ring_k9_err, refused_band = phase27_grid((grid_wide, grid_narrow, grid_diag), k6_cases,
                                             k9_packs)
     lap("27")
-    ring_records = phase28_time(c5_spy, c5d_spy, c4_round, k7_rung["rung_alone_ms"])
+    ring_records = phase28_time(c5_spy, c5d_spy, c4_round)
     lap("28")
     wide_err, wide_record = phase29_grid(grid_wide, grid_narrow, c5_spy)
     lap("29")
@@ -3984,6 +4125,18 @@ def run() -> None:
     lap("32")
     k4k3_err, k4k3 = phase33_k4_k3(rounds, fill_spy)
     lap("33")
+    mesh_launches = phase34_mesh(pairs, costs3, batches, results4, p8, smi)
+    say(f"[main path] launches: the 2-shard mesh {mesh_launches}")
+    lap("34")
+    mh_launches = phase35_multihost(*c5_batch[:2])
+    say(f"[main path] launches: the multi-host workers {mh_launches}")
+    lap("35")
+    phase36_37_tools()
+    lap("36-37")
+    # The main path's launches of phases 34 (in this process) and 35 (the
+    # workers' own counts) join each kernel's count below.
+    path_launches = {k: mesh_launches.get(k, 0) + mh_launches.get(k, 0)
+                     for k in set(mesh_launches) | set(mh_launches)}
     c5_records["ring_ck"].update(ring_records["ring_ck"])
     c5_records["ring_ck"]["max_abs_err"] = max(c5_records["ring_ck"]["max_abs_err"], ring_k6_err)
     pp_records["ring_cost_pp"].update(ring_records["ring_cost_pp"])
@@ -3993,7 +4146,6 @@ def run() -> None:
         pp_records[name].update(rec)
     pp_records["ring_ck_pp"]["max_abs_err"] = max(pp_records["ring_ck_pp"]["max_abs_err"],
                                                   k10_err)
-    c5_records["pinned_cost"]["k7_again_ms"] = ring_records["k7_again_ms"]
     c5_records["pinned_cost"].update({**k7_rung, **k7_fh_rung, **cost_turns["pinned_cost"]})
     c5_records["pinned_cost"]["max_abs_err"] = max(c5_records["pinned_cost"]["max_abs_err"],
                                                    k7_grid_err, wide_err)
@@ -4092,6 +4244,8 @@ def run() -> None:
                            ("banded_fill_pp", fill_pp_record, banded_src)):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces[name], "launches": k3_counts[name], **rec})
+    for rec in kernels:
+        rec["launches"] += path_launches.get(rec["name"], 0)
     say(f"[timing] host seconds by phase: {', '.join(lap.laps)}")
     say(f"[done] all phases passed in {time.perf_counter() - start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """The port's own copies of the JAX package's framework-free modules
 (``types``, ``generate``/``chacha``, ``oracle``, ``domain``, ``native``,
-``heuristic/``, ``utils/split_vec``) against their originals: the same
-inputs give the same bytes, costs, CIGARs, planes, schedules, matches and
-heuristic values."""
+``heuristic/``, ``utils/split_vec``, ``params``, ``astar/``, ``pairs_io``)
+against their originals: the same inputs give the same bytes, costs,
+CIGARs, planes, schedules, matches, heuristic values, search counts, JSON
+and files."""
 
 import numpy as np
 import pytest
@@ -183,3 +184,90 @@ def test_split_vec_agrees():
         v.push(11)
     assert len(got) == len(want) and [got[i] for i in range(len(got))] == \
         [want[i] for i in range(len(want))]
+
+
+def test_params_json_round_trips_both_ways():
+    """``params``: the reference's JSON loads in the copy and back, and the
+    copy's in the reference, for every heuristic type."""
+    from astarpa_tpu import params as jparams
+    from astarpa_tpu_torch import params
+
+    for t, jt in zip(params.HeuristicType, jparams.HeuristicType):
+        assert t.value == jt.value
+        ref = jparams.AlignerParams(aligner="astarpa", dt=False, block_width=64,
+                                    heuristic=jparams.HeuristicParams(heuristic=jt, k=9, p=1))
+        got = params.AlignerParams.from_json(ref.to_json())
+        assert got.to_json() == ref.to_json()
+        assert jparams.AlignerParams.from_json(got.to_json()) == ref
+    assert params.HeuristicParams.from_json('{"k": 7, "extra": 1}').k == 7
+
+
+@pytest.mark.parametrize("kind", ["none", "zero", "gap", "max", "count", "bicount",
+                                  "affine-gap", "sh", "csh", "gcsh", "bruteforce-gcsh"])
+def test_params_build_the_same_heuristics(kind):
+    """``HeuristicParams.build`` (the HeuristicMapper) gives the same h at
+    every queried position as the reference's."""
+    from astarpa_tpu import params as jparams
+    from astarpa_tpu_torch import params
+
+    a, b = generate.uniform_seeded(160, 0.1, 3)
+    kw = dict(k=8, r=1, prune="none")
+    got = params.HeuristicParams(heuristic=params.HeuristicType(kind), **kw).build()
+    want = jparams.HeuristicParams(heuristic=jparams.HeuristicType(kind), **kw).build()
+    assert type(got).__name__ == type(want).__name__
+    if hasattr(got, "build"):
+        got, want = got.build(a, b), want.build(a, b)
+    rng = np.random.default_rng(1)
+    pos = [(int(rng.integers(0, len(a) + 1)), int(rng.integers(0, len(b) + 1)))
+           for _ in range(80)]
+    if hasattr(got, "h"):
+        assert [got.h(types.Pos(i, j)) for i, j in pos] == \
+            [want.h(jtypes.Pos(i, j)) for i, j in pos]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_astar_copy_agrees(seed):
+    """``astar/``: every configuration of the search gives the reference's
+    cost, CIGAR and expanded and explored counts."""
+    from astarpa_tpu.astar import AstarPa as JAstarPa
+    from astarpa_tpu_torch.astar import AstarPa
+
+    a, b = generate.uniform_seeded(150, 0.12, seed)
+    for dt in (False, True):
+        for k, r, pr in ((8, 1, prune.Prune.START), (10, 2, prune.Prune.BOTH)):
+            got = AstarPa(dt=dt, h=csh.GCSH(matches.MatchConfig(k=k, r=r), prune.Pruning(pr)))
+            want = JAstarPa(dt=dt, h=jcsh.GCSH(jmatches.MatchConfig(k=k, r=r),
+                                               jprune.Pruning(jprune.Prune(pr.value))))
+            (c, cig), st = got.align_with_stats(a, b)
+            (jc, jcig), jst = want.align_with_stats(a, b)
+            assert c == jc == oracle.levenshtein(a, b)
+            assert cig.to_string() == jcig.to_string()
+            assert (st.expanded, st.explored) == (jst.expanded, jst.explored)
+
+
+def test_pairs_io_agrees(tmp_path):
+    """``pairs_io``: the same pairs from .seq, .txt and FASTA files, and the
+    same bytes from the converters."""
+    from astarpa_tpu import pairs_io as jio
+    from astarpa_tpu_torch import pairs_io
+
+    pairs = [generate.uniform_seeded(50 + 13 * s, 0.1, s) for s in range(3)]
+    (tmp_path / "p.seq").write_text("".join(f">{a.decode()}\n<{b.decode()}\n" for a, b in pairs))
+    (tmp_path / "p.txt").write_text("".join(f"{a.decode()}\n{b.decode()}\n" for a, b in pairs))
+    (tmp_path / "p.fa").write_text("".join(f">r{i}a\n{a.decode()}\n>r{i}b\n{b.decode()}\n"
+                                           for i, (a, b) in enumerate(pairs)))
+    for name in ("p.seq", "p.txt", "p.fa"):
+        path = str(tmp_path / name)
+        assert list(pairs_io.read_pairs(path)) == list(jio.read_pairs(path)) == pairs
+    assert pairs_io.txt_to_seq(str(tmp_path / "p.txt"), str(tmp_path / "a.seq")) == \
+        jio.txt_to_seq(str(tmp_path / "p.txt"), str(tmp_path / "b.seq")) == 3
+    assert (tmp_path / "a.seq").read_bytes() == (tmp_path / "b.seq").read_bytes()
+    (tmp_path / "ref.fa").write_text(">chr1 x\n" + pairs[0][0].decode() + "\n")
+    (tmp_path / "reads.fa").write_text(">chr1_3_aligned_0_F_2_30_4\n"
+                                       + pairs[0][1][:36].decode() + "\n>junk\nACGT\n")
+    got = pairs_io.nanosim_to_seq(*(str(tmp_path / n) for n in ("ref.fa", "reads.fa", "c.seq")))
+    want = jio.nanosim_to_seq(*(str(tmp_path / n) for n in ("ref.fa", "reads.fa", "d.seq")))
+    assert got == want == 1
+    assert (tmp_path / "c.seq").read_bytes() == (tmp_path / "d.seq").read_bytes()
+    with pytest.raises(ValueError):
+        list(pairs_io.read_pairs(str(tmp_path / "p.csv")))

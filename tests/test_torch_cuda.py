@@ -875,3 +875,81 @@ def test_block_kernel_on_gpu(gpu, monkeypatch):
     for (a, b), (c, cig) in zip(pairs, want):
         got = aligner.align(a, b)
         assert got[0] == c and got[1].to_string() == cig.to_string()
+
+
+def _ck_spy(monkeypatch, names=("banded_ck", "striped_ck", "pinned_ck", "banded_ck_pp",
+                                "pinned_ck_pp")):
+    """Record every checkpoint wrapper's outputs the runner receives."""
+    outs = []
+    for name in names:
+        def spy(*args, _fn=getattr(runner, name)):
+            got = _fn(*args)
+            outs.append(got)
+            return got
+        monkeypatch.setattr(runner, name, spy)
+    return outs
+
+
+def _lanes(outs, shards: int):
+    """The checkpoint planes of each rung or round, their shards' joined on
+    the lane axis, as host arrays."""
+    rungs = [outs[k:k + shards] for k in range(0, len(outs), shards)]
+    return [[torch.cat([part[i] for part in rung], dim=-1).cpu() for i in range(4)]
+            for rung in rungs]
+
+
+@pytest.mark.parametrize("mode", ["off", "gap"])
+def test_mesh_two_shards_on_one_card(gpu, monkeypatch, mode):
+    """``mesh=("cuda:0", "cuda:0")``: two shards, each on its own stream,
+    give the unsharded costs, CIGARs, counters and checkpoint planes bit
+    for bit (the unsharded lanes: the same pairs, then the same pad pairs),
+    two launches a rung or round."""
+    pairs = [generate.uniform_seeded(1500 + 37 * s, 0.05, 300 + s) for s in range(96)]
+    kw = dict(band_words=4, domain_mode=mode, domain_min_bp=0, direct_dt=False)
+    two = BatchAligner(mesh=("cuda:0", "cuda:0"), **kw)
+    one = BatchAligner(device=gpu, **kw)
+    costs, st = two.cost_with_stats(pairs)
+    want, want_st = one.cost_with_stats(pairs)
+    assert list(costs) == list(want)
+    assert st == want_st
+    outs = _ck_spy(monkeypatch)
+    before = dict(banded_kernel.LAUNCHES)
+    res, st = two.align_with_stats(pairs)
+    launched = {k: v - before[k] for k, v in banded_kernel.LAUNCHES.items() if v > before[k]}
+    sharded = _lanes(outs, 2)
+    outs.clear()
+    want_res, want_st = one.align_with_stats(pairs)
+    plain = _lanes(outs, 1)
+    assert [(c, g.to_string()) for c, g in res] == [(c, g.to_string()) for c, g in want_res]
+    assert st == want_st
+    assert len(sharded) == len(plain) >= 1
+    assert sum(launched.values()) == 2 * len(sharded), launched
+    for got, ref in zip(sharded, plain):
+        for g, w in zip(got, ref):
+            assert torch.equal(g[..., :w.shape[-1]], w)
+    for (a, b), (c, g) in zip(pairs, res):
+        assert g.verify(a, b) == c == oracle.levenshtein(a, b)
+
+
+def test_dryrun_multichip_on_one_card(gpu, capsys):
+    from astarpa_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    dryrun_multichip(2, devices=["cuda:0"] * 2)
+    assert "dryrun_multichip OK on 2 devices" in capsys.readouterr().out
+
+
+def test_mesh_shards_run_the_buckets_cost_ring(gpu):
+    """Two shards of one card on a bucket whose first pair alone fits K7's
+    ring and whose second needs the wide ring: both shards launch the
+    wide ring the label names, with the unsharded costs."""
+    pairs = [(generate.uniform_seeded(n, 0.0, s)[0], generate.uniform_seeded(m, 0.1, s + 1)[0])
+             for n, m, s in ((4000, 120_000, 1), (4500, 140_000, 3))]
+    kw = dict(band_words=8, lane_multiple=1, max_band_doublings=0, domain_mode="off")
+    before = dict(banded_kernel.LAUNCHES)
+    costs, st = BatchAligner(mesh=("cuda:0", "cuda:0"), **kw).cost_with_stats(pairs)
+    launched = {k: v - before[k] for k, v in banded_kernel.LAUNCHES.items() if v > before[k]}
+    assert launched == {"ring_cost_wide": 2}
+    assert st.kernel == banded_kernel.route(torch.device(gpu), "ring_cost_wide")
+    want, want_st = BatchAligner(device=gpu, **kw).cost_with_stats(pairs)
+    assert list(costs) == list(want) == [oracle.levenshtein_myers(a, b) for a, b in pairs]
+    assert st == want_st

@@ -86,6 +86,50 @@ def test_port_main_path_never_imports_jax():
     assert proc.stdout.strip() == "ok"
 
 
+def test_slice_entry_points_never_import_jax(tmp_path):
+    """The mesh (its dry run on CPU shards), the multi-host runner and its
+    count merge, the single-pair API, ``params``/``pairs_io`` and the CLI
+    and the fuzzer's entry points load no ``jax`` and no ``astarpa_tpu``."""
+    code = textwrap.dedent(f"""
+        import sys
+        import torch
+        torch.set_num_threads(1)
+        import astarpa_tpu_torch as att
+        from astarpa_tpu_torch import cli, fuzz, pairs_io
+        from astarpa_tpu_torch.params import AlignerParams
+        from astarpa_tpu_torch.parallel.dryrun import dryrun_multichip
+        from astarpa_tpu_torch.parallel.multihost import MultiHostRunner, _merge_counts
+        pairs = [att.generate.uniform_seeded(90 + 30 * s, 0.1, s) for s in range(5)]
+        mesh = att.BatchAligner(device="cpu", mesh=["cpu"] * 2, band_words=4)
+        costs = mesh.cost(pairs)
+        assert [c for c, _ in mesh.align(pairs)] == list(costs)
+        dryrun_multichip(2, devices=["cpu"] * 2)
+        res = MultiHostRunner(mesh, batch_size=2).run(pairs, r"{tmp_path / 'shard.csv'}",
+                                                      with_cigars=True)
+        assert res.global_pairs == 5 and _merge_counts(2**40) == (2**40,)
+        a, b = pairs[0]
+        for name in ("astarpa2_nw", "astarpa2_simple", "astarpa2_full"):
+            assert getattr(att, name)(a, b, device="cpu")[0] == costs[0]
+        assert att.astarpa(a, b)[0] == costs[0]
+        assert AlignerParams(aligner="nw").build(device="cpu").align(a, b)[0] == costs[0]
+        pairs_io.write_pairs_seq(r"{tmp_path / 'p.seq'}", pairs)
+        assert cli.main(["-i", r"{tmp_path / 'p.seq'}", "--aligner", "batch", "--device",
+                         "cpu", "-o", r"{tmp_path / 'out.csv'}"]) == 0
+        assert fuzz.main(["--aligner", "batch-ck", "--iters", "2", "--seed", "1",
+                          "--device", "cpu"]) == 0
+        mods = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "astarpa_tpu"))
+        assert not mods, mods
+        print("ok")
+    """)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_cuda_request_raises_without_a_gpu():
     from astarpa_tpu_torch import BatchAligner
 

@@ -1,6 +1,6 @@
 """The port's BatchAligner against the reference BatchAligner on the CPU:
-identical costs and ladder statistics, verified CIGARs, the streaming
-iterators, and the path that is not ported yet (mesh)."""
+identical costs and ladder statistics, verified CIGARs and the streaming
+iterators (the mesh: ``test_torch_mesh.py``)."""
 
 import numpy as np
 import pytest
@@ -127,8 +127,3 @@ def test_align_iter_in_order_and_equal_to_align():
         assert [c for c, _ in res] == [c for c, _ in ba2.align(pairs)]
         for (a, b), (c, cig) in zip(pairs, res):
             assert cig.verify(a, b) == c == oracle.levenshtein(a, b)
-
-
-def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        BatchAligner(device="cpu", mesh=object())
