@@ -5,9 +5,10 @@ The JAX package ``astarpa_tpu`` is the reference this port is held
 against, by the tests only: the port imports torch, never jax, and nothing
 of ``astarpa_tpu``.  It keeps its own copies of the framework-free modules
 it needs (``types``, ``generate``/``chacha``, ``oracle``, ``domain``,
-``params``, ``pairs_io``, ``astar/``, ``heuristic/``, ``ops.bitpack`` and
-the ``native`` loader, which builds the C++ sources in the repository's
-``native/``).
+``params``, ``pairs_io``, ``astar/``, ``heuristic/``, ``ops.bitpack``,
+``search``, ``affine/``, ``base/``, ``experimental/``, ``vis/``,
+``testing``, ``utils/`` and the ``native`` loader, which builds the C++
+sources in the repository's ``native/``).
 
 Public API:
 
@@ -27,6 +28,16 @@ Public API:
   edit-distance oracle, the native C++ runtime, domain hulls to per-pair
   schedules; ``params``, ``pairs_io``, ``cli`` and ``fuzz`` as the JAX
   package's.
+- Host utilities copied from the JAX package: the semi-global pattern
+  search (``from astarpa_tpu_torch.search import search``, not a lazy
+  export, as in the reference); ``affine`` cost models and CIGARs and the
+  ``base`` aligners over them (``DiagonalTransition``, ``NwAffine``);
+  ``experimental`` (``dt_align_compressed``, ``PathHeuristic``, whose path
+  comes from the block aligner on its ``device``); the visualizer ``vis``
+  that ``AstarPa(v=...)`` and the block aligner call, and the figure suite
+  ``python -m astarpa_tpu_torch.figures``; the ``pa-test`` harness
+  ``testing``; ``utils.timer``; and ``ops.layouts``, the five scalar
+  traversal orders of the word grid on int32-view tensors.
 """
 
 from .generate import ErrorModel, generate_model, uniform_fixed

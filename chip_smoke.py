@@ -236,6 +236,20 @@ Phases, one output line each (any failure exits non-zero):
     batch-bigband) at ``--max-n 400`` with a fixed seed, no failure, and the
     kernels each mode launched; phases 36 and 37 run their seven processes
     at once, each with a time limit of its own (180 s, as phase 35's);
+38. the modules ported last, on the card host: ``testing.check_aligner``
+    (its 10 tricky pairs, empty ones included, and 40 samples up to 300
+    bp, seed 1234) through ``BatchAligner(device="cuda")`` one pair a call,
+    then the 50 pairs as one ``align`` and one ``cost`` call, then with
+    ``direct_dt=False``, every cost equal to ``oracle.levenshtein`` and
+    every CIGAR verified, K1's ring among the launches; the semi-global
+    ``search`` of a 150 bp pattern (5% planted edits, one ``N``) cut from
+    a 10 kbp text, its best cost at most the planted edits and its trace
+    verified on its window; ``DiagonalTransition`` (both modes) and
+    ``NwAffine`` at unit cost on a 1 kbp e=5% pair against
+    ``levenshtein_myers``; the five ``ops.layouts`` orders on CUDA int32
+    tensors of a 96 x 3-word pair, bit-equal and at the oracle distance;
+    and the figure suite (``python -m astarpa_tpu_torch.figures --small``,
+    an eighth process of phases 36-37's batch), every family written;
 
 then the host seconds of each phase, the kernels' JSON line (each
 kernel's time, its plain version's, its bound from this run's inputs, its
@@ -251,7 +265,7 @@ phases 10's and 13's), the grids of phases 2 and 6 hold a few cases each, and th
 are generated and the CIGARs verified on one pool of the host's cores,
 started once for the whole run, to keep the run short.  Launch counts are
 reset just before each main-path phase (3-4, 7, 8, 11, 14, 17, both calls
-of 20, 25, 34) and read just after it, and the workers of phase 35 print
+of 20, 25, 34, each call of 38) and read just after it, and the workers of phase 35 print
 their own; phases 3-4 and 25 launch K1's ring
 kernel (the old K1 none), phase 8 K2's ring (the old K2 none), phase 20
 ring K8 (the stripe K8 none), phase 25 K3's ring (the old K3 none), phase 7
@@ -267,6 +281,7 @@ from __future__ import annotations
 
 import json
 import multiprocessing
+import shutil
 import subprocess
 import sys
 import threading
@@ -3966,7 +3981,10 @@ def phase36_37_tools() -> None:
                             name] for name in ("astarpa2-full", "astarpa-native")},
             **{f"fuzz {m}": ["-m", "astarpa_tpu_torch.fuzz", "--aligner", m, "--iters",
                              str(FUZZ_ITERS), "--max-n", str(FUZZ_MAX_N), "--seed",
-                             str(FUZZ_SEED)] for m in FUZZ_MODES}}
+                             str(FUZZ_SEED)] for m in FUZZ_MODES},
+            "figures": ["-m", "astarpa_tpu_torch.figures", "--small", "--out", str(FIGURES_OUT)]}
+    if FIGURES_OUT.exists():
+        shutil.rmtree(FIGURES_OUT)
     t0 = time.perf_counter()
     res = _subprocesses(cmds)
     wall = time.perf_counter() - t0
@@ -3992,6 +4010,206 @@ def phase36_37_tools() -> None:
     say(f"[37 fuzz] python -m astarpa_tpu_torch.fuzz on the card, {FUZZ_ITERS} iterations "
         f"each at --max-n {FUZZ_MAX_N}, seed {FUZZ_SEED}: no failures; launches by mode: "
         f"{'; '.join(rows)}; phases 36-37 took {wall:.1f} s with start-up, at once")
+    _check_figures(res["figures"])
+
+
+def _check_figures(result) -> None:
+    """``python -m astarpa_tpu_torch.figures --small`` exited 0, printed
+    every family, and every figure it printed holds a PNG."""
+    from astarpa_tpu_torch.figures import FIGURES
+
+    rc, so, se = result
+    if rc != 0:
+        fail(f"the figure suite exited {rc}: {se.strip()[-1500:]}")
+    missing = [f for f in FIGURES if f"[{f}]" not in so.splitlines()]
+    dirs = [Path(line.rsplit(" -> ", 1)[1]) for line in so.splitlines() if " -> " in line]
+    empty = [str(d) for d in dirs if not list(d.glob("*.png"))]
+    if missing or empty or not dirs:
+        fail(f"the figure suite left out families {missing}, wrote no PNG in {empty}")
+    pngs = sum(len(list(d.glob("*.png"))) for d in dirs)
+    pages = sum(len(list(d.glob("*.html"))) for d in dirs)
+    say(f"[38 figures] python -m astarpa_tpu_torch.figures --small on the card (in phases "
+        f"36-37's batch): {len(FIGURES)} families, {len(dirs)} figures, {pngs} PNG frames, "
+        f"{pages} HTML pages")
+
+
+# Phase 38: the modules ported last, on the card host.
+CHECK_MAX_N, CHECK_SAMPLES, CHECK_SEED = 300, 40, 1234  # testing.check_aligner's defaults
+SEARCH_TEXT, SEARCH_PAT, SEARCH_ERR, SEARCH_SEED = 10_000, 150, 0.05, 38
+SEARCH_UNMATCHED = 1.0  # a pattern character left out costs 1, as an insertion
+BASE_N, BASE_ERR, BASE_SEED = 1000, 0.05, 38
+LAYOUT_N, LAYOUT_SEED = 96, 38  # 96 x 96: three words of b
+FIGURES_OUT = ROOT / "build" / "smoke" / "figures"
+
+
+class _OnePair:
+    """``testing``'s aligner: one ``BatchAligner.align`` call a pair; keeps
+    the pairs the harness gave it, in order."""
+
+    def __init__(self, ba: BatchAligner):
+        self.ba, self.pairs = ba, []
+
+    def align(self, a, b):
+        self.pairs.append((a, b))
+        return self.ba.align([(a, b)])[0]
+
+
+def _check_results(pairs, results, costs, want, label: str) -> None:
+    """Costs of ``align`` and ``cost`` equal the oracle's, every CIGAR
+    verifies at its cost."""
+    got = [c for c, _ in results]
+    if got != want or list(costs) != want:
+        bad = [k for k, (g, c, w) in enumerate(zip(got, costs, want)) if not g == c == w]
+        fail(f"{label}: costs differ from oracle.levenshtein at pairs {bad[:10]} "
+             f"({[(pairs[k][0][:20], pairs[k][1][:20]) for k in bad[:3]]})")
+    bad = [k for k, ((a, b), (c, cig)) in enumerate(zip(pairs, results)) if cig.verify(a, b) != c]
+    if bad:
+        fail(f"{label}: CIGARs of pairs {bad[:10]} do not verify at their cost")
+
+
+def _search_verify(res, idx: int) -> tuple:
+    """Walk ``res.trace(idx)`` over the text and the pattern (wildcards
+    match as the search's profile says): every match op matches, every
+    substitution does not, the ops end at the traced end, and their cost is
+    ``res.out[idx]``.  Returns the window ``(i0, i1)`` in the text."""
+    from astarpa_tpu_torch.types import CigarOp
+
+    cigar, poss = res.trace(idx)
+    (i, j), end = (poss[0].i, poss[0].j), (poss[-1].i, poss[-1].j)
+    cost = 0
+    for el in cigar.ops:
+        for _ in range(el.cnt):
+            if el.op in (CigarOp.MATCH, CigarOp.SUB):
+                if res._is_match(i, j) != (el.op == CigarOp.MATCH):
+                    fail(f"search trace: op {el.op.name} at text {i}, pattern {j}")
+                i, j = i + 1, j + 1
+            elif el.op == CigarOp.DEL:
+                i += 1
+            else:
+                j += 1
+            cost += el.op != CigarOp.MATCH
+    if (i, j) != end or j != len(res.pattern) or poss[0].j != 0 or cost != res.out[idx]:
+        fail(f"search trace ends at {(i, j)} for {end}, cost {cost} for {res.out[idx]}")
+    return poss[0].i, end[0]
+
+
+def phase38_ported_modules(smi: str) -> dict:
+    """The modules ported last, on the card host: ``testing.check_aligner``
+    through the card's ``BatchAligner`` (one pair a call, the 50 pairs in
+    one ``align`` and one ``cost`` call, and with ``direct_dt=False``), the
+    semi-global search on a planted pattern, ``DiagonalTransition`` and
+    ``NwAffine`` at unit cost, and the five scalar layouts on CUDA
+    tensors; returns the launches of the ``BatchAligner`` calls."""
+    from astarpa_tpu_torch import testing
+    from astarpa_tpu_torch.affine import AffineCost
+    from astarpa_tpu_torch.base import DiagonalTransition, NwAffine
+    from astarpa_tpu_torch.ops import bitpack, layouts, words
+    from astarpa_tpu_torch.search import search
+
+    t0 = time.perf_counter()
+    one = _OnePair(BatchAligner(device="cuda"))
+
+    def harness():
+        try:
+            testing.check_aligner_up_to(one, max_n=CHECK_MAX_N, samples=CHECK_SAMPLES,
+                                        fixed_seed=CHECK_SEED)
+        except AssertionError as err:
+            fail(f"testing.check_aligner on BatchAligner(device='cuda'), one pair a call, "
+                 f"pair {len(one.pairs) - 1}: {err}")
+
+    _, n_one = _launched(harness)
+    pairs = one.pairs
+    if len(pairs) != len(testing.TRICKY_PAIRS) + CHECK_SAMPLES:
+        fail(f"the harness gave {len(pairs)} pairs")
+    if not n_one.get("banded_ring"):
+        fail(f"the harness's calls launched no K1 ring: {n_one}")
+    t1 = time.perf_counter()
+    say(f"[38 harness] testing.check_aligner(max_n={CHECK_MAX_N}, samples={CHECK_SAMPLES}, "
+        f"fixed_seed={CHECK_SEED}) on BatchAligner(device='cuda'), one pair a call: "
+        f"{len(pairs)} pairs ({len(testing.TRICKY_PAIRS)} tricky, empty ones included), costs "
+        f"== oracle.levenshtein, CIGARs verified; launches {n_one}; {t1 - t0:.2f} s; {smi}")
+    want = [att.oracle.levenshtein(a, b) for a, b in pairs]
+    ba = BatchAligner(device="cuda")
+    (res, costs), n_all = _launched(lambda: (ba.align(pairs), ba.cost(pairs)))
+    _check_results(pairs, res, costs, want, "the harness's pairs in one call")
+    ck = BatchAligner(device="cuda", direct_dt=False)
+    ((res_ck, st_ck), costs_ck), n_ck = _launched(lambda: (ck.align_with_stats(pairs),
+                                                           ck.cost(pairs)))
+    _check_results(pairs, res_ck, costs_ck, want, "the harness's pairs, direct_dt=False")
+    t2 = time.perf_counter()
+    say(f"[38 batch] the same {len(pairs)} pairs as one align and one cost call: costs == "
+        f"oracle.levenshtein, CIGARs verified, launches {n_all}; with direct_dt=False "
+        f"(kernel {st_ck.kernel}, direct traces {st_ck.direct_traces}): the same, launches "
+        f"{n_ck}; {t2 - t1:.2f} s; {smi}")
+
+    text = att.generate.uniform_seeded(SEARCH_TEXT, 0.0, SEARCH_SEED)[0]
+    rng = np.random.default_rng(SEARCH_SEED)
+    at = int(rng.integers(0, len(text) - SEARCH_PAT))
+    pattern = bytearray(text[at:at + SEARCH_PAT])
+    edits = round(SEARCH_PAT * SEARCH_ERR)
+    for k in sorted(rng.choice(SEARCH_PAT, edits, replace=False).tolist(), reverse=True):
+        c = b"ACGT"[(b"ACGT".index(pattern[k]) + 1 + int(rng.integers(3))) % 4]
+        op = int(rng.integers(3))
+        if op == 0:
+            pattern[k] = c
+        elif op == 1:
+            pattern.insert(k, c)
+        else:
+            del pattern[k]
+    pattern[int(rng.integers(0, len(pattern)))] = ord("N")
+    res = search(bytes(pattern), text, SEARCH_UNMATCHED)
+    best = int(np.argmin(res.out[: len(text) + 1]))
+    if res.out[best] > edits:
+        fail(f"search: best cost {res.out[best]} above the {edits} planted edits")
+    i0, i1 = _search_verify(res, best)
+    if abs(i1 - (at + SEARCH_PAT)) > edits:
+        fail(f"search: best match ends at {i1}, planted at {at + SEARCH_PAT}")
+    t3 = time.perf_counter()
+    say(f"[38 search] a {len(pattern)} bp pattern (one N, {edits} planted edits) cut at {at} "
+        f"from a {SEARCH_TEXT} bp text, unmatched_cost {SEARCH_UNMATCHED}: best cost {res.out[best]} <= {edits}, match "
+        f"[{i0}, {i1}), trace verified; {t3 - t2:.2f} s")
+
+    a, b = att.generate.uniform_seeded(BASE_N, BASE_ERR, BASE_SEED)
+    want = att.oracle.levenshtein_myers(a, b)
+    unit = AffineCost.unit()
+    rows = []
+    for name, aligner in (("DiagonalTransition", DiagonalTransition()),
+                          ("DiagonalTransition(dc=True)", DiagonalTransition(dc=True)),
+                          ("NwAffine", NwAffine(unit))):
+        s0 = time.perf_counter()
+        cost, cig = aligner.align(a, b)
+        if cost != want or cig.verify(unit, a, b) != cost:
+            fail(f"{name}: cost {cost}, CIGAR {cig.verify(unit, a, b)}, levenshtein_myers {want}")
+        rows.append(f"{name} {time.perf_counter() - s0:.3f} s")
+    t4 = time.perf_counter()
+    say(f"[38 base] a {BASE_N} bp e={BASE_ERR} pair at unit cost: cost {want} == "
+        f"levenshtein_myers, affine CIGARs verified: {', '.join(rows)}")
+
+    a, b = (x[:LAYOUT_N] for x in att.generate.uniform_seeded(LAYOUT_N + 24, 0.1, LAYOUT_SEED))
+    planes = [words.to_tensor(x, "cuda") for x in
+              bitpack.pack_a(att.types.seq_to_codes(a)) + bitpack.pack_b(att.types.seq_to_codes(b))]
+    want = att.oracle.levenshtein(a, b)
+    states, rows = {}, []
+    for name, fn in layouts.LAYOUTS.items():
+        s0 = time.perf_counter()
+        states[name] = [words.to_numpy_u32(x) for x in fn(*planes)]
+        rows.append(f"{name} {time.perf_counter() - s0:.3f} s")
+        first = next(iter(states.values()))
+        if any(not np.array_equal(x, y) for x, y in zip(states[name], first)):
+            fail(f"layout {name} differs from {next(iter(states))}")
+        got = layouts.distance(*(torch.from_numpy(x.view(np.int32)) for x in states[name][2:]),
+                               LAYOUT_N)
+        if got != want:
+            fail(f"layout {name}: distance {got}, oracle {want}")
+    say(f"[38 layouts] the five orders on cuda int32 tensors of a {LAYOUT_N} x "
+        f"{len(planes[2])}-word pair: bit-equal, distance {want} == oracle: {', '.join(rows)}; "
+        f"{time.perf_counter() - t4:.2f} s")
+    total = {}
+    for counts in (n_one, n_all, n_ck):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    say(f"[38] phase 38 took {time.perf_counter() - t0:.1f} s; launches {total}")
+    return total
 
 
 def main() -> None:
@@ -4133,10 +4351,15 @@ def run() -> None:
     lap("35")
     phase36_37_tools()
     lap("36-37")
-    # The main path's launches of phases 34 (in this process) and 35 (the
-    # workers' own counts) join each kernel's count below.
-    path_launches = {k: mesh_launches.get(k, 0) + mh_launches.get(k, 0)
-                     for k in set(mesh_launches) | set(mh_launches)}
+    ported_launches = phase38_ported_modules(smi)
+    say(f"[main path] launches: the ported modules' BatchAligner calls {ported_launches}")
+    lap("38")
+    # The main path's launches of phases 34 and 38 (in this process) and 35
+    # (the workers' own counts) join each kernel's count below.
+    path_launches = {}
+    for extra in (mesh_launches, mh_launches, ported_launches):
+        for k, v in extra.items():
+            path_launches[k] = path_launches.get(k, 0) + v
     c5_records["ring_ck"].update(ring_records["ring_ck"])
     c5_records["ring_ck"]["max_abs_err"] = max(c5_records["ring_ck"]["max_abs_err"], ring_k6_err)
     pp_records["ring_cost_pp"].update(ring_records["ring_cost_pp"])

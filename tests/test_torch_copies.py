@@ -3,7 +3,10 @@
 ``heuristic/``, ``utils/split_vec``, ``params``, ``astar/``, ``pairs_io``)
 against their originals: the same inputs give the same bytes, costs,
 CIGARs, planes, schedules, matches, heuristic values, search counts, JSON
-and files."""
+and files.  The copies of ``affine/``, ``base/``, ``vis/``, ``search``,
+``testing``, ``utils/timer`` and ``experimental/compressed_history`` keep
+the reference's code, docstrings aside (their behaviour is held in
+``test_torch_{affine,vis,search,extras}.py``)."""
 
 import numpy as np
 import pytest
@@ -271,3 +274,30 @@ def test_pairs_io_agrees(tmp_path):
     assert (tmp_path / "c.seq").read_bytes() == (tmp_path / "d.seq").read_bytes()
     with pytest.raises(ValueError):
         list(pairs_io.read_pairs(str(tmp_path / "p.csv")))
+
+
+def _code(path):
+    """A module's syntax tree with every docstring taken out."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", [
+    "affine/__init__.py", "affine/cost_model.py", "affine/cigar.py", "base/__init__.py",
+    "base/dt.py", "base/nw_affine.py", "vis/__init__.py", "vis/canvas.py", "vis/html.py",
+    "utils/timer.py", "testing.py", "search.py", "experimental/__init__.py",
+    "experimental/compressed_history.py"])
+def test_copy_code_is_the_reference_code(rel):
+    """The framework-free copies keep the reference's code: only their
+    docstrings differ (relative imports resolve inside each package)."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    assert _code(root / "astarpa_tpu_torch" / rel) == _code(root / "astarpa_tpu" / rel)

@@ -130,6 +130,67 @@ def test_slice_entry_points_never_import_jax(tmp_path):
     assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
+
+def test_remaining_modules_never_import_jax(tmp_path):
+    """The semi-global search, ``affine/``, ``base/``, ``experimental/``
+    (``PathHeuristic`` on ``device="cpu"``), ``vis/``, the figure suite,
+    ``testing``, ``utils.timer`` and ``ops.layouts`` load no ``jax`` and no
+    ``astarpa_tpu`` when imported and driven."""
+    code = textwrap.dedent(f"""
+        import sys
+        import torch
+        torch.set_num_threads(1)
+        import astarpa_tpu_torch as att
+        from astarpa_tpu_torch import figures, testing
+        from astarpa_tpu_torch.affine import AffineCost
+        from astarpa_tpu_torch.base import DiagonalTransition, NwAffine
+        from astarpa_tpu_torch.experimental import PathHeuristic, dt_align_compressed
+        from astarpa_tpu_torch.heuristic.csh import GCSH
+        from astarpa_tpu_torch.heuristic.matches import MatchConfig
+        from astarpa_tpu_torch.heuristic.prune import Pruning
+        from astarpa_tpu_torch.ops import bitpack, layouts, words
+        from astarpa_tpu_torch.search import search
+        from astarpa_tpu_torch.utils.timer import Timer
+        from astarpa_tpu_torch.vis import VisConfig
+        from astarpa_tpu_torch.vis.html import export_html
+        assert "search" not in att.__all__
+        a, b = att.generate.uniform_seeded(160, 0.08, 2)
+        cost = att.oracle.levenshtein(a, b)
+        res = search(a[40:100], a, 0.5)
+        assert res.out[100] == 0 and res.trace(100)[1][-1] == (100, 60)
+        assert DiagonalTransition(dc=True).align(a, b)[0] == cost
+        assert NwAffine(AffineCost.unit()).align(a, b)[0] == cost
+        assert dt_align_compressed(a, b)[0] == cost
+        h = PathHeuristic(GCSH(MatchConfig(k=8, r=1), Pruning.disabled()), device="cpu")
+        assert h.build_with_cost(a, b)[0] == cost
+        assert figures.main(["--small", "--fig", "intro", "--device", "cpu",
+                             "--out", r"{tmp_path / 'fig'}"]) == 0
+        export_html(r"{tmp_path / 'fig' / 'intro-gcsh'}", r"{tmp_path / 'x.html'}")
+        class One:
+            ba = att.BatchAligner(device="cpu")
+
+            def align(self, x, y):
+                return self.ba.align([(x, y)])[0]
+
+        testing.check_aligner_up_to(One(), max_n=60, samples=2)
+        bb = b[:128]
+        planes = [words.to_tensor(x, "cpu") for x in
+                  bitpack.pack_a(att.types.seq_to_codes(a)) + bitpack.pack_b(att.types.seq_to_codes(bb))]
+        st = layouts.diag_ru(*planes)
+        assert layouts.distance(st[2], st[3], len(bb)) == att.oracle.levenshtein(a, bb)
+        Timer(1, 0).end(type("O", (), {{"t": 0.0}})(), "t")
+        mods = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "astarpa_tpu"))
+        assert not mods, mods
+        print("ok")
+    """)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
 def test_cuda_request_raises_without_a_gpu():
     from astarpa_tpu_torch import BatchAligner
 
