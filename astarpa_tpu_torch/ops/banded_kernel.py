@@ -53,9 +53,14 @@ of their quantum on both routes.
 
 from __future__ import annotations
 
+import functools
+import inspect
+import threading
+
 import numpy as np
 import torch
 
+from ..utils import spans
 from . import banded, pinned, striped
 from .bitpack import W
 from .words import lengths, to_tensor
@@ -85,6 +90,55 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+# The key of the last launch this thread counted, for its wrapper's record.
+_RAN = threading.local()
+
+
+def _count(key: str) -> None:
+    """Count one launch of ``key`` in :data:`LAUNCHES`."""
+    LAUNCHES[key] += 1
+    _RAN.key = key
+
+
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else x.nbytes
+
+
+def recorded(fn):
+    """A public kernel wrapper in a ``launch`` span with its launch record
+    (:func:`..utils.spans.note_launch`) while the recorder is on: the
+    :data:`LAUNCHES` key that ran, or on the CPU the plain version's name
+    (``<wrapper>_ref``); ``band_words`` clamped to S (S where the wrapper
+    takes no band); the sum of ``n``; the bytes of the array arguments
+    (planes, lengths, a schedule) and of the outputs; the current stream.
+    All of it from host shapes and host lengths: nothing waits for the
+    card."""
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        if not spans.on():
+            return fn(*args, **kwargs)
+        with spans.span("launch"):
+            _RAN.key = None
+            out = fn(*args, **kwargs)
+            arg = sig.bind(*args, **kwargs).arguments
+            a0, n, S = arg["a0"], arg["n"], arg["pb0"].shape[0]
+            on_card = a0.device.type == "cuda"
+            outs = out if isinstance(out, tuple) else (out,)
+            spans.note_launch(
+                kernel=_RAN.key or fn.__name__ + "_ref",
+                band_words=min(arg.get("band_words", S), S),
+                columns=(int(np.sum(n)) if not isinstance(n, torch.Tensor)
+                         else None if n.is_cuda else int(n.sum())),
+                in_bytes=sum(_nbytes(x) for x in arg.values()
+                             if isinstance(x, (torch.Tensor, np.ndarray))),
+                out_bytes=sum(_nbytes(x) for x in outs),
+                stream=torch.cuda.current_stream(a0.device).cuda_stream if on_card else None)
+        return out
+    return wrapped
+
+
 _LABELS = {"banded_cost": "cuda-banded", "banded_ck": "cuda-banded-ck",
            "banded_fill": "cuda-banded-fill", "banded_fill_pp": "cuda-banded-fill-pp",
            "banded_cost_pp": "cuda-banded-pp", "banded_ck_pp": "cuda-banded-ck-pp",
@@ -104,6 +158,7 @@ def route(device: torch.device, kernel: str = "banded_cost") -> str:
     return _LABELS[kernel] if device.type == "cuda" else "torch-ref"
 
 
+@recorded
 def banded_cost(a0, a1, pb0, pb1, n, m, band_words: int,
                 diag: tuple | None = None) -> torch.Tensor:
     """Banded edit-distance upper bounds, (B,) int32 on the planes' device.
@@ -122,6 +177,7 @@ def banded_cost(a0, a1, pb0, pb1, n, m, band_words: int,
     return _launch_banded_ring(a0, a1, pb0, pb1, n, m, band_words, diag)
 
 
+@recorded
 def banded_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
               diag: tuple | None = None):
     """Costs plus checkpoints every ``min(col_block, n_max)`` columns on the
@@ -155,6 +211,7 @@ def k2_kernel(n_max: int, SW: int, col_block: int) -> str:
     return "banded_ring_ck" if takes and SW <= RING_K4_MAX_WORDS else "banded_ck"
 
 
+@recorded
 def banded_fill(a0, a1, pb0, pb1, n, m, band_words: int,
                 diag: tuple | None = None):
     """Costs plus every column's window planes on the shared schedule:
@@ -177,6 +234,7 @@ def banded_fill(a0, a1, pb0, pb1, n, m, band_words: int,
     return _launch_banded_ring_fill(a0, a1, pb0, pb1, n, m, band_words, diag)
 
 
+@recorded
 def banded_fill_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
                    quantum: int = banded.SCHEDULE_Q):
     """:func:`banded_fill` on per-pair schedules, as
@@ -189,6 +247,7 @@ def banded_fill_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
                    schedule=schedule, quantum=quantum, fill=True)
 
 
+@recorded
 def banded_cost_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
                    quantum: int = banded.SCHEDULE_Q) -> torch.Tensor:
     """Upper bounds with per-pair schedules, as
@@ -203,6 +262,7 @@ def banded_cost_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
     return _launch_banded_ring_pp(a0, a1, pb0, pb1, n, m, schedule, band_words, quantum)
 
 
+@recorded
 def banded_ck_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
                  col_block: int, quantum: int = banded.SCHEDULE_Q):
     """Per-pair costs plus checkpoints, as :func:`.banded.banded_ck_pp_ref`
@@ -235,6 +295,7 @@ def k4_kernel(n_max: int, SW: int, col_block: int | None = None,
     return "banded_ck_pp"
 
 
+@recorded
 def striped_cost(a0, a1, pb0, pb1, n, m, band_words: int,
                  diag: tuple | None = None,
                  stripe_words: int | None = None) -> torch.Tensor:
@@ -250,11 +311,13 @@ def striped_cost(a0, a1, pb0, pb1, n, m, band_words: int,
     if _plain(a0):
         return striped.striped_cost_ref(a0, a1, pb0, pb1, n, m, band_words, diag)
     if stripe_words is None and pinned_cost_takes(min(band_words, pb0.shape[0])):
-        return pinned_cost(a0, a1, pb0, pb1, n, m, band_words, diag)
+        # The ring's wrapper unrecorded: this call keeps the one record.
+        return pinned_cost.__wrapped__(a0, a1, pb0, pb1, n, m, band_words, diag)
     return _launch_striped("striped_cost", a0, a1, pb0, pb1, n, m, band_words,
                            diag, stripe_words=stripe_words)
 
 
+@recorded
 def striped_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
                diag: tuple | None = None, stripe_words: int | None = None,
                ring_words: int | None = None):
@@ -283,6 +346,7 @@ def striped_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
     return _launch_pinned(a0, a1, pb0, pb1, n, m, SW, plan, threads, col_block)
 
 
+@recorded
 def pinned_cost(a0, a1, pb0, pb1, n, m, band_words: int,
                 diag: tuple | None = None, ring_words: int | None = None,
                 thread_words: int | None = None) -> torch.Tensor:
@@ -307,6 +371,7 @@ def pinned_cost(a0, a1, pb0, pb1, n, m, band_words: int,
     return _launch_ring_cost(a0, a1, pb0, pb1, n, m, SW, plan, threads, words)
 
 
+@recorded
 def pinned_ck(a0, a1, pb0, pb1, n, m, band_words: int, col_block: int,
               diag: tuple | None = None, stripe_words: int | None = None,
               ring_words: int | None = None):
@@ -340,6 +405,7 @@ def pinned_ck_kernel(band_words: int) -> str:
     return "ring_ck_exact" if ring_takes(band_words) else "pinned_ck"
 
 
+@recorded
 def pinned_cost_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
                    quantum: int = 1, stripe_words: int | None = None,
                    ring_words: int | None = None) -> torch.Tensor:
@@ -363,6 +429,7 @@ def pinned_cost_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
                              band_words, quantum, stripe_words=stripe_words)
 
 
+@recorded
 def pinned_ck_pp(a0, a1, pb0, pb1, n, m, schedule, band_words: int,
                  col_block: int, quantum: int = 1, stripe_words: int | None = None,
                  ring_words: int | None = None):
@@ -433,7 +500,7 @@ def _launch(kernel, a0, a1, pb0, pb1, n, m, band_words, *, diag=None,
         )
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
-    LAUNCHES[kernel] += 1
+    _count(kernel)
     return (out,) + outs if outs else out
 
 
@@ -525,7 +592,7 @@ def _launch_striped(kernel, a0, a1, pb0, pb1, n, m, band_words, diag,
         )
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
-    LAUNCHES[kernel] += 1
+    _count(kernel)
     return (out,) + outs if ck else out
 
 
@@ -681,7 +748,7 @@ def _launch_ring_ck_exact(a0, a1, pb0, pb1, n, m, band_words, col_block, diag,
         rc = load().astarpa_ring_ck_exact(*(t.data_ptr() for t in head), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"ring_ck_exact kernel launch failed: cudaError {rc}")
-    LAUNCHES["ring_ck_exact"] += 1
+    _count("ring_ck_exact")
     return (out,) + outs
 
 
@@ -710,7 +777,7 @@ def _launch_pinned(a0, a1, pb0, pb1, n, m, SW, plan, threads, col_block):
         rc = load().astarpa_ring_ck(*(t.data_ptr() for t in head), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"ring_ck kernel launch failed: cudaError {rc}")
-    LAUNCHES["ring_ck"] += 1
+    _count("ring_ck")
     return (out,) + outs
 
 
@@ -773,7 +840,7 @@ def _launch_ring_cost(a0, a1, pb0, pb1, n, m, SW, plan, threads, thread_words):
             rc = load().astarpa_pinned_cost(*(t.data_ptr() for t in head), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
-    LAUNCHES[key] += 1
+    _count(key)
     if col0:
         return torch.where((n_t > 0) & (out < banded.INF), out + W, out)
     return out
@@ -831,7 +898,7 @@ def _launch_ring_pp(a0, a1, pb0, pb1, n, m, schedule, SW, quantum, ring_words=No
         rc = load().astarpa_ring_cost_pp(*(t.data_ptr() for t in head), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"ring_cost_pp kernel launch failed: cudaError {rc}")
-    LAUNCHES["ring_cost_pp"] += 1
+    _count("ring_cost_pp")
     return out
 
 
@@ -863,7 +930,7 @@ def _launch_ring_ck_pp(a0, a1, pb0, pb1, n, m, schedule, band_words, col_block, 
         rc = load().astarpa_ring_ck_pp(*(t.data_ptr() for t in head), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"ring_ck_pp kernel launch failed: cudaError {rc}")
-    LAUNCHES["ring_ck_pp"] += 1
+    _count("ring_ck_pp")
     return (out,) + outs
 
 
@@ -928,7 +995,7 @@ def _launch_banded_ring(a0, a1, pb0, pb1, n, m, band_words, diag, lanes=None):
         rc = load().astarpa_banded_ring(*(t.data_ptr() for t in head), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"banded_ring kernel launch failed: cudaError {rc}")
-    LAUNCHES["banded_ring"] += 1
+    _count("banded_ring")
     return out
 
 
@@ -1002,7 +1069,7 @@ def _launch_banded_ring_pp(a0, a1, pb0, pb1, n, m, schedule, band_words, quantum
         rc = getattr(load(), f"astarpa_{key}")(*(t.data_ptr() for t in head), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {rc}")
-    LAUNCHES[key] += 1
+    _count(key)
     return (out,) + outs if ck else out
 
 
@@ -1044,7 +1111,7 @@ def _launch_banded_ring_ck(a0, a1, pb0, pb1, n, m, band_words, col_block, diag,
         rc = load().astarpa_banded_ring_ck(*(t.data_ptr() for t in head), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"banded_ring_ck kernel launch failed: cudaError {rc}")
-    LAUNCHES["banded_ring_ck"] += 1
+    _count("banded_ring_ck")
     return (out,) + outs
 
 
@@ -1103,7 +1170,7 @@ def _launch_banded_ring_fill(a0, a1, pb0, pb1, n, m, band_words, diag, lanes=Non
         rc = load().astarpa_banded_ring_fill(*(t.data_ptr() for t in head), *ints, stream)
     if rc != 0:
         raise RuntimeError(f"banded_ring_fill kernel launch failed: cudaError {rc}")
-    LAUNCHES["banded_ring_fill"] += 1
+    _count("banded_ring_fill")
     return (out,) + tuple(x.permute(1, 2, 0) for x in planes)
 
 
@@ -1171,7 +1238,7 @@ def _launch_pinned_pp(kernel, a0, a1, pb0, pb1, n, m, schedule, band_words,
         )
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
-    LAUNCHES[kernel] += 1
+    _count(kernel)
     return (out,) + outs if ck else out
 
 

@@ -15,7 +15,7 @@ import torch
 
 from ..device import resolve_device
 from . import myers
-from .banded_kernel import LAUNCHES, _check as check_planes, _plain as plain_route
+from .banded_kernel import _check as check_planes, _count, _plain as plain_route, recorded
 from .pack import pack_batch_staggered
 from .words import lengths, value_to_window
 
@@ -24,6 +24,7 @@ from .words import lengths, value_to_window
 STRIPE_WORDS = 32
 
 
+@recorded
 def nw_right_edge(a0, a1, pb0, pb1, n):
     """Right-edge ``(vp, vm)`` (S, B) int32 planes at column ``n`` per pair.
 
@@ -81,5 +82,5 @@ def _launch(a0, a1, pb0, pb1, n):
         )
     if rc != 0:
         raise RuntimeError(f"nw_right_edge kernel launch failed: cudaError {rc}")
-    LAUNCHES["nw_right_edge"] += 1
+    _count("nw_right_edge")
     return vp, vm

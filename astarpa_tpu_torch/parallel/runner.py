@@ -112,6 +112,7 @@ from ..ops.bitpack import W, n_words
 from ..ops.pack import HostPack, pack_batch_staggered
 from ..ops.words import to_tensor
 from ..types import Cigar, CigarOp
+from ..utils.spans import span
 
 INF = 1 << 30
 
@@ -237,16 +238,17 @@ class BatchAligner:
         """Pack a bucket once on the host and split it into equal lane
         ranges, each uploaded and unpacked on its shard's device and
         stream (one range on :attr:`device` without a mesh)."""
-        quantum = self._shape_quantum(bucket_pairs)
-        host = HostPack(bucket_pairs, len(self._shards) * self.lane_multiple, quantum)
-        step = host.B // len(self._shards)
-        parts, shards = [], []
-        for k, (dev, stream) in enumerate(self._shards):
-            shard = _Shard(dev, stream, k * step, (k + 1) * step)
-            with shard.on():
-                parts.append(host.planes(shard.lo, shard.hi, dev)
-                             + (host.ns[shard.lo:shard.hi], host.ms[shard.lo:shard.hi]))
-            shards.append(shard)
+        with span("pack"):
+            quantum = self._shape_quantum(bucket_pairs)
+            host = HostPack(bucket_pairs, len(self._shards) * self.lane_multiple, quantum)
+            step = host.B // len(self._shards)
+            parts, shards = [], []
+            for k, (dev, stream) in enumerate(self._shards):
+                shard = _Shard(dev, stream, k * step, (k + 1) * step)
+                with shard.on():
+                    parts.append(host.planes(shard.lo, shard.hi, dev)
+                                 + (host.ns[shard.lo:shard.hi], host.ms[shard.lo:shard.hi]))
+                shards.append(shard)
         return _Packed(parts, shards, host.ns, host.ms, host.n_max, host.S), len(bucket_pairs)
 
     @staticmethod
@@ -425,16 +427,17 @@ class BatchAligner:
     def _cost_batch(self, pairs):
         """Stats, the cost vector with the trivial pairs (an empty side)
         filled in, and the shape buckets of the others."""
-        stats = BatchStats(pairs=len(pairs))
-        out = np.full(len(pairs), -1, dtype=np.int64)
-        todo: list[int] = []
-        for idx, (a, b) in enumerate(pairs):
-            if len(a) == 0 or len(b) == 0:
-                out[idx] = len(a) + len(b)
-            else:
-                todo.append(idx)
-        buckets = _buckets(pairs, todo)
-        stats.buckets = len(buckets)
+        with span("bucket"):
+            stats = BatchStats(pairs=len(pairs))
+            out = np.full(len(pairs), -1, dtype=np.int64)
+            todo: list[int] = []
+            for idx, (a, b) in enumerate(pairs):
+                if len(a) == 0 or len(b) == 0:
+                    out[idx] = len(a) + len(b)
+                else:
+                    todo.append(idx)
+            buckets = _buckets(pairs, todo)
+            stats.buckets = len(buckets)
         return stats, out, buckets
 
     def _dispatch_jobs(self, pairs, buckets, stats, trace_jobs=None) -> list:
@@ -456,16 +459,18 @@ class BatchAligner:
         return jobs
 
     def _cost_dispatch(self, pairs):
-        stats, out, buckets = self._cost_batch(pairs)
-        return pairs, stats, out, self._dispatch_jobs(pairs, buckets, stats)
+        with span("dispatch"):
+            stats, out, buckets = self._cost_batch(pairs)
+            return pairs, stats, out, self._dispatch_jobs(pairs, buckets, stats)
 
     def _cost_finish(self, pairs, stats, out, jobs, trace_jobs=None):
-        for mode, bucket, rung in jobs:
-            if mode:
-                self._domain_ladder(pairs, bucket, out, stats, mode, trace_jobs)
-            while rung is not None:
-                rung = self._rung_finish(pairs, out, stats, rung)
-        stats.aligned_bp = sum(len(a) for a, _ in pairs)
+        with span("finish"):
+            for mode, bucket, rung in jobs:
+                if mode:
+                    self._domain_ladder(pairs, bucket, out, stats, mode, trace_jobs)
+                while rung is not None:
+                    rung = self._rung_finish(pairs, out, stats, rung)
+            stats.aligned_bp = sum(len(a) for a, _ in pairs)
         assert (out >= 0).all()
         return out, stats
 
@@ -523,120 +528,122 @@ class BatchAligner:
         or ``CB < sw + 8``, as where n_max clamps CB), whose interval
         contract (:func:`..ops.striped.pinned_ck_fits`) ``_cb`` always
         meets."""
-        packed, B0, members, n_max, S, diag = self._pack_rung(pairs, lad)
-        n, m = packed.n[:B0], packed.m[:B0]
-        sw = min(lad["band"], S)
-        # Skewed buckets (m_max > W * n_max) have no valid <=1-word/column
-        # schedule; the last rung clamps to the always-exact full height.
-        if S > max(n_max, 1) or lad["attempt"] >= self.max_band_doublings:
-            sw = S
-        # The reference's grouped word loop runs multiples of 8 words above
-        # 64.  Kept so the ladder and its cell counts match it exactly: its
-        # align rungs count and certify at the rounded height, its cost
-        # rungs at the ladder's.
-        run_sw = min(-(-sw // 8) * 8, S) if sw > 64 else sw
-        if trace_jobs is not None:
-            sw = run_sw
-        thr = None if sw >= S else banded.band_threshold(sw, n, m, *diag)
-        ck = CB = opt_chunks = None
-        if trace_jobs is not None:
-            # A full-height rung is exact, so n+m bounds what it certifies.
-            direct_cap = int(thr.max()) if thr is not None else int(n.max() + m.max())
-            if not (self.direct_dt and direct_cap <= native.DIRECT_DT_MAX):
-                CB = self._cb(sw, n_max)
-                if sw >= STRIPED_MIN_SW and sw % 8 == 0 and CB >= sw + 8:
-                    # The wrapper runs ring K6 where the ring holds the band.
-                    kernel = striped_ck
-                    name = "ring_ck" if ring_takes(sw) else "striped_ck"
-                elif sw >= STRIPED_MIN_SW and striped.pinned_ck_fits(n_max, sw, CB):
-                    # The wrapper runs ring K8 where the ring holds the band.
-                    kernel, name = pinned_ck, pinned_ck_kernel(sw)
+        with span("rung_start"):
+            packed, B0, members, n_max, S, diag = self._pack_rung(pairs, lad)
+            n, m = packed.n[:B0], packed.m[:B0]
+            sw = min(lad["band"], S)
+            # Skewed buckets (m_max > W * n_max) have no valid <=1-word/column
+            # schedule; the last rung clamps to the always-exact full height.
+            if S > max(n_max, 1) or lad["attempt"] >= self.max_band_doublings:
+                sw = S
+            # The reference's grouped word loop runs multiples of 8 words above
+            # 64.  Kept so the ladder and its cell counts match it exactly: its
+            # align rungs count and certify at the rounded height, its cost
+            # rungs at the ladder's.
+            run_sw = min(-(-sw // 8) * 8, S) if sw > 64 else sw
+            if trace_jobs is not None:
+                sw = run_sw
+            thr = None if sw >= S else banded.band_threshold(sw, n, m, *diag)
+            ck = CB = opt_chunks = None
+            if trace_jobs is not None:
+                # A full-height rung is exact, so n+m bounds what it certifies.
+                direct_cap = int(thr.max()) if thr is not None else int(n.max() + m.max())
+                if not (self.direct_dt and direct_cap <= native.DIRECT_DT_MAX):
+                    CB = self._cb(sw, n_max)
+                    if sw >= STRIPED_MIN_SW and sw % 8 == 0 and CB >= sw + 8:
+                        # The wrapper runs ring K6 where the ring holds the band.
+                        kernel = striped_ck
+                        name = "ring_ck" if ring_takes(sw) else "striped_ck"
+                    elif sw >= STRIPED_MIN_SW and striped.pinned_ck_fits(n_max, sw, CB):
+                        # The wrapper runs ring K8 where the ring holds the band.
+                        kernel, name = pinned_ck, pinned_ck_kernel(sw)
+                    else:
+                        # The wrapper runs K2's ring where its cursor takes CB.
+                        kernel, name = banded_ck, k2_kernel(n_max, sw, CB)
+                    got = packed.each(lambda args, _: _split_ck(kernel(*args, sw, CB, diag)))
+                    stats.kernel = route(self.device, name)
+                    costs, ck = _Cat([c for c, _ in got]), [x for _, x in got]
+                    if _ck_bytes(ck[0]) * len(members) <= _OPT_READBACK_BYTES:
+                        opt_chunks = packed.stage_lanes(ck, len(members))
+            if ck is None:
+                ring = ()
+                if run_sw >= STRIPED_MIN_SW and pinned_cost_takes(run_sw):
+                    # Every shard runs the ring design of the whole bucket (K7
+                    # or the wide ring), whatever its own pairs' span, so the
+                    # label names what ran: (ring_words, thread_words).
+                    ring = (None, pinned_cost_words(n_max, S, run_sw, diag, packed.n))
+                    kernel = pinned_cost
+                    name = pinned_cost_kernel(n_max, S, run_sw, diag, packed.n)
+                elif run_sw >= STRIPED_MIN_SW:
+                    kernel, name = striped_cost, "striped_cost"
                 else:
-                    # The wrapper runs K2's ring where its cursor takes CB.
-                    kernel, name = banded_ck, k2_kernel(n_max, sw, CB)
-                got = packed.each(lambda args, _: _split_ck(kernel(*args, sw, CB, diag)))
+                    kernel, name = banded_cost, "banded_ring"
+                costs = _Cat(packed.each(
+                    lambda args, _: _Readback(kernel(*args, run_sw, diag, *ring))))
                 stats.kernel = route(self.device, name)
-                costs, ck = _Cat([c for c, _ in got]), [x for _, x in got]
-                if _ck_bytes(ck[0]) * len(members) <= _OPT_READBACK_BYTES:
-                    opt_chunks = packed.stage_lanes(ck, len(members))
-        if ck is None:
-            ring = ()
-            if run_sw >= STRIPED_MIN_SW and pinned_cost_takes(run_sw):
-                # Every shard runs the ring design of the whole bucket (K7
-                # or the wide ring), whatever its own pairs' span, so the
-                # label names what ran: (ring_words, thread_words).
-                ring = (None, pinned_cost_words(n_max, S, run_sw, diag, packed.n))
-                kernel = pinned_cost
-                name = pinned_cost_kernel(n_max, S, run_sw, diag, packed.n)
-            elif run_sw >= STRIPED_MIN_SW:
-                kernel, name = striped_cost, "striped_cost"
-            else:
-                kernel, name = banded_cost, "banded_ring"
-            costs = _Cat(packed.each(
-                lambda args, _: _Readback(kernel(*args, run_sw, diag, *ring))))
-            stats.kernel = route(self.device, name)
-        stats.cells_computed += n_max * sw * W * len(members)
-        return dict(lad=lad, costs=costs, sw=sw, S=S, thr=thr, diag=diag,
-                    trace_jobs=trace_jobs, ck=ck, CB=CB, opt_chunks=opt_chunks)
+            stats.cells_computed += n_max * sw * W * len(members)
+            return dict(lad=lad, costs=costs, sw=sw, S=S, thr=thr, diag=diag,
+                        trace_jobs=trace_jobs, ck=ck, CB=CB, opt_chunks=opt_chunks)
 
     def _rung_finish(self, pairs, out, stats: BatchStats, rung: dict):
         """Wait for and certify one rung, staging its certified pairs'
         traces on the align path; returns the next in-flight rung (retry at
         a wider band) or None when the bucket is done."""
-        lad = rung["lad"]
-        packed, B0, members = lad["packed"]
-        n, m = packed.n, packed.m
-        sw, S, thr, diag = rung["sw"], rung["S"], rung["thr"], rung["diag"]
-        costs = rung["costs"].numpy()[:B0]
-        # A full-height window (no threshold) is always exact.
-        ok = np.ones(B0, dtype=bool) if thr is None else costs <= thr
-        pending_set = set(lad["pending"])
-        nxt = []
-        fail_slots = []
-        ok_slots = []
-        for slot, i in enumerate(members):
-            if i not in pending_set:
-                continue
-            if ok[slot]:
-                out[i] = int(costs[slot])
-                ok_slots.append(slot)
-            else:
-                nxt.append(i)
-                fail_slots.append(slot)
-        trace_jobs = rung["trace_jobs"]
-        if trace_jobs is not None and ok_slots:
-            shift = banded.shift_at_array(packed.n_max, S, sw, diag)
-            if rung["ck"] is None:
-                stats.direct_traces += len(ok_slots)
-                trace_jobs.extend(
-                    _TraceJob(pair=members[slot], slices=None, pos=0,
-                              shift=shift, s_words=S, sw=sw, cb=0,
-                              want=int(costs[slot]))
-                    for slot in ok_slots
-                )
-            else:
-                # Without the optimistic copies, gather only the certified
-                # lanes on the device before they cross to the host.
-                chunks = rung["opt_chunks"] or packed.stage_slots(rung["ck"], ok_slots)
-                for pos, slot in enumerate(ok_slots):
-                    p = slot if rung["opt_chunks"] else pos
-                    c0, sl = _chunk_of(chunks, p)
-                    trace_jobs.append(_TraceJob(
-                        pair=members[slot], slices=sl, pos=p - c0, shift=shift,
-                        s_words=S, sw=sw, cb=rung["CB"], want=int(costs[slot]),
-                    ))
-        lad["need_max"] = self._note_need(
-            lad["need_max"], costs, ok_slots, n, m, B0, diag
-        )
-        lad["pending"] = nxt
-        if not nxt:
-            self._band_hints[lad["cls"]] = lad["need_max"]
-            return None
-        assert sw < S, "full-height window must certify every pair"
-        stats.band_retries += 1
-        lad["band"] = self._next_band(lad["band"], costs, fail_slots, n, m,
-                                      B0, diag)
-        lad["attempt"] += 1
+        with span("rung_finish"):
+            lad = rung["lad"]
+            packed, B0, members = lad["packed"]
+            n, m = packed.n, packed.m
+            sw, S, thr, diag = rung["sw"], rung["S"], rung["thr"], rung["diag"]
+            costs = rung["costs"].numpy()[:B0]
+            # A full-height window (no threshold) is always exact.
+            ok = np.ones(B0, dtype=bool) if thr is None else costs <= thr
+            pending_set = set(lad["pending"])
+            nxt = []
+            fail_slots = []
+            ok_slots = []
+            for slot, i in enumerate(members):
+                if i not in pending_set:
+                    continue
+                if ok[slot]:
+                    out[i] = int(costs[slot])
+                    ok_slots.append(slot)
+                else:
+                    nxt.append(i)
+                    fail_slots.append(slot)
+            trace_jobs = rung["trace_jobs"]
+            if trace_jobs is not None and ok_slots:
+                shift = banded.shift_at_array(packed.n_max, S, sw, diag)
+                if rung["ck"] is None:
+                    stats.direct_traces += len(ok_slots)
+                    trace_jobs.extend(
+                        _TraceJob(pair=members[slot], slices=None, pos=0,
+                                  shift=shift, s_words=S, sw=sw, cb=0,
+                                  want=int(costs[slot]))
+                        for slot in ok_slots
+                    )
+                else:
+                    # Without the optimistic copies, gather only the certified
+                    # lanes on the device before they cross to the host.
+                    chunks = rung["opt_chunks"] or packed.stage_slots(rung["ck"], ok_slots)
+                    for pos, slot in enumerate(ok_slots):
+                        p = slot if rung["opt_chunks"] else pos
+                        c0, sl = _chunk_of(chunks, p)
+                        trace_jobs.append(_TraceJob(
+                            pair=members[slot], slices=sl, pos=p - c0, shift=shift,
+                            s_words=S, sw=sw, cb=rung["CB"], want=int(costs[slot]),
+                        ))
+            lad["need_max"] = self._note_need(
+                lad["need_max"], costs, ok_slots, n, m, B0, diag
+            )
+            lad["pending"] = nxt
+            if not nxt:
+                self._band_hints[lad["cls"]] = lad["need_max"]
+                return None
+            assert sw < S, "full-height window must certify every pair"
+            stats.band_retries += 1
+            lad["band"] = self._next_band(lad["band"], costs, fail_slots, n, m,
+                                          B0, diag)
+            lad["attempt"] += 1
         return self._rung_start(pairs, lad, stats, trace_jobs)
 
     def _next_band(self, band, costs, fail_slots, n, m, B0, diag) -> int:
@@ -689,91 +696,92 @@ class BatchAligner:
             f = np.array([max(pad(h.h0), 2 * W) for h in handles], np.int64)
             pending = list(range(B0))
             for _ in range(self.max_f_rounds):
-                scheds = {}
-                sw_need = 1
-                quantum = 32
-                for slot in pending:
-                    ps = None
-                    while ps is None:
-                        ps = domain_schedule(handles[slot].sample(int(f[slot]), step))
-                        if ps is None:
-                            # Empty domain: certainly dist > f.
-                            f[slot] += max(f[slot] // 4, 64)
-                    scheds[slot] = ps
-                    sw_need = max(sw_need, ps.band_words)
-                    quantum = min(quantum, ps.quantum)
-                # Quantize the band (pow2 up to 64, then multiples of 64).
-                sw = sw_need
-                if sw <= 64:
-                    p = 4
-                    while p < sw:
-                        p *= 2
-                    sw = p
-                else:
-                    sw = -(-sw // 64) * 64
-                sw = min(sw, S)
-                # Direct round: every pair it certifies costs <= f <= the
-                # burst budget, so K4 runs in cost mode.
-                direct_rnd = (
-                    ck_mode and self.direct_dt
-                    and int(max(f[slot] for slot in pending)) <= native.DIRECT_DT_MAX
-                )
-                if sw >= S:
-                    break  # band no longer thin; the shared ladder is better
-                sched_arr = np.zeros((n_max, B), np.uint8)
-                for slot in pending:
-                    sc = scheds[slot].sched
-                    sched_arr[: len(sc), slot] = sc
-                # Idle lanes (padding and certified pairs) take a live
-                # pair's schedule, as the reference does; their results are
-                # ignored.
-                fill = scheds[pending[0]].sched
-                idle = np.ones(B, bool)
-                idle[np.asarray(pending)] = False
-                if idle.any():
-                    sched_arr[: len(fill), idle] = fill[:, None]
-                want_ck = ck_mode and not direct_rnd
-                got, name = self._domain_kernel(packed, sw, sched_arr, quantum,
-                                                want_ck)
-                stats.kernel = route(self.device, name)
-                costs = _Cat([c for c, _ in got]).numpy()[:B0]
-                ck = [x for _, x in got]
-                stats.cells_computed += n_max * sw * W * len(pending)
-                done = [
-                    slot for slot in pending
-                    if costs[slot] <= f[slot] and costs[slot] < INF // 2
-                ]
-                if done and direct_rnd:
-                    stats.direct_traces += len(done)
+                with span("domain_round"):
+                    scheds = {}
+                    sw_need = 1
+                    quantum = 32
+                    for slot in pending:
+                        ps = None
+                        while ps is None:
+                            ps = domain_schedule(handles[slot].sample(int(f[slot]), step))
+                            if ps is None:
+                                # Empty domain: certainly dist > f.
+                                f[slot] += max(f[slot] // 4, 64)
+                        scheds[slot] = ps
+                        sw_need = max(sw_need, ps.band_words)
+                        quantum = min(quantum, ps.quantum)
+                    # Quantize the band (pow2 up to 64, then multiples of 64).
+                    sw = sw_need
+                    if sw <= 64:
+                        p = 4
+                        while p < sw:
+                            p *= 2
+                        sw = p
+                    else:
+                        sw = -(-sw // 64) * 64
+                    sw = min(sw, S)
+                    # Direct round: every pair it certifies costs <= f <= the
+                    # burst budget, so K4 runs in cost mode.
+                    direct_rnd = (
+                        ck_mode and self.direct_dt
+                        and int(max(f[slot] for slot in pending)) <= native.DIRECT_DT_MAX
+                    )
+                    if sw >= S:
+                        break  # band no longer thin; the shared ladder is better
+                    sched_arr = np.zeros((n_max, B), np.uint8)
+                    for slot in pending:
+                        sc = scheds[slot].sched
+                        sched_arr[: len(sc), slot] = sc
+                    # Idle lanes (padding and certified pairs) take a live
+                    # pair's schedule, as the reference does; their results are
+                    # ignored.
+                    fill = scheds[pending[0]].sched
+                    idle = np.ones(B, bool)
+                    idle[np.asarray(pending)] = False
+                    if idle.any():
+                        sched_arr[: len(fill), idle] = fill[:, None]
+                    want_ck = ck_mode and not direct_rnd
+                    got, name = self._domain_kernel(packed, sw, sched_arr, quantum,
+                                                    want_ck)
+                    stats.kernel = route(self.device, name)
+                    costs = _Cat([c for c, _ in got]).numpy()[:B0]
+                    ck = [x for _, x in got]
+                    stats.cells_computed += n_max * sw * W * len(pending)
+                    done = [
+                        slot for slot in pending
+                        if costs[slot] <= f[slot] and costs[slot] < INF // 2
+                    ]
+                    if done and direct_rnd:
+                        stats.direct_traces += len(done)
+                        for slot in done:
+                            sc = np.ascontiguousarray(scheds[slot].sched, np.int32)
+                            trace_jobs.append(_TraceJob(
+                                pair=idxs[slot], slices=None, pos=0, shift=sc,
+                                s_words=S, sw=sw, cb=0, want=int(costs[slot]),
+                            ))
+                    elif done and want_ck:
+                        chunks = packed.stage_slots(ck, done)
+                        CB = banded.ck_col_block(self._cb(sw, n_max), n_max, quantum)
+                        for pos, slot in enumerate(done):
+                            sc = np.ascontiguousarray(scheds[slot].sched, np.int32)
+                            c0, sl = _chunk_of(chunks, pos)
+                            trace_jobs.append(_TraceJob(
+                                pair=idxs[slot], slices=sl, pos=pos - c0, shift=sc,
+                                s_words=S, sw=sw, cb=CB, want=int(costs[slot]),
+                            ))
                     for slot in done:
-                        sc = np.ascontiguousarray(scheds[slot].sched, np.int32)
-                        trace_jobs.append(_TraceJob(
-                            pair=idxs[slot], slices=None, pos=0, shift=sc,
-                            s_words=S, sw=sw, cb=0, want=int(costs[slot]),
-                        ))
-                elif done and want_ck:
-                    chunks = packed.stage_slots(ck, done)
-                    CB = banded.ck_col_block(self._cb(sw, n_max), n_max, quantum)
-                    for pos, slot in enumerate(done):
-                        sc = np.ascontiguousarray(scheds[slot].sched, np.int32)
-                        c0, sl = _chunk_of(chunks, pos)
-                        trace_jobs.append(_TraceJob(
-                            pair=idxs[slot], slices=sl, pos=pos - c0, shift=sc,
-                            s_words=S, sw=sw, cb=CB, want=int(costs[slot]),
-                        ))
-                for slot in done:
-                    out[idxs[slot]] = int(costs[slot])
-                done_set = set(done)
-                pending = [s for s in pending if s not in done_set]
-                if not pending:
-                    return
-                stats.band_retries += 1
-                for slot in pending:
-                    ub = int(costs[slot])
-                    nxt = max(int(f[slot] * 5 // 4) + 1, f[slot] + 64)
-                    if ub < INF // 2:
-                        nxt = max(nxt, ub)
-                    f[slot] = nxt
+                        out[idxs[slot]] = int(costs[slot])
+                    done_set = set(done)
+                    pending = [s for s in pending if s not in done_set]
+                    if not pending:
+                        return
+                    stats.band_retries += 1
+                    for slot in pending:
+                        ub = int(costs[slot])
+                        nxt = max(int(f[slot] * 5 // 4) + 1, f[slot] + 64)
+                        if ub < INF // 2:
+                            nxt = max(nxt, ub)
+                        f[slot] = nxt
             # Rounds exhausted or the band reached full height: finish the
             # stragglers on the always-converging shared ladder.
             self._run_bucket(pairs, [idxs[s] for s in pending], out, stats,
@@ -903,13 +911,14 @@ class BatchAligner:
         """Pack and dispatch the first rung of every shared-ladder bucket,
         nothing synchronised, and start the gcsh builds of the domain
         buckets; :meth:`_align_dispatch_finish` certifies."""
-        stats, out, buckets = self._cost_batch(pairs)
-        results: list = [None] * len(pairs)
-        for idx in np.flatnonzero(out >= 0):
-            a, b = pairs[idx]
-            results[idx] = (int(out[idx]), _trivial_cigar(a, b))
-        trace_jobs: list = []
-        jobs = self._dispatch_jobs(pairs, buckets, stats, trace_jobs)
+        with span("dispatch"):
+            stats, out, buckets = self._cost_batch(pairs)
+            results: list = [None] * len(pairs)
+            for idx in np.flatnonzero(out >= 0):
+                a, b = pairs[idx]
+                results[idx] = (int(out[idx]), _trivial_cigar(a, b))
+            trace_jobs: list = []
+            jobs = self._dispatch_jobs(pairs, buckets, stats, trace_jobs)
         return pairs, out, results, stats, trace_jobs, jobs
 
     def _align_dispatch_finish(self, state):
@@ -936,37 +945,40 @@ class BatchAligner:
             # known_cost: the device ladder certified this pair's distance,
             # so the trace skips its final-stripe recompute; the segment
             # landing checks against the checkpoints still verify the path.
-            cost, cigar = native.trace_banded_ck(
-                a, b, job.s_words, vp[:, :, job.pos], vm[:, :, job.pos],
-                tv[:, job.pos], job.shift, job.sw, job.cb,
-                known_cost=job.want,
-            )
+            with span("trace"):
+                cost, cigar = native.trace_banded_ck(
+                    a, b, job.s_words, vp[:, :, job.pos], vm[:, :, job.pos],
+                    tv[:, job.pos], job.shift, job.sw, job.cb,
+                    known_cost=job.want,
+                )
             return [(job.pair, cost, cigar)]
 
         def run_direct(jobs: list):
-            res = native.trace_direct_batch(
-                [pairs[j.pair] for j in jobs], jobs[0].s_words,
-                jobs[0].shift, jobs[0].sw, [j.want for j in jobs],
-            )
+            with span("trace"):
+                res = native.trace_direct_batch(
+                    [pairs[j.pair] for j in jobs], jobs[0].s_words,
+                    jobs[0].shift, jobs[0].sw, [j.want for j in jobs],
+                )
             return [(j.pair, c, cig) for j, (c, cig) in zip(jobs, res)]
 
-        groups: dict[int, list] = {}
-        for job in trace_jobs:
-            key = id(job.shift) if job.slices is None else id(job.slices)
-            groups.setdefault(key, []).append(job)
-        futures = []
-        with ThreadPoolExecutor(max(1, min(len(trace_jobs), os.cpu_count() or 1))) as ex:
-            for jobs in groups.values():
-                if jobs[0].slices is None:
-                    futures.append(ex.submit(run_direct, jobs))
-                    continue
-                vp, vm, tv = jobs[0].slices.numpy()
-                vp, vm = vp.view(np.uint32), vm.view(np.uint32)
-                futures.extend(ex.submit(run, job, vp, vm, tv) for job in jobs)
-            for fut in futures:
-                for i, cost, cigar in fut.result():
-                    results[i] = (cost, cigar)
-        trace_jobs.clear()
+        with span("flush_traces"):
+            groups: dict[int, list] = {}
+            for job in trace_jobs:
+                key = id(job.shift) if job.slices is None else id(job.slices)
+                groups.setdefault(key, []).append(job)
+            futures = []
+            with ThreadPoolExecutor(max(1, min(len(trace_jobs), os.cpu_count() or 1))) as ex:
+                for jobs in groups.values():
+                    if jobs[0].slices is None:
+                        futures.append(ex.submit(run_direct, jobs))
+                        continue
+                    vp, vm, tv = jobs[0].slices.numpy()
+                    vp, vm = vp.view(np.uint32), vm.view(np.uint32)
+                    futures.extend(ex.submit(run, job, vp, vm, tv) for job in jobs)
+                for fut in futures:
+                    for i, cost, cigar in fut.result():
+                        results[i] = (cost, cigar)
+            trace_jobs.clear()
 
     def _trace_bucket(self, pairs, idxs, costs, results, stats: BatchStats) -> None:
         """CIGARs of one bucket from its certified costs (the reference's
@@ -1203,8 +1215,9 @@ class _Readback:
 
     def numpy(self):
         """The array, or the list of arrays when several were copied."""
-        if self.event is not None:
-            self.event.synchronize()
+        with span("readback_wait"):
+            if self.event is not None:
+                self.event.synchronize()
         arrs = [h.numpy() for h in self.host]
         return arrs[0] if len(arrs) == 1 else arrs
 

@@ -39,7 +39,7 @@ def test_module_has_a_counterpart(ref):
 def test_map_names_only_real_files():
     """The map stays short and names only files that exist on both sides,
     and the port has no module the reference lacks other than its own
-    kernels, device, packing and build code."""
+    kernels, device, packing, build and tracing code."""
     refs = set(_reference_modules())
     for ref, (target, reason) in MOVED.items():
         assert ref in refs and reason and (PORT / target).is_file()
@@ -48,5 +48,5 @@ def test_map_names_only_real_files():
     extra = sorted(str(p.relative_to(PORT)) for p in PORT.rglob("*.py")
                    if str(p.relative_to(PORT)) not in mapped)
     port_only = {"device.py", "ops/_build.py", "ops/pack.py", "ops/words.py", "ops/ring_step.py",
-                 "ops/sass_count.py", "parallel/dryrun.py"}
+                 "ops/sass_count.py", "parallel/dryrun.py", "utils/spans.py"}
     assert set(extra) <= port_only, sorted(set(extra) - port_only)
