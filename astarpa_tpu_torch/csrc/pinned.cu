@@ -111,7 +111,8 @@
 // pinned_ring_kernel's step, which issued 202 instructions a thread-step
 // for the 8 slots' 112 (ops/sass_count.py --ring): 144 word ALU (each carry
 // shifted out and back in), 20 moves, 13 tests, 19 control.  Its step: the
-// word step with funnel-shifted carry words (14 instructions); the loop
+// word step with funnel-shifted carry words (14 instructions), split
+// between the ALU and FMA pipes (word_step_split, 12 and 2); the loop
 // unrolled by 8 so that the char masks pass down the slots by register
 // naming (A0/A1 hold slot 0's inputs of the last 8 steps; slot j reads the
 // one of step t - j); one compare a step against the thread's next event
@@ -132,10 +133,12 @@
 // profiles live in shared memory too; its dynamic shared memory (96 KB or
 // 224 KB) is granted before each launch.
 //
-// What bounds it on an H100: integer throughput.  A word step takes at
-// least 14 int32 instructions on sm_90 (the match word, the Myers step and
-// the funnel-shifted carries; ops/sass_count.py), 64 lanes per SM per
-// clock.  K5 cuts the band into stripes of threads * 8 words and runs them
+// What bounds it on an H100: integer dispatch.  A word step takes at least
+// 14 int32 instructions on sm_90's ALU pipe alone (the match word, the
+// Myers step and the funnel-shifted carries; ops/sass_count.py), 16 lanes
+// a sub-partition, 64 an SM; IMAD runs on the FMA pipe's 16 lanes
+// beside it, and ptxas already puts word_step's add there (13 and 1).  K5
+// cuts the band into stripes of threads * 8 words and runs them
 // one after another, each from its first word's entry to its last word's
 // end: about (stripe + SW) / slope steps for SW / slope useful ones, so at
 // config #5 (SW = 2048, 256 threads) it runs ~2 T block steps for T ~
@@ -153,12 +156,18 @@
 // ring's shared slots, 24 bytes a slot-step), the event steps, one code
 // byte a step for the top word, and ring K6's checkpoint rows, one 4-byte
 // word of each plane a step.  On the same card the cost kernel's step
-// issues 147 instructions a thread-step (121 word ALU; K7 in
-// pinned_ring_kernel issued 202), K7 runs config #5's SW = 2048 rung in
-// ~178 ms (1.6x its bound; 248 ms in pinned_ring_kernel) and the wide ring
-// its SW = 8192 rung in ~613-624 ms (1.4x; K5's stripes 933-940 ms); the
-// barrier and the link cost ~95 ns of K7's ~340 ns step (ops/ring_step.py:
-// ~220 ns without them).
+// runs 147 instructions a thread-step (K7 in pinned_ring_kernel ran
+// 202): with word_step_split 103.1 of its word classes on the ALU pipe and
+// 18.1 on the FMA pipe (111.1 and 10.1 with word_step).  K7 runs config
+// #5's SW = 2048 rung in ~169-172 ms (1.55x its bound; ~174-175 ms with
+// word_step, 248 ms in pinned_ring_kernel), ~327-330 ns a step
+// (ops/ring_step.py: ~285 ns without the band top's inputs or any event
+// code, ~210 ns also without the link and barrier; ~337, ~313 and ~218 ns
+// with word_step), and the wide ring its SW = 8192 rung in ~585 ms (1.33x;
+// ~611 ms with word_step, K5's stripes 933-940 ms).  The full split (10
+// ALU-pipe and 5 FMA-pipe instructions a word step, the carry bits from
+// IMAD.HI) ran no faster than word_step: an IMAD.HI takes more of a step
+// than the SHF it replaces.
 //
 // Ring K10 (ring_ck_pp_kernel) is K7's step on per-pair event rows (each
 // block offsets a (B, 3, nw_pad) table by its pair), swept to n_lim =
@@ -587,6 +596,41 @@ __device__ __forceinline__ void word_step(uint32_t a0, uint32_t a1,
   hm_out = hmo;
 }
 
+// word_step with part of its integer work on the FMA pipe: the same inputs
+// and outputs, bit for bit.  On sm_90 LOP3, IADD3 and SHF run on the ALU
+// pipe and IMAD in all its forms on the FMA pipe, 16 lanes a sub-partition
+// each, so word_step's 14 instructions are the least on the ALU pipe alone
+// (ptxas already runs its add as IMAD.IADD: 13 and 1).  Here the add is
+// x * one + v and the h- word's funnel shift is hmo * two + cm, (x << 1) |
+// c for c in {0, 1}, with cm, hm_up's top bit, shared with eq2: 12 ALU-pipe
+// and 2 FMA-pipe instructions.  `one` and `two` hold 1 and 2 (kernel
+// arguments: ptxas cannot fold the products back into IADD3 and SHF).  The
+// h+ word keeps its funnel shift and cm its SHF: on the H100 the full split
+// (both carry bits as hi(x * two), IMAD.HI, and both shifts as
+// multiply-adds: 10 and 5) ran K7's step no faster than word_step, and
+// this one ~3% faster (PERF.md).
+__device__ __forceinline__ void word_step_split(uint32_t a0, uint32_t a1,
+                                                uint32_t p0, uint32_t p1,
+                                                uint32_t hp_up, uint32_t hm_up,
+                                                uint32_t one, uint32_t two,
+                                                uint32_t& vp, uint32_t& vm,
+                                                uint32_t& hp_out, uint32_t& hm_out) {
+  const uint32_t eq = (a0 ^ p0) & (a1 ^ p1);
+  const uint32_t v = vp;
+  const uint32_t vx = eq | vm;
+  const uint32_t cm = hm_up >> (kW - 1);
+  const uint32_t eq2 = eq | cm;
+  const uint32_t hx = (((eq2 & v) * one + v) ^ v) | eq2;
+  const uint32_t hpo = vm | ~(hx | v);
+  const uint32_t hmo = v & hx;
+  const uint32_t hps = __funnelshift_l(hp_up, hpo, 1);
+  const uint32_t hms = hmo * two + cm;
+  vp = hms | ~(vx | hps);
+  vm = hps & vx;
+  hp_out = hpo;
+  hm_out = hmo;
+}
+
 // All-ones or zero: bit k of x.
 __device__ __forceinline__ uint32_t bit_mask(uint32_t x, int k) {
   return (uint32_t)((int32_t)(x << (31 - k)) >> 31);
@@ -617,7 +661,9 @@ enum RingMode {
 // The ring's step and events; see the header.  A thread holds kT = 8 + kS
 // consecutive slots: 8 in registers, then kS in shared memory, laid out
 // [slot][thread] at a stride of kMaxThreads, state (vp, vm) and profile
-// (p0, p1) apart, so a warp touches consecutive 8-byte words.
+// (p0, p1) apart, so a warp touches consecutive 8-byte words.  K7 and the
+// wide ring run word_step_split (`one`, `two`: 1 and 2 from the kernel's
+// arguments), the other modes word_step.
 template <int kS, int kMode>
 __device__ __forceinline__ void ring_body(
     const uint8_t* __restrict__ code, const uint32_t* __restrict__ pb0,
@@ -626,8 +672,10 @@ __device__ __forceinline__ void ring_body(
     const int32_t* __restrict__ ev, int32_t* __restrict__ out,
     uint32_t* __restrict__ ck_vp, uint32_t* __restrict__ ck_vm,
     int32_t* __restrict__ ck_tv, const int32_t* __restrict__ ckw0, int n_max,
-    int B, int S, int SW, int nw_pad, int n_lim, int CB, int n_ck, int ring) {
+    int B, int S, int SW, int nw_pad, int n_lim, int CB, int n_ck, int ring,
+    uint32_t one = 1u, uint32_t two = 2u) {
   constexpr int kT = kK + kS;  // slots a thread, a power of two
+  constexpr bool kSplit = kMode == kRingCost;
   // K4's checkpoint rows past a pair's end (K4, and K2 on the shared
   // schedule).
   constexpr bool kK4Ck = kMode == kRingBandedCkPP || kMode == kRingBandedCk;
@@ -1144,8 +1192,13 @@ __device__ __forceinline__ void ring_body(
         const uint32_t a0 = bit_mask(C0, k);
         const uint32_t a1 = bit_mask(C1, k);
         uint32_t x = v.x, y = v.y, ho, mo;
-        word_step(a0, a1, pr.x, pr.y, k ? Php : xhp[kK - 1],
-                  k ? Phm : xhm[kK - 1], x, y, ho, mo);
+        if constexpr (kSplit) {
+          word_step_split(a0, a1, pr.x, pr.y, k ? Php : xhp[kK - 1], k ? Phm : xhm[kK - 1],
+                          one, two, x, y, ho, mo);
+        } else {
+          word_step(a0, a1, pr.x, pr.y, k ? Php : xhp[kK - 1], k ? Phm : xhm[kK - 1], x, y,
+                    ho, mo);
+        }
         s_v[k * kMaxThreads] = make_uint2(x, y);
         Php = __funnelshift_l(ho, Php, 1);  // push the carry at the bottom
         Phm = __funnelshift_l(mo, Phm, 1);
@@ -1157,9 +1210,15 @@ __device__ __forceinline__ void ring_body(
 #pragma unroll
       for (int j = kK - 1; j >= 0; --j) {
         const uint2 pr = kS > 0 ? s_q[j * kMaxThreads] : make_uint2(p0[j], p1[j]);
-        word_step(A0[(u - j) & (kK - 1)], A1[(u - j) & (kK - 1)], pr.x, pr.y,
-                  j ? xhp[j - 1] : in_hp, j ? xhm[j - 1] : in_hm, vp[j], vm[j],
-                  xhp[j], xhm[j]);
+        if constexpr (kSplit) {
+          word_step_split(A0[(u - j) & (kK - 1)], A1[(u - j) & (kK - 1)], pr.x, pr.y,
+                          j ? xhp[j - 1] : in_hp, j ? xhm[j - 1] : in_hm, one, two, vp[j],
+                          vm[j], xhp[j], xhm[j]);
+        } else {
+          word_step(A0[(u - j) & (kK - 1)], A1[(u - j) & (kK - 1)], pr.x, pr.y,
+                    j ? xhp[j - 1] : in_hp, j ? xhm[j - 1] : in_hm, vp[j], vm[j],
+                    xhp[j], xhm[j]);
+        }
       }
       if constexpr (kFill) {
         // Each slot's word stores its state after its column tt - fw into
@@ -1231,16 +1290,18 @@ __device__ __forceinline__ void ring_body(
   }
 }
 
-// K7 (kS = 0) and the wide ring (kS = 8 or 24 shared slots a thread).
+// K7 (kS = 0) and the wide ring (kS = 8 or 24 shared slots a thread);
+// `one` and `two` are 1 and 2, word_step_split's multipliers.
 template <int kS>
 __global__ void __launch_bounds__(kMaxThreads) ring_cost_kernel(
     const uint8_t* __restrict__ code, const uint32_t* __restrict__ pb0,
     const uint32_t* __restrict__ pb1, const int32_t* __restrict__ n,
     const int32_t* __restrict__ m, const int32_t* __restrict__ loend,
     const int32_t* __restrict__ ev, int32_t* __restrict__ out, int n_max,
-    int B, int S, int SW, int nw_pad, int n_lim) {
+    int B, int S, int SW, int nw_pad, int n_lim, uint32_t one, uint32_t two) {
   ring_body<kS, kRingCost>(code, pb0, pb1, n, m, loend, ev, out, nullptr, nullptr,
-                           nullptr, nullptr, n_max, B, S, SW, nw_pad, n_lim, 0, 0, 0);
+                           nullptr, nullptr, n_max, B, S, SW, nw_pad, n_lim, 0, 0, 0,
+                           one, two);
 }
 
 // Ring K10: per-pair schedules, checkpoints, the sweep to n_max.
@@ -1331,7 +1392,7 @@ int launch_cost(const void* code, const void* pb0, const void* pb1,
     ring_cost_kernel<kS><<<B, threads, shm, (cudaStream_t)stream>>>(
         (const uint8_t*)code, (const uint32_t*)pb0, (const uint32_t*)pb1,
         (const int32_t*)n, (const int32_t*)m, (const int32_t*)loend,
-        (const int32_t*)ev, (int32_t*)out, n_max, B, S, SW, nw_pad, n_lim);
+        (const int32_t*)ev, (int32_t*)out, n_max, B, S, SW, nw_pad, n_lim, 1u, 2u);
   }
   return (int)cudaGetLastError();
 }

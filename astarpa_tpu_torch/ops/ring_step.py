@@ -16,16 +16,23 @@ geometry with random data: B = 128 pairs of n = 500 000 columns and m =
   slots (every slot reads slot 0's);
 - ``pinned_ring_floor``: also without the link and the barrier (each
   thread alone);
-- ``ring_cost``: K7 as ``ring_cost_kernel<0>`` runs it;
+- ``ring_cost``: K7 as ``ring_cost_kernel<0>`` runs it (its word step
+  split across the ALU and FMA pipes, ``word_step_split``);
 - ``ring_cost_notop``: without the band top's inputs;
 - ``ring_cost_nohandler``: without any event code;
 - ``ring_cost_nohandler_nobar``: also without the cross-warp link and
-  the barrier.
+  the barrier;
+- ``ring_cost_alu``, ``ring_cost_alu_nohandler``,
+  ``ring_cost_alu_nohandler_nobar``: the same three with the word step on
+  the ALU pipe alone (``word_step``, K7's step before the split);
+- ``ring_cost_full``, ``ring_cost_full_nohandler_nobar``: the whole step
+  and its floor with the full split (both carry bits as ``IMAD.HI``, both
+  shifts as multiply-adds: 10 ALU-pipe instructions a word step).
 
-All but ``pinned_ring`` and ``ring_cost`` compute wrong costs: they are for
-time only (their state is folded into the output so the compiler keeps the
-word steps).  Each line gives a variant's SASS step split
-(:func:`.sass_count.step_split`) and its time a step; the two whole kernels
+All but the whole kernels (:data:`WHOLE`) compute wrong costs: they are
+for time only (their state is folded into the output so the compiler keeps
+the word steps).  Each line gives a variant's SASS step split
+(:func:`.sass_count.step_split`) and its time a step; the whole kernels
 are checked against K5's stripes on the same inputs, and ``near_full`` is
 the share of steps whose live words leave less than one thread's 8 slots
 of the ring free.  Needs a GPU and the CUDA toolkit.
@@ -48,6 +55,8 @@ from . import _build, banded_kernel, sass_count, striped
 from .words import to_tensor
 
 OUT_DIR = _build.BUILD_DIR.parent / "ring_step"
+#: The variants that compute K7's costs, checked against K5's stripes.
+WHOLE = ("pinned_ring", "ring_cost", "ring_cost_alu", "ring_cost_full")
 
 _OLD_LOOP = "  for (int t = 0; t < t_end; ++t) {"
 _OLD_END = "  if (cap) atomicAdd(&s_cap, cap);"
@@ -98,6 +107,12 @@ _NEW_CHECK = ("      if (tt >= ev_next) {\n"
 _NEW_TOP = "          const bool top = tt >= top_next && tt < abs_next && tt - abs_w < n_lim;"
 _NEW_MULTI = "  const bool multi = NT > 32;  // a one-warp ring wraps by shuffle alone"
 _NEW_TAIL = "  // The capture of the last computed step, if due."
+_NEW_SPLIT = "  constexpr bool kSplit = kMode == kRingCost;"
+_CM = "  const uint32_t cm = hm_up >> (kW - 1);\n"
+_HPS = "  const uint32_t hps = __funnelshift_l(hp_up, hpo, 1);\n"
+_FULL = {_CM: "  const uint32_t cm = __umulhi(hm_up, two);\n",
+         _HPS: "  const uint32_t cp = __umulhi(hp_up, two);\n"
+               "  const uint32_t hps = hpo * two + cp;\n"}
 _NEW_KEEP = ("#pragma unroll\n  for (int j = 0; j < kK; ++j) acc += __popc(vp[j]) - __popc(vm[j])"
              " + (int)(A0[j] & 1) + (int)(xhp[j] >> 31);\n")
 _ENTRY = """
@@ -152,6 +167,14 @@ def variants(src: str) -> dict[str, str]:
         "ring_cost_nohandler": nohandler,
         "ring_cost_nohandler_nobar": _sub(nohandler, _NEW_MULTI, "  const bool multi = false;"),
     }
+    for name in ("ring_cost", "ring_cost_nohandler", "ring_cost_nohandler_nobar"):
+        new[name.replace("ring_cost", "ring_cost_alu")] = _sub(
+            new[name], _NEW_SPLIT, "  constexpr bool kSplit = false;")
+    for name in ("ring_cost", "ring_cost_nohandler_nobar"):
+        head, step = new[name].split("void word_step_split(", 1)
+        for old_line, new_lines in _FULL.items():
+            step = _sub(step, old_line, new_lines)
+        new[name.replace("ring_cost", "ring_cost_full")] = head + "void word_step_split(" + step
     return {**{k: v + _ENTRY % _OLD_CALL for k, v in old.items()},
             **{k: v + _ENTRY % _NEW_CALL for k, v in new.items()}}
 
@@ -243,7 +266,7 @@ def main() -> None:
         return out
 
     want = banded_kernel.striped_cost(*planes, sw, diag, 8 * banded_kernel.striped_threads(sw))
-    for name in ("pinned_ring", "ring_cost"):
+    for name in WHOLE:
         if not torch.equal(launch(name), want):
             raise SystemExit(f"{name} != K5's stripes")
     times = {name: [] for name in fns}
@@ -261,7 +284,7 @@ def main() -> None:
     print(json.dumps({"shape": {"B": B, "n_max": n_max, "S": S, "SW": sw, "ring": threads * 8,
                                 "span": span, "steps": steps, "near_full": near_full},
                       "card": smi,
-                      "checked": "pinned_ring and ring_cost == K5's stripes"}), flush=True)
+                      "checked": f"{', '.join(WHOLE)} == K5's stripes"}), flush=True)
     for name, ts in times.items():
         print(json.dumps({"variant": name, "ms": ts, "ns_a_step": min(ts) / steps * 1e6,
                           **_split(built[name][0], name, built[name][1])}), flush=True)

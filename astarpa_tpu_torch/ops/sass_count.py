@@ -23,13 +23,15 @@ With ``--ring`` it splits the step loop of each matching ring kernel
 :func:`step_split`): the largest loop closed by a
 conditional branch, whose body runs ``--steps`` steps (1 for
 ``pinned_ring_kernel``, 8 for ``ring_body``'s, unrolled by 8).  It prints one JSON line per kernel instance with
-the instructions per thread-step by class (word-step ALU, moves, hand-off,
+the instructions per thread-step by class (the word step's integer work by
+pipe: ``alu``, the ALU pipe's ``LOP3``, ``IADD3``, ``SHF``, ``LEA``, and
+``fma``, the FMA pipe's ``IMAD`` and ``IMUL`` forms; then moves, hand-off,
 event/top/capture tests, memory, control, uniform), both over the whole
 loop body and on the path that skips every block a forward conditional
-branch jumps over (a step with no event), and the ALU instructions beyond
-``OPS_PER_WORD_STEP`` (14) per slot of a thread (``--slots``, read from the
-instance's name when it holds it).  Needs the CUDA toolkit's ``cuobjdump``;
-no GPU.
+branch jumps over (a step with no event), and on that path the ``alu`` and
+``fma`` instructions a word step and the two beyond ``OPS_PER_WORD_STEP``
+(14) per slot of a thread (``--slots``, read from the instance's name when
+it holds it).  Needs the CUDA toolkit's ``cuobjdump``; no GPU.
 """
 
 from __future__ import annotations
@@ -49,19 +51,23 @@ CONTROL = {"BRA", "BRX", "JMP", "JMX", "EXIT", "RET", "CALL", "BSSY", "BSYNC", "
            "BAR", "NOP", "YIELD", "BPT", "NANOSLEEP", "BREAK", "KILL"}
 
 #: Classes of :func:`step_class`, in print order.
-STEP_CLASSES = ("word_alu", "moves", "handoff", "tests", "memory", "control", "uniform", "other")
+STEP_CLASSES = ("alu", "fma", "moves", "handoff", "tests", "memory", "control", "uniform",
+                "other")
 #: The kernels of ``csrc/pinned.cu``'s ``ring_body``, whose step loop is
 #: unrolled by 8.
 RING_BODY = ("ring_cost_kernel", "ring_ck_pp_kernel", "banded_ring_kernel",
              "banded_ring_pp_kernel", "banded_ring_ck_pp_kernel", "banded_ring_fill_kernel",
              "ring_ck_exact_kernel", "banded_ring_ck_kernel")
-#: Least int32 instructions of one Myers word step on sm_90 (``chip_smoke.py``).
+#: Least int32 instructions of one Myers word step on sm_90's ALU pipe alone
+#: (``chip_smoke.py``); ``csrc/pinned.cu``'s ``word_step_split`` runs 12 of
+#: them there and 2 on the FMA pipe.
 OPS_PER_WORD_STEP = 14
 _HANDOFF = {"SHFL", "LDS", "STS", "BAR", "WARPSYNC", "LDSM"}
 _MOVES = {"MOV", "MOV32I", "SEL", "FSEL", "PRMT"}
 _TESTS = {"ISETP", "PLOP3", "P2R", "R2P", "VOTE", "VOTEU", "POPC", "FLO", "ICMP", "IABS", "IMNMX",
           "VIMNMX", "BMSK", "SGXT", "CSET", "CSETP", "FSETP"}
-_WORD = {"LOP3", "LOP", "SHF", "IADD3", "IADD", "IMAD", "LEA", "SHL", "SHR", "IMUL", "XMAD"}
+_ALU = {"LOP3", "LOP", "SHF", "IADD3", "IADD", "LEA", "SHL", "SHR"}
+_FMA = {"IMAD", "IMUL"}
 
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -121,9 +127,11 @@ def loops(lines: list[str]) -> list[tuple[list[str], bool]]:
 
 def step_class(opcode: str) -> str:
     """Class of an instruction in a ring kernel's step (:data:`STEP_CLASSES`):
-    the integer ALU a word step is made of, moves and selects, the hand-off
-    of the carry (shuffles, shared memory, barriers), the tests and counts
-    of the events, top and capture, memory, control and uniform-datapath
+    the integer work a word step is made of, by pipe (``alu``: logic, adds,
+    shifts; ``fma``: every ``IMAD``/``IMUL`` form, ``.HI``, ``.WIDE``,
+    ``.SHL``, ``.IADD``), moves and selects, the hand-off of the carry
+    (shuffles, shared memory, barriers), the tests and counts of the
+    events, top and capture, memory, control and uniform-datapath
     instructions.  ``IMAD.MOV`` is a move."""
     base = opcode.split(".")[0]
     if base in _HANDOFF:
@@ -138,7 +146,9 @@ def step_class(opcode: str) -> str:
         return "control"
     if base.startswith("U") or base == "S2UR":
         return "uniform"
-    return "word_alu" if base in _WORD else "other"
+    if base in _FMA:
+        return "fma"
+    return "alu" if base in _ALU else "other"
 
 
 def _parse(lines: list[str]):
@@ -173,8 +183,10 @@ def step_split(lines: list[str], steps: int = 1, slots: int = 8) -> dict:
     over its whole body (``body``) and on the path that skips every block a
     forward conditional branch inside the loop jumps over (``no_event``: a
     step whose tests all fail, when the compiler places the rare blocks
-    there or out of line).  ``alu_beyond_word_steps`` is that path's word
-    ALU over ``OPS_PER_WORD_STEP * slots``."""
+    there or out of line).  On that path ``alu_per_word_step`` and
+    ``fma_per_word_step`` are its ``alu`` and ``fma`` instructions over
+    ``slots``, and ``int_beyond_word_steps`` the two together over
+    ``OPS_PER_WORD_STEP * slots``."""
     ops, pred, targets = _parse(lines)
     spans = [(j, i + 1) for i, j in targets.items() if j <= i and pred[i]]
     if not spans:
@@ -192,11 +204,13 @@ def step_split(lines: list[str], steps: int = 1, slots: int = 8) -> dict:
         return {k: c[k] / steps for k in STEP_CLASSES if c[k]}
 
     no_event = per_step(path)
+    alu, fma = no_event.get("alu", 0.0), no_event.get("fma", 0.0)
     return {"instructions": b - a, "steps": steps, "slots": slots,
             "body_per_step": per_step(body), "body_total_per_step": (b - a) / steps,
             "no_event_per_step": no_event,
             "no_event_total_per_step": sum(no_event.values()),
-            "alu_beyond_word_steps": no_event.get("word_alu", 0.0) - OPS_PER_WORD_STEP * slots,
+            "alu_per_word_step": alu / slots, "fma_per_word_step": fma / slots,
+            "int_beyond_word_steps": alu + fma - OPS_PER_WORD_STEP * slots,
             "opcodes": Counter(ops[i] for i in range(a, b) if i not in skipped).most_common()}
 
 

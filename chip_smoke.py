@@ -349,8 +349,11 @@ _LAPS = None  # the run's Laps, printed by fail()
 # (a shift), eq | hm_in, its AND with vp, the add, the step's four
 # three-input logicals (hx, hp_out, hm_out, vx) and the two new vertical
 # words, and each shifted h word with the bit of the word above in one
-# funnel shift (two).  ``python -m astarpa_tpu_torch.ops.sass_count``
-# counts what K11's compiled column loop runs a word step.
+# funnel shift (two).  That is the least on the ALU pipe alone, which the
+# bound counts: K7 and the wide ring run 12 of them there and 2 on the FMA
+# pipe (``csrc/pinned.cu``'s ``word_step_split``).
+# ``python -m astarpa_tpu_torch.ops.sass_count`` counts what K11's compiled
+# column loop runs a word step.
 SMS, INT32_LANES, HBM_BYTES_S = 132, 64, 3.35e12
 OPS_PER_WORD_STEP = 14
 SM_CLOCK_HZ = None

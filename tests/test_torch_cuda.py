@@ -286,6 +286,30 @@ def test_pinned_cost_kernel_matches_plain(gpu, count):
     assert banded_kernel.LAUNCHES["pinned_cost"] == before + 2 * len(cases) + 2
 
 
+def test_pinned_cost_on_a_2048_word_ring(gpu):
+    """K7 on config #5's ring size, 2048 words in 8 warps (the cross-warp
+    link and the barrier on every step), and the wide ring at the same
+    size: e=0.15 pairs of a few kbp, bit for bit with the plain version,
+    and at full height the edit distance of the first pairs."""
+    rng = np.random.default_rng(2048)
+    pairs = [generate.uniform_seeded(int(rng.integers(2000, 5001)), 0.15, 4100 + s)
+             for s in range(24)]
+    args, _ = pack_batch_staggered(pairs, 1, device=gpu)
+    n_max, S = args[0].shape[0], args[2].shape[0]
+    diag = (n_max, max(len(b) for _, b in pairs))
+    before = dict(banded_kernel.LAUNCHES)
+    for sw, dg in ((S, None), (96, diag), (32, diag)):
+        want = striped.pinned_cost_ref(*args, sw, dg)
+        for tw in (8, 16):
+            got = banded_kernel.pinned_cost(*args, sw, dg, 2048, tw)
+            assert torch.equal(got, want), (sw, tw)
+        if dg is None:
+            for p in range(4):
+                assert int(got[p]) == oracle.levenshtein(*pairs[p]), p
+    assert banded_kernel.LAUNCHES["pinned_cost"] == before["pinned_cost"] + 3
+    assert banded_kernel.LAUNCHES["ring_cost_wide"] == before["ring_cost_wide"] + 3
+
+
 def test_pinned_cost_raises_past_its_ring(gpu):
     """More than 4096 live words (a full height of 4375 words over 4500
     columns) raise before any launch on K7 forced (8 slots a thread) and

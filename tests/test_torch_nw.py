@@ -235,11 +235,49 @@ def test_sass_step_split_of_a_ring_loop():
     assert sass_count._slots(name, 8) == 16 and sass_count._slots("_Z3fooPv", 8) == 8
     split = sass_count.step_split(lines, steps=1, slots=1)
     assert split["instructions"] == 9
-    assert split["body_per_step"] == {"word_alu": 3.0, "moves": 1.0, "handoff": 2.0,
+    assert split["body_per_step"] == {"alu": 2.0, "fma": 1.0, "moves": 1.0, "handoff": 2.0,
                                       "tests": 1.0, "control": 2.0}
     assert split["no_event_total_per_step"] == 8.0 and "moves" not in split["no_event_per_step"]
-    assert split["alu_beyond_word_steps"] == 3.0 - sass_count.OPS_PER_WORD_STEP
+    assert split["int_beyond_word_steps"] == 3.0 - sass_count.OPS_PER_WORD_STEP
     assert [sass_count.step_class(op) for op in ("SHFL.IDX", "IMAD.MOV.U32", "POPC", "BRX",
                                                  "LDG.E.U8", "LOP3.LUT")] == [
-        "handoff", "moves", "tests", "control", "memory", "word_alu"]
+        "handoff", "moves", "tests", "control", "memory", "alu"]
+
+
+_SPLIT_SASS = """
+        Function : _ZN12_GLOBAL__N_116ring_cost_kernelILi0EEEvPKh
+.L_x_7:
+        /*0000*/                   LOP3.LUT R5, R2, R3, R4, 0x28, !PT ;
+        /*0010*/                   IMAD.HI.U32 R6, R9, c[0x0][0x1a4], RZ ;
+        /*0020*/                   LOP3.LUT R7, R5, R6, RZ, 0xfc, !PT ;
+        /*0030*/                   IMAD R8, R7, c[0x0][0x1a0], R2 ;
+        /*0040*/                   IMAD.WIDE.U32 R10, R8, c[0x0][0x1a4], R6 ;
+        /*0050*/                   IMAD.SHL.U32 R11, R8, 0x2, RZ ;
+        /*0060*/                   IMAD.IADD R12, R11, 0x1, R6 ;
+        /*0070*/                   IMUL R13, R12, R11 ;
+        /*0080*/                   IMAD.MOV.U32 R14, RZ, RZ, R13 ;
+        /*0090*/                   SHF.L.W.U32.HI R15, R9, 0x1, R5 ;
+        /*00a0*/                   IADD3 R16, R15, R5, RZ ;
+        /*00b0*/                   LEA.HI R17, R16, R5, RZ, 0x1 ;
+        /*00c0*/                   MOV R18, R17 ;
+        /*00d0*/               @P0 BRA `(.L_x_7) ;
+"""
+
+
+def test_sass_step_split_by_pipe():
+    """The word step's integer work split by pipe: every IMAD and IMUL form
+    (.HI, .WIDE, .SHL, .IADD) is the FMA pipe's but IMAD.MOV, a move; LOP3,
+    SHF, IADD3 and LEA the ALU pipe's; each over the slots, a word step."""
+    from astarpa_tpu_torch.ops import sass_count
+
+    (name, lines), = sass_count.functions(_SPLIT_SASS).items()
+    assert sass_count._slots(name, 4) == 8
+    split = sass_count.step_split(lines, steps=1, slots=2)
+    assert split["no_event_per_step"] == {"alu": 5.0, "fma": 6.0, "moves": 2.0, "control": 1.0}
+    assert split["alu_per_word_step"] == 2.5 and split["fma_per_word_step"] == 3.0
+    assert split["int_beyond_word_steps"] == 11.0 - 2 * sass_count.OPS_PER_WORD_STEP
+    assert [sass_count.step_class(op) for op in (
+        "IMAD.HI.U32", "IMAD.WIDE.U32", "IMAD.SHL.U32", "IMAD.IADD", "IMUL.WIDE.U32", "IMAD.X",
+        "IMAD.MOV.U32", "SHF.R.U32.HI", "LEA.HI.X", "IADD3.X", "LOP3.LUT")] == [
+        "fma"] * 6 + ["moves"] + ["alu"] * 4
 

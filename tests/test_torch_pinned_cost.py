@@ -314,7 +314,9 @@ def test_ring_step_variants_build_from_the_source():
     texts = ring_step.variants(src)
     assert sorted(texts) == sorted(
         ["pinned_ring", "pinned_ring_noevent", "pinned_ring_nomove", "pinned_ring_floor",
-         "ring_cost", "ring_cost_notop", "ring_cost_nohandler", "ring_cost_nohandler_nobar"])
+         "ring_cost", "ring_cost_notop", "ring_cost_nohandler", "ring_cost_nohandler_nobar",
+         "ring_cost_alu", "ring_cost_alu_nohandler", "ring_cost_alu_nohandler_nobar",
+         "ring_cost_full", "ring_cost_full_nohandler_nobar"])
     for name, text in texts.items():
         assert text.count("astarpa_ring_variant") == 1, name
         call = "launch_cost<0>" if name.startswith("ring_cost") else "launch<false, false>"
@@ -322,5 +324,15 @@ def test_ring_step_variants_build_from_the_source():
         assert (text.startswith(src)) == (name in ("pinned_ring", "ring_cost")), name
     assert "if (false) {" in texts["ring_cost_nohandler"]
     assert "const bool multi = false;" in texts["ring_cost_nohandler_nobar"]
+    # K7 runs the split word step; the _alu variants the ALU pipe's alone.
+    for name, text in texts.items():
+        split = "constexpr bool kSplit = kMode == kRingCost;" in text
+        assert split == (not name.startswith("ring_cost_alu")), name
+    assert "const bool multi = false;" in texts["ring_cost_alu_nohandler_nobar"]
+    # The full split: both carry bits from IMAD.HI, both shifts multiply-adds.
+    for name in ("ring_cost_full", "ring_cost_full_nohandler_nobar"):
+        step = texts[name].split("void word_step_split(")[1].split("\n}\n")[0]
+        assert step.count("__umulhi") == 2 and "__funnelshift_l" not in step, name
+    assert "const bool multi = false;" in texts["ring_cost_full_nohandler_nobar"]
     assert "xa0[j] = a0" not in texts["pinned_ring_nomove"].split("pinned_ring_kernel(")[1]
 
